@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+  python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. env     — the card (nvidia-smi name and power limit), torch and CUDA
+             versions, and the build of every kernel from ``csrc/``.
+2. kernels — each hand-written InCRS kernel against its plain torch
+             version on the card (the five Table II operands at N = 512,
+             incrs-docword also at N = 128 and 640, and edge operands), the
+             three bitwise against each other.
+3. serve   — the main path: ``SpMMEngine`` on the five Table II workloads
+             at their published sizes, then incrs-docword with each
+             explicit variant, every request checked against the float64
+             product on the host; then the serving launcher once as a
+             subprocess. Launch counters are zeroed just before and read
+             just after, and must equal the waves.
+4. profile — incrs-docword served twice more: plain for the wall time and
+             the host's staging, then under torch.profiler for device time
+             by kind (kernel, copies); the idle share of the card.
+5. times   — incrs-docword at N = 512: each kernel's median time over CUDA
+             events beside its plain version, ``torch.sparse.mm`` and the
+             bound of the card.
+
+Then the card's line, the ``{"kernels": [...]}`` line, and last
+``{"ok": true, "device": {...}}``. Any failed check raises. Without a CUDA
+device, or without the rest of the repository, it exits non-zero and
+prints no result.
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+KERNELS = (  # (entry point, variant, Pallas kernel it replaces)
+    ("incrs_spmm", "expand", "src/repro/kernels/incrs_spmm.py:111"),
+    ("incrs_spmm_reuse", "reuse", "src/repro/kernels/incrs_spmm.py:178"),
+    ("incrs_spmm_pipelined", "pipelined",
+     "src/repro/kernels/incrs_spmm.py:252"),
+)
+RAN_BY = {"auto": "incrs_spmm", **{v: k for k, v, _ in KERNELS}}
+SOURCE = "src/repro_torch/kernels/csrc/incrs_spmm.cu"
+TABLE2 = ("incrs-docword", "incrs-amazon", "incrs-belcastro", "incrs-norris",
+          "incrs-mks")
+# H100 SXM: HBM rate, and the f32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+KERNEL_TOL = 1e-5        # max|kernel - plain| <= KERNEL_TOL * max|C|
+SERVE_TOL = 1e-4         # max|served - float64 host| <= SERVE_TOL * max|C|
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+# ----------------------------------------------------------------------
+def phase_env(torch, build):
+    smi = smi_line()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build.build_all()
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for name in build.sources()
+             for ln in build.build_log(name).splitlines()
+             if "registers" in ln or "Compiling entry" in ln
+             or "spill" in ln]
+    emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
+          "build_s": build_s, "sources": build.sources(), "ptxas": ptxas})
+
+
+def _edge_operands():
+    """Small operands that reach each masked edge of the kernels."""
+    rng = np.random.default_rng(7)
+
+    def sparse(m, k, d):
+        a = rng.uniform(0.5, 1.5, size=(m, k)).astype(np.float32)
+        a[rng.random(size=(m, k)) >= d] = 0.0
+        return a
+
+    ragged = sparse(203, 1000, 0.05)              # M not a multiple of 8
+    empty = sparse(64, 777, 0.05)
+    empty[3] = 0.0
+    empty[10:20] = 0.0                            # empty rows
+    single = np.zeros((50, 1024), np.float32)     # smax = 1
+    for r in range(50):
+        for s in range(0, 4, 1 + r % 2):
+            single[r, s * 256 + rng.integers(256)] = 1.0 + r
+    dense_sec = sparse(40, 600, 0.03)
+    dense_sec[:, 256:512] = rng.uniform(0.5, 1.5, size=(40, 256))
+    k_ragged = sparse(90, 300, 0.1)               # K not a multiple of S
+    return {"m_ragged": ragged, "empty_rows": empty, "smax_1": single,
+            "dense_section": dense_sec, "k_ragged": k_ragged}
+
+
+def _compare(torch, K, idx, val, b, *, section, bm, bn, label):
+    """Each kernel against its plain version, and the three bitwise."""
+    outs = {}
+    errs = {}
+    for name, _, _ in KERNELS:
+        before = K.LAUNCHES[name]
+        out = getattr(K, name)(idx, val, b, section=section, bm=bm, bn=bn)
+        torch.cuda.synchronize()
+        check(K.LAUNCHES[name] == before + 1, f"{name} counted its launch")
+        ref = K.plain(name, idx, val, b, section=section, bm=bm, bn=bn)
+        scale = max(float(ref.abs().max()), 1e-30)
+        err = float((out - ref).abs().max())
+        check(bool(torch.isfinite(out).all()), f"{name} finite on {label}")
+        check(err <= KERNEL_TOL * scale,
+              f"{name} on {label}: max|err| {err} > {KERNEL_TOL} * {scale}")
+        outs[name], errs[name] = out, err
+    first = outs[KERNELS[0][0]]
+    for name, _, _ in KERNELS[1:]:
+        check(torch.equal(outs[name], first),
+              f"{name} bitwise equal to incrs_spmm on {label}")
+    return errs
+
+
+def phase_kernels(torch, K, ops, InCRS, table2):
+    results = []
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errs_512 = None
+    for wl_name, inc in table2.items():
+        prep = ops.prepare_incrs(inc, device="cuda")
+        kp = prep.n_sections * prep.section
+        m, k = prep.shape
+        for n in (128, 512, 640) if wl_name == "incrs-docword" else (512,):
+            bn = ops.default_bn(n)
+            np_ = -(-n // bn) * bn
+            b = torch.zeros(kp, np_, device="cuda")
+            b[:k, :n] = torch.randn(k, n, generator=gen, device="cuda")
+            errs = _compare(torch, K, prep.idx, prep.val, b,
+                            section=prep.section, bm=128, bn=bn,
+                            label=f"{wl_name} N={n}")
+            if wl_name == "incrs-docword" and n == 512:
+                errs_512 = errs
+            results.append({"operand": wl_name, "shape": [m, k],
+                             "stripes": list(prep.idx.shape), "n": n,
+                             "bn": bn, "max_abs_err": errs})
+    for label, dense in _edge_operands().items():
+        inc = InCRS.from_dense(dense)
+        ep = ops.prepare_incrs(inc, pad_rows_to=1, device="cuda")
+        kp = ep.n_sections * ep.section
+        for n in (128, 384):
+            b = torch.zeros(kp, n, device="cuda")
+            b[:dense.shape[1]] = torch.randn(dense.shape[1], n,
+                                             generator=gen, device="cuda")
+            errs = _compare(torch, K, ep.idx, ep.val, b, section=ep.section,
+                            bm=128, bn=n, label=f"{label} N={n}")
+            got = ops.spmm(inc, b[:dense.shape[1]], device="cuda").cpu()
+            want = dense.astype(np.float64) @ \
+                b[:dense.shape[1]].cpu().numpy().astype(np.float64)
+            scale = max(float(np.abs(want).max()), 1e-30)
+            check(float(np.abs(got.numpy() - want).max()) <= SERVE_TOL * scale,
+                  f"ops.spmm on {label} N={n} against float64")
+            results.append({"operand": label, "shape": list(dense.shape),
+                            "smax": int(ep.idx.shape[2]), "n": n,
+                            "max_abs_err": errs})
+    emit({"phase": "kernels", "names": [k[0] for k in KERNELS],
+          "tolerance": f"max|kernel-plain| <= {KERNEL_TOL} * max|C|",
+          "bitwise_across_kernels": True, "checks": results})
+    return errs_512
+
+
+def _trace(k, seed):
+    rng = np.random.default_rng(seed)
+    widths = [(256, 128, 64, 384)[r % 4] for r in range(32)] + [1200]
+    return [rng.normal(size=(k, w)).astype(np.float32) for w in widths]
+
+
+def phase_serve(K, engine_mod, table2):
+    K.reset_launches()
+    runs = [(name, "auto") for name in TABLE2] + \
+        [("incrs-docword", v) for _, v, _ in KERNELS]
+    traces = {}
+    for wl_name, variant in runs:
+        inc = table2[wl_name]
+        crs = inc.crs
+        if wl_name not in traces:        # one workload's reference at a time
+            panels = _trace(crs.shape[1], seed=1)
+            traces = {wl_name: (panels, crs.to_dense().astype(np.float64) @
+                                np.concatenate(panels, axis=1).astype(
+                                    np.float64))}
+        panels, ref = traces[wl_name]
+        before = dict(K.LAUNCHES)
+        eng = engine_mod.SpMMEngine(inc, max_wave_cols=512, variant=variant,
+                                    device="cuda")
+        reqs = [engine_mod.SpMMRequest(i, p) for i, p in enumerate(panels)]
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run()
+        check(len(done) == len(reqs) and all(r.done for r in reqs),
+              f"{wl_name}/{variant}: every request served")
+        off, worst = 0, 0.0
+        for r in reqs:
+            want = ref[:, off:off + r.b.shape[1]]
+            off += r.b.shape[1]
+            check(r.out.shape == want.shape and np.isfinite(r.out).all(),
+                  f"{wl_name}/{variant} request {r.rid} finite, right shape")
+            err = float(np.abs(r.out - want).max())
+            cmax = max(float(np.abs(want).max()), 1e-30)
+            check(err <= SERVE_TOL * cmax,
+                  f"{wl_name}/{variant} request {r.rid}: {err} > "
+                  f"{SERVE_TOL} * {cmax}")
+            worst = max(worst, err / cmax)
+        delta = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+        ran = RAN_BY[variant]
+        check(delta[ran] == eng.stats["waves"] and
+              sum(delta.values()) == delta[ran],
+              f"{wl_name}/{variant}: launches {delta} equal the "
+              f"{eng.stats['waves']} waves of {ran}")
+        s = eng.stats_summary()
+        emit({"phase": "serve", "workload": wl_name, "variant": variant,
+              "a_shape": list(crs.shape), "nnz": crs.nnz,
+              "stripes": list(eng.prep.idx.shape),
+              "requests": s["requests"], "waves": s["waves"],
+              "split_requests": int(eng.stats["split_requests"]),
+              "launches": delta, "requests_per_s": s["requests_per_s"],
+              "latency_ms_p50": s["latency_ms"]["p50"],
+              "latency_ms_p99": s["latency_ms"]["p99"],
+              "wave_ms_p50": s["wave_ms"]["p50"],
+              "prep_overlap_fraction": s["prep_overlap_fraction"],
+              "max_rel_err": worst})
+    launches = dict(K.LAUNCHES)
+    check(all(v > 0 for v in launches.values()),
+          f"every kernel ran on the main path: {launches}")
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--spmm",
+           "--workload", "incrs-docword", "--scale", "1.0",
+           "--device", "cuda"]
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    emit({"phase": "serve_launcher", "cmd": " ".join(cmd[1:]),
+          "rc": proc.returncode, "stdout": proc.stdout.strip()[-2000:],
+          "stderr": proc.stderr.strip()[-2000:]})
+    check(proc.returncode == 0, "launcher exited 0")
+    return launches
+
+
+def phase_profile(torch, engine_mod, inc):
+    """Two more incrs-docword serve runs after the counted main path: one
+    plain, for the wall time and the host's share of it, then the same run
+    under torch.profiler for the card's busy time by kind. The idle share
+    is taken against the plain run, since the profiler slows the host."""
+    from torch.profiler import ProfilerActivity, profile
+    panels = _trace(inc.crs.shape[1], seed=1)
+
+    def serve():
+        eng = engine_mod.SpMMEngine(inc, max_wave_cols=512, device="cuda")
+        for i, p in enumerate(panels):
+            eng.submit(engine_mod.SpMMRequest(i, p))
+        eng.run()
+        torch.cuda.synchronize()
+        return eng.stats_summary()
+
+    s = serve()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s_prof = serve()
+    by_kind = {"kernel_incrs": 0.0, "memcpy_h2d": 0.0, "memcpy_d2h": 0.0,
+               "other": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue            # host ops: their device time is counted
+        us = getattr(ev, "self_device_time_total",  # on the device events
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        key = ev.key.lower()
+        kind = ("kernel_incrs" if "expand_kernel" in key else
+                "memcpy_h2d" if "htod" in key else
+                "memcpy_d2h" if "dtoh" in key else "other")
+        by_kind[kind] += us / 1e3
+    wall_ms = s["elapsed_s"] * 1e3
+    busy_ms = sum(by_kind.values())
+    emit({"phase": "profile", "workload": "incrs-docword", "variant": "auto",
+          "waves": s["waves"], "wall_ms": wall_ms,
+          "wall_ms_profiled": s_prof["elapsed_s"] * 1e3,
+          "device_ms_by_kind": by_kind, "device_busy_ms": busy_ms,
+          "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
+          else "not measured",
+          "host_staging_ms": s["prep_s_total"] * 1e3,
+          "host_staging_hidden_ms": s["prep_s_hidden"] * 1e3,
+          "wave_ms_sum": s["wave_ms"]["mean"] * s["waves"],
+          "prep_overlap_fraction": s["prep_overlap_fraction"],
+          "requests_per_s": s["requests_per_s"]})
+
+
+def _time_ms(torch, fn, flush, reps=30):
+    """Median ms of ``fn`` over CUDA events, L2 flushed before each run."""
+    for _ in range(3):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()       # evicts L2, and keeps the card busy while the
+        s = torch.cuda.Event(enable_timing=True)   # host enqueues fn
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def phase_times(torch, K, ops, docword, errs_512, launches):
+    n = 512
+    prep = ops.prepare_incrs(docword, device="cuda")
+    kp = prep.n_sections * prep.section
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b = torch.zeros(kp, n, device="cuda")
+    b[:docword.shape[1]] = torch.randn(docword.shape[1], n, generator=gen,
+                                       device="cuda")
+    flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
+    crs = docword.crs
+    a_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(crs.row_ptr), torch.from_numpy(
+            crs.col_idx.astype(np.int64)),
+        torch.from_numpy(crs.values), size=crs.shape,
+        check_invariants=True).to("cuda")
+    b_k = b[:docword.shape[1]].contiguous()
+    library_ms = _time_ms(torch, lambda: torch.sparse.mm(a_csr, b_k), flush)
+    # The bound: each input read once (idx in full, since the pad slots
+    # must be read to be skipped; val of the live slots; the rows of B that
+    # a live slot references), C's M rows written once; 2 flops per live
+    # slot and column, at the f32 rate outside the tensor cores.
+    idx = prep.idx
+    live = (idx >= 0) & (idx < prep.section)
+    n_live = int(live.sum())
+    rows_b = torch.unique((idx.long() + torch.arange(
+        prep.n_sections, device="cuda").view(1, -1, 1) * prep.section)[live])
+    nbytes = idx.numel() * 4 + n_live * 4 + rows_b.numel() * n * 4 + \
+        prep.shape[0] * n * 4
+    flops = 2 * n_live * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    rows = []
+    for name, _, replaces in KERNELS:
+        fn = getattr(K, name)
+        args = (prep.idx, prep.val, b)
+        kw = dict(section=prep.section, bm=128, bn=n)
+        ms = _time_ms(torch, lambda: fn(*args, **kw), flush)
+        ms_warm = _time_ms(torch, lambda: fn(*args, **kw),
+                           torch.empty(0, device="cuda"))
+        plain_ms = _time_ms(torch, lambda: K.plain(name, *args, **kw), flush,
+                            reps=20)
+        rows.append({"name": name, "route": "cuda", "source": SOURCE,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": errs_512[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "library_ms": library_ms, "ms_l2_warm": ms_warm})
+    emit({"phase": "times", "workload": "incrs-docword", "n": n,
+          "stripes": list(prep.idx.shape), "bytes": nbytes, "flops": flops,
+          "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+          "library": "torch.sparse.mm (CSR)", "library_ms": library_ms,
+          "kernels": {r["name"]: {"ms": r["ms"], "ms_l2_warm":
+                                  r["ms_l2_warm"], "plain_ms": r["plain_ms"]}
+                      for r in rows}})
+    return rows
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.configs.paper_spmm import WORKLOADS
+    from repro_torch.core.incrs import InCRS
+    from repro_torch.data import datasets
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import incrs_spmm as K
+    from repro_torch.serve import engine as engine_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    phase_env(torch, _build)
+    table2 = {}
+    for name in TABLE2:
+        wl = WORKLOADS[name]
+        table2[name] = InCRS.from_crs(datasets.synthesize(wl.dataset, seed=0),
+                                      wl.section, wl.block)
+    docword = table2["incrs-docword"]
+    errs_512 = phase_kernels(torch, K, ops, InCRS, table2)
+    launches = phase_serve(K, engine_mod, table2)
+    phase_profile(torch, engine_mod, docword)
+    rows = phase_times(torch, K, ops, docword, errs_512, launches)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    print(smi_line(), flush=True)
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

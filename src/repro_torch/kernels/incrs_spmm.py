@@ -1,0 +1,250 @@
+"""Fused InCRS SpMM: C[M, N] = decompress(idx, val) @ B, three grid orders.
+
+The port of ``repro.kernels.incrs_spmm``. Each entry point keeps the
+contract of its Pallas counterpart (same arguments, same row padding and
+grid checks, f32 output of shape (M, N)) and reaches a CUDA kernel written
+by hand for Hopper in ``csrc/incrs_spmm.cu``:
+
+* ``incrs_spmm``           — expand order: a block per (row tile, col
+  tile), looping over sections;
+* ``incrs_spmm_reuse``     — each (row tile, section) stripe staged once in
+  shared memory and reused over every col tile, behind a row panel;
+* ``incrs_spmm_pipelined`` — (section, cols) blocks of B streamed through a
+  multi-stage cp.async ring.
+
+A tensor on the CPU takes the plain torch version beside each kernel (the
+CPU tests use it); a CUDA tensor launches the kernel or raises. The three
+kernels sum every output element in the same order and agree bit for bit.
+``LAUNCHES`` counts the kernel launches of each entry point.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from . import _build
+from .ref import incrs_decompress
+
+# Row tiles are kept to multiples of this, as in the Pallas contract, so a
+# row-padded operand has the same shape in both packages.
+_SUBLANE = 8
+
+# Shared memory one block may use on an H100 (227 KB), after opting in.
+SMEM_LIMIT = 232_448
+
+LAUNCHES: Dict[str, int] = {"incrs_spmm": 0, "incrs_spmm_reuse": 0,
+                            "incrs_spmm_pipelined": 0}
+
+_C_FN = {"incrs_spmm": "incrs_spmm_expand",
+         "incrs_spmm_reuse": "incrs_spmm_reuse",
+         "incrs_spmm_pipelined": "incrs_spmm_pipelined"}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _resolve_row_tile(m: int, bm: int) -> Tuple[int, int]:
+    """Shrink ``bm`` to the sublane-rounded panel height, then pad the
+    panel up to a whole number of tiles. Returns ``(bm, padded_m)``."""
+    bm = max(1, min(bm, -(-m // _SUBLANE) * _SUBLANE))
+    return bm, -(-m // bm) * bm
+
+
+def _pad_rows(idx: torch.Tensor, val: torch.Tensor,
+              padded_m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad the row axis with empty stripes (idx=-1 rows add nothing)."""
+    m = idx.shape[0]
+    if padded_m == m:
+        return idx, val
+    pad = (0, 0, 0, 0, 0, padded_m - m)
+    return (torch.nn.functional.pad(idx, pad, value=-1),
+            torch.nn.functional.pad(val, pad))
+
+
+def _check_grid(m: int, n: int, bm: int, bn: int,
+                k: int, n_sections: int, section: int) -> None:
+    if m % bm != 0 or n % bn != 0:
+        raise ValueError(
+            f"operand ({m}, {n}) not tileable by (bm={bm}, bn={bn})")
+    if k != n_sections * section:
+        raise ValueError(
+            f"dense operand has {k} rows, InCRS stripes describe "
+            f"{n_sections} x {section} = {n_sections * section}")
+
+
+# ----------------------------------------------------------------------
+# Plain torch versions: the Pallas arithmetic (a dense (rows, section) slab
+# per stripe, contracted against B) in each grid order, run for CPU tensors.
+def _slab(idx: torch.Tensor, val: torch.Tensor, s: int,
+          section: int) -> torch.Tensor:
+    return incrs_decompress(idx[:, s:s + 1], val[:, s:s + 1], section,
+                            section)
+
+
+def _plain_expand(idx, val, b, *, section: int, bn: int) -> torch.Tensor:
+    """Grid (col tile, section): every col tile re-expands each stripe."""
+    mp, n_sections, _ = idx.shape
+    b = b.to(torch.float32)
+    out = torch.empty(mp, b.shape[1], dtype=torch.float32, device=b.device)
+    for j in range(0, b.shape[1], bn):
+        acc = torch.zeros(mp, bn, dtype=torch.float32, device=b.device)
+        for s in range(n_sections):
+            acc += _slab(idx, val, s, section) @ \
+                b[s * section:(s + 1) * section, j:j + bn]
+        out[:, j:j + bn] = acc
+    return out
+
+
+def _plain_panel(idx, val, b, *, section: int, bn: int) -> torch.Tensor:
+    """Grid (section, col tile): each stripe expanded once and swept over
+    every col tile into a row panel. Both the reuse and the pipelined
+    order compute this; the ring changes where B sits, not the sums."""
+    _, n_sections, _ = idx.shape
+    b = b.to(torch.float32)
+    panel = None
+    for s in range(n_sections):
+        slab = _slab(idx, val, s, section)
+        rows = b[s * section:(s + 1) * section]
+        contrib = torch.cat([slab @ rows[:, j:j + bn]
+                             for j in range(0, b.shape[1], bn)], dim=1)
+        panel = contrib if panel is None else panel + contrib
+    return panel
+
+
+_PLAIN = {"incrs_spmm": _plain_expand,
+          "incrs_spmm_reuse": _plain_panel,
+          "incrs_spmm_pipelined": _plain_panel}
+
+
+# ----------------------------------------------------------------------
+def _library() -> ctypes.CDLL:
+    lib = _build.library("incrs_spmm")
+    if not getattr(lib, "_repro_bound", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in _C_FN.values():
+            f = getattr(lib, fn)
+            f.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+            f.restype = i
+        lib.incrs_reuse_smem_bytes.argtypes = [i, i]
+        lib.incrs_reuse_smem_bytes.restype = ctypes.c_size_t
+        lib.incrs_pipelined_smem_bytes.argtypes = [i]
+        lib.incrs_pipelined_smem_bytes.restype = ctypes.c_size_t
+        lib.incrs_error_string.argtypes = [i]
+        lib.incrs_error_string.restype = ctypes.c_char_p
+        lib._repro_bound = True
+    return lib
+
+
+def _smem_bytes(lib: ctypes.CDLL, name: str, n: int, smax: int,
+                section: int) -> int:
+    if name == "incrs_spmm_reuse":
+        return lib.incrs_reuse_smem_bytes(n, smax)
+    if name == "incrs_spmm_pipelined":
+        return lib.incrs_pipelined_smem_bytes(section)
+    return 0
+
+
+def _launch(name: str, idx: torch.Tensor, val: torch.Tensor,
+            b: torch.Tensor, section: int) -> torch.Tensor:
+    """Validate, allocate C, launch the CUDA kernel on the current stream
+    and count the launch. Raises on anything the kernel does not take."""
+    if idx.dtype != torch.int32 or val.dtype != torch.float32:
+        raise TypeError(f"{name}: stripes must be int32/float32, got "
+                        f"{idx.dtype}/{val.dtype}")
+    if not b.is_floating_point():
+        raise TypeError(f"{name}: B must be floating point, got {b.dtype}")
+    b = b.to(torch.float32)         # exact for f16/bf16, as the Pallas body
+    for t, what in ((idx, "idx"), (val, "val"), (b, "B")):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    mp, n_sections, smax = idx.shape
+    k, n = b.shape
+    if max(mp * n_sections * smax, k * n, mp * n) >= 2 ** 31:
+        raise ValueError(f"{name}: operand too large for int32 offsets "
+                         f"(stripes {tuple(idx.shape)}, B {tuple(b.shape)})")
+    if name == "incrs_spmm_pipelined" and (n % 4 or b.data_ptr() % 16):
+        raise ValueError(f"{name}: the cp.async ring copies 16 bytes, so N "
+                         f"must be a multiple of 4 and B 16-byte aligned "
+                         f"(N = {n}); ops.spmm pads N to a multiple of 128")
+    lib = _library()
+    smem = _smem_bytes(lib, name, n, smax, section)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: needs {smem} bytes of shared memory per "
+                         f"block, over the card's {SMEM_LIMIT}")
+    out = torch.empty((mp, n), dtype=torch.float32, device=idx.device)
+    if mp == 0 or n == 0:
+        return out
+    if n_sections == 0:
+        return out.zero_()
+    stream = torch.cuda.current_stream(idx.device).cuda_stream
+    err = getattr(lib, _C_FN[name])(
+        idx.data_ptr(), val.data_ptr(), b.data_ptr(), out.data_ptr(),
+        mp, n, n_sections, smax, section, idx.device.index, stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: "
+                           f"{lib.incrs_error_string(err).decode()}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def _run(name: str, idx: torch.Tensor, val: torch.Tensor, b: torch.Tensor,
+         section: int, bm: int, bn: int, kernel: bool) -> torch.Tensor:
+    if len({idx.device, val.device, b.device}) != 1:
+        raise ValueError(f"{name}: idx, val and B must share one device, "
+                         f"got {idx.device}, {val.device}, {b.device}")
+    m, n_sections, _ = idx.shape
+    k, n = b.shape
+    bm, mp = _resolve_row_tile(m, bm)
+    _check_grid(mp, n, bm, bn, k, n_sections, section)
+    idx, val = _pad_rows(idx, val, mp)
+    if not kernel:
+        out = _PLAIN[name](idx, val, b, section=section, bn=bn)
+    elif idx.device.type == "cuda":
+        out = _launch(name, idx, val, b, section)
+    else:
+        raise ValueError(f"{name}: no kernel for device {idx.device}")
+    return out[:m] if mp != m else out
+
+
+def plain(name: str, idx: torch.Tensor, val: torch.Tensor, b: torch.Tensor,
+          *, section: int = 256, bm: int = 128,
+          bn: int = 128) -> torch.Tensor:
+    """The plain torch version of kernel ``name`` on any device, with the
+    wrapper's checks and padding: what the kernel is held against."""
+    return _run(name, idx, val, b, section, bm, bn, kernel=False)
+
+
+def incrs_spmm(idx: torch.Tensor, val: torch.Tensor, b: torch.Tensor, *,
+               section: int = 256, bm: int = 128,
+               bn: int = 128) -> torch.Tensor:
+    """C[M, N] = decompress(idx, val) @ B without a dense A in memory.
+
+    idx : (M, n_sections, smax) int32 local column within section, -1 = pad
+    val : (M, n_sections, smax) float32 values
+    b   : (n_sections * section, N) dense operand (pre-padded to bn)
+    """
+    return _run("incrs_spmm", idx, val, b, section, bm, bn,
+                kernel=idx.device.type != "cpu")
+
+
+def incrs_spmm_reuse(idx: torch.Tensor, val: torch.Tensor, b: torch.Tensor,
+                     *, section: int = 256, bm: int = 128,
+                     bn: int = 128) -> torch.Tensor:
+    """Same contract as ``incrs_spmm``; each stripe is staged once per
+    (row tile, section) and reused over every col tile."""
+    return _run("incrs_spmm_reuse", idx, val, b, section, bm, bn,
+                kernel=idx.device.type != "cpu")
+
+
+def incrs_spmm_pipelined(idx: torch.Tensor, val: torch.Tensor,
+                         b: torch.Tensor, *, section: int = 256,
+                         bm: int = 128, bn: int = 128) -> torch.Tensor:
+    """Same contract as ``incrs_spmm``; B streams through a multi-stage
+    cp.async ring in shared memory. Bitwise equal to the other orders. On
+    the card N must be a multiple of 4 and B 16-byte aligned."""
+    return _run("incrs_spmm_pipelined", idx, val, b, section, bm, bn,
+                kernel=idx.device.type != "cpu")

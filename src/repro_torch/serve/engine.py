@@ -1,0 +1,342 @@
+"""Continuous-batching SpMM serving on the fused InCRS kernels.
+
+The port of ``SpMMEngine`` from ``repro.serve.engine``: the paper's own
+workload as a service, one fixed sparse operand A (InCRS) and a queue of
+dense right-hand sides to multiply against it. Requests are packed into
+waves (``serve.scheduler``), each wave is staged on the host, launched,
+and retired, with the host prep of wave N+1 done while wave N computes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+import warnings
+from collections import defaultdict, deque
+from typing import Any, Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.incrs import InCRS
+from ..kernels import ops
+from . import scheduler as _sched
+
+
+@dataclasses.dataclass
+class SpMMRequest:
+    rid: int
+    b: np.ndarray                          # (K, cols) dense operand
+    out: Optional[np.ndarray] = None       # (M, cols) result
+    done: bool = False
+    t_submit: Optional[float] = None       # stamped by engine.submit()
+    t_done: Optional[float] = None         # stamped when the result lands
+
+
+@dataclasses.dataclass
+class _SplitPart:
+    """One ``<= max_wave_cols``-wide column chunk of an oversized request.
+    Parts flow through the packer like requests (they expose ``.b``); each
+    retires into its parent's preallocated ``out``, and the parent
+    completes when its last part does."""
+    rid: int
+    parent: SpMMRequest
+    offset: int                            # column offset into parent.out
+    b: np.ndarray                          # column-slice VIEW of parent.b
+    t_submit: Optional[float] = None
+
+
+@dataclasses.dataclass
+class _Wave:
+    """A packed wave moving through stage -> dispatch -> retire. ``host``
+    is the (pinned, on CUDA) staging panel, kept alive until the wave
+    retires; ``c`` is the output tensor once the kernel is launched."""
+    items: List[Any]
+    host: torch.Tensor
+    b: torch.Tensor                        # wave RHS on the device
+    prep_s: float                          # host prep wall time
+    hidden: bool                           # prepped while a wave was in flight
+    c: Optional[torch.Tensor] = None
+    t_dispatch: Optional[float] = None
+
+
+# Wave widths are bucketed (zero-padded) up to this quantum before launch,
+# so mixed-width traces launch a handful of shapes.
+WAVE_QUANTUM = 128
+
+
+def _percentiles_ms(samples: List[float]) -> Dict[str, float]:
+    """{p50, p99, mean} in milliseconds from wall-second samples."""
+    if not samples:
+        return {"p50": 0.0, "p99": 0.0, "mean": 0.0}
+    srt = sorted(samples)
+
+    def pct(q: float) -> float:
+        return srt[min(len(srt) - 1, int(round(q * (len(srt) - 1))))] * 1e3
+
+    return {"p50": pct(0.50), "p99": pct(0.99),
+            "mean": sum(srt) / len(srt) * 1e3}
+
+
+def _torch_dtype(dt) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype=dt)).dtype
+
+
+class SpMMEngine:
+    """Continuous-batching SpMM serving on one device.
+
+    The operand is prepped once at construction (``ops.prepare_incrs``);
+    every wave reuses the ``PreparedOperand``. Waves are packed by the
+    cost-model ``WavePacker`` up to the hard cap ``max_wave_cols``;
+    requests wider than the cap are split into parts at ``submit()`` and
+    reassembled. In continuous mode the host stages wave N+1 (dtype
+    promotion, concat into a pinned panel, async copy) while the device
+    runs wave N; kernel launches return at once and only retiring waits.
+    ``continuous=False`` is the strict wave-barrier loop (FIFO, no
+    overlap).
+    """
+
+    def __init__(self, a, *, max_wave_cols: int = 512,
+                 variant: str = "auto", device=None, mesh=None,
+                 continuous: bool = True,
+                 latency_budget_us: Optional[float] = None,
+                 scheduler: Optional[_sched.WavePacker] = None,
+                 skip_limit: Optional[int] = None):
+        """``a``: an ``InCRS`` (prepped here, once, on ``device``) or an
+        ``ops.PreparedOperand`` (served on its own device). ``variant``
+        selects the kernel grid order as in ``ops.spmm``."""
+        ops.check_variant(variant)
+        if mesh is not None:
+            raise NotImplementedError(
+                "row-sharded serving is not ported yet (ROADMAP queue 1 "
+                "item 8)")
+        self.device = a.device if device is None and \
+            isinstance(a, ops.PreparedOperand) else ops.resolve_device(device)
+        self.max_wave_cols = max_wave_cols
+        self.variant = variant
+        self.a, self.prep = self._build_operand(a)
+        self.continuous = continuous
+        if scheduler is None:
+            if skip_limit is None:
+                skip_limit = _sched.DEFAULT_SKIP_LIMIT if continuous else 0
+            scheduler = _sched.WavePacker(
+                budget_us=latency_budget_us if continuous else None,
+                skip_limit=skip_limit)
+        self.scheduler = scheduler
+        self.queue: Deque[Any] = deque()
+        self.finished: List[SpMMRequest] = []
+        self.stats: Dict[str, int] = defaultdict(int)
+        self._staged: Optional[_Wave] = None
+        self._inflight: Optional[_Wave] = None
+        self._wave_wall_s: List[float] = []
+        self._queue_wait_s: List[float] = []
+        self._req_latency_s: List[float] = []
+        self._prep_s_total = 0.0
+        self._prep_s_hidden = 0.0
+        self._t_first_submit: Optional[float] = None
+        self._t_last_done: Optional[float] = None
+
+    def _build_operand(self, a):
+        """Resolve ``a`` to ``(operand, prep)`` without touching engine
+        state, so a rejected swap leaves the engine as it was."""
+        if isinstance(a, ops.PreparedOperand):
+            if a.device != self.device:
+                raise ValueError(f"operand lives on {a.device}, the engine "
+                                 f"serves on {self.device}")
+            return a, a
+        if isinstance(a, InCRS):
+            return a, ops.prepare_incrs(a, device=self.device)
+        raise NotImplementedError(
+            f"SpMMEngine serves InCRS or PreparedOperand, got "
+            f"{type(a).__name__}; sparse.Linear and bound plans are not "
+            f"ported yet (ROADMAP queue 1 items 2-3)")
+
+    # ------------------------------------------------------------------
+    def swap_pattern(self, a) -> None:
+        """Hot-swap the serving operand between waves. The new operand's
+        shape must match the current one; a rejected swap (ValueError)
+        leaves the engine serving the OLD operand. An in-flight wave keeps
+        the operand it was launched with."""
+        new_a, new_prep = self._build_operand(a)
+        if tuple(new_prep.shape) != tuple(self.prep.shape):
+            raise ValueError(
+                f"swap_pattern: new operand shape {tuple(new_prep.shape)} "
+                f"!= serving shape {tuple(self.prep.shape)} — an engine "
+                f"serves one logical A; start a new engine for a new shape")
+        self.a, self.prep = new_a, new_prep
+        self.stats["pattern_swaps"] += 1
+
+    def submit(self, req: SpMMRequest):
+        k = self.a.shape[1]
+        if req.b.ndim != 2 or req.b.shape[0] != k:
+            raise ValueError(
+                f"request {req.rid}: b has shape {req.b.shape}, expected "
+                f"({k}, cols) to multiply against A of shape {self.a.shape}")
+        req.t_submit = time.perf_counter()
+        if self._t_first_submit is None:
+            self._t_first_submit = req.t_submit
+        cols = req.b.shape[1]
+        if cols > self.max_wave_cols:
+            req.out = np.empty((self.prep.shape[0], cols),
+                               dtype=req.b.dtype)
+            n_parts = -(-cols // self.max_wave_cols)
+            req._parts_left = n_parts
+            for i in range(n_parts):
+                lo = i * self.max_wave_cols
+                hi = min(cols, lo + self.max_wave_cols)
+                self.queue.append(_SplitPart(
+                    rid=req.rid, parent=req, offset=lo,
+                    b=req.b[:, lo:hi], t_submit=req.t_submit))
+            self.stats["split_requests"] += 1
+            self.stats["split_parts"] += n_parts
+        else:
+            self.queue.append(req)
+
+    # -- pipeline stages ------------------------------------------------
+    def _stage(self, hidden: bool) -> bool:
+        """Pack the next wave and do all its host prep: promote within the
+        wave, concatenate into one (pinned) host panel bucketed to
+        ``WAVE_QUANTUM`` columns, and start its copy to the device."""
+        wave = self.scheduler.next_wave(self.queue, self.max_wave_cols)
+        if not wave:
+            return False
+        t0 = time.perf_counter()
+        wave_dt = functools.reduce(torch.promote_types,
+                                   (_torch_dtype(r.b.dtype) for r in wave))
+        if wave_dt.is_floating_point and torch.finfo(wave_dt).bits > 32:
+            warnings.warn(
+                f"SpMMEngine: wave dtype {wave_dt} exceeds the fused "
+                f"kernel's f32 accumulation — results carry the request "
+                f"dtype but f32 precision", stacklevel=3)
+        cols = sum(r.b.shape[1] for r in wave)
+        bucket = -(-cols // WAVE_QUANTUM) * WAVE_QUANTUM
+        host = torch.empty((wave[0].b.shape[0], bucket), dtype=wave_dt,
+                           pin_memory=self.device.type == "cuda")
+        off = 0
+        for r in wave:
+            width = r.b.shape[1]
+            host[:, off:off + width].copy_(torch.from_numpy(
+                np.ascontiguousarray(r.b)))
+            off += width
+        if bucket > cols:
+            host[:, cols:].zero_()
+            self.stats["pad_cols"] += bucket - cols
+        b = host.to(self.device, non_blocking=True)
+        prep_s = time.perf_counter() - t0
+        self._prep_s_total += prep_s
+        if hidden:
+            self._prep_s_hidden += prep_s
+        self._staged = _Wave(wave, host, b, prep_s, hidden)
+        return True
+
+    def _dispatch(self) -> None:
+        """Launch the staged wave; the operand is captured here, so a
+        ``swap_pattern`` after dispatch never touches an in-flight wave."""
+        w = self._staged
+        if w is None:
+            return
+        self._staged = None
+        t0 = time.perf_counter()
+        w.c = ops.spmm(self.prep, w.b, variant=self.variant)
+        w.t_dispatch = t0
+        for r in w.items:
+            if r.t_submit is not None:
+                self._queue_wait_s.append(t0 - r.t_submit)
+        self._inflight = w
+
+    def _finish_item(self, r, panel: np.ndarray, t_done: float) -> None:
+        if isinstance(r, _SplitPart):
+            parent = r.parent
+            parent.out[:, r.offset:r.offset + panel.shape[1]] = \
+                panel.astype(parent.b.dtype)
+            parent._parts_left -= 1
+            if parent._parts_left:
+                return
+            r = parent                     # last part: parent completes
+        else:
+            r.out = panel.astype(r.b.dtype)
+        r.done = True
+        r.t_done = t_done
+        if r.t_submit is not None:
+            self._req_latency_s.append(t_done - r.t_submit)
+        self.stats["requests"] += 1
+        self.finished.append(r)
+
+    def _retire(self) -> None:
+        """Wait for the in-flight wave (``.cpu()`` blocks) and hand each
+        request its panel in its own dtype. The wall time from dispatch to
+        result on the host feeds the packer's cost model."""
+        w = self._inflight
+        if w is None:
+            return
+        self._inflight = None
+        c = w.c.cpu().numpy()
+        t_done = time.perf_counter()
+        wall_s = t_done - w.t_dispatch
+        off = 0
+        for r in w.items:
+            width = r.b.shape[1]
+            self._finish_item(r, c[:, off:off + width], t_done)
+            off += width
+        self.stats["cols"] += off
+        self.stats["waves"] += 1
+        self._wave_wall_s.append(wall_s)
+        self._t_last_done = t_done
+        self.scheduler.observe(off, wall_s * 1e6)
+
+    # -- serving loop ----------------------------------------------------
+    def step(self, retire: bool = True) -> bool:
+        """Advance the pipeline one wave: dispatch (staging first if
+        nothing is staged), then in continuous mode stage the NEXT wave
+        while the device computes, then retire. ``retire=False`` leaves
+        the wave in flight. Returns False when there was nothing to do."""
+        if self._inflight is None:
+            if self._staged is None and not self._stage(hidden=False):
+                return False
+            self._dispatch()
+        if self.continuous and self._staged is None and self.queue:
+            self._stage(hidden=True)       # overlapped with device compute
+        if retire:
+            self._retire()
+        return True
+
+    def run(self) -> List[SpMMRequest]:
+        """Serve until the queue and the pipeline drain."""
+        while self.queue or self._staged is not None \
+                or self._inflight is not None:
+            self.step()
+        return self.finished
+
+    # -- reporting -------------------------------------------------------
+    def stats_summary(self) -> Dict[str, Any]:
+        """Requests/s, per-request latency and queue-wait p50/p99, per-wave
+        wall p50/p99, and how much host prep the overlap hid."""
+        elapsed = 0.0
+        if self._t_first_submit is not None \
+                and self._t_last_done is not None:
+            elapsed = max(0.0, self._t_last_done - self._t_first_submit)
+        n = int(self.stats["requests"])
+        cost = self.scheduler.cost
+        return {
+            "mode": "continuous" if self.continuous else "wave_barrier",
+            "requests": n,
+            "waves": int(self.stats["waves"]),
+            "cols": int(self.stats["cols"]),
+            "elapsed_s": elapsed,
+            "requests_per_s": (n / elapsed) if elapsed > 0 else 0.0,
+            "latency_ms": _percentiles_ms(self._req_latency_s),
+            "queue_wait_ms": _percentiles_ms(self._queue_wait_s),
+            "wave_ms": _percentiles_ms(self._wave_wall_s),
+            "prep_s_total": self._prep_s_total,
+            "prep_s_hidden": self._prep_s_hidden,
+            "prep_overlap_fraction":
+                (self._prep_s_hidden / self._prep_s_total)
+                if self._prep_s_total > 0 else 0.0,
+            "cost_model": {
+                "us_per_col": cost.us_per_col,
+                "launch_overhead_us": cost.launch_overhead_us,
+                "n_observed": cost.n_observed,
+                "source": cost.source,
+                "last_target_cols": self.scheduler.last_target,
+            },
+        }

@@ -23,6 +23,19 @@ Phases, each printing one JSON line:
 5. times   — incrs-docword at N = 512: each kernel's median time over CUDA
              events beside its plain version, ``torch.sparse.mm`` and the
              bound of the card.
+6. spgemm_kernels — the sparse × sparse kernels against their plain
+             versions on the card: the eight Table IV operands as A·Aᵀ at
+             R = 128 (mesh-docword4 also at R = 32) and edge operands;
+             condense + merge and merge bitwise equal to index matching and
+             to plain merge, the gather bitwise equal to its plain version.
+7. spgemm  — the second path: ``ops.spmm(A, A)`` through every engine, an
+             InCRS right-hand side, R = 32, and ``spgemm.spgemm`` on the
+             eight Table IV workloads at their published sizes, every C
+             checked against the float64 product on the host and every
+             call's launches against its engine. Counters are zeroed just
+             before and read just after.
+8. spgemm_times — mesh-docword4 at R = 128: each new kernel's median time
+             beside its plain version, the library call and the bound.
 
 Then the card's line, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises. Without a CUDA
@@ -35,6 +48,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -51,6 +65,25 @@ RAN_BY = {"auto": "incrs_spmm", **{v: k for k, v, _ in KERNELS}}
 SOURCE = "src/repro_torch/kernels/csrc/incrs_spmm.cu"
 TABLE2 = ("incrs-docword", "incrs-amazon", "incrs-belcastro", "incrs-norris",
           "incrs-mks")
+TABLE4 = ("mesh-amazon4", "mesh-docword4", "mesh-mks4", "mesh-norris4",
+          "mesh-arenas", "mesh-bates", "mesh-gleich", "mesh-sch")
+SPGEMM_KERNELS = (  # (name, source, Pallas kernel it replaces)
+    ("incrs_gather", "src/repro_torch/kernels/csrc/incrs_gather.cu",
+     "src/repro/kernels/incrs_gather.py:28"),
+    ("index_match_spmm", "src/repro_torch/kernels/csrc/index_match.cu",
+     "src/repro/kernels/index_match_spmm.py:48"),
+    ("spgemm_condense", "src/repro_torch/kernels/csrc/index_match.cu",
+     "src/repro/spgemm/kernels.py:48"),
+    ("spgemm_merge", "src/repro_torch/kernels/csrc/index_match.cu",
+     "src/repro/spgemm/kernels.py:97"),
+)
+ENGINE_LAUNCHES = {
+    "reference": {"index_match_spmm": 1},
+    "auto": {"index_match_spmm": 1},
+    "condense_merge": {"spgemm_condense": 1, "spgemm_merge": 1},
+    "densify": {"incrs_gather": 1, "incrs_spmm": 1},
+}
+STRIPES_MAX_BYTES = 8e9  # condense_merge at R = 32 only below this
 # H100 SXM: HBM rate, and the f32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -383,6 +416,299 @@ def phase_times(torch, K, ops, docword, errs_512, launches):
     return rows
 
 
+# ----------------------------------------------------------------------
+# The sparse × sparse path: C = A @ Bt.T through index matching,
+# condense + merge, and densify (gather, then the fused InCRS SpMM).
+def _counters(P):
+    return {**P.K.LAUNCHES, **P.G.LAUNCHES, **P.IM.LAUNCHES, **P.SK.LAUNCHES}
+
+
+def _reset_counters(P):
+    for mod in (P.K, P.G, P.IM, P.SK):
+        mod.reset_launches()
+
+
+def _spgemm_edges():
+    """(A, Bt) dense pairs that reach each masked edge of the kernels."""
+    rng = np.random.default_rng(17)
+
+    def sparse(m, k, d):
+        a = rng.uniform(-1.5, 1.5, size=(m, k)).astype(np.float32)
+        a[rng.random(size=(m, k)) >= d] = 0.0
+        return a
+
+    empty = sparse(150, 700, 0.05)
+    empty[3] = 0.0
+    empty[40:60] = 0.0                            # empty rows
+    single = np.zeros((100, 512), np.float32)     # rmax = 1
+    for r in range(100):
+        for t in range(0, 4, 1 + r % 2):
+            single[r, t * 128 + rng.integers(128)] = 1.0 + r
+    full = sparse(90, 384, 0.03)
+    full[::4, 128:256] = rng.uniform(0.5, 1.5, size=(23, 128))  # rmax = R
+    return {"all_zero": (np.zeros((64, 300), np.float32),
+                         sparse(40, 300, 0.1)),
+            "empty_rows": (empty, empty),
+            "rmax_1": (single, single),
+            "full_window": (full, full),
+            "k_ragged": (sparse(130, 1000, 0.04), sparse(130, 1000, 0.04)),
+            "mn_ragged_a_ne_b": (sparse(203, 640, 0.06),
+                                 sparse(77, 640, 0.08))}
+
+
+def _check_match(torch, P, ai, av, bi, bv, *, rounds, bm, label):
+    """Index matching against its plain version; condense against the plain
+    per-round partials; merge against plain merge and condense + merge
+    against index matching, bit for bit. Frees the stripes."""
+    kw = dict(rounds=rounds, bm=bm, bn=bm)
+    before = _counters(P)
+    fused = P.IM.index_match_spmm(ai, av, bi, bv, **kw)
+    torch.cuda.synchronize()
+    ref = P.IM.plain(ai, av, bi, bv, **kw)
+    scale = max(float(ref.abs().max()), 1e-30)
+    err7 = float((fused - ref).abs().max())
+    check(bool(torch.isfinite(fused).all()), f"index_match finite on {label}")
+    check(err7 <= KERNEL_TOL * scale, f"index_match on {label}: max|err| "
+          f"{err7} > {KERNEL_TOL} * {scale}")
+    del ref
+    stripes = P.SK.spgemm_condense(ai, av, bi, bv, **kw)
+    merged = P.SK.spgemm_merge(stripes, bm=bm, bn=bm)
+    torch.cuda.synchronize()
+    check(torch.equal(merged, fused),
+          f"condense + merge bitwise equal to index_match on {label}")
+    check(torch.equal(P.SK.plain_merge(stripes, bm=bm, bn=bm), merged),
+          f"merge bitwise equal to its plain version on {label}")
+    err8 = 0.0
+    for t in range(stripes.shape[0]):
+        part = P.IM.round_partial(ai, av, bi, bv, t, rounds)
+        err8 = max(err8, float((stripes[t] - part).abs().max()))
+    check(err8 <= KERNEL_TOL * scale, f"condense on {label}: max|err| "
+          f"{err8} > {KERNEL_TOL} * {scale}")
+    moved = {k: v - before[k] for k, v in _counters(P).items()}
+    check(all(moved[k] == 1 for k in ("index_match_spmm", "spgemm_condense",
+                                      "spgemm_merge")),
+          f"index_match, condense and merge counted their launch on {label}")
+    del stripes, merged
+    return {"index_match_spmm": err7, "spgemm_condense": err8,
+            "spgemm_merge": 0.0}
+
+
+def _check_gather(torch, P, inc, label):
+    prep = P.ops.prepare_incrs(inc, pad_rows_to=8, device="cuda")
+    before = P.G.LAUNCHES["incrs_gather"]
+    out = P.G.incrs_gather(prep.idx, prep.val, section=prep.section, bm=8)
+    torch.cuda.synchronize()
+    check(P.G.LAUNCHES["incrs_gather"] == before + 1,
+          f"incrs_gather counted its launch on {label}")
+    ref = P.G.plain(prep.idx, prep.val, section=prep.section, bm=8)
+    check(torch.equal(out, ref),
+          f"incrs_gather bitwise equal to its plain version on {label}")
+    return float((out - ref).abs().max())
+
+
+def phase_spgemm_kernels(torch, P, table4):
+    results = []
+    errs_docword = None
+    for wl_name, crs in table4.items():
+        for rounds in (128, 32) if wl_name == "mesh-docword4" else (128,):
+            ai, av = P.ops.prep_rounds(crs, rounds, device="cuda")
+            bi, bv = P.ops.prep_rounds(crs, rounds, device="cuda")
+            errs = _check_match(torch, P, ai, av, bi, bv, rounds=rounds,
+                                bm=128, label=f"{wl_name} R={rounds}")
+            if wl_name == "mesh-docword4" and rounds == 128:
+                errs_docword = errs
+            if rounds == 128:
+                errs["incrs_gather"] = _check_gather(
+                    torch, P, P.InCRS.from_crs(crs), wl_name)
+            results.append({"operand": wl_name, "rounds": rounds,
+                            "prep": list(ai.shape), "max_abs_err": errs})
+            del ai, av, bi, bv
+    for label, (a, bt) in _spgemm_edges().items():
+        ca, cb = P.CRS.from_dense(a), P.CRS.from_dense(bt)
+        ai, av = P.ops.prep_rounds(ca, 128, pad_rows_to=8, device="cuda")
+        bi, bv = P.ops.prep_rounds(cb, 128, pad_rows_to=8, device="cuda")
+        ai, av, bi, bv = P.ops.pad_common_rmax(ai, av, bi, bv)
+        errs = _check_match(torch, P, ai, av, bi, bv, rounds=128, bm=8,
+                            label=label)
+        errs["incrs_gather"] = _check_gather(torch, P,
+                                             P.InCRS.from_dense(a), label)
+        results.append({"operand": label, "a": list(a.shape),
+                        "bt": list(bt.shape), "prep": list(ai.shape),
+                        "max_abs_err": errs})
+    emit({"phase": "spgemm_kernels",
+          "tolerance": f"max|kernel-plain| <= {KERNEL_TOL} * max|C|; "
+                       f"merge, condense+merge and gather bitwise",
+          "checks": results})
+    return errs_docword
+
+
+def _oracle(torch, crs):
+    """float64 C = A @ A.T on the host (scipy.sparse), moved to the card
+    for the comparisons."""
+    import scipy.sparse as sp
+    a = sp.csr_matrix((crs.values.astype(np.float64), crs.col_idx,
+                       crs.row_ptr), shape=crs.shape)
+    return torch.from_numpy((a @ a.T).toarray()).to("cuda")
+
+
+def _prep_shape(ops, crs, rounds, pad=128):
+    """The shape ``ops.prep_rounds`` gives, without prepping."""
+    counts = ops.round_groups(crs, rounds)[1]
+    return [-(-crs.shape[0] // pad) * pad, counts.shape[1],
+            max(1, int(counts.max(initial=0)))]
+
+
+def _matched_pairs(crs):
+    """Products of C = A @ A.T: sum over columns of (non-zeros in it)^2."""
+    c = np.bincount(crs.col_idx, minlength=crs.shape[1]).astype(np.int64)
+    return int((c * c).sum())
+
+
+def phase_spgemm(torch, P, table4):
+    """The path, driven with every counter at 0 just before it."""
+    _reset_counters(P)
+    for wl_name, crs in table4.items():
+        ref = _oracle(torch, crs)
+        scale = float(ref.abs().max())
+        m = crs.shape[0]
+        pairs = _matched_pairs(crs)
+        calls = [(v, 128, "ops.spmm") for v in
+                 ("reference", "condense_merge", "densify", "auto")]
+        calls += [("auto", 128, "ops.spmm(InCRS rhs)"),
+                  ("reference", 32, "ops.spmm")]
+        mp, n_rounds, _ = _prep_shape(P.ops, crs, 32)
+        if 4 * n_rounds * mp * mp < STRIPES_MAX_BYTES:
+            calls.append(("condense_merge", 32, "ops.spmm"))
+        calls.append(("condense_merge", 128, "spgemm.spgemm"))
+        for variant, rounds, entry in calls:
+            before = _counters(P)
+            t0 = time.perf_counter()
+            if entry == "spgemm.spgemm":
+                out, est = P.spgemm.spgemm(crs, crs, rounds=rounds)
+            elif entry == "ops.spmm(InCRS rhs)":
+                out = P.ops.spmm(crs, P.InCRS.from_crs(crs), rounds=rounds)
+            else:
+                out = P.ops.spmm(crs, crs, variant=variant, rounds=rounds,
+                                 device="cuda")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            moved = {k: v - before[k] for k, v in _counters(P).items()
+                     if v != before[k]}
+            check(moved == ENGINE_LAUNCHES[variant],
+                  f"{wl_name} {entry} {variant} R={rounds}: launches {moved}"
+                  f" are {ENGINE_LAUNCHES[variant]}")
+            line = {"phase": "spgemm", "workload": wl_name, "entry": entry,
+                    "engine": variant, "rounds": rounds,
+                    "shape": [m, m], "nnz": crs.nnz, "matched_pairs": pairs,
+                    "prep": _prep_shape(P.ops, crs, rounds), "launches": moved,
+                    "wall_ms": wall_ms}
+            if entry == "spgemm.spgemm":
+                sparse_out = est < P.spgemm.SPARSE_OUTPUT_THRESHOLD
+                check(isinstance(out, P.CRS) == sparse_out,
+                      f"{wl_name}: spgemm returns CRS iff estimate {est} < "
+                      f"{P.spgemm.SPARSE_OUTPUT_THRESHOLD}")
+                line.update(estimate=est, output=type(out).__name__)
+                if sparse_out:
+                    out = torch.from_numpy(out.to_dense()).to("cuda")
+            check(tuple(out.shape) == (m, m) and
+                  bool(torch.isfinite(out).all()),
+                  f"{wl_name} {entry} {variant}: finite ({m}, {m})")
+            err = float((out.double() - ref).abs().max())
+            check(err <= SERVE_TOL * scale,
+                  f"{wl_name} {entry} {variant} R={rounds}: max|err| {err} "
+                  f"> {SERVE_TOL} * {scale}")
+            line["max_rel_err"] = err / scale
+            emit(line)
+            del out
+        del ref
+    launches = _counters(P)
+    for name, _, _ in SPGEMM_KERNELS:
+        check(launches[name] > 0, f"{name} ran on the spgemm path")
+    return launches
+
+
+def phase_spgemm_times(torch, P, crs, inc, errs, launches):
+    rounds = 128
+    ai, av = P.ops.prep_rounds(crs, rounds, device="cuda")
+    bi, bv = P.ops.prep_rounds(crs, rounds, device="cuda")
+    kw = dict(rounds=rounds, bm=128, bn=128)
+    flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
+    mp, n_rounds, _ = ai.shape
+    m = crs.shape[0]
+    live = int((ai >= 0).sum()) + int((bi >= 0).sum())
+    pairs = _matched_pairs(crs)
+    idx_bytes = (ai.numel() + bi.numel()) * 4 + live * 4
+    stripe_bytes = n_rounds * mp * mp * 4
+    prep = P.ops.prepare_incrs(inc, pad_rows_to=8, device="cuda")
+    n_live_g = int(((prep.idx >= 0) & (prep.idx < prep.section)).sum())
+    gather_out = prep.padded_rows * prep.n_sections * prep.section * 4
+    work = {  # name: (bytes, flops)
+        "index_match_spmm": (idx_bytes + m * m * 4, 2 * pairs),
+        "spgemm_condense": (idx_bytes + stripe_bytes, 2 * pairs),
+        "spgemm_merge": (stripe_bytes + mp * mp * 4, n_rounds * mp * mp),
+        "incrs_gather": (prep.idx.numel() * 4 + n_live_g * 4 + gather_out,
+                         0),
+    }
+    stripes = P.SK.spgemm_condense(ai, av, bi, bv, **kw)
+    runs = {
+        "index_match_spmm": (lambda: P.IM.index_match_spmm(ai, av, bi, bv,
+                                                           **kw),
+                             lambda: P.IM.plain(ai, av, bi, bv, **kw)),
+        "spgemm_condense": (lambda: P.SK.spgemm_condense(ai, av, bi, bv,
+                                                         **kw),
+                            lambda: P.SK.plain_condense(ai, av, bi, bv,
+                                                        **kw)),
+        "spgemm_merge": (lambda: P.SK.spgemm_merge(stripes, bm=128, bn=128),
+                         lambda: P.SK.plain_merge(stripes, bm=128, bn=128)),
+        "incrs_gather": (lambda: P.G.incrs_gather(prep.idx, prep.val,
+                                                  section=prep.section,
+                                                  bm=8),
+                         lambda: P.G.plain(prep.idx, prep.val,
+                                           section=prep.section, bm=8)),
+    }
+    a_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(crs.row_ptr), torch.from_numpy(
+            crs.col_idx.astype(np.int64)),
+        torch.from_numpy(crs.values), size=crs.shape,
+        check_invariants=True).to("cuda")
+    at_csr = a_csr.to_dense().T.contiguous().to_sparse_csr()
+    a_dense = a_csr.to_dense()
+    library = {
+        "index_match_spmm": _time_ms(torch, lambda: torch.sparse.mm(
+            a_csr, at_csr), flush, reps=10),
+        "spgemm_condense": None,
+        "spgemm_merge": _time_ms(torch, lambda: stripes.sum(0), flush),
+        "incrs_gather": _time_ms(torch, lambda: a_csr.to_dense(), flush),
+    }
+    dense_mm_ms = _time_ms(torch, lambda: a_dense @ a_dense.T, flush)
+    rows, line = [], {}
+    for name, source, replaces in SPGEMM_KERNELS:
+        fn, plain = runs[name]
+        ms = _time_ms(torch, fn, flush)
+        plain_ms = _time_ms(torch, plain, flush, reps=5)
+        nbytes, flops = work[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": errs[name], "ms": ms,
+                     "plain_ms": plain_ms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "library_ms": library[name]})
+        line[name] = {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+                      "flops": flops, "bound_bytes_ms": t_bytes,
+                      "bound_ops_ms": t_ops, "library_ms": library[name]}
+    emit({"phase": "spgemm_times", "workload": "mesh-docword4",
+          "rounds": rounds, "prep": list(ai.shape),
+          "gather_stripes": list(prep.idx.shape), "matched_pairs": pairs,
+          "library": {"index_match_spmm": "torch.sparse.mm(A_csr, At_csr)",
+                      "spgemm_merge": "stripes.sum(0)",
+                      "incrs_gather": "A_csr.to_dense()"},
+          "dense_mm_ms": dense_mm_ms, "kernels": line})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -390,12 +716,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    from repro_torch import spgemm
     from repro_torch.configs.paper_spmm import WORKLOADS
+    from repro_torch.core.crs import CRS
     from repro_torch.core.incrs import InCRS
     from repro_torch.data import datasets
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import incrs_gather as G
     from repro_torch.kernels import incrs_spmm as K
+    from repro_torch.kernels import index_match_spmm as IM
     from repro_torch.serve import engine as engine_mod
+    from repro_torch.spgemm import kernels as SK
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -411,6 +742,19 @@ def main() -> int:
     launches = phase_serve(K, engine_mod, table2)
     phase_profile(torch, engine_mod, docword)
     rows = phase_times(torch, K, ops, docword, errs_512, launches)
+    P = types.SimpleNamespace(K=K, G=G, IM=IM, SK=SK, ops=ops, spgemm=spgemm,
+                              CRS=CRS, InCRS=InCRS)
+    table4 = {name: datasets.synthesize(WORKLOADS[name].dataset, seed=0)
+              for name in TABLE4}
+    errs_dw = phase_spgemm_kernels(torch, P, table4)
+    spgemm_launches = phase_spgemm(torch, P, table4)
+    for r in rows:              # densify reaches the fused InCRS kernel too
+        r["launches_by_path"] = {"serve": r["launches"],
+                                 "spgemm": spgemm_launches[r["name"]]}
+        r["launches"] += spgemm_launches[r["name"]]
+    docword4 = table4["mesh-docword4"]
+    rows += phase_spgemm_times(torch, P, docword4, InCRS.from_crs(docword4),
+                               errs_dw, spgemm_launches)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)
     emit({"kernels": rows})

@@ -1,18 +1,24 @@
-"""Public kernel API, InCRS part: format preparation and ``spmm``.
+"""Public kernel API: format preparation and ``spmm``.
 
-The port of the InCRS half of ``repro.kernels.ops``. ``prep_sections``
+The port of ``repro.kernels.ops``, InCRS and CRS parts. ``prep_sections``
 turns an InCRS operand into the padded per-(row, section) stripes the
 kernels consume, located through the packed counter words alone;
 ``prepare_incrs`` memoizes that per live operand; ``spmm`` pads B, picks
 the column tile and the grid order, and trims the result.
+``prep_rounds`` turns a CRS operand into padded per-round rows, and
+``spmm(CRS, CRS | InCRS)`` runs sparse × sparse C = A @ B.T through one of
+three engines: the fused index-matching kernel (paper Alg. 2),
+condense + merge (``repro_torch.spgemm``), or densify B then the fused
+InCRS SpMM.
 
 Entry points take ``device=`` and default to ``"cuda"``: without CUDA they
 raise unless the caller asks for ``"cpu"``, where the kernels' plain torch
-versions run. Formats other than InCRS are later slices of the port.
+versions run. The BSR and dense formats are later slices of the port.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 import weakref
 from typing import Dict, Optional, Tuple
 
@@ -22,6 +28,8 @@ import torch
 from ..core.crs import CRS
 from ..core.incrs import InCRS
 from . import incrs_spmm as _k
+from .incrs_gather import incrs_gather as _incrs_gather_kernel
+from .index_match_spmm import index_match_spmm as _index_match_kernel
 
 VARIANTS = ("auto", "expand", "reuse", "pipelined")
 
@@ -182,17 +190,216 @@ def _spmm_incrs(a, b, *, bm: int = 128, bn: Optional[int] = None,
         bn = default_bn(n)
     kp = prep.n_sections * prep.section
     np_ = -(-n // bn) * bn
-    b = torch.nn.functional.pad(b, (0, np_ - n, 0, kp - k))
+    # pad copies, but leaves a strided B strided when it pads nothing
+    b = torch.nn.functional.pad(b, (0, np_ - n, 0, kp - k)).contiguous()
     out = _INCRS_KERNELS[variant](prep.idx, prep.val, b,
                                   section=prep.section, bm=bm, bn=bn)
     return out[:m, :n]
 
 
+def incrs_to_dense(incrs: InCRS, *, bm: int = 8,
+                   device=None) -> torch.Tensor:
+    """Densify an InCRS matrix on ``device`` through the gather kernel: f32
+    (M, K). Prep is memoized per live operand (see ``prepare_incrs``)."""
+    prep = prepare_incrs(incrs, pad_rows_to=bm, device=device)
+    out = _incrs_gather_kernel(prep.idx, prep.val, section=incrs.section,
+                               bm=bm)
+    return out[:incrs.shape[0], :incrs.shape[1]]
+
+
+# ----------------------------------------------------------------------
+def round_groups(crs: CRS, rounds: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The (row, round window) group ``row * n_rounds + col // rounds`` of
+    every non-zero, int64 (nnz,), and the non-zeros in each group, int64
+    (M, n_rounds)."""
+    m, k = crs.shape
+    n_rounds = max(1, -(-k // rounds))
+    row_of = np.repeat(np.arange(m), np.diff(crs.row_ptr).astype(np.int64))
+    g = row_of * n_rounds + crs.col_idx.astype(np.int64) // rounds
+    return g, np.bincount(g, minlength=m * n_rounds).reshape(m, n_rounds)
+
+
+def _prep_rounds_np(crs: CRS, rounds: int, rmax: Optional[int],
+                    pad_rows_to: int, on_overflow: str
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    if on_overflow not in ("raise", "drop"):
+        raise ValueError(f"on_overflow must be 'raise' or 'drop', "
+                         f"got {on_overflow!r}")
+    g, counts = round_groups(crs, rounds)
+    m, n_rounds = counts.shape
+    rmax_true = int(counts.max(initial=1))
+    rmax = rmax_true if rmax is None else rmax
+    rmax = max(1, min(rmax, rounds))
+    if rmax < rmax_true:
+        if on_overflow == "raise":
+            raise ValueError(
+                f"rmax={rmax} cannot hold the densest (row, round) window "
+                f"({rmax_true} non-zeros); raise rmax or pass "
+                f"on_overflow='drop'")
+        warnings.warn(
+            f"prep_rounds: dropping non-zeros beyond slot {rmax} in "
+            f"{int((counts > rmax).sum())} overfull (row, round) windows "
+            f"(densest holds {rmax_true})", stacklevel=3)
+    mp = -(-m // pad_rows_to) * pad_rows_to
+    idx = np.full((mp, n_rounds, rmax), -1, dtype=np.int32)
+    val = np.zeros((mp, n_rounds, rmax), dtype=crs.values.dtype)
+    if crs.nnz:
+        # Non-zeros are sorted by (row, col), hence by (row, round): each
+        # group is one contiguous run, and a slot is the position in it.
+        group_start = np.concatenate(
+            [[0], np.cumsum(counts.reshape(-1))[:-1]])
+        slot = np.arange(crs.nnz, dtype=np.int64) - group_start[g]
+        sel = slot < rmax
+        row_of, r = np.divmod(g[sel], n_rounds)
+        idx[row_of, r, slot[sel]] = crs.col_idx[sel] % rounds
+        val[row_of, r, slot[sel]] = crs.values[sel]
+    return idx, val
+
+
+def prep_rounds(crs: CRS, rounds: int, rmax: Optional[int] = None,
+                pad_rows_to: int = 128, on_overflow: str = "raise",
+                dtype: torch.dtype = torch.float32, *, device=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CRS -> padded per-round ``(idx, val)`` on ``device``; idx local in
+    [0, R), -1 = pad, shape (Mp, n_rounds, rmax).
+
+    Rows are padded up to a multiple of ``pad_rows_to``; at most R
+    non-zeros fit in one round window, so rmax <= R. ``dtype`` sets the
+    value tensor's type. A caller-supplied ``rmax`` below
+    the densest (row, round) count raises with ``on_overflow="raise"``;
+    ``on_overflow="drop"`` keeps the first ``rmax`` non-zeros of each
+    window and warns about the rest.
+    """
+    dev = resolve_device(device)
+    idx, val = _prep_rounds_np(crs, rounds, rmax, pad_rows_to, on_overflow)
+    return (torch.from_numpy(idx).to(dev),
+            torch.from_numpy(val).to(dtype).to(dev))
+
+
+def _pad_rmax(idx: torch.Tensor, val: torch.Tensor,
+              rmax: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    extra = rmax - idx.shape[2]
+    if extra == 0:
+        return idx, val
+    return (torch.nn.functional.pad(idx, (0, extra), value=-1),
+            torch.nn.functional.pad(val, (0, extra)))
+
+
+def pad_common_rmax(ai, av, bi, bv):
+    """Pad both operands' slot axis to the larger rmax (-1 / 0 slots)."""
+    rmax = max(ai.shape[2], bi.shape[2])
+    return (*_pad_rmax(ai, av, rmax), *_pad_rmax(bi, bv, rmax))
+
+
+def index_match_prepped(ai, av, bi, bv, *, rounds: int = 128,
+                        bm: int = 128, bn: int = 128,
+                        out_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """Round-synchronized index-matching SpMM from PRE-PREPPED per-round
+    operands (``prep_rounds`` output): pads both sides to a common rmax
+    and runs the kernel. Returns the PADDED output; callers trim to the
+    real (M, N). C takes ``out_dtype``, by default the promoted type of
+    the two value tensors."""
+    if out_dtype is None:
+        out_dtype = torch.promote_types(av.dtype, bv.dtype)
+    ai, av, bi, bv = pad_common_rmax(ai, av, bi, bv)
+    return _index_match_kernel(ai, av, bi, bv, rounds=rounds, bm=bm, bn=bn,
+                               out_dtype=out_dtype)
+
+
+def _resolve_matched_tiles(rounds, bm, bn) -> Tuple[int, int, int]:
+    """Fill ``None`` (rounds, bm, bn) with 128. The port has no tuning
+    cache yet (ROADMAP queue 1 item 9)."""
+    return (128 if rounds is None else rounds,
+            128 if bm is None else bm,
+            128 if bn is None else bn)
+
+
+def check_inner(a: CRS, bt: CRS) -> None:
+    if a.shape[1] != bt.shape[1]:
+        raise ValueError(f"inner dims disagree: A is {a.shape}, "
+                         f"Bt is {bt.shape} (expected equal col counts)")
+
+
+def _spmm_index_match(a: CRS, bt: CRS, *, rounds: Optional[int] = None,
+                      bm: Optional[int] = None, bn: Optional[int] = None,
+                      device=None) -> torch.Tensor:
+    """C = A @ Bt.T through the fused index-matching kernel (paper Alg. 2).
+    Returns C[:M, :N] unpadded."""
+    check_inner(a, bt)
+    rounds, bm, bn = _resolve_matched_tiles(rounds, bm, bn)
+    ai, av = prep_rounds(a, rounds, pad_rows_to=bm, device=device)
+    bi, bv = prep_rounds(bt, rounds, pad_rows_to=bn, device=device)
+    out = index_match_prepped(ai, av, bi, bv, rounds=rounds, bm=bm, bn=bn)
+    return out[:a.shape[0], :bt.shape[0]]
+
+
+def _incrs_of(crs: CRS) -> InCRS:
+    """InCRS view of a CRS operand, memoized per live operand, so the
+    densify engine does not re-pack counters (or re-prep, through
+    ``prepare_incrs``) on every call. The CRS is treated as immutable once
+    converted. The memo lives on the operand: an InCRS holds its CRS, so a
+    module-level table of them would keep every operand alive."""
+    incrs = vars(crs).get("_incrs")
+    if incrs is None:
+        incrs = crs._incrs = InCRS.from_crs(crs)
+    return incrs
+
+
+_SPGEMM_VARIANTS = ("auto", "condense_merge", "densify", "reference")
+
+
+def _spmm_spgemm(a: CRS, b, *, rounds: Optional[int] = None,
+                 bm: Optional[int] = None, bn: Optional[int] = None,
+                 variant: str = "auto", device=None) -> torch.Tensor:
+    """C = A @ Bt.T for sparse A and sparse Bt (CRS or InCRS): the SpGEMM
+    dispatch. Engines:
+
+      * ``"reference"``      — the fused index-matching kernel, one launch;
+      * ``"condense_merge"`` — per-round stripes, then their merge
+        (``spgemm.condense_merge_prepped``), bitwise equal to reference;
+      * ``"densify"``        — gather Bt dense on the device, then the
+        fused InCRS SpMM;
+      * ``"auto"``           — a fixed rule, ``"reference"``: one launch
+        and no (n_rounds, M, N) stripe array. The JAX cost model is
+        calibrated for a TPU (recalibrating is ROADMAP queue 1 item 9).
+    """
+    if variant not in _SPGEMM_VARIANTS:
+        raise ValueError(f"variant must be one of {_SPGEMM_VARIANTS}, "
+                         f"got {variant!r}")
+    bt = b.crs if isinstance(b, InCRS) else b
+    check_inner(a, bt)
+    m, n = a.shape[0], bt.shape[0]
+    rounds, bm, bn = _resolve_matched_tiles(rounds, bm, bn)
+    if variant in ("auto", "reference"):
+        return _spmm_index_match(a, bt, rounds=rounds, bm=bm, bn=bn,
+                                 device=device)
+    if variant == "densify":
+        dense_b = incrs_to_dense(_incrs_of(bt), device=device).T
+        return _spmm_incrs(_incrs_of(a), dense_b, device=device)
+    from .. import spgemm as _spgemm            # circular at module scope
+    ai, av = prep_rounds(a, rounds, pad_rows_to=bm, device=device)
+    bi, bv = prep_rounds(bt, rounds, pad_rows_to=bn, device=device)
+    out = _spgemm.condense_merge_prepped(ai, av, bi, bv, rounds=rounds,
+                                         bm=bm, bn=bn)
+    return out[:m, :n]
+
+
+# ----------------------------------------------------------------------
 def spmm(a, b, *, bm: int = 128, bn: Optional[int] = None,
-         variant: str = "auto", device=None, mesh=None) -> torch.Tensor:
-    """C = A @ B, dispatched on the format of A. ``PreparedOperand`` and
-    ``InCRS`` run the fused InCRS SpMM; the other formats of the JAX
-    package are later slices of the port and raise."""
+         variant: str = "auto", rounds: Optional[int] = None, device=None,
+         mesh=None) -> torch.Tensor:
+    """C = A @ B, dispatched on the format of A.
+
+      * ``PreparedOperand`` / ``InCRS``  -> fused InCRS SpMM (``variant``
+        picks the grid order);
+      * ``CRS`` x ``CRS``/``InCRS`` (B = the sparse B^T, row-stored) ->
+        SpGEMM C = A @ B^T: ``variant`` picks "reference", "condense_merge",
+        "densify" or "auto" (= "reference"); window = ``rounds``.
+
+    The other formats of the JAX package are later slices of the port and
+    raise. Returns C[:M, :N] unpadded, f32 accumulation everywhere.
+    """
     if mesh is not None:
         raise NotImplementedError(
             "row-sharded SpMM is not ported yet (ROADMAP queue 1 item 8)")
@@ -200,13 +407,18 @@ def spmm(a, b, *, bm: int = 128, bn: Optional[int] = None,
         return _spmm_incrs(a, b, bm=bm, bn=bn, variant=variant,
                            device=device)
     if isinstance(a, CRS):
-        raise NotImplementedError(
-            "CRS index matching and SpGEMM are not ported yet (ROADMAP "
-            "queue 1 item 7)")
+        if not isinstance(b, (CRS, InCRS)):
+            raise TypeError(
+                "spmm with a CRS left operand runs sparse x sparse "
+                "C = A @ B^T and needs B^T sparse too (CRS or InCRS); "
+                "densify one side or use the InCRS path for "
+                "sparse-times-dense")
+        return _spmm_spgemm(a, b, rounds=rounds, bm=bm, bn=bn,
+                            variant=variant, device=device)
     if getattr(a, "ndim", None) == 2:
         raise NotImplementedError(
             "the dense tiled matmul is not ported yet (ROADMAP queue 1 "
-            "item 6)")
+            "item 7)")
     raise TypeError(f"spmm does not know the operand format "
-                    f"{type(a).__name__}; the port serves PreparedOperand "
-                    f"and InCRS (BSR is ROADMAP queue 1 item 5)")
+                    f"{type(a).__name__}; the port serves PreparedOperand, "
+                    f"InCRS and CRS (BSR is ROADMAP queue 1 item 6)")

@@ -1,0 +1,242 @@
+"""The port's sparse × sparse kernels on the card: index matching, condense,
+merge and the InCRS gather, each against its plain torch version and the
+float64 product; condense + merge bitwise equal to index matching; the
+engines of ``ops.spmm(CRS, CRS)`` launching what each implies.
+
+This file imports nothing of JAX, so it runs on a machine that has the card
+and no JAX: ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
+tests/test_torch_cuda_spgemm.py`` (the shared conftest imports JAX). On a
+machine without CUDA every test skips.
+
+Tolerances: index matching and condense against their plain versions
+``1e-5 * max|C|`` (the plain version multiplies dense round windows, in
+another order); against the float64 product ``1e-4 * max|C|`` (f32
+accumulation). Merge, condense + merge against index matching, and the
+gather against its plain version: bit for bit.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import spgemm                            # noqa: E402
+from repro_torch.core.crs import CRS                      # noqa: E402
+from repro_torch.core.incrs import InCRS                  # noqa: E402
+from repro_torch.data import datasets                     # noqa: E402
+from repro_torch.kernels import incrs_gather as G         # noqa: E402
+from repro_torch.kernels import incrs_spmm as K1          # noqa: E402
+from repro_torch.kernels import index_match_spmm as IM    # noqa: E402
+from repro_torch.kernels import ops                       # noqa: E402
+from repro_torch.spgemm import kernels as SK              # noqa: E402
+
+KERNEL_TOL = 1e-5
+F64_TOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain versions in f32
+    return torch.device("cuda")
+
+
+def _sparse(rng, m, k, d):
+    a = rng.uniform(-1.5, 1.5, size=(m, k)).astype(np.float32)
+    a[rng.random(size=(m, k)) >= d] = 0.0
+    return a
+
+
+def _pair(name, rounds):
+    """(A, Bt) dense f32: C = A @ Bt.T."""
+    rng = np.random.default_rng(5)
+    if name == "docword4":
+        spec = datasets.scaled(datasets.TABLE4_DATASETS["docword4"], 0.1)
+        a = datasets.synthesize(spec, 0).to_dense()
+        return a, a
+    if name == "zero":
+        return np.zeros((40, 300), np.float32), _sparse(rng, 24, 300, 0.1)
+    if name == "empty_rows":
+        a = _sparse(rng, 64, 500, 0.05)
+        a[3] = 0.0
+        a[10:20] = 0.0
+        return a, a
+    if name == "rmax_1":                   # one non-zero per live window
+        a = np.zeros((48, 4 * rounds), np.float32)
+        for r in range(48):
+            for t in range(0, 4, 1 + r % 2):
+                a[r, t * rounds + rng.integers(rounds)] = 1.0 + r
+        return a, a
+    if name == "full_window":              # a round window of R non-zeros
+        a = _sparse(rng, 40, 3 * rounds, 0.05)
+        a[::3, rounds:2 * rounds] = rng.uniform(0.5, 1.5,
+                                                size=(14, rounds))
+        return a, a
+    if name == "ragged":                   # K % R, M % bm, N % bn != 0
+        return _sparse(rng, 203, 333, 0.08), _sparse(rng, 77, 333, 0.1)
+    raise ValueError(name)
+
+
+CASES = ["docword4", "zero", "empty_rows", "rmax_1", "full_window", "ragged"]
+
+
+def _prep(dense, rounds, pad, dev):
+    return ops.prep_rounds(CRS.from_dense(dense), rounds, pad_rows_to=pad,
+                           device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounds", [32, 128])
+@pytest.mark.parametrize("name", CASES)
+def test_match_kernels_against_plain_and_each_other(cuda, name, rounds):
+    a, bt = _pair(name, rounds)
+    ai, av = _prep(a, rounds, 64, cuda)
+    bi, bv = _prep(bt, rounds, 32, cuda)
+    ai, av, bi, bv = ops.pad_common_rmax(ai, av, bi, bv)
+    if name == "rmax_1":
+        assert ai.shape[2] == 1
+    if name == "full_window":
+        assert ai.shape[2] == rounds
+    kw = dict(rounds=rounds, bm=64, bn=32)
+    before = dict(IM.LAUNCHES, **SK.LAUNCHES)
+    fused = IM.index_match_spmm(ai, av, bi, bv, **kw)
+    stripes = SK.spgemm_condense(ai, av, bi, bv, **kw)
+    merged = SK.spgemm_merge(stripes, bm=64, bn=32)
+    torch.cuda.synchronize()
+    assert IM.LAUNCHES["index_match_spmm"] == \
+        before["index_match_spmm"] + 1
+    for k in SK.LAUNCHES:
+        assert SK.LAUNCHES[k] == before[k] + 1
+    assert fused.dtype == merged.dtype == torch.float32
+    assert torch.equal(merged, fused)
+    ref = IM.plain(ai, av, bi, bv, **kw)
+    scale = max(float(ref.abs().max()), 1e-30)
+    assert float((fused - ref).abs().max()) <= KERNEL_TOL * scale
+    plain_s = SK.plain_condense(ai, av, bi, bv, **kw)
+    assert float((stripes - plain_s).abs().max()) <= KERNEL_TOL * scale
+    assert torch.equal(SK.plain_merge(stripes, bm=64, bn=32), merged)
+    want = a.astype(np.float64) @ bt.astype(np.float64).T
+    got = fused.cpu().numpy()[:a.shape[0], :bt.shape[0]]
+    assert np.abs(got - want).max() <= F64_TOL * max(np.abs(want).max(),
+                                                     1e-30)
+    if name == "zero":
+        assert not fused.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["docword4", "empty_rows", "ragged"])
+def test_gather_bitwise_equal_to_plain(cuda, name):
+    a, _ = _pair(name, 128)
+    prep = ops.prepare_incrs(InCRS.from_dense(a), pad_rows_to=8, device=cuda)
+    before = G.LAUNCHES["incrs_gather"]
+    out = G.incrs_gather(prep.idx, prep.val, section=prep.section, bm=8)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["incrs_gather"] == before + 1
+    assert torch.equal(out, G.plain(prep.idx, prep.val,
+                                    section=prep.section, bm=8))
+    assert np.array_equal(out.cpu().numpy()[:a.shape[0], :a.shape[1]], a)
+
+
+def _deltas(before):
+    now = {**K1.LAUNCHES, **G.LAUNCHES, **IM.LAUNCHES, **SK.LAUNCHES}
+    return {k: v - before[k] for k, v in now.items() if v != before[k]}
+
+
+ENGINE_LAUNCHES = {
+    "reference": {"index_match_spmm": 1},
+    "auto": {"index_match_spmm": 1},
+    "condense_merge": {"spgemm_condense": 1, "spgemm_merge": 1},
+    "densify": {"incrs_gather": 1, "incrs_spmm": 1},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", sorted(ENGINE_LAUNCHES))
+def test_spmm_engines_launch_their_kernels(cuda, variant):
+    a, bt = _pair("ragged", 128)
+    want = a.astype(np.float64) @ bt.astype(np.float64).T
+    before = {**K1.LAUNCHES, **G.LAUNCHES, **IM.LAUNCHES, **SK.LAUNCHES}
+    out = ops.spmm(CRS.from_dense(a), CRS.from_dense(bt), variant=variant,
+                   rounds=64, device=cuda)
+    torch.cuda.synchronize()
+    assert _deltas(before) == ENGINE_LAUNCHES[variant]
+    assert out.device.type == "cuda" and out.shape == want.shape
+    assert np.abs(out.cpu().numpy() - want).max() <= \
+        F64_TOL * np.abs(want).max()
+
+
+@pytest.mark.gpu
+def test_spgemm_entry_and_incrs_rhs(cuda):
+    a, bt = _pair("ragged", 128)
+    want = a.astype(np.float64) @ bt.astype(np.float64).T
+    out = ops.spmm(CRS.from_dense(a), InCRS.from_dense(bt), rounds=32)
+    assert out.device.type == "cuda"
+    assert np.abs(out.cpu().numpy() - want).max() <= \
+        F64_TOL * np.abs(want).max()
+    c, est = spgemm.spgemm(CRS.from_dense(a), CRS.from_dense(bt), rounds=32,
+                           output="crs")
+    assert isinstance(c, CRS)
+    assert np.abs(c.to_dense() - want).max() <= F64_TOL * np.abs(want).max()
+    d, _ = spgemm.spgemm(CRS.from_dense(a), CRS.from_dense(bt), rounds=32,
+                         output="dense")
+    assert isinstance(d, torch.Tensor) and d.device.type == "cuda"
+    assert np.array_equal(d.cpu().numpy(), c.to_dense())
+
+
+@pytest.mark.gpu
+def test_out_dtype_on_the_card(cuda):
+    a, bt = _pair("docword4", 128)
+    ai, av = _prep(a, 128, 128, cuda)
+    bi, bv = _prep(bt, 128, 128, cuda)
+    f32 = ops.index_match_prepped(ai, av, bi, bv)
+    bf = ops.index_match_prepped(ai, av.bfloat16(), bi, bv.bfloat16())
+    assert bf.dtype == torch.bfloat16
+    forced = ops.index_match_prepped(ai, av, bi, bv,
+                                     out_dtype=torch.bfloat16)
+    assert torch.equal(forced, f32.bfloat16())
+    cm = spgemm.condense_merge_prepped(ai, av, bi, bv,
+                                       out_dtype=torch.bfloat16)
+    assert torch.equal(cm, forced)
+
+
+@pytest.mark.gpu
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    idx = torch.full((64, 2, 4), -1, dtype=torch.int32, device=cuda)
+    val = torch.zeros((64, 2, 4), device=cuda)
+    with pytest.raises(TypeError):
+        IM.index_match_spmm(idx.long(), val, idx, val, bm=64, bn=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        IM.index_match_spmm(idx.transpose(1, 2).contiguous().transpose(1, 2),
+                            val, idx, val, bm=64, bn=64)
+    with pytest.raises(ValueError, match="shared memory"):
+        IM.index_match_spmm(idx, val, idx, val, rounds=1024, bm=64, bn=64)
+    with pytest.raises(ValueError, match="share one device"):
+        IM.index_match_spmm(idx, val, idx.cpu(), val, bm=64, bn=64)
+    with pytest.raises(ValueError, match="round counts"):
+        SK.spgemm_condense(idx, val, idx[:, :1].contiguous(),
+                           val[:, :1].contiguous(), bm=64, bn=64)
+    with pytest.raises(TypeError):
+        SK.spgemm_merge(torch.zeros((2, 64, 64), dtype=torch.float64,
+                                    device=cuda), bm=64, bn=64)
+    with pytest.raises(TypeError):
+        G.incrs_gather(idx, val.double(), bm=8)
+    # 100 rounds of 16384 x 16384 f32 stripes: 107 GB, refused up front.
+    big = torch.full((16384, 100, 1), -1, dtype=torch.int32, device=cuda)
+    zeros = torch.zeros(big.shape, device=cuda)
+    with pytest.raises(RuntimeError, match="stripe array"):
+        spgemm.condense_merge_prepped(big, zeros, big, zeros)
+
+
+@pytest.mark.gpu
+def test_incrs_spmm_takes_a_strided_rhs_that_needs_no_padding(cuda):
+    """K a multiple of the section and N of the column tile: the padding
+    is empty, and a transposed B must still reach the kernel contiguous."""
+    rng = np.random.default_rng(2)
+    a = _sparse(rng, 48, 512, 0.05)
+    b = rng.normal(size=(128, 512)).astype(np.float32)
+    bt = torch.from_numpy(b).to(cuda).T
+    assert not bt.is_contiguous()
+    out = ops.spmm(InCRS.from_dense(a), bt, bn=128, device=cuda)
+    want = a.astype(np.float64) @ b.T.astype(np.float64)
+    assert np.abs(out.cpu().numpy() - want).max() <= \
+        F64_TOL * np.abs(want).max()

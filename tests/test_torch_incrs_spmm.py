@@ -161,9 +161,9 @@ def test_ops_spmm_on_prepared_operand_from_jax():
 def test_ops_spmm_other_formats_name_their_roadmap_item():
     from repro_torch.core.crs import CRS
     dense = _operand("k_ragged")
+    with pytest.raises(TypeError, match="sparse x sparse"):
+        tops.spmm(CRS.from_dense(dense), dense.T)     # ported: item 5
     with pytest.raises(NotImplementedError, match="item 7"):
-        tops.spmm(CRS.from_dense(dense), dense.T)
-    with pytest.raises(NotImplementedError, match="item 6"):
         tops.spmm(dense, dense.T)
     with pytest.raises(NotImplementedError, match="item 8"):
         tops.spmm(TInCRS.from_dense(dense), dense.T, mesh=object())

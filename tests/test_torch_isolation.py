@@ -15,7 +15,8 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 def _port_files():
     # The CUDA kernel tests run on the card, where JAX is not installed.
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "tests", "test_torch_cuda_kernels.py")]
+           os.path.join(ROOT, "tests", "test_torch_cuda_kernels.py"),
+           os.path.join(ROOT, "tests", "test_torch_cuda_spgemm.py")]
     for base, _, files in os.walk(PORT):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return sorted(out)

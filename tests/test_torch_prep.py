@@ -16,6 +16,7 @@ from repro_torch.data import datasets as tdata        # noqa: E402
 from repro_torch.kernels import ops as tops           # noqa: E402
 
 TABLE2 = sorted(jdata.TABLE2_DATASETS)
+TABLES = {**jdata.TABLE2_DATASETS, **jdata.TABLE4_DATASETS}
 
 
 def _edge_dense(kind):
@@ -61,10 +62,11 @@ def _assert_crs_equal(t, j):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("name", TABLE2)
+@pytest.mark.parametrize("name", TABLE2 + sorted(jdata.TABLE4_DATASETS))
 def test_synthesize_matches_jax(name):
-    spec = jdata.scaled(jdata.TABLE2_DATASETS[name], 0.06)
-    tspec = tdata.scaled(tdata.TABLE2_DATASETS[name], 0.06)
+    spec = jdata.scaled(TABLES[name], 0.06)
+    tspec = tdata.scaled({**tdata.TABLE2_DATASETS,
+                          **tdata.TABLE4_DATASETS}[name], 0.06)
     assert tspec == tdata.DatasetSpec(*[getattr(spec, f) for f in
                                         ("name", "m", "n", "density",
                                          "row_nnz", "skew")])

@@ -19,7 +19,9 @@ Phases, each printing one JSON line:
              just after, and must equal the waves.
 4. profile — incrs-docword served twice more: plain for the wall time and
              the host's staging, then under torch.profiler for device time
-             by kind (kernel, copies); the idle share of the card.
+             by kind (kernel, copies); the idle share of the card. After
+             phase 10 the same for docword as bsr and as dense plans and
+             for the granite bsr plan.
 5. times   — incrs-docword at N = 512: each kernel's median time over CUDA
              events beside its plain version, ``torch.sparse.mm`` and the
              bound of the card.
@@ -36,6 +38,23 @@ Phases, each printing one JSON line:
              before and read just after.
 8. spgemm_times — mesh-docword4 at R = 128: each new kernel's median time
              beside its plain version, the library call and the bound.
+9. plan_kernels — the BSR and dense kernels against their plain versions
+             and float64 on the card: the five Table II operands as BSR
+             (blocks 50, 10, 50, 60, 50) at N = 512, the granite-34b MLP
+             operand W_up^T (24576 x 6144, block 128, density 0.25) in
+             both formats, docword dense, and edge operands.
+10. plan_serve — the third path: ``SpMMEngine(plan_for_operand(...))``
+             as bsr and as dense on the five Table II operands at full
+             size and the granite operand, each with the mixed-width
+             trace of phase 3. Counters are zeroed just before and read
+             just after; every wave launches one kernel of its format and
+             no other. Then the serving launcher as a subprocess with
+             --format bsr and --format dense on the five Table II
+             workloads and once with --spmm-swap, checked for its exit
+             code, error and launches (two waves each: its printed rate
+             measures nothing).
+11. plan_times — both kernels at the granite operand and at docword,
+             N = 512: median time, plain version, library call, bound.
 
 Then the card's line, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises. Without a CUDA
@@ -89,6 +108,25 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 KERNEL_TOL = 1e-5        # max|kernel - plain| <= KERNEL_TOL * max|C|
 SERVE_TOL = 1e-4         # max|served - float64 host| <= SERVE_TOL * max|C|
+PLAN_KERNELS = (  # (name, source, Pallas kernel it replaces)
+    ("bsr_spmm", "src/repro_torch/kernels/csrc/bsr_spmm.cu",
+     "src/repro/kernels/bsr_spmm.py:37"),
+    ("dense_mm", "src/repro_torch/kernels/csrc/dense_mm.cu",
+     "src/repro/kernels/dense_mm.py:21"),
+)
+# Table II operands as BSR: the largest block side <= 64 dividing M and K.
+TABLE2_BLOCK = {"incrs-amazon": 50, "incrs-belcastro": 10,
+                "incrs-docword": 50, "incrs-norris": 60, "incrs-mks": 50}
+# The granite-34b dense GELU MLP (src/repro/configs/granite_34b.py: d_model
+# 6144, d_ff 24576) pruned by the repo's BlockSparsity default (block 128,
+# density 0.25, src/repro/models/config.py); A = W_up^T, W_up seeded normal
+# with scale 0.02.
+GRANITE = {"d_model": 6144, "d_ff": 24576, "block": 128, "density": 0.25,
+           "scale": 0.02, "seed": 0}
+GRANITE_NAME = "granite-34b W_up^T"
+# The plan-path engine runs profiled after the counted run (phase 4).
+PROFILED = {("incrs-docword", "bsr"), ("incrs-docword", "dense"),
+            (GRANITE_NAME, "bsr")}
 
 
 def emit(obj) -> None:
@@ -293,16 +331,19 @@ def phase_serve(K, engine_mod, table2):
     return launches
 
 
-def phase_profile(torch, engine_mod, inc):
-    """Two more incrs-docword serve runs after the counted main path: one
-    plain, for the wall time and the host's share of it, then the same run
-    under torch.profiler for the card's busy time by kind. The idle share
-    is taken against the plain run, since the profiler slows the host."""
+def phase_profile(torch, engine_mod, operand, k, *, workload="incrs-docword",
+                  fmt="incrs", kernel_key="expand_kernel"):
+    """Two more serve runs of ``operand`` (an InCRS or a bound plan, K
+    columns) after the counted main path: one plain, for the wall time and
+    the host's share of it, then the same run under torch.profiler for the
+    card's busy time by kind. The idle share is taken against the plain
+    run, since the profiler slows the host."""
     from torch.profiler import ProfilerActivity, profile
-    panels = _trace(inc.crs.shape[1], seed=1)
+    panels = _trace(k, seed=1)
 
     def serve():
-        eng = engine_mod.SpMMEngine(inc, max_wave_cols=512, device="cuda")
+        eng = engine_mod.SpMMEngine(operand, max_wave_cols=512,
+                                    device="cuda")
         for i, p in enumerate(panels):
             eng.submit(engine_mod.SpMMRequest(i, p))
         eng.run()
@@ -313,7 +354,8 @@ def phase_profile(torch, engine_mod, inc):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         s_prof = serve()
-    by_kind = {"kernel_incrs": 0.0, "memcpy_h2d": 0.0, "memcpy_d2h": 0.0,
+    kernel_kind = f"kernel_{fmt}"
+    by_kind = {kernel_kind: 0.0, "memcpy_h2d": 0.0, "memcpy_d2h": 0.0,
                "other": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -321,14 +363,14 @@ def phase_profile(torch, engine_mod, inc):
         us = getattr(ev, "self_device_time_total",  # on the device events
                      getattr(ev, "self_cuda_time_total", 0.0))
         key = ev.key.lower()
-        kind = ("kernel_incrs" if "expand_kernel" in key else
+        kind = (kernel_kind if kernel_key in key else
                 "memcpy_h2d" if "htod" in key else
                 "memcpy_d2h" if "dtoh" in key else "other")
         by_kind[kind] += us / 1e3
     wall_ms = s["elapsed_s"] * 1e3
     busy_ms = sum(by_kind.values())
-    emit({"phase": "profile", "workload": "incrs-docword", "variant": "auto",
-          "waves": s["waves"], "wall_ms": wall_ms,
+    emit({"phase": "profile", "workload": workload, "format": fmt,
+          "variant": "auto", "waves": s["waves"], "wall_ms": wall_ms,
           "wall_ms_profiled": s_prof["elapsed_s"] * 1e3,
           "device_ms_by_kind": by_kind, "device_busy_ms": busy_ms,
           "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
@@ -709,6 +751,431 @@ def phase_spgemm_times(torch, P, crs, inc, errs, launches):
     return rows
 
 
+# ----------------------------------------------------------------------
+# The plan–execute path: bsr and dense operands behind plan_for_operand,
+# on the BSR and the dense kernel.
+def _granite(Q):
+    """The granite-34b MLP operand: the bsr Linear of W_up and its pruned
+    dense A = W_up^T (host f32)."""
+    g = GRANITE
+    w = np.random.default_rng(g["seed"]).standard_normal(
+        (g["d_model"], g["d_ff"]), dtype=np.float32)
+    w *= g["scale"]
+    lin = Q.api.Linear.from_dense(w, Q.api.SparseSpec(
+        "bsr", density=g["density"], block=g["block"]), device="cuda")
+    del w
+    return lin, np.ascontiguousarray(lin.to_dense().T)
+
+
+def _bsr_check(torch, Q, row_of, col_of, slots, row_start, b, nbr, a64,
+               label):
+    """The BSR kernel on the card against its plain version and the
+    float64 product ``a64 @ b``."""
+    before = Q.KB.LAUNCHES["bsr_spmm"]
+    out = Q.KB.bsr_spmm(row_of, col_of, slots, b, n_block_rows=nbr,
+                        row_start=row_start)
+    torch.cuda.synchronize()
+    check(Q.KB.LAUNCHES["bsr_spmm"] == before + 1,
+          f"bsr_spmm counted its launch on {label}")
+    ref = Q.KB.plain(row_of, col_of, slots, b, n_block_rows=nbr)
+    want = a64 @ b.double()
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((out - ref).abs().max())
+    err64 = float((out.double() - want).abs().max())
+    check(bool(torch.isfinite(out).all()) and out.shape == want.shape,
+          f"bsr_spmm finite, right shape on {label}")
+    check(err <= KERNEL_TOL * scale, f"bsr_spmm on {label}: max|err| {err} "
+          f"> {KERNEL_TOL} * {scale}")
+    check(err64 <= SERVE_TOL * scale, f"bsr_spmm on {label} vs float64: "
+          f"{err64} > {SERVE_TOL} * {scale}")
+    return {"max_abs_err": err, "max_rel_err_f64": err64 / scale}
+
+
+def _dense_check(torch, Q, a, b, label):
+    before = Q.KD.LAUNCHES["dense_mm"]
+    out = Q.ops.dense_mm(a, b)
+    torch.cuda.synchronize()
+    check(Q.KD.LAUNCHES["dense_mm"] == before + 1,
+          f"dense_mm counted its launch on {label}")
+    ref = Q.KD.plain(a, b)
+    want = a.double() @ b.double()
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((out - ref).abs().max())
+    err64 = float((out.double() - want).abs().max())
+    check(bool(torch.isfinite(out).all()) and out.shape == want.shape,
+          f"dense_mm finite, right shape on {label}")
+    check(err <= KERNEL_TOL * scale, f"dense_mm on {label}: max|err| {err} "
+          f"> {KERNEL_TOL} * {scale}")
+    check(err64 <= SERVE_TOL * scale, f"dense_mm on {label} vs float64: "
+          f"{err64} > {SERVE_TOL} * {scale}")
+    return {"max_abs_err": err, "max_rel_err_f64": err64 / scale}
+
+
+def _bsr_edges():
+    """(label, A, (bm, bk), N): operands that reach each masked edge."""
+    rng = np.random.default_rng(23)
+
+    def blocky(m, k, bm, bk, d, empty=()):
+        keep = rng.random((m // bm, k // bk)) < d
+        keep[list(empty)] = False
+        a = rng.uniform(-1.5, 1.5, size=(m, k)).astype(np.float32)
+        return (a.reshape(m // bm, bm, k // bk, bk) *
+                keep[:, None, :, None]).reshape(m, k)
+
+    return [("empty_block_rows", blocky(640, 768, 64, 64, 0.4, (0, 3, 9)),
+             (64, 64), 512),
+            ("all_empty", np.zeros((256, 384), np.float32), (32, 32), 256),
+            ("n_1", blocky(500, 600, 50, 50, 0.5), (50, 50), 1),
+            ("n_129", blocky(500, 600, 50, 50, 0.5, (2,)), (50, 50), 129),
+            ("rect_32x64", blocky(512, 1024, 32, 64, 0.3, (1,)), (32, 64),
+             320)]
+
+
+def phase_plan_kernels(torch, Q, table2, granite):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    results, errs = [], {}
+    for wl_name, block in TABLE2_BLOCK.items():
+        a = table2[wl_name].crs.to_dense()
+        bsr = Q.BSR.from_dense(a, (block, block))
+        row_of, col_of, slots, rs = Q.ops.prep_bsr(bsr, device="cuda")
+        b = torch.randn(a.shape[1], 512, generator=gen, device="cuda")
+        a64 = torch.from_numpy(a).to("cuda").double()
+        e = _bsr_check(torch, Q, row_of, col_of, slots, rs, b,
+                       bsr.n_block_rows, a64, f"{wl_name} block {block}")
+        line = {"operand": wl_name, "kernel": "bsr_spmm", "shape":
+                list(a.shape), "block": block, "live_blocks": bsr.nnz_blocks,
+                "blocks": bsr.n_block_rows * bsr.n_block_cols, "n": 512, **e}
+        if wl_name == "incrs-docword":
+            line_d = {"operand": wl_name, "kernel": "dense_mm",
+                      "shape": list(a.shape), "n": 512,
+                      **_dense_check(torch, Q, a64.float(), b,
+                                     "docword dense")}
+            results.append(line_d)
+        results.append(line)
+        del a64, slots, b
+    lin, a_g = granite
+    meta = lin.meta
+    row_of, col_of, row_start = meta.kernel_index(torch.device("cuda"))
+    slots = Q.lin_mod._pad_slots(lin.values.detach(), meta)
+    b = torch.randn(a_g.shape[1], 512, generator=gen, device="cuda")
+    a64 = torch.from_numpy(a_g).to("cuda").double()
+    blocks = meta.n_block_rows * meta.n_block_rows_t
+    check(meta.nnz == round(GRANITE["density"] * blocks),
+          f"granite operand keeps {GRANITE['density']} of {blocks} blocks, "
+          f"got {meta.nnz}")
+    errs["bsr_spmm"] = _bsr_check(torch, Q, row_of, col_of, slots,
+                                  row_start, b, meta.n_block_rows, a64,
+                                  "granite bsr")
+    errs["dense_mm"] = _dense_check(torch, Q, a64.float(), b,
+                                    "granite dense")
+    for kname in ("bsr_spmm", "dense_mm"):
+        results.append({"operand": GRANITE_NAME, "kernel": kname,
+                        "shape": list(a_g.shape), "block": 128,
+                        "live_blocks": meta.nnz, "blocks": blocks, "n": 512,
+                        **errs[kname]})
+    del a64, slots, b
+    for label, a, blk, n in _bsr_edges():
+        bsr = Q.BSR.from_dense(a, blk)
+        row_of, col_of, slots, rs = Q.ops.prep_bsr(bsr, device="cuda")
+        b = torch.randn(a.shape[1], n, generator=gen, device="cuda")
+        e = _bsr_check(torch, Q, row_of, col_of, slots, rs, b,
+                       bsr.n_block_rows,
+                       torch.from_numpy(a).to("cuda").double(), label)
+        results.append({"operand": label, "kernel": "bsr_spmm",
+                        "shape": list(a.shape), "block": list(blk),
+                        "live_blocks": bsr.nnz_blocks, "n": n, **e})
+    for m, k, n in ((1, 1, 1), (127, 129, 300), (300, 7, 129)):
+        a = torch.randn(m, k, generator=gen, device="cuda")
+        b = torch.randn(k, n, generator=gen, device="cuda")
+        results.append({"operand": f"ragged {m}x{k}x{n}",
+                        "kernel": "dense_mm", "shape": [m, k], "n": n,
+                        **_dense_check(torch, Q, a, b, f"{m}x{k}x{n}")})
+    emit({"phase": "plan_kernels",
+          "tolerance": f"max|kernel-plain| <= {KERNEL_TOL} * max|C|, "
+                       f"max|kernel-float64| <= {SERVE_TOL} * max|C|",
+          "checks": results})
+    torch.cuda.empty_cache()
+    return {k: v["max_abs_err"] for k, v in errs.items()}
+
+
+_LAUNCHER_NUMBERS = {   # the rates of two waves: printed, not a cell
+    "waves_first": r"waves=(\d+)",
+    "requests_per_s": r"([\d.]+) req/s",
+    "latency_ms_p50": r"p50=([\d.]+)ms",
+    "latency_ms_p99": r"p99=([\d.]+)ms",
+    "max_rel_err": r"float64 oracle: ([\d.e+-]+)",
+    "plan_host_ms": r"on the host: ([\d.]+) ms",
+    "max_rel_err_swapped": r"max \|err\| / max\|C\|: ([\d.e+-]+)",
+    "waves": r"waves total (\d+)",
+}
+
+
+def _run_launcher(args):
+    """The launcher as a subprocess: a check of its exit code, its error
+    against float64 and its launches. Its rate and latency are printed
+    as it reports them, but two waves of requests measure no rate: the
+    engine runs of phase plan_serve do."""
+    import re
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--spmm",
+           "--device", "cuda", "--n-requests", "16", *args]
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    line = {"phase": "plan_serve", "entry": "launcher",
+            "cmd": " ".join(cmd[3:]), "rc": proc.returncode}
+    if proc.returncode != 0:
+        emit({**line, "stdout": proc.stdout[-2000:],
+              "stderr": proc.stderr[-2000:]})
+    check(proc.returncode == 0, f"launcher {' '.join(args)} exited 0")
+    for key, pat in _LAUNCHER_NUMBERS.items():
+        m = re.search(pat, proc.stdout)
+        if m:
+            line[key] = float(m.group(1))
+    m = re.search(r"kernel launches (\{.*\})", proc.stdout)
+    check(m is not None, "launcher printed its kernel launches")
+    line["launches"] = json.loads(m.group(1))
+    return line
+
+
+def _engine_run(torch, Q, bound, panels, ref, label):
+    """One SpMMEngine run over ``bound``; every request against the float64
+    product ``ref`` on the card."""
+    eng = Q.engine.SpMMEngine(bound, max_wave_cols=512)
+    reqs = [Q.engine.SpMMRequest(i, p) for i, p in enumerate(panels)]
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run()
+    check(len(done) == len(reqs) and all(r.done for r in reqs),
+          f"{label}: every request served")
+    off, worst = 0, 0.0
+    for r in reqs:
+        want = ref[:, off:off + r.b.shape[1]]
+        off += r.b.shape[1]
+        got = torch.from_numpy(r.out).to("cuda")
+        check(tuple(got.shape) == tuple(want.shape) and
+              bool(torch.isfinite(got).all()),
+              f"{label} request {r.rid} finite, right shape")
+        cmax = max(float(want.abs().max()), 1e-30)
+        err = float((got.double() - want).abs().max())
+        check(err <= SERVE_TOL * cmax, f"{label} request {r.rid}: {err} > "
+              f"{SERVE_TOL} * {cmax}")
+        worst = max(worst, err / cmax)
+    return eng, worst
+
+
+def _plan_counters(Q):
+    return {**Q.K.LAUNCHES, **Q.KB.LAUNCHES, **Q.KD.LAUNCHES}
+
+
+def _plan_operands(table2, granite):
+    """(label, dense A, bsr block) of the plan path, one at a time."""
+    for name, block in TABLE2_BLOCK.items():
+        yield name, table2[name].crs.to_dense(), block
+    yield GRANITE_NAME, granite[1], GRANITE["block"]
+
+
+def phase_plan_serve(torch, Q, table2, granite):
+    """The path, driven with the counters at 0 just before it:
+    ``SpMMEngine(plan_for_operand(A, spec))`` as bsr and as dense on the
+    five Table II operands and the granite operand, each with the
+    mixed-width trace of phase serve. Then the launcher as a subprocess
+    (--format bsr|dense on the Table II workloads, once --spmm-swap),
+    checked for its exit code, its error and its launches."""
+    Q.KB.reset_launches()
+    Q.KD.reset_launches()
+    kept = {}
+    for label, a, block in _plan_operands(table2, granite):
+        panels = _trace(a.shape[1], seed=1)
+        a64 = torch.from_numpy(a).to("cuda").double()
+        ref = a64 @ torch.from_numpy(np.concatenate(panels, axis=1)).to(
+            "cuda").double()
+        del a64
+        for fmt in ("bsr", "dense"):
+            spec = Q.api.SparseSpec(fmt, block=block if fmt == "bsr"
+                                    else None)
+            t0 = time.perf_counter()
+            bound = Q.api.plan_for_operand(a, spec, device="cuda")
+            torch.cuda.synchronize()
+            plan_ms = (time.perf_counter() - t0) * 1e3
+            before = _plan_counters(Q)
+            eng, worst = _engine_run(torch, Q, bound, panels, ref,
+                                     f"{label} {fmt}")
+            moved = {k: v - before[k] for k, v in _plan_counters(Q).items()
+                     if v != before[k]}
+            kname = "bsr_spmm" if fmt == "bsr" else "dense_mm"
+            check(moved == {kname: eng.stats["waves"]},
+                  f"{label} {fmt}: launches {moved} are one {kname} per "
+                  f"wave")
+            s = eng.stats_summary()
+            emit({"phase": "plan_serve",
+                  "entry": "SpMMEngine(plan_for_operand)",
+                  "operand": label, "format": fmt,
+                  "block": block if fmt == "bsr" else None,
+                  "a_shape": list(a.shape), "plan_host_ms": plan_ms,
+                  "requests": s["requests"], "waves": s["waves"],
+                  "split_requests": int(eng.stats["split_requests"]),
+                  "launches": moved, "requests_per_s": s["requests_per_s"],
+                  "latency_ms_p50": s["latency_ms"]["p50"],
+                  "latency_ms_p99": s["latency_ms"]["p99"],
+                  "wave_ms_p50": s["wave_ms"]["p50"],
+                  "prep_overlap_fraction": s["prep_overlap_fraction"],
+                  "max_rel_err": worst})
+            if (label, fmt) in PROFILED:
+                kept[(label, fmt)] = bound
+            del bound, eng
+        del ref
+        torch.cuda.empty_cache()
+    launches = {**Q.KB.LAUNCHES, **Q.KD.LAUNCHES}
+    check(all(v > 0 for v in launches.values()),
+          f"both plan kernels ran on the plan path: {launches}")
+    by_launcher = {"bsr_spmm": 0, "dense_mm": 0}
+    runs = [["--workload", name, "--format", fmt] +
+            (["--spmm-block", str(block)] if fmt == "bsr" else [])
+            for name, block in TABLE2_BLOCK.items()
+            for fmt in ("bsr", "dense")]
+    runs.append(["--workload", "incrs-docword", "--format", "bsr",
+                  "--spmm-block", "50", "--spmm-swap"])
+    for args in runs:
+        line = _run_launcher(args)
+        kname = "bsr_spmm" if "bsr" in args else "dense_mm"
+        moved = {k: v for k, v in line["launches"].items() if v}
+        check(moved == {kname: int(line["waves"])},
+              f"launcher {' '.join(args)}: launches {moved} are one "
+              f"{kname} per wave ({line['waves']})")
+        by_launcher[kname] += moved[kname]
+        emit(line)
+    return launches, by_launcher, kept
+
+
+def _plan_work(kname, a_shape, n, nnz=None, block=None, live_cols=None):
+    """(bytes, flops) the function needs: each input read once (for BSR
+    the stored values, the B block-rows some block references, the block
+    lists), C written once; 2 flops per useful multiply-add."""
+    m, k = a_shape
+    if kname == "dense_mm":
+        return (m * k + k * n + m * n) * 4, 2 * m * n * k
+    bm, bk = block
+    nbytes = nnz * bm * bk * 4 + live_cols * bk * n * 4 + m * n * 4 + \
+        (2 * nnz + m // bm + 2) * 4
+    return nbytes, 2 * nnz * bm * bk * n
+
+
+def phase_plan_times(torch, Q, table2, granite, errs, launches,
+                     by_launcher):
+    flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lin, a_g = granite
+    n = 512
+    rows, line = [], {}
+    ops_ = {}
+    # granite: the bound plan's device-ready operands
+    meta = lin.meta
+    row_of, col_of, row_start = meta.kernel_index(torch.device("cuda"))
+    slots = Q.lin_mod._pad_slots(lin.values.detach(), meta)
+    a_dense = torch.from_numpy(a_g).to("cuda")
+    bg = torch.randn(a_g.shape[1], n, generator=gen, device="cuda")
+    ops_["granite"] = {
+        "bsr_spmm": (lambda: Q.KB.bsr_spmm(row_of, col_of, slots, bg,
+                                           n_block_rows=meta.n_block_rows,
+                                           row_start=row_start),
+                     lambda: Q.KB.plain(row_of, col_of, slots, bg,
+                                        n_block_rows=meta.n_block_rows),
+                     a_dense, (128, 128), meta.nnz,
+                     int(np.unique(np.asarray(meta.col_of)).size)),
+        "dense_mm": (lambda: Q.KD.dense_mm(a_dense, bg),
+                     lambda: Q.KD.plain(a_dense, bg), a_dense, None, None,
+                     None)}
+    a_dw = table2["incrs-docword"].crs.to_dense()
+    bsr_dw = Q.BSR.from_dense(a_dw, (50, 50))
+    d_row_of, d_col_of, d_slots, d_rs = Q.ops.prep_bsr(bsr_dw,
+                                                        device="cuda")
+    a_dw_t = torch.from_numpy(a_dw).to("cuda")
+    bd = torch.randn(a_dw.shape[1], n, generator=gen, device="cuda")
+    ops_["docword"] = {
+        "bsr_spmm": (lambda: Q.KB.bsr_spmm(d_row_of, d_col_of, d_slots, bd,
+                                           n_block_rows=14, row_start=d_rs),
+                     lambda: Q.KB.plain(d_row_of, d_col_of, d_slots, bd,
+                                        n_block_rows=14),
+                     a_dw_t, (50, 50), bsr_dw.nnz_blocks,
+                     int(np.unique(bsr_dw.col_idx).size)),
+        "dense_mm": (lambda: Q.KD.dense_mm(a_dw_t, bd),
+                     lambda: Q.KD.plain(a_dw_t, bd), a_dw_t, None, None,
+                     None)}
+    for where, kernels in ops_.items():
+        b = bg if where == "granite" else bd
+        for kname, (fn, plain, a_t, blk, nnz, live_cols) in kernels.items():
+            nbytes, flops = _plan_work(kname, tuple(a_t.shape), n, nnz, blk,
+                                       live_cols)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / F32_FLOP_PER_S * 1e3
+            ms = _time_ms(torch, fn, flush)
+            plain_ms = _time_ms(torch, plain, flush, reps=10)
+            library, why = None, None
+            try:
+                if kname == "dense_mm":
+                    library = _time_ms(torch, lambda: torch.matmul(a_t, b),
+                                       flush)
+                else:
+                    a_bsr = a_t.to_sparse_bsr(blk)
+                    library = _time_ms(torch, lambda: a_bsr @ b, flush,
+                                       reps=10)
+            except (RuntimeError, NotImplementedError) as exc:
+                why = f"{type(exc).__name__}: {str(exc)[:300]}"
+            line[f"{where}/{kname}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+                "flops": flops, "bound_bytes_ms": t_bytes,
+                "bound_ops_ms": t_ops, "library_ms": library,
+                "library_refused": why,
+                "achieved_tflops": flops / ms / 1e9}
+            if where == "granite":
+                name, source, replaces = next(
+                    r for r in PLAN_KERNELS if r[0] == kname)
+                rows.append({"name": kname, "route": "cuda",
+                             "source": source, "replaces": replaces,
+                             "launches": launches[kname],
+                             "launches_by_path": {
+                                 "engine": launches[kname],
+                                 "launcher_subprocesses":
+                                     by_launcher[kname]},
+                             "max_abs_err": errs[kname], "ms": ms,
+                             "plain_ms": plain_ms,
+                             "bound_ms": max(t_bytes, t_ops),
+                             "bound_by": "bytes" if t_bytes >= t_ops
+                             else "operations", "library_ms": library})
+    emit({"phase": "plan_times", "n": n,
+          "library": {"dense_mm": "torch.matmul (f32, TF32 off)",
+                      "bsr_spmm": "A.to_sparse_bsr(block) @ B"},
+          "kernels": line})
+    return rows
+
+
+def plan_path(torch, K, ops, engine_mod, table2):
+    """Phases 9-11 and the profiles of the plan path; the kernels' rows."""
+    from repro_torch.core.bsr import BSR
+    from repro_torch.kernels import bsr_spmm as KB
+    from repro_torch.kernels import dense_mm as KD
+    from repro_torch.sparse import api
+    from repro_torch.sparse import linear as lin_mod
+    Q = types.SimpleNamespace(K=K, KB=KB, KD=KD, ops=ops, api=api,
+                              lin_mod=lin_mod, BSR=BSR, engine=engine_mod)
+    t0 = time.perf_counter()
+    granite = _granite(Q)
+    emit({"phase": "plan_granite", "linear_from_dense_host_s":
+          time.perf_counter() - t0, "a_shape": list(granite[1].shape),
+          "live_blocks": granite[0].meta.nnz})
+    errs = phase_plan_kernels(torch, Q, table2, granite)
+    launches, by_launcher, kept = phase_plan_serve(torch, Q, table2,
+                                                   granite)
+    for (label, fmt), bound in sorted(kept.items()):
+        phase_profile(torch, engine_mod, bound, bound.shape[1],
+                      workload=label, fmt=fmt, kernel_key=f"{fmt}_kernel")
+    del kept, bound
+    torch.cuda.empty_cache()
+    return phase_plan_times(torch, Q, table2, granite, errs, launches,
+                            by_launcher)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -740,7 +1207,7 @@ def main() -> int:
     docword = table2["incrs-docword"]
     errs_512 = phase_kernels(torch, K, ops, InCRS, table2)
     launches = phase_serve(K, engine_mod, table2)
-    phase_profile(torch, engine_mod, docword)
+    phase_profile(torch, engine_mod, docword, docword.shape[1])
     rows = phase_times(torch, K, ops, docword, errs_512, launches)
     P = types.SimpleNamespace(K=K, G=G, IM=IM, SK=SK, ops=ops, spgemm=spgemm,
                               CRS=CRS, InCRS=InCRS)
@@ -755,6 +1222,8 @@ def main() -> int:
     docword4 = table4["mesh-docword4"]
     rows += phase_spgemm_times(torch, P, docword4, InCRS.from_crs(docword4),
                                errs_dw, spgemm_launches)
+    del table4, P
+    rows += plan_path(torch, K, ops, engine_mod, table2)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)
     emit({"kernels": rows})

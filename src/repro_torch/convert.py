@@ -1,17 +1,19 @@
 """Carry an operand's state across from the JAX package.
 
-The system has no weights; its state is the sparse operand. These take the
-fields of a ``repro`` ``CRS``, ``InCRS``, ``PreparedOperand`` or per-round
-prep as numpy arrays (``np.asarray`` of each) and build the port's objects
-from them, so both packages can be fed the same operand.
+The system's state is the sparse operand, or a sparse layer's values and
+metadata. These take the fields of a ``repro`` ``CRS``, ``InCRS``,
+``BSR``, ``PreparedOperand``, per-round prep or sparse-linear params as
+numpy arrays (``np.asarray`` of each) and lists, and build the port's
+objects from them, so both packages can be fed the same operand.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .core.bsr import BSR
 from .core.crs import CRS
 from .core.incrs import InCRS
 from .kernels.ops import PreparedOperand, resolve_device
@@ -72,3 +74,65 @@ def rounds_from_arrays(idx, val, device=None
     dev = resolve_device(device)
     return (torch.from_numpy(idx.copy()).to(dev),
             torch.from_numpy(val.copy()).to(dev))
+
+
+def bsr_from_arrays(values, col_idx, row_ptr, shape: Tuple[int, int],
+                    block: Tuple[int, int]) -> BSR:
+    """The port's ``BSR`` from its three arrays."""
+    values = np.asarray(values)
+    col_idx, row_ptr = np.asarray(col_idx), np.asarray(row_ptr)
+    bm, bk = (int(x) for x in block)
+    m, k = (int(x) for x in shape)
+    if m % bm or k % bk or values.ndim != 3 \
+            or values.shape[1:] != (bm, bk) \
+            or col_idx.shape != (values.shape[0],) \
+            or row_ptr.shape != (m // bm + 1,):
+        raise ValueError(f"BSR arrays disagree: values {values.shape}, "
+                         f"col_idx {col_idx.shape}, row_ptr {row_ptr.shape} "
+                         f"for shape {(m, k)} in blocks {(bm, bk)}")
+    return BSR(values, col_idx.astype(np.int32), row_ptr.astype(np.int32),
+               (m, k), (bm, bk))
+
+
+_BSR_META_TUPLES = ("row_of", "col_of", "vpos", "t_perm", "t_row_of",
+                    "t_col_of", "t_vpos")
+
+
+def linear_from_jax(values, meta_fields: Dict[str, Any], fmt: str, *,
+                    device=None):
+    """The port's ``sparse.Linear`` from a JAX ``SparseLinearParams``
+    (``fmt="bsr"``) or ``DenseLinearParams`` (``fmt="dense"``).
+
+    ``values`` is ``np.asarray(params.values)``; ``meta_fields`` holds the
+    meta's fields (``dataclasses.asdict``-style, tuples as lists) with the
+    pattern given as ``"mask"`` (its element mask, or None) and optional
+    ``"version"``. Both packages then compute the same C."""
+    from .sparse import api, linear
+    from .sparse.pattern import SparsityPattern
+    if fmt not in ("bsr", "dense"):
+        raise ValueError(f"fmt must be 'bsr' or 'dense', got {fmt!r}")
+    meta_fields = dict(meta_fields)
+    mask = meta_fields.pop("mask", None)
+    version = int(meta_fields.pop("version", 0))
+    meta_fields.pop("pattern", None)
+    pattern: Optional[SparsityPattern] = None if mask is None else \
+        SparsityPattern(np.asarray(mask, bool), version)
+    vals = torch.from_numpy(np.array(values)).to(resolve_device(device))
+    if fmt == "bsr":
+        meta = linear.SparseLinearMeta(
+            int(meta_fields["d_in"]), int(meta_fields["d_out"]),
+            int(meta_fields["block"]),
+            *(tuple(int(x) for x in meta_fields[f])
+              for f in _BSR_META_TUPLES), pattern=pattern)
+        if vals.shape != (meta.nnz, meta.block, meta.block):
+            raise ValueError(f"values {tuple(vals.shape)} do not fit "
+                             f"{meta.nnz} blocks of side {meta.block}")
+        if pattern is not None:
+            pattern.packed["bsr"] = meta
+        return api.Linear(linear.SparseLinearParams(vals, meta))
+    meta = api.DenseLinearMeta(int(meta_fields["d_in"]),
+                               int(meta_fields["d_out"]), pattern=pattern)
+    if vals.shape != (meta.d_in, meta.d_out):
+        raise ValueError(f"values {tuple(vals.shape)} are not "
+                         f"({meta.d_in}, {meta.d_out})")
+    return api.Linear(api.DenseLinearParams(vals, meta))

@@ -1,5 +1,6 @@
-"""InCRS and CRS formats (host-side numpy)."""
+"""InCRS, CRS and BSR formats (host-side numpy)."""
+from .bsr import BSR, magnitude_block_mask
 from .crs import CRS
 from .incrs import InCRS
 
-__all__ = ["CRS", "InCRS"]
+__all__ = ["BSR", "CRS", "InCRS", "magnitude_block_mask"]

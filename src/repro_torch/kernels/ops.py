@@ -1,6 +1,7 @@
 """Public kernel API: format preparation and ``spmm``.
 
-The port of ``repro.kernels.ops``, InCRS and CRS parts. ``prep_sections``
+The port of ``repro.kernels.ops``, all but its row-sharded, flash
+attention and tuning parts and its deprecated shims. ``prep_sections``
 turns an InCRS operand into the padded per-(row, section) stripes the
 kernels consume, located through the packed counter words alone;
 ``prepare_incrs`` memoizes that per live operand; ``spmm`` pads B, picks
@@ -9,11 +10,14 @@ the column tile and the grid order, and trims the result.
 ``spmm(CRS, CRS | InCRS)`` runs sparse × sparse C = A @ B.T through one of
 three engines: the fused index-matching kernel (paper Alg. 2),
 condense + merge (``repro_torch.spgemm``), or densify B then the fused
-InCRS SpMM.
+InCRS SpMM. ``bsr_kernel_meta``/``prep_bsr`` turn a BSR operand into the
+block lists of the BSR kernel, and ``spmm(BSR, B)`` runs it;
+``dense_mm`` and ``spmm(dense 2-D, B)`` run the tiled dense kernel. Both
+kernels mask their ragged edges, so neither pads A or B.
 
 Entry points take ``device=`` and default to ``"cuda"``: without CUDA they
 raise unless the caller asks for ``"cpu"``, where the kernels' plain torch
-versions run. The BSR and dense formats are later slices of the port.
+versions run.
 """
 from __future__ import annotations
 
@@ -25,9 +29,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.bsr import BSR
 from ..core.crs import CRS
 from ..core.incrs import InCRS
+from . import bsr_spmm as _bsr_k
 from . import incrs_spmm as _k
+from .dense_mm import dense_mm as _dense_mm_kernel
 from .incrs_gather import incrs_gather as _incrs_gather_kernel
 from .index_match_spmm import index_match_spmm as _index_match_kernel
 
@@ -40,12 +47,17 @@ _INCRS_KERNELS = {"expand": _k.incrs_spmm,
 
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``; None means CUDA. Asking for CUDA
-    where there is none raises instead of running on the CPU."""
+    where there is none raises instead of running on the CPU. A CUDA
+    device without an index gets the current one, so it compares equal
+    to the device of the tensors made on it."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; the port runs on the GPU unless the "
-            "caller passes device='cpu'")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; the port runs on the GPU unless the "
+                "caller passes device='cpu'")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -53,6 +65,97 @@ def check_variant(variant: str) -> None:
     if variant not in VARIANTS:
         raise ValueError(f"variant must be 'auto', 'expand', 'reuse' or "
                          f"'pipelined', got {variant!r}")
+
+
+# ----------------------------------------------------------------------
+def dense_mm(a, b, *, device=None) -> torch.Tensor:
+    """C = A @ B through the tiled dense kernel, f32 sums, C in
+    ``a.dtype``. The JAX version pads every dimension up to its tile and
+    trims; the kernel here masks its edges, so nothing is padded. A CUDA
+    tensor A stays where it is when ``device`` is None; otherwise both go
+    to ``device`` (default CUDA)."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    dev = a.device if device is None and a.device.type == "cuda" \
+        else resolve_device(device)
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"inner dims disagree: A is {tuple(a.shape)}, "
+                         f"B is {tuple(b.shape)}")
+    return _dense_mm_kernel(a.to(dev).contiguous(), b.to(dev).contiguous())
+
+
+# ----------------------------------------------------------------------
+def bsr_kernel_meta(bsr: BSR
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """BSR -> kernel block lists ``(row_of + sentinel, col_of, vpos)``.
+
+    Empty block-rows get one explicit zero tile (stably sorted into place)
+    so every output block-row is written, and the trailing ``row_of``
+    sentinel is well-defined even for an all-empty matrix. ``vpos[q]`` is
+    the slot of real block ``q`` inside the padded sequence (pad slots
+    expect zero values).
+    """
+    deg = np.diff(bsr.row_ptr)
+    row_of = np.repeat(np.arange(bsr.n_block_rows, dtype=np.int32),
+                       deg.astype(np.int64))
+    col_of = bsr.col_idx.astype(np.int32)
+    vpos = np.arange(len(col_of), dtype=np.int32)
+    empty = np.nonzero(deg == 0)[0].astype(np.int32)
+    if empty.size:
+        row_all = np.concatenate([row_of, empty])
+        col_all = np.concatenate([col_of, np.zeros_like(empty)])
+        order = np.argsort(row_all, kind="stable")
+        inv = np.empty(order.size, np.int64)
+        inv[order] = np.arange(order.size)
+        vpos = inv[:len(col_of)].astype(np.int32)
+        row_of, col_of = row_all[order], col_all[order]
+    row_of = np.concatenate([row_of, row_of[-1:]])       # sentinel
+    return row_of.astype(np.int32), col_of, vpos
+
+
+def prep_bsr(bsr: BSR, *, device=None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor]:
+    """BSR -> (row_of, col_of, values, row_start) tensors on ``device`` for
+    the kernel, with zero tiles in place for empty block-rows (see
+    ``bsr_kernel_meta``). The first three are the JAX prep's;
+    ``row_start`` (the block-row prefix counters, one past each run) is
+    derived here once so a launch derives nothing."""
+    dev = resolve_device(device)
+    row_of, col_of, vpos = bsr_kernel_meta(bsr)
+    values = bsr.values
+    if len(col_of) != len(values):
+        padded = np.zeros((len(col_of),) + bsr.block, values.dtype)
+        padded[vpos] = values
+        values = padded
+    row_start = _bsr_k.block_row_starts(row_of[:-1], bsr.n_block_rows)
+    return (torch.from_numpy(row_of).to(dev),
+            torch.from_numpy(col_of).to(dev),
+            torch.from_numpy(np.ascontiguousarray(values)).to(dev),
+            torch.from_numpy(row_start).to(dev))
+
+
+def _spmm_bsr(bsr: BSR, b, *, device=None) -> torch.Tensor:
+    """C = BSR(A) @ B through the prefix-counter-steered BSR kernel, prepped
+    on this call (a plan preps once: ``sparse.plan_for_operand``). C has
+    ``b.dtype``."""
+    b = torch.as_tensor(b)
+    if b.ndim != 2 or b.shape[0] != bsr.shape[1]:
+        raise ValueError(f"inner dims disagree: A is {bsr.shape}, "
+                         f"B is {tuple(b.shape)}")
+    row_of, col_of, values, row_start = prep_bsr(bsr, device=device)
+    return bsr_matmul_arrays(row_of, col_of, values,
+                             b.to(row_of.device).contiguous(),
+                             n_block_rows=bsr.n_block_rows,
+                             row_start=row_start)
+
+
+def bsr_matmul_arrays(row_of, col_of, values, b, *, n_block_rows: int,
+                      row_start: torch.Tensor) -> torch.Tensor:
+    """The BSR kernel from already prepared block lists: the entry point
+    of the BSR sparse linear layer and of bound ``bsr`` plans, which pass
+    the device ``row_start`` they built once."""
+    return _bsr_k.bsr_spmm(row_of, col_of, values, b,
+                           n_block_rows=n_block_rows, row_start=row_start)
 
 
 # ----------------------------------------------------------------------
@@ -395,10 +498,14 @@ def spmm(a, b, *, bm: int = 128, bn: Optional[int] = None,
         picks the grid order);
       * ``CRS`` x ``CRS``/``InCRS`` (B = the sparse B^T, row-stored) ->
         SpGEMM C = A @ B^T: ``variant`` picks "reference", "condense_merge",
-        "densify" or "auto" (= "reference"); window = ``rounds``.
+        "densify" or "auto" (= "reference"); window = ``rounds``;
+      * ``BSR``                          -> block-sparse kernel steered by
+        the block-row prefix counters;
+      * a dense 2-D array or tensor      -> tiled dense kernel.
 
-    The other formats of the JAX package are later slices of the port and
-    raise. Returns C[:M, :N] unpadded, f32 accumulation everywhere.
+    Row-sharding (``mesh=``) is a later slice and raises. Returns C[:M, :N]
+    unpadded, f32 accumulation everywhere; the BSR product takes
+    ``b.dtype`` and the dense one ``a.dtype``, as in the JAX package.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -406,6 +513,8 @@ def spmm(a, b, *, bm: int = 128, bn: Optional[int] = None,
     if isinstance(a, (PreparedOperand, InCRS)):
         return _spmm_incrs(a, b, bm=bm, bn=bn, variant=variant,
                            device=device)
+    if isinstance(a, BSR):
+        return _spmm_bsr(a, b, device=device)
     if isinstance(a, CRS):
         if not isinstance(b, (CRS, InCRS)):
             raise TypeError(
@@ -416,9 +525,7 @@ def spmm(a, b, *, bm: int = 128, bn: Optional[int] = None,
         return _spmm_spgemm(a, b, rounds=rounds, bm=bm, bn=bn,
                             variant=variant, device=device)
     if getattr(a, "ndim", None) == 2:
-        raise NotImplementedError(
-            "the dense tiled matmul is not ported yet (ROADMAP queue 1 "
-            "item 7)")
+        return dense_mm(a, b, device=device)
     raise TypeError(f"spmm does not know the operand format "
-                    f"{type(a).__name__}; the port serves PreparedOperand, "
-                    f"InCRS and CRS (BSR is ROADMAP queue 1 item 6)")
+                    f"{type(a).__name__}; expected PreparedOperand, InCRS, "
+                    f"BSR, CRS or a dense 2-D array")

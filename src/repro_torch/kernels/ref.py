@@ -1,5 +1,5 @@
-"""Plain torch oracles (the port of ``repro.kernels.ref``: InCRS and the
-per-round CRS form of index matching).
+"""Plain torch oracles (the port of ``repro.kernels.ref``: InCRS, the
+per-round CRS form of index matching, BSR and the dense matmul).
 
 They run on any device and are what the tests and ``chip_smoke.py`` hold
 the kernels against. The main path never calls them on a CUDA tensor.
@@ -44,3 +44,26 @@ def incrs_decompress(idx: torch.Tensor, val: torch.Tensor, n_cols: int,
     """Densify padded per-(row, section) stripes (local column inside the
     section, -1 = pad) to f32 (M, n_sections * section)[:, :n_cols]."""
     return round_densify(idx, val, n_cols, section)
+
+
+def bsr_spmm(row_of: torch.Tensor, col_of: torch.Tensor,
+             values: torch.Tensor, b: torch.Tensor,
+             n_block_rows: int) -> torch.Tensor:
+    """C = BSR(A) @ B from the kernel's block lists: gather the B
+    block-row of every stored block, one batched product, then add each
+    block's (bm, N) product into its block-row of C. f32 sums, C in
+    ``b.dtype``. ``row_of`` may carry the trailing sentinel."""
+    nnz, bm, bk = values.shape
+    k, n = b.shape
+    out = torch.zeros(n_block_rows, bm, n, dtype=torch.float32,
+                      device=b.device)
+    if nnz:
+        slabs = b.to(torch.float32).reshape(k // bk, bk, n)[col_of.long()]
+        prod = torch.bmm(values.to(torch.float32), slabs)
+        out.index_add_(0, row_of[:nnz].long(), prod)
+    return out.reshape(n_block_rows * bm, n).to(b.dtype)
+
+
+def dense_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B with f32 sums, in ``a.dtype``."""
+    return matmul(a, b).to(a.dtype)

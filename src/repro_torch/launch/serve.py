@@ -1,29 +1,70 @@
 """Serving launcher: the paper's SpMM workload through ``SpMMEngine``.
 
-One fixed sparse operand (InCRS), a queue of dense right-hand sides, on one
-device (CUDA unless ``--device cpu``):
+One fixed sparse operand, a queue of dense right-hand sides, on one
+device (CUDA unless ``--device cpu``). ``--format incrs`` serves the InCRS
+operand on the fused InCRS kernels; ``--format bsr`` (tiles of side
+``--spmm-block``) and ``--format dense`` serve it through the plan–execute
+API, ``sparse.plan_for_operand``:
 
   python -m repro_torch.launch.serve --spmm --workload incrs-docword \
       --scale 1.0
+  python -m repro_torch.launch.serve --spmm --workload incrs-docword \
+      --format bsr --spmm-block 50 --spmm-swap
 
 Without ``--workload`` the operand is a synthetic ``--spmm-rows`` x
-``--spmm-cols`` matrix of ``--spmm-density``. Every result is checked
-against the dense float64 product on the host; a wrong one fails the run.
+``--spmm-cols`` matrix of ``--spmm-density``. ``--spmm-swap`` re-prunes the
+operand to half its density by magnitude and swaps it into the running
+engine, then serves a second batch. Every result is checked against the
+dense float64 product on the host; a wrong one fails the run.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
 import numpy as np
 
 
+def _operand(fmt: str, crs, dense: np.ndarray, section: int, block: int,
+             spmm_block: int, device, mask=None):
+    """The served operand in ``fmt`` — InCRS from the CRS ``crs``, a plan
+    from its ``dense`` form — and the host seconds its plan took (None for
+    InCRS, prepped by the engine)."""
+    from ..core.incrs import InCRS
+    from ..sparse import api
+    if fmt == "incrs":
+        return InCRS.from_crs(crs, section, block), None
+    t0 = time.perf_counter()
+    spec = api.SparseSpec(fmt, block=spmm_block if fmt == "bsr" else None,
+                          mask=None if mask is None
+                          else np.ascontiguousarray(mask.T))
+    bound = api.plan_for_operand(dense, spec, device=device)
+    return bound, time.perf_counter() - t0
+
+
+def _serve(eng, reqs, ref: np.ndarray) -> float:
+    """Serve ``reqs`` to the end; the worst error against the float64
+    product, relative to max|C|."""
+    for r in reqs:
+        eng.submit(r)
+    mine = {id(r) for r in reqs}
+    done = [r for r in eng.run() if id(r) in mine]
+    worst = 0.0
+    for r in done:
+        want = ref @ r.b.astype(np.float64)
+        err = float(np.abs(r.out - want).max())
+        worst = max(worst, err / max(float(np.abs(want).max()), 1e-30))
+    return worst if len(done) == len(reqs) else float("inf")
+
+
 def _main_spmm(args) -> int:
     from ..configs.paper_spmm import WORKLOADS
-    from ..core.incrs import InCRS
+    from ..core.crs import CRS
     from ..data.datasets import DatasetSpec, scaled, synthesize
     from ..serve.engine import SpMMEngine, SpMMRequest
+    from ..sparse.pattern import magnitude_mask
 
     if args.workload is not None:
         wl = WORKLOADS[args.workload]
@@ -35,8 +76,10 @@ def _main_spmm(args) -> int:
                            args.spmm_density)
         section, block = 256, 32
     a = synthesize(spec, seed=args.seed)
-    eng = SpMMEngine(InCRS.from_crs(a, section, block),
-                     max_wave_cols=args.spmm_max_wave_cols,
+    dense = a.to_dense()
+    operand, plan_s = _operand(args.format, a, dense, section, block,
+                               args.spmm_block, args.device)
+    eng = SpMMEngine(operand, max_wave_cols=args.spmm_max_wave_cols,
                      device=args.device,
                      continuous=not args.spmm_wave_barrier,
                      latency_budget_us=args.spmm_latency_budget_us)
@@ -45,27 +88,46 @@ def _main_spmm(args) -> int:
         size=(spec.n, args.spmm_batch_cols)).astype(np.float32))
         for i in range(args.n_requests)]
     t0 = time.time()
-    for r in reqs:
-        eng.submit(r)
-    done = eng.run()
+    worst = _serve(eng, reqs, dense.astype(np.float64))
     dt = time.time() - t0
     s = eng.stats_summary()
+    block_txt = f" block={args.spmm_block}" if args.format == "bsr" else ""
     print(f"spmm A={spec.m}x{spec.n} d={spec.density} nnz={a.nnz} "
-          f"format={args.format} (single-device {eng.device}, {s['mode']}): "
-          f"served {len(done)} requests / {eng.stats['cols']} cols in "
-          f"{dt:.2f}s, waves={eng.stats['waves']}")
-    print(f"  {s['requests_per_s']:.1f} req/s, latency "
-          f"p50={s['latency_ms']['p50']:.1f}ms "
-          f"p99={s['latency_ms']['p99']:.1f}ms, prep overlap "
+          f"format={args.format}{block_txt} (single-device {eng.device}, "
+          f"{s['mode']}): served {s['requests']} requests / "
+          f"{eng.stats['cols']} cols in {dt:.2f}s, "
+          f"waves={eng.stats['waves']}")
+    if plan_s is not None:
+        print(f"  plan_for_operand on the host: {plan_s * 1e3:.3f} ms")
+    print(f"  {s['requests_per_s']:.3f} req/s, latency "
+          f"p50={s['latency_ms']['p50']:.3f}ms "
+          f"p99={s['latency_ms']['p99']:.3f}ms, prep overlap "
           f"{s['prep_overlap_fraction']:.0%}")
-    ref = a.to_dense().astype(np.float64)
-    worst = 0.0
-    for r in done:
-        want = ref @ r.b.astype(np.float64)
-        err = float(np.abs(r.out - want).max())
-        worst = max(worst, err / max(float(np.abs(want).max()), 1e-30))
     print(f"  max |err| / max|C| vs dense float64 oracle: {worst:.2e}")
-    if len(done) != len(reqs) or worst > 1e-4:
+    if args.spmm_swap and worst <= 1e-4:
+        # Live pattern swap = plan rebuild: magnitude-re-prune the operand
+        # to half its density under the SAME format and deploy it into the
+        # RUNNING engine between waves.
+        mask_a = magnitude_mask(dense, spec.density / 2)
+        pruned = np.where(mask_a, dense, 0.0).astype(np.float32)
+        crs2 = CRS.from_dense(pruned) if args.format == "incrs" else None
+        swapped, _ = _operand(args.format, crs2, pruned, section, block,
+                              args.spmm_block, eng.device, mask=mask_a)
+        eng.swap_pattern(swapped)
+        reqs2 = [SpMMRequest(100 + i, rng.normal(
+            size=(spec.n, args.spmm_batch_cols)).astype(np.float32))
+            for i in range(args.n_requests)]
+        worst2 = _serve(eng, reqs2, pruned.astype(np.float64))
+        print(f"  swapped to d={mask_a.mean():.3f} "
+              f"(swaps={eng.stats['pattern_swaps']}): served "
+              f"{len(reqs2)} more, max |err| / max|C|: {worst2:.2e}")
+        worst = max(worst, worst2)
+    from ..kernels import bsr_spmm, dense_mm, incrs_spmm
+    launches = {**incrs_spmm.LAUNCHES, **bsr_spmm.LAUNCHES,
+                **dense_mm.LAUNCHES}
+    print(f"  waves total {eng.stats['waves']}, kernel launches "
+          f"{json.dumps(launches)}")
+    if worst > 1e-4:
         print("  FAILED: a result is missing or off by more than "
               "1e-4 * max|C|", file=sys.stderr)
         return 1
@@ -79,8 +141,15 @@ def main(argv=None) -> int:
     ap.add_argument("--spmm", action="store_true",
                     help="serve the paper's SpMM workload (the only mode "
                          "ported so far)")
-    ap.add_argument("--format", default="incrs", choices=("incrs",),
+    ap.add_argument("--format", default="incrs",
+                    choices=("incrs", "bsr", "dense"),
                     help="kernel family of the served operand")
+    ap.add_argument("--spmm-block", type=int, default=64,
+                    help="tile side of --format bsr; must divide both "
+                         "dimensions of the operand")
+    ap.add_argument("--spmm-swap", action="store_true",
+                    help="after the first batch, swap in the operand "
+                         "re-pruned to half its density and serve again")
     ap.add_argument("--workload", default=None, choices=sorted(WORKLOADS),
                     help="a Table II / IV dataset (default: the synthetic "
                          "--spmm-rows x --spmm-cols operand)")

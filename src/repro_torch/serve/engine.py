@@ -1,8 +1,10 @@
-"""Continuous-batching SpMM serving on the fused InCRS kernels.
+"""Continuous-batching SpMM serving on the port's kernels.
 
 The port of ``SpMMEngine`` from ``repro.serve.engine``: the paper's own
-workload as a service, one fixed sparse operand A (InCRS) and a queue of
-dense right-hand sides to multiply against it. Requests are packed into
+workload as a service, one fixed sparse operand A and a queue of dense
+right-hand sides to multiply against it. A is an InCRS operand (the fused
+InCRS kernels) or a bound plan of the plan–execute API (``bsr`` or
+``dense``, one kernel launch per wave each). Requests are packed into
 waves (``serve.scheduler``), each wave is staged on the host, launched,
 and retired, with the host prep of wave N+1 done while wave N computes.
 """
@@ -78,6 +80,16 @@ def _percentiles_ms(samples: List[float]) -> Dict[str, float]:
             "mean": sum(srt) / len(srt) * 1e3}
 
 
+def _operand_device(a) -> Optional[torch.device]:
+    """The device an already device-ready operand lives on, else None."""
+    from ..sparse import api
+    if isinstance(a, api.Linear):
+        return a.values.device
+    if isinstance(a, (ops.PreparedOperand, api.BoundPlan)):
+        return a.device
+    return None
+
+
 def _torch_dtype(dt) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=dt)).dtype
 
@@ -85,8 +97,8 @@ def _torch_dtype(dt) -> torch.dtype:
 class SpMMEngine:
     """Continuous-batching SpMM serving on one device.
 
-    The operand is prepped once at construction (``ops.prepare_incrs``);
-    every wave reuses the ``PreparedOperand``. Waves are packed by the
+    The operand is prepped once at construction (``ops.prepare_incrs``, or
+    a plan's bind); every wave reuses it. Waves are packed by the
     cost-model ``WavePacker`` up to the hard cap ``max_wave_cols``;
     requests wider than the cap are split into parts at ``submit()`` and
     reassembled. In continuous mode the host stages wave N+1 (dtype
@@ -102,19 +114,22 @@ class SpMMEngine:
                  latency_budget_us: Optional[float] = None,
                  scheduler: Optional[_sched.WavePacker] = None,
                  skip_limit: Optional[int] = None):
-        """``a``: an ``InCRS`` (prepped here, once, on ``device``) or an
-        ``ops.PreparedOperand`` (served on its own device). ``variant``
-        selects the kernel grid order as in ``ops.spmm``."""
+        """``a``: an ``InCRS`` (prepped here, once, on ``device``), an
+        ``ops.PreparedOperand``, a ``sparse.BoundPlan`` or a
+        ``sparse.Linear`` (served on their own device; a Linear through
+        ``.bound()``). ``variant`` selects the InCRS kernel grid order as in
+        ``ops.spmm``; a bound plan has one kernel."""
         ops.check_variant(variant)
         if mesh is not None:
             raise NotImplementedError(
                 "row-sharded serving is not ported yet (ROADMAP queue 1 "
                 "item 8)")
-        self.device = a.device if device is None and \
-            isinstance(a, ops.PreparedOperand) else ops.resolve_device(device)
+        on_device = _operand_device(a)
+        self.device = on_device if device is None and on_device is not None \
+            else ops.resolve_device(device)
         self.max_wave_cols = max_wave_cols
         self.variant = variant
-        self.a, self.prep = self._build_operand(a)
+        self.a, self.prep, self.pattern_version = self._build_operand(a)
         self.continuous = continuous
         if scheduler is None:
             if skip_limit is None:
@@ -137,33 +152,49 @@ class SpMMEngine:
         self._t_last_done: Optional[float] = None
 
     def _build_operand(self, a):
-        """Resolve ``a`` to ``(operand, prep)`` without touching engine
-        state, so a rejected swap leaves the engine as it was."""
-        if isinstance(a, ops.PreparedOperand):
+        """Resolve ``a`` to ``(operand, prep, pattern_version)`` without
+        touching engine state, so a rejected swap leaves the engine as it
+        was."""
+        from ..sparse import api
+        if isinstance(a, api.SparseSpec):
+            raise ValueError(
+                "a SparseSpec alone carries no values to serve — build an "
+                "operand with sparse.plan_for_operand(a, spec) or pass a "
+                "sparse.Linear")
+        if isinstance(a, api.MatmulPlan):
+            raise ValueError(
+                "bind values to the plan first: plan.bind(values) (or "
+                "pass a sparse.Linear / its .bound())")
+        if isinstance(a, api.Linear):
+            a = a.bound()
+        if isinstance(a, (ops.PreparedOperand, api.BoundPlan)):
             if a.device != self.device:
                 raise ValueError(f"operand lives on {a.device}, the engine "
                                  f"serves on {self.device}")
-            return a, a
+            version = getattr(a.pattern, "version", None) \
+                if isinstance(a, api.BoundPlan) else None
+            return a, a, version
         if isinstance(a, InCRS):
-            return a, ops.prepare_incrs(a, device=self.device)
-        raise NotImplementedError(
-            f"SpMMEngine serves InCRS or PreparedOperand, got "
-            f"{type(a).__name__}; sparse.Linear and bound plans are not "
-            f"ported yet (ROADMAP queue 1 items 2-3)")
+            return a, ops.prepare_incrs(a, device=self.device), None
+        raise TypeError(
+            f"SpMMEngine serves an InCRS, an ops.PreparedOperand, a "
+            f"sparse.BoundPlan or a sparse.Linear, got {type(a).__name__}")
 
     # ------------------------------------------------------------------
     def swap_pattern(self, a) -> None:
-        """Hot-swap the serving operand between waves. The new operand's
-        shape must match the current one; a rejected swap (ValueError)
-        leaves the engine serving the OLD operand. An in-flight wave keeps
-        the operand it was launched with."""
-        new_a, new_prep = self._build_operand(a)
+        """Hot-swap the serving operand between waves, across formats
+        (InCRS, ``bsr`` and ``dense`` plans replace each other freely). The
+        new operand's shape must match the current one; a rejected swap
+        (ValueError) leaves the engine serving the OLD operand. An
+        in-flight wave keeps the operand it was launched with."""
+        new_a, new_prep, new_version = self._build_operand(a)
         if tuple(new_prep.shape) != tuple(self.prep.shape):
             raise ValueError(
                 f"swap_pattern: new operand shape {tuple(new_prep.shape)} "
                 f"!= serving shape {tuple(self.prep.shape)} — an engine "
                 f"serves one logical A; start a new engine for a new shape")
-        self.a, self.prep = new_a, new_prep
+        self.a, self.prep, self.pattern_version = new_a, new_prep, \
+            new_version
         self.stats["pattern_swaps"] += 1
 
     def submit(self, req: SpMMRequest):
@@ -235,9 +266,15 @@ class SpMMEngine:
         w = self._staged
         if w is None:
             return
-        self._staged = None
         t0 = time.perf_counter()
-        w.c = ops.spmm(self.prep, w.b, variant=self.variant)
+        if isinstance(self.prep, ops.PreparedOperand):
+            w.c = ops.spmm(self.prep, w.b, variant=self.variant)
+        else:                                       # a bound plan
+            b = w.b
+            if b.device.type == "cuda":     # its kernels take f32, as the
+                b = b.to(torch.float32)     # InCRS wrapper casts B
+            w.c = self.prep(b)
+        self._staged = None         # a launch that raised keeps the wave
         w.t_dispatch = t0
         for r in w.items:
             if r.t_submit is not None:

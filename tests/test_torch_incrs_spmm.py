@@ -163,8 +163,8 @@ def test_ops_spmm_other_formats_name_their_roadmap_item():
     dense = _operand("k_ragged")
     with pytest.raises(TypeError, match="sparse x sparse"):
         tops.spmm(CRS.from_dense(dense), dense.T)     # ported: item 5
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tops.spmm(dense, dense.T)
+    out = tops.spmm(dense, dense.T, device="cpu")       # ported: item 7
+    np.testing.assert_allclose(out.numpy(), dense @ dense.T, **TOL)
     with pytest.raises(NotImplementedError, match="item 8"):
         tops.spmm(TInCRS.from_dense(dense), dense.T, mesh=object())
     with pytest.raises(TypeError, match="BSR"):

@@ -156,7 +156,7 @@ def test_engine_validates_and_keeps_request_dtypes():
         eng.run()
     with pytest.raises(NotImplementedError, match="item 8"):
         teng.SpMMEngine(t, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="items 2-3"):
+    with pytest.raises(TypeError, match="BoundPlan"):
         teng.SpMMEngine(object(), device="cpu")
     with pytest.raises(ValueError, match="variant"):
         teng.SpMMEngine(t, device="cpu", variant="fastest")

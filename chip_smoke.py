@@ -55,6 +55,20 @@ Phases, each printing one JSON line:
              measures nothing).
 11. plan_times — both kernels at the granite operand and at docword,
              N = 512: median time, plain version, library call, bound.
+12. lm_kernels — the flash-attention kernel against its plain version on
+             the card, f32 and bf16: granite-34b's prefill wave (B = 2,
+             S = 8192, one KV head, 48 query heads, hd 128), a mixtral
+             shape (window 4096, KV 8, G 4), a recurrentgemma shape (soft
+             cap 30, window 2048, hd 256) and edge shapes.
+13. lm_serve — the fourth path: granite-34b at full width, depth cut to
+             4 layers, served by ``ServeEngine``: 2 requests of 8,192
+             tokens (one wave through the kernel, one launch per layer)
+             and 4 of 512 (the dense branch, no launch), counters zeroed
+             just before; the long wave profiled for the idle share; the
+             f32 decode logits against a teacher-forced prefill; the
+             launcher as a subprocess.
+14. lm_times — the kernel at granite's wave in bf16: median time, plain
+             version, scaled_dot_product_attention, bound.
 
 Then the card's line, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises. Without a CUDA
@@ -1176,6 +1190,315 @@ def plan_path(torch, K, ops, engine_mod, table2):
                             by_launcher)
 
 
+# ----------------------------------------------------------------------
+# LM serving: granite-34b through ServeEngine, prompts of FLASH_THRESHOLD
+# tokens or more prefilling through the flash-attention kernel.
+LM_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+LM_REPLACES = "src/repro/kernels/flash_attention.py:38"
+LM_TOL = {"float32": 1e-5,    # max|kernel - plain f32| <= tol * max|out|
+          "bfloat16": 1e-2}   # plain in f32 on the same bf16 inputs
+LM_DEPTH = 4                  # granite-34b cut from 88 layers, widths kept
+LM_LOGIT_TOL = 1e-3           # f32 decode logits vs teacher-forced prefill
+BF16_TC_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor-core peak, dense
+# (label, B, S, KV, G, hd, window, soft cap): granite-34b's prefill wave,
+# mixtral-8x7b's and recurrentgemma-2b's attention shapes, edge shapes.
+LM_KERNEL_CASES = [
+    ("granite", 2, 8192, 1, 48, 128, None, None),
+    ("mixtral", 1, 8192, 8, 4, 128, 4096, None),
+    ("recurrentgemma", 1, 4096, 1, 10, 256, 2048, 30.0),
+] + [(f"edge_s{s}_hd{hd}", 2, s, 2, 3, hd, None, None)
+     for s in (1, 63, 65, 200, 1000) for hd in (16, 64)] + [
+    ("edge_window_cap", 2, 200, 2, 3, 64, 37, 6.0),
+    ("edge_window", 1, 1000, 1, 4, 16, 100, None),
+]
+
+
+def _causal_pairs(sq, sk, window):
+    """Number of (query, key) pairs the mask keeps: the work of the call."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, sk - 1)
+    lo = np.zeros_like(i) if window is None else np.maximum(0, i - window + 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def phase_lm_kernels(torch, F):
+    """The flash kernel against its plain version on the card, f32 and
+    bf16, at the model shapes and edge shapes; the worst error of each."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    errs, cases = {}, []
+    for label, b, s, kv, g, hd, window, cap in LM_KERNEL_CASES:
+        q32 = torch.randn(b, s, kv, g, hd, generator=gen, device="cuda")
+        k32 = torch.randn(b, s, kv, hd, generator=gen, device="cuda")
+        v32 = torch.randn(b, s, kv, hd, generator=gen, device="cuda")
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+            out = F.flash_attention(q, k, v, window=window, soft_cap=cap)
+            torch.cuda.synchronize()
+            want = F.plain(q.float(), k.float(), v.float(), window=window,
+                           soft_cap=cap)
+            scale = float(want.abs().max())
+            err = float((out.float() - want).abs().max())
+            ok = (out.dtype == dt and tuple(out.shape) == tuple(q.shape) and
+                  bool(torch.isfinite(out).all()) and
+                  err <= LM_TOL[dname] * scale)
+            cases.append({"case": label, "dtype": dname,
+                          "shape": [b, s, kv, g, hd], "window": window,
+                          "soft_cap": cap, "max_abs_err": err,
+                          "max_abs_out": scale, "ok": ok})
+            check(ok, f"flash kernel {label} {dname}: err {err} > "
+                  f"{LM_TOL[dname]} * {scale}")
+            errs[f"{label}/{dname}"] = err
+            del out, want
+    emit({"phase": "lm_kernels", "tolerance": {
+        k: f"{v} * max|out| against plain f32 on the same inputs"
+        for k, v in LM_TOL.items()}, "cases": cases})
+    return errs
+
+
+def _lm_requests(E, vocab, n, length, max_new, rid0, seed):
+    rng = np.random.default_rng(seed)
+    return [E.Request(rid0 + i, rng.integers(0, vocab, length).astype(
+        np.int32), max_new=max_new) for i in range(n)]
+
+
+def _serve_lm(torch, E, model, reqs):
+    eng = E.ServeEngine(model, n_slots=4, cache_dtype=torch.bfloat16, seed=0)
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def phase_lm_serve(torch, F, L):
+    """granite-34b at full width, depth cut to LM_DEPTH, weights seeded on
+    the card: ServeEngine(n_slots=4) serves 2 requests of 8,192 tokens (one
+    flash wave) then 4 of 512 (a dense-branch wave), 16 new tokens each,
+    with the flash counter at 0 just before and read after each set. Then
+    the long wave under torch.profiler for the idle share, an f32 check of
+    the decode logits against a teacher-forced prefill, and the launcher
+    as a subprocess."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    full = L.configs.get("granite-34b")
+    cfg = dataclasses.replace(full, n_layers=LM_DEPTH)
+    t0 = time.perf_counter()
+    model = L.M.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    v, max_new = cfg.vocab_size, 16
+    long_reqs = _lm_requests(L.E, v, 2, 8192, max_new, 0, seed=1)
+    short_reqs = _lm_requests(L.E, v, 4, 512, max_new, 10, seed=2)
+    F.reset_launches()
+    eng_l, wall_l = _serve_lm(torch, L.E, model, long_reqs)
+    launches_long = F.LAUNCHES["flash_attention"]
+    eng_s, wall_s = _serve_lm(torch, L.E, model, short_reqs)
+    launches = F.LAUNCHES["flash_attention"]
+    for r in long_reqs + short_reqs:
+        check(r.done and len(r.out) == max_new and
+              all(0 <= t < cfg.padded_vocab() for t in r.out),
+              f"lm request {r.rid} returned {max_new} tokens")
+    check(launches_long == LM_DEPTH, f"long wave launched the flash kernel "
+          f"{launches_long} times, not {LM_DEPTH} (one per layer)")
+    check(launches == launches_long, f"the 512-token wave launched the "
+          f"flash kernel {launches - launches_long} times, not 0")
+    new_tokens = sum(len(r.out) for r in long_reqs + short_reqs)
+
+    # Both sets again, warm (the counted run was the process's first, with
+    # cuBLAS's and the allocator's first calls in it); then the long wave
+    # profiled: device busy time against the warm wall (the profiler slows
+    # the host).
+    warm_l, warm_wall_l = _serve_lm(torch, L.E, model, _lm_requests(
+        L.E, v, 2, 8192, max_new, 0, seed=1))
+    warm_s, warm_wall_s = _serve_lm(torch, L.E, model, _lm_requests(
+        L.E, v, 4, 512, max_new, 10, seed=2))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall_prof = _serve_lm(torch, L.E, model, _lm_requests(
+            L.E, v, 2, 8192, max_new, 0, seed=1))
+    by_kind = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        key = ev.key.lower()
+        kind = ("flash_attention" if "flash_kernel" in key else
+                "gemm" if any(w in key for w in ("gemm", "nvjet", "xmma",
+                                                 "cutlass")) else "other")
+        by_kind[kind] += us / 1e3
+    busy_ms = sum(by_kind.values())
+
+    # f32: the same weights, decode logits against a teacher-forced
+    # prefill over prompt + generated tokens (which runs the kernel again)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = L.M.Model(cfg32, device="meta")
+    model32.load_state_dict(model.state_dict(), assign=True)
+    prompts = np.stack([r.prompt for r in long_reqs])
+    logits, cache = L.M.prefill_step(model32, prompts, alloc_seq=8192 + 80,
+                                     cache_dtype=torch.float32)
+    steps = [logits.float()]
+    toks = []
+    for step in range(max_new - 1):
+        tok = steps[-1].argmax(-1, keepdim=True)
+        toks.append(tok)
+        logits, cache = L.M.decode_step(model32, tok, cache,
+                                        pos=8192 + step)
+        steps.append(logits.float())
+    del cache
+    fed = torch.cat([torch.from_numpy(prompts).to("cuda").long()] + toks, 1)
+    F.reset_launches()
+    with torch.no_grad():
+        tf = model32(fed, mode="train")[:, 8191:].float()
+    tf_launches = F.LAUNCHES["flash_attention"]
+    dec = torch.stack(steps, 1)
+    scale = float(tf.abs().max())
+    logit_err = float((dec - tf).abs().max())
+    check(tuple(dec.shape) == tuple(tf.shape) and
+          bool(torch.isfinite(dec).all()), "f32 logits finite, right shape")
+    check(logit_err <= LM_LOGIT_TOL * scale, f"f32 decode logits vs "
+          f"teacher-forced prefill: {logit_err} > {LM_LOGIT_TOL} * {scale}")
+    check(tf_launches == LM_DEPTH, "teacher-forced prefill ran the kernel")
+    del tf, dec, steps, model32, model
+    torch.cuda.empty_cache()
+
+    line = _run_lm_launcher(["--arch", "granite-34b", "--smoke",
+                             "--prompt-len", "8192", "--n-requests", "2",
+                             "--max-new", "4"], expect_launches=2)
+    def wave(eng, n, prompt, wall_s):
+        return {"requests": n, "prompt": prompt, "prefill_ms": eng.prefill_ms,
+                "decode_ms_median": statistics.median(eng.decode_ms),
+                "wall_s": wall_s}
+
+    emit({"phase": "lm_serve", "arch": cfg.name,
+          "cut": f"n_layers {full.n_layers} -> {LM_DEPTH}; widths as "
+                 f"published", "params": n_params, "param_dtype":
+          cfg.param_dtype, "dtype": cfg.dtype, "init_s": init_s,
+          "counted_run": {
+              "long": wave(eng_l, 2, 8192, wall_l),
+              "short": wave(eng_s, 4, 512, wall_s),
+              "new_tokens_per_s": new_tokens / (wall_l + wall_s)},
+          "warm_run": {
+              "long": wave(warm_l, 2, 8192, warm_wall_l),
+              "short": wave(warm_s, 4, 512, warm_wall_s),
+              "new_tokens_per_s": new_tokens / (warm_wall_l + warm_wall_s)},
+          "new_tokens": new_tokens,
+          "flash_launches": {"long_wave": launches_long,
+                             "short_wave": launches - launches_long},
+          "profile_long_wave": {"wall_ms": warm_wall_l * 1e3,
+                                "wall_ms_profiled": wall_prof * 1e3,
+                                "device_ms_by_kind": by_kind,
+                                "device_busy_ms": busy_ms,
+                                "device_idle_share": (1.0 - busy_ms /
+                                                      (warm_wall_l * 1e3))
+                                if busy_ms else "not measured"},
+          "f32_check": {"max_abs_err": logit_err, "max_abs_logit": scale,
+                        "tolerance": f"{LM_LOGIT_TOL} * max|logit|",
+                        "teacher_forced_launches": tf_launches},
+          "launcher": line})
+    return launches, line["launches"]
+
+
+def _run_lm_launcher(args, expect_launches):
+    import re
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    line = {"cmd": " ".join(cmd[3:]), "rc": proc.returncode,
+            "wall_s": time.perf_counter() - t0}
+    if proc.returncode != 0:
+        emit({"phase": "lm_serve", "launcher": line,
+              "stdout": proc.stdout[-2000:], "stderr": proc.stderr[-2000:]})
+    check(proc.returncode == 0, f"launcher {' '.join(args)} exited 0")
+    m = re.search(r"kernel launches (\{.*\})", proc.stdout)
+    check(m is not None, "launcher printed its kernel launches")
+    line["launches"] = json.loads(m.group(1))["flash_attention"]
+    check(line["launches"] == expect_launches,
+          f"launcher launched the flash kernel {line['launches']} times, "
+          f"not {expect_launches}")
+    return line
+
+
+def phase_lm_times(torch, F, errs, launches, by_launcher):
+    """granite-34b's prefill wave in bf16: the kernel's median time beside
+    its plain version, scaled_dot_product_attention and the bound."""
+    b, s, kv, g, hd = 2, 8192, 1, 48, 128
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((b, s, kv, g, hd), (b, s, kv, hd),
+                                      (b, s, kv, hd)))
+    flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
+    ms = _time_ms(torch, lambda: F.flash_attention(q, k, v), flush)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    ms_f32 = _time_ms(torch, lambda: F.flash_attention(q32, k32, v32), flush)
+    del q32, k32, v32
+    plain_ms = _time_ms(torch, lambda: F.plain(q, k, v), flush, reps=10)
+    # SDPA in its (B, H, S, hd) layout on the same values, copied once
+    fn = torch.nn.functional.scaled_dot_product_attention
+    qs = q.reshape(b, s, kv * g, hd).transpose(1, 2).contiguous()
+    ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+    try:
+        sdpa = lambda: fn(qs, ks, vs, is_causal=True, enable_gqa=True)  # noqa: E731
+        got = sdpa()
+        how = "enable_gqa=True"
+    except TypeError:
+        ks, vs = (t.repeat_interleave(g, dim=1) for t in (ks, vs))
+        sdpa = lambda: fn(qs, ks, vs, is_causal=True)  # noqa: E731
+        got = sdpa()
+        how = "k/v expanded by repeat_interleave"
+    ours = F.flash_attention(q, k, v).float().reshape(b, s, kv * g, hd)
+    sdpa_err = float((got.float().transpose(1, 2) - ours).abs().max())
+    check(sdpa_err <= 2e-2 * float(ours.abs().max()),
+          f"SDPA and the kernel disagree by {sdpa_err}")
+    del got, ours
+    library_ms = _time_ms(torch, sdpa, flush)
+    ke, ve = (t.repeat_interleave(g, dim=1) for t in (ks, vs)) \
+        if ks.shape[1] != qs.shape[1] else (ks, vs)
+    expanded_ms = _time_ms(torch, lambda: fn(qs, ke, ve, is_causal=True),
+                           flush)
+    del ke, ve
+    flops = 4 * hd * b * kv * g * _causal_pairs(s, s, None)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, out, k, v
+    t_ops = flops / BF16_TC_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "lm_times", "shape": [b, s, kv, g, hd],
+          "dtype": "bfloat16", "ms": ms, "ms_f32_inputs": ms_f32,
+          "plain_ms": plain_ms, "library": f"scaled_dot_product_attention"
+          f"(is_causal=True), {how}", "library_ms": library_ms,
+          "library_kv_expanded_ms": expanded_ms,
+          "library_vs_kernel_max_abs_diff": sdpa_err, "flops": flops,
+          "bytes": nbytes, "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes,
+          "achieved_tflops": flops / ms / 1e9,
+          "achieved_tflops_f32_inputs": flops / ms_f32 / 1e9})
+    return [{"name": "flash_attention", "route": "cuda", "source": LM_SOURCE,
+             "replaces": LM_REPLACES, "launches": launches,
+             "launches_by_path": {"lm_serve": launches,
+                                  "launcher_subprocess": by_launcher},
+             "max_abs_err": errs["granite/bfloat16"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": library_ms}]
+
+
+def lm_path(torch):
+    """Phases 12-14: the LM serving path and the flash kernel's rows."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+    L = types.SimpleNamespace(configs=configs, M=M, E=E)
+    errs = phase_lm_kernels(torch, F)
+    torch.cuda.empty_cache()
+    launches, by_launcher = phase_lm_serve(torch, F, L)
+    return phase_lm_times(torch, F, errs, launches, by_launcher)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1224,6 +1547,8 @@ def main() -> int:
                                errs_dw, spgemm_launches)
     del table4, P
     rows += plan_path(torch, K, ops, engine_mod, table2)
+    del table2, docword
+    rows += lm_path(torch)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)
     emit({"kernels": rows})

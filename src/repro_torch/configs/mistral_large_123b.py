@@ -1,0 +1,19 @@
+"""mistral-large-123b [dense].
+
+88L d_model=12288 96H (GQA kv=8) d_ff=28672 vocab=32768
+[hf:mistralai/Mistral-Large-Instruct-2407].
+"""
+from ..models.config import ModelConfig
+
+FULL = ModelConfig(
+    name="mistral-large-123b",
+    n_layers=88, d_model=12288, n_heads=96, n_kv_heads=8,
+    d_ff=28672, vocab_size=32768,
+)
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        name="mistral-large-123b-smoke",
+        n_layers=2, d_model=64, n_heads=8, n_kv_heads=2,
+        d_ff=256, vocab_size=512, dtype="float32")

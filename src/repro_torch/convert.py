@@ -1,10 +1,11 @@
-"""Carry an operand's state across from the JAX package.
+"""Carry an operand's or a model's state across from the JAX package.
 
-The system's state is the sparse operand, or a sparse layer's values and
-metadata. These take the fields of a ``repro`` ``CRS``, ``InCRS``,
-``BSR``, ``PreparedOperand``, per-round prep or sparse-linear params as
-numpy arrays (``np.asarray`` of each) and lists, and build the port's
-objects from them, so both packages can be fed the same operand.
+The system's state is the sparse operand, a sparse layer's values and
+metadata, or an LM's weights. These take the fields of a ``repro``
+``CRS``, ``InCRS``, ``BSR``, ``PreparedOperand``, per-round prep,
+sparse-linear params or model params as numpy arrays (``np.asarray`` of
+each) and lists, and build the port's objects from them, so both packages
+can be fed the same operand or weights.
 """
 from __future__ import annotations
 
@@ -136,3 +137,40 @@ def linear_from_jax(values, meta_fields: Dict[str, Any], fmt: str, *,
         raise ValueError(f"values {tuple(vals.shape)} are not "
                          f"({meta.d_in}, {meta.d_out})")
     return api.Linear(api.DenseLinearParams(vals, meta))
+
+
+def model_from_jax(cfg, params: Dict[str, Any], *, device=None):
+    """The port's ``models.model.Model`` computing what the JAX model of
+    ``cfg`` computes with ``params``.
+
+    ``params`` is the JAX params tree with numpy leaves: ``embed``,
+    ``unembed`` (unless tied), ``norm_final`` and ``groups/block{i}_{kind}``
+    holding ``norm_mixer``, ``mixer/{wq, wk, wv, wo}``, ``norm_mlp`` and
+    ``ffn/{w_gate, w_up, w_down, mask_w_*}`` with a leading ``n_groups``
+    axis. Group ``g``, block ``i`` becomes layer
+    ``g * len(cfg.block_pattern) + i``."""
+    from .models.model import Model
+    model = Model(cfg, device=resolve_device(device))
+    state = {"embed": params["embed"], "norm_final": params["norm_final"]}
+    if not cfg.tie_embeddings:
+        state["unembed"] = params["unembed"]
+    period = len(cfg.block_pattern)
+    for i, kind in enumerate(cfg.block_pattern):
+        blk = params["groups"][f"block{i}_{kind}"]
+        for g in range(cfg.n_groups):
+            pre = f"blocks.{g * period + i}."
+            for name, leaf in blk.items():
+                if isinstance(leaf, dict):
+                    for sub, arr in leaf.items():
+                        state[f"{pre}{name}.{sub}"] = arr[g]
+                else:
+                    state[f"{pre}{name}"] = leaf[g]
+    own = model.state_dict()
+    if set(state) != set(own):
+        raise ValueError(f"params do not match {cfg.name}: missing "
+                         f"{sorted(set(own) - set(state))}, unexpected "
+                         f"{sorted(set(state) - set(own))}")
+    # load_state_dict copies each array into place in the parameter dtype
+    model.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
+                           for k, v in state.items()})
+    return model

@@ -1,7 +1,7 @@
 """Public kernel API: format preparation and ``spmm``.
 
-The port of ``repro.kernels.ops``, all but its row-sharded, flash
-attention and tuning parts and its deprecated shims. ``prep_sections``
+The port of ``repro.kernels.ops``, all but its row-sharded and tuning
+parts and its deprecated shims. ``prep_sections``
 turns an InCRS operand into the padded per-(row, section) stripes the
 kernels consume, located through the packed counter words alone;
 ``prepare_incrs`` memoizes that per live operand; ``spmm`` pads B, picks
@@ -13,7 +13,8 @@ condense + merge (``repro_torch.spgemm``), or densify B then the fused
 InCRS SpMM. ``bsr_kernel_meta``/``prep_bsr`` turn a BSR operand into the
 block lists of the BSR kernel, and ``spmm(BSR, B)`` runs it;
 ``dense_mm`` and ``spmm(dense 2-D, B)`` run the tiled dense kernel. Both
-kernels mask their ragged edges, so neither pads A or B.
+kernels mask their ragged edges, so neither pads A or B. ``flash_mha``
+runs causal grouped-query attention through the flash kernel.
 
 Entry points take ``device=`` and default to ``"cuda"``: without CUDA they
 raise unless the caller asks for ``"cpu"``, where the kernels' plain torch
@@ -35,6 +36,7 @@ from ..core.incrs import InCRS
 from . import bsr_spmm as _bsr_k
 from . import incrs_spmm as _k
 from .dense_mm import dense_mm as _dense_mm_kernel
+from .flash_attention import flash_attention as _flash_kernel
 from .incrs_gather import incrs_gather as _incrs_gather_kernel
 from .index_match_spmm import index_match_spmm as _index_match_kernel
 
@@ -529,3 +531,30 @@ def spmm(a, b, *, bm: int = 128, bn: Optional[int] = None,
     raise TypeError(f"spmm does not know the operand format "
                     f"{type(a).__name__}; expected PreparedOperand, InCRS, "
                     f"BSR, CRS or a dense 2-D array")
+
+
+# ----------------------------------------------------------------------
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              window: Optional[int] = None, soft_cap=None,
+              bq: Optional[int] = None,
+              bk: Optional[int] = None) -> torch.Tensor:
+    """Grouped-query flash attention through the flash kernel.
+
+    q: (B, Sq, KV, G, hd); k/v: (B, Sk, KV, hd). Causal over absolute
+    positions 0..S-1 (prefill/train layout), with an optional sliding
+    ``window`` and tanh ``soft_cap``. Returns (B, Sq, KV, G, hd) in
+    ``q.dtype``, on the device of q.
+
+    ``bq``/``bk`` keep the JAX signature, where they are the Pallas tiles
+    that Sq and Sk are padded to. None of those tile rules carry over: the
+    CUDA kernel's 64 x 64 tiles are fixed by the shared memory they take,
+    and it masks its ragged tiles and reads this layout through strides,
+    so nothing is padded or transposed. ``bq`` is unused; ``bk`` is the key
+    chunk of the plain version that CPU tensors run (default 1024, the
+    model's ``flash_chunk``).
+    """
+    for name, t in (("bq", bq), ("bk", bk)):
+        if t is not None and int(t) <= 0:
+            raise ValueError(f"flash_mha: {name} must be positive, got {t}")
+    return _flash_kernel(q, k, v, window=window, soft_cap=soft_cap,
+                         chunk=1024 if bk is None else int(bk))

@@ -1,10 +1,20 @@
-"""Serving launcher: the paper's SpMM workload through ``SpMMEngine``.
+"""Serving launcher: an LM through ``ServeEngine``, or the paper's SpMM
+workload through ``SpMMEngine``, on one device (CUDA unless
+``--device cpu``).
 
-One fixed sparse operand, a queue of dense right-hand sides, on one
-device (CUDA unless ``--device cpu``). ``--format incrs`` serves the InCRS
-operand on the fused InCRS kernels; ``--format bsr`` (tiles of side
-``--spmm-block``) and ``--format dense`` serve it through the plan–execute
-API, ``sparse.plan_for_operand``:
+LM mode serves ``--n-requests`` random prompts of ``--prompt-len`` tokens
+on ``--arch`` (``--smoke`` for its small config) with weights drawn from
+``--seed``; prompts of 8,192 tokens or more prefill through the flash
+kernel. It prints the tokens served and the kernel launches:
+
+  python -m repro_torch.launch.serve --arch granite-34b --smoke \
+      --prompt-len 8192 --n-requests 2 --max-new 4
+
+SpMM mode (``--spmm``) serves one fixed sparse operand and a queue of
+dense right-hand sides. ``--format incrs`` serves the InCRS operand on the
+fused InCRS kernels; ``--format bsr`` (tiles of side ``--spmm-block``) and
+``--format dense`` serve it through the plan–execute API,
+``sparse.plan_for_operand``:
 
   python -m repro_torch.launch.serve --spmm --workload incrs-docword \
       --scale 1.0
@@ -134,13 +144,56 @@ def _main_spmm(args) -> int:
     return 0
 
 
+def _main_lm(args) -> int:
+    from .. import configs
+    from ..kernels import flash_attention
+    from ..models import layers
+    from ..models import model as M
+    from ..serve.engine import Request, ServeEngine
+
+    cfg = configs.get_smoke(args.arch) if args.smoke else \
+        configs.get(args.arch)
+    model = M.init(cfg, seed=args.seed, device=args.device)
+    eng = ServeEngine(model, n_slots=args.n_slots,
+                      cache_dtype=layers.torch_dtype(cfg.dtype),
+                      seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    for i in range(args.n_requests):
+        eng.submit(Request(
+            i, rng.integers(0, cfg.vocab_size,
+                            args.prompt_len).astype(np.int32),
+            max_new=args.max_new, temperature=args.temperature))
+    t0 = time.time()
+    done = eng.run()
+    dt = time.time() - t0
+    total_new = sum(len(r.out) for r in done)
+    print(f"arch={cfg.name} served {len(done)} requests, "
+          f"{total_new} tokens in {dt:.1f}s "
+          f"({total_new/dt:.1f} tok/s), waves={eng.stats['waves']}")
+    for r in done[:3]:
+        print(f"  req {r.rid}: {r.out[:8]}...")
+    print(f"  device {model.device}, kernel launches "
+          f"{json.dumps(flash_attention.LAUNCHES)}")
+    return 0
+
+
 def main(argv=None) -> int:
+    from ..configs import ARCH_NAMES, UNPORTED
     from ..configs.paper_spmm import WORKLOADS
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-34b",
+                    choices=ARCH_NAMES + tuple(UNPORTED),
+                    help="LM to serve (the names not yet ported raise, "
+                         "naming their ROADMAP item)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the architecture's small config")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--n-slots", type=int, default=4)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--spmm", action="store_true",
-                    help="serve the paper's SpMM workload (the only mode "
-                         "ported so far)")
+                    help="serve the paper's SpMM workload instead of an LM")
     ap.add_argument("--format", default="incrs",
                     choices=("incrs", "bsr", "dense"),
                     help="kernel family of the served operand")
@@ -171,10 +224,7 @@ def main(argv=None) -> int:
     ap.add_argument("--spmm-density", type=float, default=0.03)
     ap.add_argument("--spmm-batch-cols", type=int, default=64)
     args = ap.parse_args(argv)
-    if not args.spmm:
-        raise SystemExit("LM serving is not ported yet (ROADMAP queue 1 "
-                         "item 12); pass --spmm")
-    return _main_spmm(args)
+    return _main_spmm(args) if args.spmm else _main_lm(args)
 
 
 if __name__ == "__main__":

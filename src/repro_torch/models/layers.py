@@ -1,0 +1,225 @@
+"""Layers of the LM stack: RMS norm, rotary embedding, GQA attention and
+the dense MLP.
+
+The port of ``repro.models.layers`` for dense-attention, dense-MLP models
+(the MoE, SSD and RG-LRU layers are ROADMAP queue 1 item 12). Parameters
+live in ``cfg.param_dtype`` and are cast to the activations' dtype at use,
+as in JAX. ``Attention`` has the JAX layer's three modes: ``train`` (the
+full sequence, no cache), ``prefill`` (the full sequence, filling the decode
+cache) and ``decode`` (one token against the cache, a ring buffer when the
+window is shorter than the allocation). A prefill of ``FLASH_THRESHOLD``
+tokens or more runs ``ops.flash_mha``, the flash kernel; below it the
+scores are formed in torch, as JAX forms them outside any Pallas kernel.
+
+The decode cache is a dict ``{"k", "v": (B, alloc, KV, hd), "end": int}``
+updated in place (JAX returns a new one), which saves a copy of every
+layer's K and V per token. One device: the JAX layer's sharding
+annotations have no counterpart here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+from .config import ModelConfig
+
+# Prefills of at least this many tokens take the flash kernel (the JAX
+# layer's chunked-attention switch); FLASH_CHUNK is the plain version's key
+# chunk on the CPU (``cfg.flash_chunk`` in the model).
+FLASH_THRESHOLD = 8192
+FLASH_CHUNK = 1024
+NEG_INF = -1e30
+
+Cache = Dict[str, object]
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` -> ``torch.bfloat16``, and so on."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.to(torch.float32))).to(dt)
+
+
+def _rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding; x: (..., S, H, hd), pos: (..., S)."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = pos[..., :, None, None].to(torch.float32) * freq
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+def _soft_cap(logits: torch.Tensor, cap) -> torch.Tensor:
+    return cap * torch.tanh(logits / cap) if cap else logits
+
+
+def _param(shape, cfg: ModelConfig, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=torch_dtype(cfg.param_dtype),
+                                    device=device))
+
+
+# ======================================================================
+class Attention(nn.Module):
+    """GQA attention (full causal or sliding window, optional soft cap):
+    ``wq`` (d, H*hd), ``wk``/``wv`` (d, KV*hd), ``wo`` (H*hd, d)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, hd = cfg.d_model, cfg.head_dim
+        q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        self.wq = _param((d, q), cfg, device)
+        self.wk = _param((d, kv), cfg, device)
+        self.wv = _param((d, kv), cfg, device)
+        self.wo = _param((q, d), cfg, device)
+
+    def forward(self, x: torch.Tensor, pos: torch.Tensor, *,
+                window: Optional[int], mode: str,
+                cache: Optional[Cache] = None
+                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        """x: (B, S, d); pos: (B, S) absolute positions. Returns the output
+        and the cache (None in ``train`` mode)."""
+        cfg = self.cfg
+        bsz, s, _ = x.shape
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        dt = x.dtype
+        q = (x @ self.wq.to(dt)).view(bsz, s, h, hd)
+        k = (x @ self.wk.to(dt)).view(bsz, s, kv, hd)
+        v = (x @ self.wv.to(dt)).view(bsz, s, kv, hd)
+        q = _rope(q, pos, cfg.rope_theta)
+        k = _rope(k, pos, cfg.rope_theta)
+        qg = q.view(bsz, s, kv, h // kv, hd)
+
+        new_cache = None
+        if mode == "decode":
+            if cache is None or s != 1:
+                raise ValueError("decode mode needs a cache and a "
+                                 "single-token step")
+            end = int(cache["end"])                 # tokens already cached
+            ck, cv = cache["k"], cache["v"]
+            s_alloc = ck.shape[1]
+            wpos = end % s_alloc                    # ring-buffer write slot
+            ck[:, wpos] = k[:, 0].to(ck.dtype)
+            cv[:, wpos] = v[:, 0].to(cv.dtype)
+            cache["end"] = end + 1
+            new_cache = cache
+            # absolute position of each slot (ring semantics)
+            slot = torch.arange(s_alloc, device=x.device)
+            abs_pos = torch.where(slot <= wpos, slot + (end - wpos),
+                                  slot + (end - wpos) - s_alloc)
+            valid = (abs_pos >= 0) & (abs_pos <= end)
+            if window is not None:
+                valid &= abs_pos > end - window
+            logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                                  ck.to(dt)) / math.sqrt(hd)
+            logits = _soft_cap(logits, cfg.logits_soft_cap)
+            logits = torch.where(valid, logits, NEG_INF)
+            att = torch.softmax(logits.to(torch.float32), dim=-1).to(dt)
+            yg = torch.einsum("bkgqs,bskd->bqkgd", att, cv.to(dt))
+        else:
+            if mode == "prefill":
+                if cache is not None:
+                    # the last min(S, alloc) keys go into the ring buffer
+                    alloc = cache["k"].shape[1]
+                    ln = min(s, alloc)
+                    slots = torch.arange(s - ln, s, device=x.device) % alloc
+                    cache["k"][:, slots] = k[:, -ln:].to(cache["k"].dtype)
+                    cache["v"][:, slots] = v[:, -ln:].to(cache["v"].dtype)
+                    cache["end"] = s
+                    new_cache = cache
+                else:
+                    new_cache = {"k": k, "v": v, "end": s}
+            if s >= FLASH_THRESHOLD:
+                # the flash kernel: no (S x S) scores in memory
+                yg = ops.flash_mha(qg, k, v, window=window,
+                                   soft_cap=cfg.logits_soft_cap,
+                                   bk=cfg.flash_chunk)
+            else:
+                logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                                      k) / math.sqrt(hd)
+                logits = _soft_cap(logits, cfg.logits_soft_cap)
+                qp, kp = pos[:, :, None], pos[:, None, :]
+                mask = kp <= qp                          # causal
+                if window is not None:
+                    mask &= kp > qp - window
+                logits = torch.where(mask[:, None, None], logits, NEG_INF)
+                att = torch.softmax(logits.to(torch.float32),
+                                    dim=-1).to(dt)
+                yg = torch.einsum("bkgqs,bskd->bqkgd", att, v)
+        y = yg.reshape(bsz, s, h * hd)
+        return y @ self.wo.to(dt), new_cache
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, alloc: int,
+                    dtype=torch.bfloat16, device=None) -> Cache:
+    kvshape = (batch, alloc, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(kvshape, dtype=dtype, device=device),
+            "v": torch.zeros(kvshape, dtype=dtype, device=device),
+            "end": 0}
+
+
+# ======================================================================
+def _maybe_sparse_mm(x: torch.Tensor, w: torch.Tensor,
+                     mask: Optional[torch.Tensor], block: int
+                     ) -> torch.Tensor:
+    """x @ (w ⊙ blockmask), the JAX layer's mask-dense form."""
+    if mask is None:
+        return x @ w
+    mfull = mask.to(w.dtype).repeat_interleave(block, 0) \
+        .repeat_interleave(block, 1)
+    return x @ (w * mfull)
+
+
+class MLP(nn.Module):
+    """SwiGLU (``w_gate``, ``w_up``, ``w_down``) or GELU (``w_up``,
+    ``w_down``). With ``cfg.sparsity`` the block-occupancy masks are
+    buffers (``mask_w_*``, ones at init): fixed pruning metadata, not
+    parameters."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, f = cfg.d_model, cfg.d_ff
+        shapes = {"w_up": (d, f), "w_down": (f, d)}
+        if cfg.mlp_type == "swiglu":
+            shapes = {"w_gate": (d, f), **shapes}
+        for name, shape in shapes.items():
+            setattr(self, name, _param(shape, cfg, device))
+        self.block = cfg.sparsity.block if cfg.sparsity else 0
+        for name, (r, c) in shapes.items():
+            self.register_buffer(
+                f"mask_{name}",
+                None if cfg.sparsity is None else torch.ones(
+                    (r // self.block, c // self.block),
+                    dtype=torch_dtype(cfg.param_dtype), device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        if self.cfg.mlp_type == "swiglu":
+            g = _maybe_sparse_mm(x, self.w_gate.to(dt), self.mask_w_gate,
+                                 self.block)
+            u = _maybe_sparse_mm(x, self.w_up.to(dt), self.mask_w_up,
+                                 self.block)
+            hdn = F.silu(g) * u
+        else:
+            u = _maybe_sparse_mm(x, self.w_up.to(dt), self.mask_w_up,
+                                 self.block)
+            hdn = F.gelu(u, approximate="tanh")     # jax.nn.gelu's default
+        return _maybe_sparse_mm(hdn, self.w_down.to(dt), self.mask_w_down,
+                                self.block)

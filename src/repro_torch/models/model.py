@@ -1,0 +1,193 @@
+"""Model assembly: embedding -> blocks -> norm -> logits.
+
+The port of ``repro.models.model`` for dense-attention, dense-MLP,
+token-input models. Each block is pre-norm residual, x += mixer(norm(x));
+x += ffn(norm(x)), and the blocks are an ``nn.ModuleList``, one per layer
+(JAX stacks them per group of ``cfg.block_pattern`` and scans). Layer
+``i`` is block ``i % len(cfg.block_pattern)`` of group
+``i // len(cfg.block_pattern)``.
+
+Entry points:
+  init(cfg, seed=, device=)               -> Model, weights from a seed
+  Model(tokens, mode=, cache=, pos_offset=) -> logits [, cache]
+  init_cache(cfg, batch, alloc_seq, dtype, device) -> per-layer caches
+  prefill_step(model, tokens, alloc_seq=) -> last logits, cache
+  decode_step(model, token, cache, pos=)  -> logits, cache
+
+``train`` mode is the forward pass only; the loss and its gradients come
+with the training slice (ROADMAP queue 1 item 12). The activations run in
+``cfg.dtype``, the embedding scaled by sqrt(d_model) in that dtype (the
+JAX model scales by a numpy float64, which promotes a bfloat16 model's
+activations to float32: ROADMAP fault C3).
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..kernels.ops import resolve_device
+from . import layers
+from .config import ModelConfig
+
+Caches = List[Optional[layers.Cache]]
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: input_mode={cfg.input_mode!r} needs the embeds "
+            f"front end, not ported yet (ROADMAP queue 1 item 12)")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE FFN is not ported yet (ROADMAP queue 1 "
+            f"item 12)")
+    bad = sorted(set(cfg.block_pattern) - {"attn", "local_attn"})
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: blocks {bad} (the SSD / RG-LRU mixers) are not "
+            f"ported yet (ROADMAP queue 1 item 12)")
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, kind: str, *, device=None):
+        super().__init__()
+        self.cfg, self.kind = cfg, kind
+        pdt = layers.torch_dtype(cfg.param_dtype)
+        self.norm_mixer = nn.Parameter(torch.empty(cfg.d_model, dtype=pdt,
+                                                   device=device))
+        self.mixer = layers.Attention(cfg, device=device)
+        self.norm_mlp = self.ffn = None
+        if cfg.mlp_type != "none":
+            self.norm_mlp = nn.Parameter(torch.empty(
+                cfg.d_model, dtype=pdt, device=device))
+            self.ffn = layers.MLP(cfg, device=device)
+
+    @property
+    def window(self) -> Optional[int]:
+        return (self.cfg.sliding_window if self.kind == "attn"
+                else self.cfg.local_window)
+
+    def forward(self, x: torch.Tensor, pos: torch.Tensor, *, mode: str,
+                cache: Optional[layers.Cache]):
+        cfg = self.cfg
+        h = layers.rms_norm(x, self.norm_mixer, cfg.norm_eps)
+        y, new_cache = self.mixer(h, pos, window=self.window, mode=mode,
+                                  cache=cache)
+        x = x + y
+        if self.ffn is not None:
+            x = x + self.ffn(layers.rms_norm(x, self.norm_mlp, cfg.norm_eps))
+        return x, new_cache
+
+
+class Model(nn.Module):
+    """``embed`` (V, d), ``unembed`` (d, V) unless tied, ``norm_final``
+    (d,), ``blocks``; V = ``cfg.padded_vocab()``. The parameters are
+    allocated, not set: ``init`` seeds them, ``convert.model_from_jax``
+    copies them."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        pdt = layers.torch_dtype(cfg.param_dtype)
+        v, d = cfg.padded_vocab(), cfg.d_model
+        self.embed = nn.Parameter(torch.empty((v, d), dtype=pdt,
+                                              device=device))
+        self.unembed = None if cfg.tie_embeddings else nn.Parameter(
+            torch.empty((d, v), dtype=pdt, device=device))
+        self.norm_final = nn.Parameter(torch.empty(d, dtype=pdt,
+                                                   device=device))
+        pattern = cfg.block_pattern
+        self.blocks = nn.ModuleList(
+            Block(cfg, pattern[i % len(pattern)], device=device)
+            for i in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def forward(self, tokens, *, mode: str = "train",
+                cache: Optional[Caches] = None, pos_offset: int = 0):
+        """tokens: (B, S) ints. Returns the logits (B, S, V) in ``train``
+        mode, else (logits, per-layer caches)."""
+        cfg = self.cfg
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"mode must be train, prefill or decode, got "
+                             f"{mode!r}")
+        cdt = layers.torch_dtype(cfg.dtype)
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        x = self.embed[tokens].to(cdt) * math.sqrt(cfg.d_model)
+        bsz, s, _ = x.shape
+        pos = (pos_offset + torch.arange(s, device=self.device)
+               ).expand(bsz, s)
+        new_caches: Caches = []
+        for i, blk in enumerate(self.blocks):
+            x, nc = blk(x, pos, mode=mode,
+                        cache=None if cache is None else cache[i])
+            new_caches.append(nc)
+        x = layers.rms_norm(x, self.norm_final, cfg.norm_eps)
+        if cfg.tie_embeddings:
+            logits = x @ self.embed.to(cdt).T
+        else:
+            logits = x @ self.unembed.to(cdt)
+        if cfg.logits_soft_cap:
+            c = cfg.logits_soft_cap
+            logits = c * torch.tanh(logits / c)
+        if mode == "train":
+            return logits
+        return logits, new_caches
+
+
+@torch.no_grad()
+def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Model:
+    """A model with weights drawn from ``seed`` on ``device`` (default
+    CUDA): matrices normal(0, 0.02), norms zeros, as the JAX init draws
+    them."""
+    dev = resolve_device(device)
+    model = Model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for _, p in model.named_parameters():
+        if p.ndim == 1:
+            p.zero_()
+        else:
+            p.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
+def init_cache(cfg: ModelConfig, batch: int, alloc_seq: int,
+               dtype=torch.bfloat16, device=None) -> Caches:
+    """One decode cache per layer: attention blocks allocate
+    min(alloc_seq, their window) slots."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    caches: Caches = []
+    pattern = cfg.block_pattern
+    for i in range(cfg.n_layers):
+        kind = pattern[i % len(pattern)]
+        win = cfg.sliding_window if kind == "attn" else cfg.local_window
+        alloc = min(alloc_seq, win) if win else alloc_seq
+        caches.append(layers.init_attn_cache(cfg, batch, alloc, dtype, dev))
+    return caches
+
+
+@torch.no_grad()
+def prefill_step(model: Model, tokens, *, alloc_seq: int,
+                 cache_dtype=torch.bfloat16
+                 ) -> Tuple[torch.Tensor, Caches]:
+    """Run the full prompt, build the decode cache, return last logits."""
+    cache = init_cache(model.cfg, tokens.shape[0], alloc_seq, cache_dtype,
+                       model.device)
+    logits, cache = model(tokens, mode="prefill", cache=cache)
+    return logits[:, -1, :], cache
+
+
+@torch.no_grad()
+def decode_step(model: Model, token, cache: Caches, *, pos: int
+                ) -> Tuple[torch.Tensor, Caches]:
+    """One decode step. token: (B, 1); pos: the position of the new
+    token. Returns (logits (B, V), cache)."""
+    logits, cache = model(token, mode="decode", cache=cache, pos_offset=pos)
+    return logits[:, -1, :], cache

@@ -1,1 +1,1 @@
-"""SpMM serving: wave scheduler and engine."""
+"""Serving: the LM wave engine, and the SpMM wave scheduler and engine."""

@@ -1,12 +1,18 @@
-"""Continuous-batching SpMM serving on the port's kernels.
+"""Serving engines on the port's kernels.
 
-The port of ``SpMMEngine`` from ``repro.serve.engine``: the paper's own
-workload as a service, one fixed sparse operand A and a queue of dense
-right-hand sides to multiply against it. A is an InCRS operand (the fused
-InCRS kernels) or a bound plan of the plan–execute API (``bsr`` or
-``dense``, one kernel launch per wave each). Requests are packed into
-waves (``serve.scheduler``), each wave is staged on the host, launched,
-and retired, with the host prep of wave N+1 done while wave N computes.
+``ServeEngine`` is the port of the LM engine of ``repro.serve.engine``:
+requests are grouped into waves of equal prompt length (up to ``n_slots``
+per wave); each wave is prefilled as one batch and decoded in lockstep,
+one token per step for every lane. A prompt of ``FLASH_THRESHOLD`` tokens
+or more prefills through the flash kernel.
+
+``SpMMEngine`` is the paper's own workload as a service, one fixed sparse
+operand A and a queue of dense right-hand sides to multiply against it. A
+is an InCRS operand (the fused InCRS kernels) or a bound plan of the
+plan–execute API (``bsr`` or ``dense``, one kernel launch per wave each).
+Requests are packed into waves (``serve.scheduler``), each wave is staged
+on the host, launched, and retired, with the host prep of wave N+1 done
+while wave N computes.
 """
 from __future__ import annotations
 
@@ -22,7 +28,120 @@ import torch
 
 from ..core.incrs import InCRS
 from ..kernels import ops
+from ..models import model as M
 from . import scheduler as _sched
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                     # (S,) int
+    max_new: int = 16
+    temperature: float = 0.0               # 0 = greedy
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    """Wave-batched LM serving on the model's device.
+
+    All lanes of a wave share one position counter, so the ring-buffer
+    arithmetic of every cache is exact. A lane that has its ``max_new``
+    tokens is frozen: it is neither sampled (so it draws nothing from the
+    shared generator) nor fed a new token, though the lockstep batch still
+    carries it. Sampling is the JAX engine's, numpy's ``default_rng(seed)``
+    on the f32 logits, so both engines draw the same tokens from the same
+    logits. ``prefill_ms`` (one per wave) and ``decode_ms`` (one per step)
+    are host times up to the logits' arrival on the host.
+    """
+
+    def __init__(self, model: M.Model, *, n_slots: int = 4,
+                 alloc_extra: int = 64, cache_dtype=torch.bfloat16,
+                 seed: int = 0):
+        self.model, self.cfg = model, model.cfg
+        self.n_slots = n_slots
+        self.alloc_extra = alloc_extra
+        self.cache_dtype = cache_dtype
+        self.rng = np.random.default_rng(seed)
+        self.queue: List[Request] = []
+        self.finished: List[Request] = []
+        self.stats: Dict[str, int] = defaultdict(int)
+        self.prefill_ms: List[float] = []
+        self.decode_ms: List[float] = []
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def _next_wave(self) -> List[Request]:
+        """Up to n_slots queued requests sharing one prompt length, the
+        largest group first."""
+        if not self.queue:
+            return []
+        by_len: Dict[int, List[Request]] = defaultdict(list)
+        for r in self.queue:
+            by_len[len(r.prompt)].append(r)
+        length = max(by_len, key=lambda k: len(by_len[k]))
+        wave = by_len[length][: self.n_slots]
+        for r in wave:
+            self.queue.remove(r)
+        return wave
+
+    def _sample(self, logits_row: np.ndarray, temp: float) -> int:
+        if temp <= 0.0:
+            return int(np.argmax(logits_row))
+        z = logits_row / temp
+        z = z - z.max()
+        prob = np.exp(z)
+        prob /= prob.sum()
+        return int(self.rng.choice(len(prob), p=prob))
+
+    # ------------------------------------------------------------------
+    def _run_wave(self, wave: List[Request]):
+        bsz = len(wave)
+        s = len(wave[0].prompt)
+        max_new = max(r.max_new for r in wave)
+        dev = self.model.device
+        prompts = torch.as_tensor(np.stack([r.prompt for r in wave]),
+                                  device=dev)
+        t0 = time.perf_counter()
+        logits, cache = M.prefill_step(
+            self.model, prompts, alloc_seq=s + max_new + self.alloc_extra,
+            cache_dtype=self.cache_dtype)
+        lg = logits.to(torch.float32).cpu().numpy()
+        self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        self.stats["prefill_tokens"] += bsz * s
+        # Only lanes that want tokens sample: a max_new = 0 request comes
+        # back empty and draws nothing that would shift its wave-mates.
+        last = np.zeros(bsz, dtype=np.int64)
+        for i, r in enumerate(wave):
+            if r.max_new > 0:
+                last[i] = self._sample(lg[i], r.temperature)
+                r.out.append(int(last[i]))
+        for step in range(1, max_new):
+            t0 = time.perf_counter()
+            logits, cache = M.decode_step(
+                self.model, torch.as_tensor(last[:, None], device=dev),
+                cache, pos=s + step - 1)
+            lg = logits.to(torch.float32).cpu().numpy()
+            self.decode_ms.append((time.perf_counter() - t0) * 1e3)
+            self.stats["decode_tokens"] += bsz
+            for i, r in enumerate(wave):
+                if len(r.out) < r.max_new:      # finished lanes are frozen
+                    tok = self._sample(lg[i], r.temperature)
+                    r.out.append(tok)
+                    last[i] = tok
+        for r in wave:
+            r.done = True
+            self.finished.append(r)
+
+    # ------------------------------------------------------------------
+    def run(self) -> List[Request]:
+        """Serve until the queue drains; returns the finished requests."""
+        while self.queue:
+            self._run_wave(self._next_wave())
+            self.stats["waves"] += 1
+        return self.finished
 
 
 @dataclasses.dataclass

@@ -1,0 +1,195 @@
+"""The port's flash-attention kernel and LM stack on the card: the kernel
+against its plain torch version over types, head dims, group sizes,
+windows, soft caps and ragged lengths; the wrapper's refusals; one launch
+per ``ops.flash_mha``; a smoke-width model and ``ServeEngine`` prefilling
+through the kernel.
+
+This file imports nothing of JAX, so it runs on a machine that has the card
+and no JAX: ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
+tests/test_torch_cuda_lm.py`` (the shared conftest imports JAX). On a
+machine without CUDA every test skips.
+
+Tolerances: f32 kernel against the plain f32 version ``1e-5 * max|out|``
+(sums in another order); bf16 kernel against the plain version run in f32
+on the same bf16 inputs ``1e-2 * max|out|`` (bf16 output rounding is
+2^-8); model logits on the card against the same model on the CPU
+``1e-4`` (f32 throughout).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import configs                           # noqa: E402
+from repro_torch.kernels import flash_attention as F      # noqa: E402
+from repro_torch.kernels import ops                       # noqa: E402
+from repro_torch.models import layers                     # noqa: E402
+from repro_torch.models import model as M                 # noqa: E402
+from repro_torch.serve import engine as E                 # noqa: E402
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+LOGIT_TOL = 1e-4
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(b, s, kv, g, hd, dtype, seed=0, sk=None):
+    gen = torch.Generator().manual_seed(seed)
+    sk = s if sk is None else sk
+    q = torch.randn(b, s, kv, g, hd, generator=gen)
+    k = torch.randn(b, sk, kv, hd, generator=gen)
+    v = torch.randn(b, sk, kv, hd, generator=gen)
+    return (t.to(dtype) for t in (q, k, v))
+
+
+# (B, S, KV, G, hd, window, soft cap)
+CASES = [
+    (2, 1, 2, 3, 64, None, None),
+    (2, 63, 2, 3, 16, None, None),
+    (2, 65, 1, 4, 128, None, None),
+    (1, 200, 2, 3, 64, 37, 6.0),
+    (1, 300, 1, 2, 32, 64, None),
+    (1, 1000, 1, 8, 128, None, 30.0),
+    (1, 257, 2, 2, 256, 100, None),
+    (1, 130, 3, 1, 24, None, None),
+    (2, 129, 1, 5, 200, 7, 2.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,kv,g,hd,window,cap", CASES)
+def test_kernel_matches_plain(cuda, dtype, b, s, kv, g, hd, window, cap):
+    q, k, v = (t.to(cuda) for t in _qkv(b, s, kv, g, hd, dtype))
+    out = F.flash_attention(q, k, v, window=window, soft_cap=cap)
+    torch.cuda.synchronize()
+    want = F.plain(q.float(), k.float(), v.float(), window=window,
+                   soft_cap=cap)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    err = float((out.float() - want).abs().max())
+    assert err <= TOL[dtype] * float(want.abs().max())
+
+
+@pytest.mark.parametrize("sq,sk", [(100, 50), (50, 100), (70, 0)])
+def test_kernel_with_sq_unlike_sk(cuda, sq, sk):
+    q, k, v = (t.to(cuda) for t in _qkv(1, sq, 1, 2, 64, torch.float32,
+                                        sk=sk))
+    out = F.flash_attention(q, k, v)
+    want = F.plain(q, k, v)
+    assert float((out - want).abs().max()) <= \
+        1e-5 * max(float(want.abs().max()), 1.0)
+
+
+def test_kernel_reads_strided_inputs(cuda):
+    """q, k, v as views of a fused projection, as a layout may give them:
+    the kernel reads them through their strides."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    fused = torch.randn(2, 90, 6, 64, generator=gen, device=cuda)
+    q = fused[:, :, :4].unflatten(2, (1, 4))
+    k, v = fused[:, :, 4:5], fused[:, :, 5:6]
+    assert not q.is_contiguous()
+    out = F.flash_attention(q, k, v, window=20)
+    want = F.plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                   window=20)
+    assert float((out - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
+
+
+def test_kernel_refusals(cuda):
+    q, k, v = (t.to(cuda) for t in _qkv(1, 16, 1, 2, 64, torch.float32))
+    with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+        F.flash_attention(*(t.to(cuda) for t in _qkv(1, 16, 1, 2, 264,
+                                                     torch.float32)))
+    with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+        F.flash_attention(*(t.to(cuda) for t in _qkv(1, 16, 1, 2, 20,
+                                                     torch.float32)))
+    with pytest.raises(TypeError, match="floating point"):
+        F.flash_attention(q.int(), k.int(), v.int())
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        F.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="one type"):
+        F.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="one device"):
+        F.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="contiguous in its head dim"):
+        F.flash_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3),
+                          v)
+
+
+def test_one_launch_per_flash_mha(cuda):
+    q, k, v = (t.to(cuda) for t in _qkv(2, 100, 2, 3, 64, torch.bfloat16))
+    F.reset_launches()
+    for n in (1, 2, 3):
+        ops.flash_mha(q, k, v, window=50, soft_cap=5.0, bq=128, bk=128)
+        assert F.LAUNCHES["flash_attention"] == n
+
+
+def _smoke_models(cuda):
+    cfg = configs.get_smoke("granite-34b")
+    model = M.init(cfg, seed=0, device=cuda)
+    cpu = M.Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return cfg, model, cpu
+
+
+def test_model_prefill_launches_once_per_layer(cuda, monkeypatch):
+    cfg, model, cpu = _smoke_models(cuda)
+    monkeypatch.setattr(layers, "FLASH_THRESHOLD", 32)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 100))
+    F.reset_launches()
+    logits, cache = M.prefill_step(model, toks, alloc_seq=120,
+                                   cache_dtype=torch.float32)
+    assert F.LAUNCHES["flash_attention"] == cfg.n_layers
+    want, _ = M.prefill_step(cpu, toks, alloc_seq=120,
+                             cache_dtype=torch.float32)
+    np.testing.assert_allclose(logits.cpu().numpy(), want.numpy(),
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    # a prompt below the threshold and the decode steps launch nothing
+    M.prefill_step(model, toks[:, :20], alloc_seq=40)
+    M.decode_step(model, toks[:, :1], cache, pos=100)
+    assert F.LAUNCHES["flash_attention"] == cfg.n_layers
+
+
+def test_serve_engine_on_cuda_matches_the_cpu(cuda, monkeypatch):
+    cfg, model, cpu = _smoke_models(cuda)
+    monkeypatch.setattr(layers, "FLASH_THRESHOLD", 32)
+    rng = np.random.default_rng(1)
+    spec = [(40, 5), (40, 3), (12, 4), (40, 0), (12, 6)]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n, _ in spec]
+    outs = []
+    F.reset_launches()
+    for m in (model, cpu):
+        eng = E.ServeEngine(m, n_slots=4, cache_dtype=torch.float32, seed=2)
+        for i, (p, (_, mx)) in enumerate(zip(prompts, spec)):
+            eng.submit(E.Request(i, p, max_new=mx))
+        outs.append({r.rid: r.out for r in eng.run()})
+    assert outs[0] == outs[1]
+    assert [len(outs[0][i]) for i in range(5)] == [5, 3, 4, 0, 6]
+    # one wave of 40-token prompts reaches the kernel, once per layer
+    assert F.LAUNCHES["flash_attention"] == cfg.n_layers
+
+
+def test_full_width_granite_layer_on_the_card(cuda):
+    """One granite-34b block at full width (d_model 6144, 48 heads, one KV
+    head) prefilling 8,192 tokens in bf16 through the kernel."""
+    cfg = dataclasses.replace(configs.get("granite-34b"), n_layers=1)
+    model = M.init(cfg, seed=0, device=cuda)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 8192))
+    F.reset_launches()
+    logits, cache = M.prefill_step(model, toks, alloc_seq=8200)
+    assert F.LAUNCHES["flash_attention"] == 1
+    assert logits.shape == (1, cfg.padded_vocab())
+    assert bool(torch.isfinite(logits).all())
+    assert cache[0]["k"].dtype == torch.bfloat16 and cache[0]["end"] == 8192

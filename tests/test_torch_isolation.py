@@ -17,7 +17,8 @@ def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "tests", "test_torch_cuda_kernels.py"),
            os.path.join(ROOT, "tests", "test_torch_cuda_spgemm.py"),
-           os.path.join(ROOT, "tests", "test_torch_cuda_plan.py")]
+           os.path.join(ROOT, "tests", "test_torch_cuda_plan.py"),
+           os.path.join(ROOT, "tests", "test_torch_cuda_lm.py")]
     for base, _, files in os.walk(PORT):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return sorted(out)

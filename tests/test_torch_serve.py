@@ -170,4 +170,4 @@ def test_launcher_serves_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "served 3 requests" in out and "single-device cpu" in out
     with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu"])
+        serve.main(["--device", "cpu", "--arch", "no-such-arch"])

@@ -55,20 +55,26 @@ Phases, each printing one JSON line:
              measures nothing).
 11. plan_times — both kernels at the granite operand and at docword,
              N = 512: median time, plain version, library call, bound.
-12. lm_kernels — the flash-attention kernel against its plain version on
-             the card, f32 and bf16: granite-34b's prefill wave (B = 2,
+12. lm_kernels — the flash-attention kernels against their plain version
+             on the card, f32 (the FMA kernel) and bf16 (the tensor-core
+             kernel), each call checked to launch its type's kernel:
+             granite-34b's prefill wave (B = 2,
              S = 8192, one KV head, 48 query heads, hd 128), a mixtral
              shape (window 4096, KV 8, G 4), a recurrentgemma shape (soft
-             cap 30, window 2048, hd 256) and edge shapes.
+             cap 30, window 2048, hd 256) and edge shapes. bf16 is held
+             on every query row; at granite's wave the same check must
+             reject a planted fault (key tile 0 dropped past row 4096).
 13. lm_serve — the fourth path: granite-34b at full width, depth cut to
              4 layers, served by ``ServeEngine``: 2 requests of 8,192
              tokens (one wave through the kernel, one launch per layer)
              and 4 of 512 (the dense branch, no launch), counters zeroed
              just before; the long wave profiled for the idle share; the
              f32 decode logits against a teacher-forced prefill; the
-             launcher as a subprocess.
-14. lm_times — the kernel at granite's wave in bf16: median time, plain
-             version, scaled_dot_product_attention, bound.
+             launcher as a subprocess. Device time is sorted by kernel
+             symbol: the flash kernels by the names the wrapper exports.
+14. lm_times — the bf16 kernel at granite's wave: median time, TFLOP/s
+             and share of the bound, beside the f32 kernel on the same
+             values, the plain version and scaled_dot_product_attention.
 
 Then the card's line, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises. Without a CUDA
@@ -1195,8 +1201,13 @@ def plan_path(torch, K, ops, engine_mod, table2):
 # tokens or more prefilling through the flash-attention kernel.
 LM_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 LM_REPLACES = "src/repro/kernels/flash_attention.py:38"
-LM_TOL = {"float32": 1e-5,    # max|kernel - plain f32| <= tol * max|out|
-          "bfloat16": 1e-2}   # plain in f32 on the same bf16 inputs
+# Against plain f32 on the same inputs: f32 max|kernel - plain| <= tol *
+# max|out| over the whole output; bf16 the same bound on every query row,
+# with that row's max|out| (F.worst_row_error), since the whole output's
+# max comes from the first rows, which average a few keys.
+LM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+LM_FAULT_ROW = 4096           # the planted fault: key tile 0 dropped from
+                              # granite's query rows at and past this one
 LM_DEPTH = 4                  # granite-34b cut from 88 layers, widths kept
 LM_LOGIT_TOL = 1e-3           # f32 decode logits vs teacher-forced prefill
 BF16_TC_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor-core peak, dense
@@ -1221,9 +1232,31 @@ def _causal_pairs(sq, sk, window):
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def _drop_first_key_tile(torch, q, k, v, row0):
+    """Causal attention of q's rows row0.. (B, S, 1, G, hd) over k, v
+    without the keys of the first 64-key tile, in f32: what a kernel that
+    skipped that tile for those rows would return."""
+    b, s, _, g, hd = q.shape
+    out = torch.empty(b, s - row0, g, hd, device=q.device)
+    i = torch.arange(row0, s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    keep = (j <= i) & (j >= 64)
+    for bi in range(b):
+        kk, vv = k[bi, :, 0].float(), v[bi, :, 0].float()
+        for g0 in range(0, g, 8):
+            qq = q[bi, row0:, 0, g0:g0 + 8].float().transpose(0, 1)
+            sc = (qq @ kk.T / hd ** 0.5).masked_fill(~keep, float("-inf"))
+            out[bi, :, g0:g0 + 8] = (torch.softmax(sc, -1) @ vv).transpose(
+                0, 1)
+            del sc
+    return out
+
+
 def phase_lm_kernels(torch, F):
     """The flash kernel against its plain version on the card, f32 and
-    bf16, at the model shapes and edge shapes; the worst error of each."""
+    bf16, at the model shapes and edge shapes; the worst error of each.
+    At granite's wave the bf16 check is also shown a planted fault (key
+    tile 0 dropped from the rows past LM_FAULT_ROW) and must reject it."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     errs, cases = {}, []
     for label, b, s, kv, g, hd, window, cap in LM_KERNEL_CASES:
@@ -1233,26 +1266,53 @@ def phase_lm_kernels(torch, F):
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
             q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+            route = F.ROUTES[dt]
+            before = dict(F.ROUTE_LAUNCHES)
             out = F.flash_attention(q, k, v, window=window, soft_cap=cap)
             torch.cuda.synchronize()
+            check({r: F.ROUTE_LAUNCHES[r] - before[r] for r in before} ==
+                  {r: int(r == route) for r in before},
+                  f"flash {label} {dname} launched the {route} kernel once "
+                  f"and no other")
             want = F.plain(q.float(), k.float(), v.float(), window=window,
                            soft_cap=cap)
             scale = float(want.abs().max())
             err = float((out.float() - want).abs().max())
+            row_err = F.worst_row_error(out, want)
+            within = (row_err <= LM_TOL[dname] if dt == torch.bfloat16
+                      else err <= LM_TOL[dname] * scale)
             ok = (out.dtype == dt and tuple(out.shape) == tuple(q.shape) and
-                  bool(torch.isfinite(out).all()) and
-                  err <= LM_TOL[dname] * scale)
-            cases.append({"case": label, "dtype": dname,
-                          "shape": [b, s, kv, g, hd], "window": window,
-                          "soft_cap": cap, "max_abs_err": err,
-                          "max_abs_out": scale, "ok": ok})
-            check(ok, f"flash kernel {label} {dname}: err {err} > "
-                  f"{LM_TOL[dname]} * {scale}")
+                  bool(torch.isfinite(out).all()) and within)
+            case = {"case": label, "dtype": dname, "kernel": route,
+                    "shape": [b, s, kv, g, hd], "window": window,
+                    "soft_cap": cap, "max_abs_err": err,
+                    "max_abs_out": scale, "worst_row_error": row_err,
+                    "ok": ok}
+            check(ok, f"flash kernel {label} {dname}: err {err} (worst "
+                  f"row {row_err}) over {LM_TOL[dname]} (max|out| {scale})")
+            if label == "granite" and dt == torch.bfloat16:
+                bad = out.clone()
+                bad[:, LM_FAULT_ROW:, 0] = _drop_first_key_tile(
+                    torch, q, k, v, LM_FAULT_ROW).to(dt)
+                fault = {"what": f"key tile 0 dropped from query rows >= "
+                                 f"{LM_FAULT_ROW}",
+                         "worst_row_error": F.worst_row_error(bad, want),
+                         "whole_output_error": float(
+                             (bad.float() - want).abs().max()) / scale}
+                fault["rejected"] = fault["worst_row_error"] > LM_TOL[dname]
+                case["planted_fault"] = fault
+                check(fault["rejected"], f"the bf16 check let a planted "
+                      f"fault through: {fault}")
+                del bad
+            cases.append(case)
             errs[f"{label}/{dname}"] = err
             del out, want
     emit({"phase": "lm_kernels", "tolerance": {
-        k: f"{v} * max|out| against plain f32 on the same inputs"
-        for k, v in LM_TOL.items()}, "cases": cases})
+        "float32": f"max|err| <= {LM_TOL['float32']} * max|out| against "
+                   f"plain f32 on the same inputs",
+        "bfloat16": f"on every query row, max|err| <= "
+                    f"{LM_TOL['bfloat16']} * that row's max|out|, against "
+                    f"plain f32 on the same inputs"}, "cases": cases})
     return errs
 
 
@@ -1295,6 +1355,8 @@ def phase_lm_serve(torch, F, L):
     F.reset_launches()
     eng_l, wall_l = _serve_lm(torch, L.E, model, long_reqs)
     launches_long = F.LAUNCHES["flash_attention"]
+    check(F.ROUTE_LAUNCHES["bf16_wgmma"] == launches_long,
+          f"the bf16 wave ran only the bf16 kernel: {F.ROUTE_LAUNCHES}")
     eng_s, wall_s = _serve_lm(torch, L.E, model, short_reqs)
     launches = F.LAUNCHES["flash_attention"]
     for r in long_reqs + short_reqs:
@@ -1319,18 +1381,30 @@ def phase_lm_serve(torch, F, L):
                              ProfilerActivity.CUDA]) as prof:
         _, wall_prof = _serve_lm(torch, L.E, model, _lm_requests(
             L.E, v, 2, 8192, max_new, 0, seed=1))
+    # By kernel symbol: the flash kernels by the names the wrapper exports
+    # (tested first, since a library GEMM's name may hold any word), then
+    # the library GEMMs, then the rest.
     by_kind = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    by_route = {r: 0.0 for r in F.KERNEL_SYMBOLS}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         key = ev.key.lower()
-        kind = ("flash_attention" if "flash_kernel" in key else
+        route = next((r for r, sym in F.KERNEL_SYMBOLS.items()
+                      if sym.lower() in key), None)
+        kind = ("flash_attention" if route else
                 "gemm" if any(w in key for w in ("gemm", "nvjet", "xmma",
                                                  "cutlass")) else "other")
         by_kind[kind] += us / 1e3
+        if route:
+            by_route[route] += us / 1e3
     busy_ms = sum(by_kind.values())
+    check(busy_ms > 0, "the profiler recorded device time on the long wave")
+    check(by_route["bf16_wgmma"] > 0 and by_route["f32_fma"] == 0,
+          f"the profiled bf16 wave's flash time is the bf16 kernel's: "
+          f"{by_route}")
 
     # f32: the same weights, decode logits against a teacher-forced
     # prefill over prompt + generated tokens (which runs the kernel again)
@@ -1391,10 +1465,10 @@ def phase_lm_serve(torch, F, L):
           "profile_long_wave": {"wall_ms": warm_wall_l * 1e3,
                                 "wall_ms_profiled": wall_prof * 1e3,
                                 "device_ms_by_kind": by_kind,
+                                "flash_ms_by_kernel": by_route,
                                 "device_busy_ms": busy_ms,
-                                "device_idle_share": (1.0 - busy_ms /
-                                                      (warm_wall_l * 1e3))
-                                if busy_ms else "not measured"},
+                                "device_idle_share": 1.0 - busy_ms /
+                                (warm_wall_l * 1e3)},
           "f32_check": {"max_abs_err": logit_err, "max_abs_logit": scale,
                         "tolerance": f"{LM_LOGIT_TOL} * max|logit|",
                         "teacher_forced_launches": tf_launches},
@@ -1434,7 +1508,10 @@ def phase_lm_times(torch, F, errs, launches, by_launcher):
         torch.bfloat16) for shape in ((b, s, kv, g, hd), (b, s, kv, hd),
                                       (b, s, kv, hd)))
     flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
+    before = dict(F.ROUTE_LAUNCHES)
     ms = _time_ms(torch, lambda: F.flash_attention(q, k, v), flush)
+    check(F.ROUTE_LAUNCHES["f32_fma"] == before["f32_fma"],
+          "the timed bf16 calls ran the bf16 kernel only")
     q32, k32, v32 = q.float(), k.float(), v.float()
     ms_f32 = _time_ms(torch, lambda: F.flash_attention(q32, k32, v32), flush)
     del q32, k32, v32
@@ -1474,6 +1551,9 @@ def phase_lm_times(torch, F, errs, launches, by_launcher):
           "library_kv_expanded_ms": expanded_ms,
           "library_vs_kernel_max_abs_diff": sdpa_err, "flops": flops,
           "bytes": nbytes, "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes,
+          "bound_share": max(t_ops, t_bytes) / ms,
+          "kernel": F.KERNEL_SYMBOLS["bf16_wgmma"],
+          "kernel_f32_inputs": F.KERNEL_SYMBOLS["f32_fma"],
           "achieved_tflops": flops / ms / 1e9,
           "achieved_tflops_f32_inputs": flops / ms_f32 / 1e9})
     return [{"name": "flash_attention", "route": "cuda", "source": LM_SOURCE,

@@ -23,6 +23,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# Libraries a source links beyond the CUDA runtime: libcuda, for the TMA
+# tensor maps that flash_attention.cu encodes on the host.
+LINK = {"flash_attention": ("-lcuda",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -42,11 +45,15 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + LINK.get(name, ())
+
+
 def lib_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for its current
     source and flags."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -72,7 +79,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         with open(log, "w") as fh:
             proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                 str(CSRC / f"{name}.cu")],
+                 str(CSRC / f"{name}.cu"), *LINK.get(name, ())],
                 stdout=fh, stderr=subprocess.STDOUT)
         running.append((name, proc, tmp, lib, log))
     failed = []

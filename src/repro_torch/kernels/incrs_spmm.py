@@ -8,7 +8,8 @@ by hand for Hopper in ``csrc/incrs_spmm.cu``:
 * ``incrs_spmm``           — expand order: a block per (row tile, col
   tile), looping over sections;
 * ``incrs_spmm_reuse``     — each (row tile, section) stripe staged once in
-  shared memory and reused over every col tile, behind a row panel;
+  shared memory, compacted to its live slots, and reused over a panel of
+  up to 512 columns whose sums stay in registers;
 * ``incrs_spmm_pipelined`` — (section, cols) blocks of B streamed through a
   multi-stage cp.async ring.
 
@@ -125,27 +126,63 @@ def _library() -> ctypes.CDLL:
     lib = _build.library("incrs_spmm")
     if not getattr(lib, "_repro_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in _C_FN.values():
+        # After (idx, val, B, C, M, N, sections, smax, section): what the
+        # wrapper sizes (launch_geometry), then the device and the stream.
+        for name, fn in _C_FN.items():
             f = getattr(lib, fn)
-            f.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+            f.argtypes = [p, p, p, p, i, i, i, i, i,
+                          *_GEOMETRY_TYPES[name], i, p]
             f.restype = i
-        lib.incrs_reuse_smem_bytes.argtypes = [i, i]
-        lib.incrs_reuse_smem_bytes.restype = ctypes.c_size_t
-        lib.incrs_pipelined_smem_bytes.argtypes = [i]
-        lib.incrs_pipelined_smem_bytes.restype = ctypes.c_size_t
         lib.incrs_error_string.argtypes = [i]
         lib.incrs_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
     return lib
 
 
-def _smem_bytes(lib: ctypes.CDLL, name: str, n: int, smax: int,
-                section: int) -> int:
+# The launch geometry, computed here only: the C launchers take it as
+# given. The constants are the kernels' own (csrc/incrs_spmm.cu).
+REUSE_THREADS = 256
+REUSE_COLS_PER_THREAD = 4
+PIPE_STAGES, PIPE_COLS = 3, 32       # the pipelined ring: (section, 32) f32
+_GEOMETRY_TYPES = {"incrs_spmm": (),
+                   "incrs_spmm_reuse": (ctypes.c_int, ctypes.c_size_t),
+                   "incrs_spmm_pipelined": (ctypes.c_size_t,)}
+
+
+def reuse_geometry(n: int) -> Tuple[int, int, int]:
+    """(threads per row, rows per block, panel columns) of the reuse
+    kernel at N columns: 32, 64 or 128 threads a row (the kernel's three
+    instances), the fewest whose panel of 128, 256 or 512 columns holds N,
+    else 128; 256 threads a block."""
+    cols = -(-n // REUSE_COLS_PER_THREAD)        # threads a row would use
+    tpr = next((t for t in (32, 64) if cols <= t), 128)
+    return tpr, REUSE_THREADS // tpr, REUSE_COLS_PER_THREAD * tpr
+
+
+def reuse_smem_bytes(n: int, smax: int) -> int:
+    """Shared memory per block of the reuse kernel: two raw and two
+    compacted stripes (idx and val) of its rows, and two live counts."""
+    rows = reuse_geometry(n)[1]
+    return rows * (4 * 2 * smax * 4 + 2 * 4)
+
+
+def launch_geometry(name: str, n: int, smax: int, section: int) -> tuple:
+    """What the C launcher of kernel ``name`` takes after the operand
+    sizes: (threads per row, shared memory) for reuse, (shared memory,)
+    for pipelined, nothing for expand. Raises if a block would need more
+    shared memory than the card has."""
     if name == "incrs_spmm_reuse":
-        return lib.incrs_reuse_smem_bytes(n, smax)
-    if name == "incrs_spmm_pipelined":
-        return lib.incrs_pipelined_smem_bytes(section)
-    return 0
+        smem = reuse_smem_bytes(n, smax)
+        geometry = (reuse_geometry(n)[0], smem)
+    elif name == "incrs_spmm_pipelined":
+        smem = PIPE_STAGES * section * PIPE_COLS * 4
+        geometry = (smem,)
+    else:
+        smem, geometry = 0, ()
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: needs {smem} bytes of shared memory per "
+                         f"block, over the card's {SMEM_LIMIT}")
+    return geometry
 
 
 def _launch(name: str, idx: torch.Tensor, val: torch.Tensor,
@@ -170,20 +207,18 @@ def _launch(name: str, idx: torch.Tensor, val: torch.Tensor,
         raise ValueError(f"{name}: the cp.async ring copies 16 bytes, so N "
                          f"must be a multiple of 4 and B 16-byte aligned "
                          f"(N = {n}); ops.spmm pads N to a multiple of 128")
-    lib = _library()
-    smem = _smem_bytes(lib, name, n, smax, section)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: needs {smem} bytes of shared memory per "
-                         f"block, over the card's {SMEM_LIMIT}")
+    geometry = launch_geometry(name, n, smax, section)
     out = torch.empty((mp, n), dtype=torch.float32, device=idx.device)
     if mp == 0 or n == 0:
         return out
     if n_sections == 0:
         return out.zero_()
+    lib = _library()
     stream = torch.cuda.current_stream(idx.device).cuda_stream
     err = getattr(lib, _C_FN[name])(
         idx.data_ptr(), val.data_ptr(), b.data_ptr(), out.data_ptr(),
-        mp, n, n_sections, smax, section, idx.device.index, stream)
+        mp, n, n_sections, smax, section, *geometry, idx.device.index,
+        stream)
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} at launch: "
                            f"{lib.incrs_error_string(err).decode()}")
@@ -235,7 +270,8 @@ def incrs_spmm_reuse(idx: torch.Tensor, val: torch.Tensor, b: torch.Tensor,
                      *, section: int = 256, bm: int = 128,
                      bn: int = 128) -> torch.Tensor:
     """Same contract as ``incrs_spmm``; each stripe is staged once per
-    (row tile, section) and reused over every col tile."""
+    (row tile, section, 512-column panel), compacted to its live slots,
+    and reused over every column of the panel."""
     return _run("incrs_spmm_reuse", idx, val, b, section, bm, bn,
                 kernel=idx.device.type != "cpu")
 

@@ -114,9 +114,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         K.incrs_spmm(idx.long(), val, b, bn=8)
     with pytest.raises(ValueError, match="contiguous"):
         K.incrs_spmm(idx, val, torch.zeros((8, 256), device=cuda).T, bn=8)
+    # a stripe too deep for the reuse order's staging buffers (N no longer
+    # matters: test_reuse_takes_wide_n)
+    deep = torch.full((8, 1, 1000), -1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        K.incrs_spmm_reuse(idx, val, torch.zeros((256, 65536), device=cuda),
-                           bn=65536)
+        K.incrs_spmm_reuse(deep, torch.zeros((8, 1, 1000), device=cuda), b,
+                           bn=8)
     with pytest.raises(ValueError, match="share one device"):
         K.incrs_spmm(idx, val, b.cpu(), bn=8)
     with pytest.raises(ValueError, match="multiple of 4"):
@@ -126,6 +129,81 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         K.incrs_spmm_pipelined(idx, val, torch.zeros(256 * 8 + 1,
                                                      device=cuda)[1:]
                                .view(256, 8), bn=8)
+
+
+def _stripes(cuda, name):
+    dense = _dense(name)
+    prep = ops.prepare_incrs(InCRS.from_dense(dense), pad_rows_to=1,
+                             device=cuda)
+    return dense, prep
+
+
+def _rhs(cuda, dense, prep, n, seed=9):
+    b = np.zeros((prep.n_sections * prep.section, n), np.float32)
+    b[:dense.shape[1]] = np.random.default_rng(seed).normal(
+        size=(dense.shape[1], n))
+    return torch.from_numpy(b).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["m_ragged", "empty_rows"])
+@pytest.mark.parametrize("n", [8, 160, 384, 512, 640, 1200])
+def test_reuse_bitwise_equal_to_expand_and_pipelined(cuda, name, n):
+    """Every panel width of the reuse order (128, 256, 512 columns, and
+    several 512-column panels) at a row count that is no multiple of its
+    row tile."""
+    dense, prep = _stripes(cuda, name)
+    bt = _rhs(cuda, dense, prep, n)
+    kw = dict(section=prep.section, bm=8, bn=n)
+    reuse = K.incrs_spmm_reuse(prep.idx, prep.val, bt, **kw)
+    expand = K.incrs_spmm(prep.idx, prep.val, bt, **kw)
+    piped = K.incrs_spmm_pipelined(prep.idx, prep.val, bt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(reuse, expand) and torch.equal(reuse, piped)
+    ref = K.plain("incrs_spmm_reuse", prep.idx, prep.val, bt, **kw)
+    assert float((reuse - ref).abs().max()) <= \
+        KERNEL_TOL * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+def test_reuse_takes_wide_n(cuda):
+    """N = 65,536: 128 panels of 512 columns, no panel in shared memory."""
+    dense, prep = _stripes(cuda, "k_ragged")
+    bt = _rhs(cuda, dense, prep, 65536)
+    kw = dict(section=prep.section, bm=8, bn=65536)
+    out = K.incrs_spmm_reuse(prep.idx, prep.val, bt, **kw)
+    ref = K.plain("incrs_spmm_reuse", prep.idx, prep.val, bt, **kw)
+    assert float((out - ref).abs().max()) <= \
+        KERNEL_TOL * float(ref.abs().max())
+    assert torch.equal(out, K.incrs_spmm(prep.idx, prep.val, bt, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8, 160, 512])
+def test_reuse_at_the_deepest_stripe_the_wrapper_takes(cuda, n):
+    """The wrapper sizes the reuse kernel's shared memory: at the deepest
+    stripe it takes for N, every live slot still lands inside it."""
+    smax = 1
+    while K.reuse_smem_bytes(n, smax + 1) <= K.SMEM_LIMIT:
+        smax += 1
+    with pytest.raises(ValueError, match="shared memory"):
+        K.launch_geometry("incrs_spmm_reuse", n, smax + 1, 4096)
+    rng = np.random.default_rng(n)
+    m, section = 37, 4096
+    idx = np.stack([np.sort(rng.choice(section, smax, replace=False))
+                    for _ in range(m)])[:, None].astype(np.int32)
+    idx[rng.random(idx.shape) < 0.3] = -1        # pad slots between live
+    val = rng.normal(size=idx.shape).astype(np.float32)
+    bt = torch.from_numpy(rng.normal(size=(section, n)).astype(
+        np.float32)).to(cuda)
+    idx_t, val_t = torch.from_numpy(idx).to(cuda), torch.from_numpy(
+        val).to(cuda)
+    kw = dict(section=section, bm=8, bn=n)
+    reuse = K.incrs_spmm_reuse(idx_t, val_t, bt, **kw)
+    assert torch.equal(reuse, K.incrs_spmm(idx_t, val_t, bt, **kw))
+    ref = K.plain("incrs_spmm_reuse", idx_t, val_t, bt, **kw)
+    assert float((reuse - ref).abs().max()) <= \
+        KERNEL_TOL * float(ref.abs().max())
 
 
 @pytest.mark.gpu

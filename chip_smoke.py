@@ -6,11 +6,13 @@
 Phases, each printing one JSON line:
 
 1. env     — the card (nvidia-smi name and power limit), torch and CUDA
-             versions, and the build of every kernel from ``csrc/``.
+             versions, and the build of every kernel from ``csrc/`` with
+             each kernel's registers and spill bytes from ptxas.
 2. kernels — each hand-written InCRS kernel against its plain torch
              version on the card (the five Table II operands at N = 512,
-             incrs-docword also at N = 128 and 640, and edge operands), the
-             three bitwise against each other.
+             incrs-docword also at N = 128 and 640, edge operands and a
+             skewed one whose first row tile holds most of the
+             non-zeros), the three bitwise against each other.
 3. serve   — the main path: ``SpMMEngine`` on the five Table II workloads
              at their published sizes, then incrs-docword with each
              explicit variant, every request checked against the float64
@@ -22,9 +24,13 @@ Phases, each printing one JSON line:
              by kind (kernel, copies); the idle share of the card. After
              phase 10 the same for docword as bsr and as dense plans and
              for the granite bsr plan.
-5. times   — incrs-docword at N = 512: each kernel's median time over CUDA
-             events beside its plain version, ``torch.sparse.mm`` and the
-             bound of the card.
+5. times   — the three InCRS orders' median times over CUDA events on
+             each Table II operand at N = 512 (incrs-docword also at 128
+             and 640), beside ``torch.sparse.mm`` and the bound of the
+             card; at incrs-docword, N = 512, also each plain version and
+             the pipelined kernel at other cluster sizes, warp counts and
+             block widths (``pipe_geometries``, each bitwise equal to
+             expand).
 6. spgemm_kernels — the sparse × sparse kernels against their plain
              versions on the card: the eight Table IV operands as A·Aᵀ at
              R = 128 (mesh-docword4 also at R = 32) and edge operands;
@@ -83,6 +89,7 @@ prints no result.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -173,13 +180,51 @@ def phase_env(torch, build):
     t0 = time.perf_counter()
     build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for name in build.sources()
-             for ln in build.build_log(name).splitlines()
-             if "registers" in ln or "Compiling entry" in ln
-             or "spill" in ln]
+    ptxas = [dict(source=name, **k) for name in build.sources()
+             for k in ptxas_kernels(build.build_log(name))]
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_s": build_s, "sources": build.sources(), "ptxas": ptxas})
+
+
+def _short_name(sym: str) -> str:
+    """``reuse_kernel<128>`` from an Itanium-mangled kernel symbol in an
+    (anonymous) namespace."""
+    i = sym.find("_ZN")
+    if i < 0:
+        return sym
+    i += 3
+    names = []
+    while i < len(sym) and sym[i].isdigit():
+        j = i
+        while sym[j].isdigit():
+            j += 1
+        names.append(sym[j:j + int(sym[i:j])])
+        i = j + int(sym[i:j])
+    targs = re.match(r"I((?:L[ib]\d+E)+)E", sym[i:])
+    args = re.findall(r"L[ib](\d+)E", targs.group(1)) if targs else []
+    return names[-1] + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_kernels(log: str) -> list:
+    """Registers and spill bytes of each kernel in a ``-Xptxas=-v`` log."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"kernel": _short_name(m.group(1)), "registers": None,
+                   "spill_stores": None, "spill_loads": None}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int,
+                                                               m.groups())
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
 
 
 def _edge_operands():
@@ -202,8 +247,11 @@ def _edge_operands():
     dense_sec = sparse(40, 600, 0.03)
     dense_sec[:, 256:512] = rng.uniform(0.5, 1.5, size=(40, 256))
     k_ragged = sparse(90, 300, 0.1)               # K not a multiple of S
+    skewed = sparse(600, 2048, 0.01)              # one row tile holds most
+    skewed[:48] = sparse(48, 2048, 0.5)           # of the non-zeros
     return {"m_ragged": ragged, "empty_rows": empty, "smax_1": single,
-            "dense_section": dense_sec, "k_ragged": k_ragged}
+            "dense_section": dense_sec, "k_ragged": k_ragged,
+            "skewed": skewed}
 
 
 def _compare(torch, K, idx, val, b, *, section, bm, bn, label):
@@ -419,62 +467,114 @@ def _time_ms(torch, fn, flush, reps=30):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def phase_times(torch, K, ops, docword, errs_512, launches):
-    n = 512
-    prep = ops.prepare_incrs(docword, device="cuda")
-    kp = prep.n_sections * prep.section
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    b = torch.zeros(kp, n, device="cuda")
-    b[:docword.shape[1]] = torch.randn(docword.shape[1], n, generator=gen,
-                                       device="cuda")
-    flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
-    crs = docword.crs
-    a_csr = torch.sparse_csr_tensor(
-        torch.from_numpy(crs.row_ptr), torch.from_numpy(
-            crs.col_idx.astype(np.int64)),
-        torch.from_numpy(crs.values), size=crs.shape,
-        check_invariants=True).to("cuda")
-    b_k = b[:docword.shape[1]].contiguous()
-    library_ms = _time_ms(torch, lambda: torch.sparse.mm(a_csr, b_k), flush)
-    # The bound: each input read once (idx in full, since the pad slots
-    # must be read to be skipped; val of the live slots; the rows of B that
-    # a live slot references), C's M rows written once; 2 flops per live
-    # slot and column, at the f32 rate outside the tensor cores.
+def _incrs_bound(torch, prep, n):
+    """The least time of C = A @ B at N columns: each input read once (idx
+    in full, since the pad slots must be read to be skipped; val of the
+    live slots; the rows of B that a live slot references), C's M rows
+    written once; 2 flops per live slot and column at the f32 rate
+    outside the tensor cores. Returns (bytes, flops, ms by bytes, ms by
+    operations, live slots)."""
     idx = prep.idx
     live = (idx >= 0) & (idx < prep.section)
     n_live = int(live.sum())
     rows_b = torch.unique((idx.long() + torch.arange(
-        prep.n_sections, device="cuda").view(1, -1, 1) * prep.section)[live])
+        prep.n_sections, device=idx.device).view(1, -1, 1) *
+        prep.section)[live])
     nbytes = idx.numel() * 4 + n_live * 4 + rows_b.numel() * n * 4 + \
         prep.shape[0] * n * 4
     flops = 2 * n_live * n
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
+    return (nbytes, flops, nbytes / HBM_BYTES_PER_S * 1e3,
+            flops / F32_FLOP_PER_S * 1e3, n_live)
+
+
+# Where the three orders are timed: every Table II operand at N = 512,
+# incrs-docword also at 128 and 640.
+TIME_CASES = [(name, 512) for name in TABLE2] + \
+    [("incrs-docword", 128), ("incrs-docword", 640)]
+# The pipelined geometries timed beside the one the wrapper picks
+# (incrs-docword, N = 512), as changes to pipelined_geometry's arguments:
+# no cluster (the design without multicast) and a cluster of 4; 16 and 31
+# consumer warps (one row each); one column per lane (32 KB ring stages),
+# and that with 8 warps, two CTAs an SM.
+PIPE_SWEEP = [{}, {"cluster": 1}, {"cluster": 4}, {"warps": 16},
+              {"warps": 31}, {"cols_per_lane": 1},
+              {"cols_per_lane": 1, "warps": 8}]
+
+
+def _pipe_sweep(torch, K, prep, b, n, flush, want):
+    """The pipelined kernel at each geometry of PIPE_SWEEP, each run
+    bitwise equal to expand."""
+    out = []
+    mp, _, smax = prep.idx.shape
+    for change in PIPE_SWEEP:
+        try:
+            g = K.pipelined_geometry(mp, n, smax, prep.section, **change)
+        except ValueError:          # does not fit one SM's shared memory
+            continue
+
+        def fn(g=g):
+            return K._launch("incrs_spmm_pipelined", prep.idx, prep.val, b,
+                             prep.section, geometry=g)
+        check(torch.equal(fn(), want), f"pipelined at {g} equal to expand")
+        out.append({**g._asdict(), "ms": _time_ms(torch, fn, flush)})
+    emit({"phase": "pipe_geometries", "workload": "incrs-docword", "n": n,
+          "picked": K.launch_geometry("incrs_spmm_pipelined", n, smax,
+                                      prep.section, m=mp)._asdict(),
+          "geometries": out})
+
+
+def phase_times(torch, K, ops, table2, errs_512, launches):
+    flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
+    gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for name, _, replaces in KERNELS:
-        fn = getattr(K, name)
+    for wl_name, n in TIME_CASES:
+        inc = table2[wl_name]
+        prep = ops.prepare_incrs(inc, device="cuda")
+        kp = prep.n_sections * prep.section
+        b = torch.zeros(kp, n, device="cuda")
+        b[:inc.shape[1]] = torch.randn(inc.shape[1], n, generator=gen,
+                                       device="cuda")
+        crs = inc.crs
+        a_csr = torch.sparse_csr_tensor(
+            torch.from_numpy(crs.row_ptr), torch.from_numpy(
+                crs.col_idx.astype(np.int64)),
+            torch.from_numpy(crs.values), size=crs.shape,
+            check_invariants=True).to("cuda")
+        b_k = b[:inc.shape[1]].contiguous()
+        library_ms = _time_ms(torch, lambda: torch.sparse.mm(a_csr, b_k),
+                              flush)
+        nbytes, flops, t_bytes, t_ops, n_live = _incrs_bound(torch, prep, n)
+        bound_ms = max(t_bytes, t_ops)
         args = (prep.idx, prep.val, b)
         kw = dict(section=prep.section, bm=128, bn=n)
-        ms = _time_ms(torch, lambda: fn(*args, **kw), flush)
-        ms_warm = _time_ms(torch, lambda: fn(*args, **kw),
-                           torch.empty(0, device="cuda"))
-        plain_ms = _time_ms(torch, lambda: K.plain(name, *args, **kw), flush,
-                            reps=20)
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": errs_512[name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": "bytes" if t_bytes >= t_ops
-                     else "operations",
-                     "library_ms": library_ms, "ms_l2_warm": ms_warm})
-    emit({"phase": "times", "workload": "incrs-docword", "n": n,
-          "stripes": list(prep.idx.shape), "bytes": nbytes, "flops": flops,
-          "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
-          "library": "torch.sparse.mm (CSR)", "library_ms": library_ms,
-          "kernels": {r["name"]: {"ms": r["ms"], "ms_l2_warm":
-                                  r["ms_l2_warm"], "plain_ms": r["plain_ms"]}
-                      for r in rows}})
+        ms = {}
+        for name, _, _ in KERNELS:
+            fn = getattr(K, name)
+            ms[name] = _time_ms(torch, lambda: fn(*args, **kw), flush)
+        mp, n_sec, _ = prep.idx.shape
+        emit({"phase": "times", "workload": wl_name, "n": n,
+              "stripes": list(prep.idx.shape),
+              "live_per_row_section": n_live / (mp * n_sec),
+              "bytes": nbytes, "flops": flops, "bound_bytes_ms": t_bytes,
+              "bound_ops_ms": t_ops, "bound_ms": bound_ms,
+              "library": "torch.sparse.mm (CSR)", "library_ms": library_ms,
+              "ms": ms})
+        if (wl_name, n) != ("incrs-docword", 512):
+            continue
+        _pipe_sweep(torch, K, prep, b, n, flush, K.incrs_spmm(*args, **kw))
+        for name, _, replaces in KERNELS:
+            fn = getattr(K, name)
+            ms_warm = _time_ms(torch, lambda: fn(*args, **kw),
+                               torch.empty(0, device="cuda"))
+            plain_ms = _time_ms(torch, lambda: K.plain(name, *args, **kw),
+                                flush, reps=20)
+            rows.append({"name": name, "route": "cuda", "source": SOURCE,
+                         "replaces": replaces, "launches": launches[name],
+                         "max_abs_err": errs_512[name], "ms": ms[name],
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": "bytes" if t_bytes >= t_ops
+                         else "operations",
+                         "library_ms": library_ms, "ms_l2_warm": ms_warm})
     return rows
 
 
@@ -1611,7 +1711,7 @@ def main() -> int:
     errs_512 = phase_kernels(torch, K, ops, InCRS, table2)
     launches = phase_serve(K, engine_mod, table2)
     phase_profile(torch, engine_mod, docword, docword.shape[1])
-    rows = phase_times(torch, K, ops, docword, errs_512, launches)
+    rows = phase_times(torch, K, ops, table2, errs_512, launches)
     P = types.SimpleNamespace(K=K, G=G, IM=IM, SK=SK, ops=ops, spgemm=spgemm,
                               CRS=CRS, InCRS=InCRS)
     table4 = {name: datasets.synthesize(WORKLOADS[name].dataset, seed=0)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,8 +25,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # Libraries a source links beyond the CUDA runtime: libcuda, for the TMA
-# tensor maps that flash_attention.cu encodes on the host.
-LINK = {"flash_attention": ("-lcuda",)}
+# tensor maps that flash_attention.cu and incrs_spmm.cu encode on the host.
+LINK = {"flash_attention": ("-lcuda",), "incrs_spmm": ("-lcuda",)}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -49,12 +51,28 @@ def _flags(name: str) -> tuple:
     return NVCC_FLAGS + LINK.get(name, ())
 
 
+def _headers(source: Path) -> list:
+    """The ``csrc/`` headers that ``source`` includes with quotes, and the
+    headers they include, each once."""
+    found, todo = [], [source]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_bytes()):
+            path = CSRC / inc.decode()
+            if path not in found and path.is_file():
+                found.append(path)
+                todo.append(path)
+    return sorted(found)
+
+
 def lib_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for its current
-    source and flags."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(_flags(name)).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    source, the headers it includes, and its flags."""
+    source = CSRC / f"{name}.cu"
+    h = hashlib.sha256(source.read_bytes())
+    for header in _headers(source):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_log(name: str) -> str:

@@ -77,7 +77,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <stdio.h>
+
+#include "hopper.cuh"   // mbarriers, TMA, kTensorMapError
 
 namespace {
 
@@ -294,75 +295,6 @@ constexpr int kRegion = 64 * 64 * 2;       // 64 rows x 64 bf16, 128B swizzle
 constexpr int kAlign = 1024;               // the swizzle atom
 
 __host__ __device__ constexpr int tile_bytes(int hdp) { return hdp * 128; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ uint64_t globaltimer_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Waits for the phase `parity` of an mbarrier to complete. A wait that
-// outlives 4 s traps, so a transfer that never lands ends the launch with
-// an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint64_t t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    const uint64_t t = globaltimer_ns();
-    if (t0 == 0) t0 = t;
-    else if (t - t0 > 4000000000ull) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2, int c3,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      ::"r"(dst), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2, int c3,
-                                            int c4, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], "
-      "[%7];\n"
-      ::"r"(dst), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(c4), "r"(bar)
-      : "memory");
-}
 
 // wgmma shared-memory descriptor, 128-byte swizzle. Offsets in bytes.
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
@@ -673,9 +605,6 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap tq,
 
 // ---------------------------------------------------------------------------
 // Host side.
-constexpr int kTensorMapError = 100000;   // + the CUresult of the encode
-char g_error[160];
-
 // A tiled tensor map over a bf16 operand whose dims (innermost first) are
 // hd and then the strided ones; boxes of 64 (hd) x 64 (rows) x 1 ...
 int encode(CUtensorMap* map, const void* base, int rank,
@@ -749,13 +678,7 @@ int launch_bf16(const Params& p, int batch, size_t smem,
 extern "C" {
 
 const char* flash_attention_error_string(int err) {
-  if (err >= kTensorMapError) {
-    snprintf(g_error, sizeof g_error,
-             "cuTensorMapEncodeTiled failed with CUresult %d",
-             err - kTensorMapError);
-    return g_error;
-  }
-  return cudaGetErrorString((cudaError_t)err);
+  return hopper_error_string(err);
 }
 
 // strides: q (b, s, kv, g), k (b, s, kv), v (b, s, kv), o (b, s, kv, g),

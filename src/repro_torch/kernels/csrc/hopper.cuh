@@ -1,0 +1,150 @@
+// Hopper (sm_90a) helpers shared by the kernels that take operands by TMA:
+// mbarriers, bulk tensor copies (plain and multicast to a cluster), cluster
+// barriers and remote arrives, and the error convention of a tensor map
+// that cannot be encoded. Included by flash_attention.cu and incrs_spmm.cu;
+// the build hashes it with each source that includes it (_build.lib_path).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <stdio.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits for the phase `parity` of an mbarrier to complete. A wait that
+// outlives 8e9 SM cycles (4 s at 1.98 GHz, the H100's highest clock)
+// traps, so a transfer that never lands ends the launch with an error
+// instead of hanging the card. The SM's cycle counter is read, not the
+// global timer, which costs far more per read.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long t = clock64();
+    if (t0 == 0) t0 = t;
+    else if (t - t0 > 8000000000ll) __trap();
+  }
+}
+
+// Arrives on the mbarrier at the same shared offset as `bar` in the CTA of
+// rank `cta` of the cluster (the local one included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster; orders shared memory (and the
+// mbarrier inits before it) across the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// The box lands at `dst` in every CTA of the cluster named in `mask`, and
+// completes `bytes` of the transaction count of the mbarrier at `bar`'s
+// offset in each of them.
+__device__ __forceinline__ void tma_load_2d_multicast(
+    uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar,
+    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%2, %3}], [%4], %5;\n"
+      ::"r"(dst), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            int c4, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], "
+      "[%7];\n"
+      ::"r"(dst), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4), "r"(bar)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Host side: a launcher returns a cudaError_t, or kTensorMapError + the
+// CUresult when cuTensorMapEncodeTiled refuses a map.
+constexpr int kTensorMapError = 100000;
+
+inline const char* hopper_error_string(int err) {
+  static char buf[160];
+  if (err >= kTensorMapError) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed with CUresult %d",
+             err - kTensorMapError);
+    return buf;
+  }
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // namespace

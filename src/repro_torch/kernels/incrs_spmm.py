@@ -6,12 +6,15 @@ grid checks, f32 output of shape (M, N)) and reaches a CUDA kernel written
 by hand for Hopper in ``csrc/incrs_spmm.cu``:
 
 * ``incrs_spmm``           — expand order: a block per (row tile, col
-  tile), looping over sections;
-* ``incrs_spmm_reuse``     — each (row tile, section) stripe staged once in
-  shared memory, compacted to its live slots, and reused over a panel of
-  up to 512 columns whose sums stay in registers;
-* ``incrs_spmm_pipelined`` — (section, cols) blocks of B streamed through a
-  multi-stage cp.async ring.
+  tile), looping over sections, each lane gathering float4s of B rows;
+* ``incrs_spmm_reuse``     — each stripe reused over a panel of up to 512
+  columns whose sums stay in registers;
+* ``incrs_spmm_pipelined`` — (section, 64) blocks of B streamed by TMA
+  through an mbarrier ring, multicast to a cluster of CTAs on adjacent row
+  tiles, and shared by each CTA's rows.
+
+All three stage their rows' stripes in shared memory two sections ahead,
+compacted to the live slots.
 
 A tensor on the CPU takes the plain torch version beside each kernel (the
 CPU tests use it); a CUDA tensor launches the kernel or raises. The three
@@ -21,7 +24,8 @@ kernels sum every output element in the same order and agree bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -143,10 +147,48 @@ def _library() -> ctypes.CDLL:
 # given. The constants are the kernels' own (csrc/incrs_spmm.cu).
 REUSE_THREADS = 256
 REUSE_COLS_PER_THREAD = 4
-PIPE_STAGES, PIPE_COLS = 3, 32       # the pipelined ring: (section, 32) f32
-_GEOMETRY_TYPES = {"incrs_spmm": (),
+REUSE_TPR = (32, 64, 128)              # reuse_kernel<TPR> instances
+EXPAND_ROWS = (8, 4, 2, 1)             # warps (one row each) per CTA
+EXPAND_COLS = 128                      # a lane's float4 x 32 lanes
+PIPE_MAX_WARPS = 31                    # consumer warps (+ one producer)
+PIPE_COLS = 32                         # lanes: a block is 32 * CPL columns
+PIPE_CPL = (2, 1)                      # pipelined_kernel<CPL>, as tried
+PIPE_BLOCKS = 2                        # column blocks per CTA
+PIPE_STAGES = 3                        # ring stages
+PIPE_CLUSTER = 2                       # CTAs on adjacent row tiles
+TMA_BOX_MAX = 256                      # rows of one TMA box
+# An H100 SXM: 132 SMs, each with 2,048 threads and 228 KB of shared
+# memory, 1 KB of it reserved for each resident block.
+SMS, SM_THREADS, SM_SMEM, CTA_RESERVED = 132, 2048, 233_472, 1024
+_GEOMETRY_TYPES = {"incrs_spmm": (ctypes.c_int, ctypes.c_size_t),
                    "incrs_spmm_reuse": (ctypes.c_int, ctypes.c_size_t),
-                   "incrs_spmm_pipelined": (ctypes.c_size_t,)}
+                   "incrs_spmm_pipelined": (ctypes.c_int,) * 8 +
+                   (ctypes.c_size_t,)}
+
+
+class PipeGeometry(NamedTuple):
+    """What the pipelined launcher takes: the instance (columns per lane:
+    blocks of 32 * CPL columns), the consumer warps (one row each), the
+    cluster, the ring (PIPE_STAGES stages of cluster * boxes * box_rows
+    rows), the grid, and the shared memory of one CTA."""
+    cols_per_lane: int
+    warps: int
+    cluster: int
+    stages: int
+    box_rows: int
+    boxes: int
+    row_tiles: int
+    col_tiles: int
+    smem: int
+
+
+def stripe_bytes(rows: int, smax: int) -> int:
+    """Shared memory of the staged stripes of ``rows`` rows (every order,
+    ``Stripes::bytes``): two raw stripes (idx and val, each row ``smax``
+    rounded up to 4, plus 4, for 16-byte copies from any offset), two
+    compacted ones ((idx, val) pairs, each row ``smax`` rounded up to 2)
+    and 16 bytes of live counts per row."""
+    return 16 * rows * (-(-smax // 4) * 4 + 4 + -(-smax // 2) * 2 + 1)
 
 
 def reuse_geometry(n: int) -> Tuple[int, int, int]:
@@ -155,40 +197,115 @@ def reuse_geometry(n: int) -> Tuple[int, int, int]:
     instances), the fewest whose panel of 128, 256 or 512 columns holds N,
     else 128; 256 threads a block."""
     cols = -(-n // REUSE_COLS_PER_THREAD)        # threads a row would use
-    tpr = next((t for t in (32, 64) if cols <= t), 128)
+    tpr = next((t for t in REUSE_TPR[:-1] if cols <= t), REUSE_TPR[-1])
     return tpr, REUSE_THREADS // tpr, REUSE_COLS_PER_THREAD * tpr
 
 
 def reuse_smem_bytes(n: int, smax: int) -> int:
-    """Shared memory per block of the reuse kernel: two raw and two
-    compacted stripes (idx and val) of its rows, and two live counts."""
-    rows = reuse_geometry(n)[1]
-    return rows * (4 * 2 * smax * 4 + 2 * 4)
+    """Shared memory per block of the reuse kernel: its rows' stripes."""
+    return stripe_bytes(reuse_geometry(n)[1], smax)
 
 
-def launch_geometry(name: str, n: int, smax: int, section: int) -> tuple:
+def expand_geometry(smax: int) -> Tuple[int, int]:
+    """(rows per CTA, shared memory) of the expand kernel: 8 warps of one
+    row each, each with its own stripes, fewer only where 8 rows' stripes
+    would not fit."""
+    for rows in EXPAND_ROWS:
+        smem = stripe_bytes(rows, smax)
+        if smem <= SMEM_LIMIT:
+            return rows, smem
+    raise ValueError(f"incrs_spmm: needs {smem} bytes of shared memory per "
+                     f"block for one row's stripes (smax {smax}), over the "
+                     f"card's {SMEM_LIMIT}")
+
+
+@functools.lru_cache(maxsize=256)
+def pipelined_geometry(m: int, n: int, smax: int, section: int, *,
+                       cluster: int = PIPE_CLUSTER,
+                       cols_per_lane: Optional[int] = None,
+                       warps: Optional[int] = None,
+                       sms: int = SMS) -> PipeGeometry:
+    """The pipelined launch at M (padded) rows and N columns on a card of
+    ``sms`` SMs.
+
+    The cluster is the largest of ``cluster``, ``cluster / 2``, ... that
+    divides the section, so each CTA copies section / C rows of each
+    block, in boxes of at most 256 rows. Two columns a lane (unless
+    given) where the ring of 64-column blocks fits the card's shared
+    memory, else one: they halve the shared-memory loads of the slot
+    loop. A CTA's time grows with its rows (one a consumer warp) on top of
+    a fixed cost per ring stage, so the consumer warps (unless given) are
+    the fewest that still launch the grid in the fewest waves the shared
+    memory allows; where padding the row tiles to a whole number of
+    clusters costs a wave, the launch takes no cluster (C = 1) instead.
+    Row tiles are padded to a multiple of the cluster (the kernel masks
+    rows past M). Raises if nothing fits. Memoized: a serving loop pays
+    for the search once per shape."""
+    while section % cluster:
+        cluster //= 2
+
+    def launch(cpl: int, w: int, c: int) -> PipeGeometry:
+        q = section // c
+        boxes = -(-q // TMA_BOX_MAX)
+        box_rows = -(-q // boxes)
+        ring = PIPE_STAGES * (c * boxes * box_rows * PIPE_COLS * cpl * 4 +
+                              16)
+        tiles = -(-m // w)
+        return PipeGeometry(cpl, w, c, PIPE_STAGES, box_rows, boxes,
+                            -(-tiles // c) * c,
+                            -(-n // (PIPE_COLS * cpl * PIPE_BLOCKS)),
+                            128 + ring + stripe_bytes(w, smax))
+
+    def cost(g: PipeGeometry) -> tuple:
+        per_sm = min(SM_THREADS // ((g.warps + 1) * 32),
+                     SM_SMEM // (g.smem + CTA_RESERVED))
+        return (-(-g.row_tiles * g.col_tiles // (per_sm * sms)), g.warps,
+                g.cluster != cluster)
+
+    for cpl in PIPE_CPL:
+        if cols_per_lane not in (None, cpl):
+            continue
+        fits = [launch(cpl, w, c)
+                for w in (range(1, PIPE_MAX_WARPS + 1) if warps is None
+                          else (warps,))
+                for c in sorted({cluster, 1})]
+        fits = [g for g in fits if g.smem <= SMEM_LIMIT]
+        if fits:
+            return min(fits, key=cost)
+    raise ValueError(f"incrs_spmm_pipelined: needs more than the card's "
+                     f"{SMEM_LIMIT} bytes of shared memory per block (smax "
+                     f"{smax}, section {section})")
+
+
+def launch_geometry(name: str, n: int, smax: int, section: int, *,
+                    m: int = 0, sms: int = SMS) -> tuple:
     """What the C launcher of kernel ``name`` takes after the operand
-    sizes: (threads per row, shared memory) for reuse, (shared memory,)
-    for pipelined, nothing for expand. Raises if a block would need more
-    shared memory than the card has."""
-    if name == "incrs_spmm_reuse":
-        smem = reuse_smem_bytes(n, smax)
-        geometry = (reuse_geometry(n)[0], smem)
-    elif name == "incrs_spmm_pipelined":
-        smem = PIPE_STAGES * section * PIPE_COLS * 4
-        geometry = (smem,)
-    else:
-        smem, geometry = 0, ()
+    sizes: (rows per CTA, shared memory) for expand, (threads per row,
+    shared memory) for reuse, a ``PipeGeometry`` for pipelined (at ``m``
+    rows on ``sms`` SMs). Raises if a block would need more shared memory
+    than the card has."""
+    if name == "incrs_spmm_pipelined":
+        return pipelined_geometry(m, n, smax, section, sms=sms)
+    if name == "incrs_spmm":
+        return expand_geometry(smax)
+    smem = reuse_smem_bytes(n, smax)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} bytes of shared memory per "
                          f"block, over the card's {SMEM_LIMIT}")
-    return geometry
+    return reuse_geometry(n)[0], smem
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(name: str, idx: torch.Tensor, val: torch.Tensor,
-            b: torch.Tensor, section: int) -> torch.Tensor:
+            b: torch.Tensor, section: int,
+            geometry: Optional[tuple] = None) -> torch.Tensor:
     """Validate, allocate C, launch the CUDA kernel on the current stream
-    and count the launch. Raises on anything the kernel does not take."""
+    and count the launch. Raises on anything the kernel does not take.
+    ``geometry`` replaces ``launch_geometry``'s (tuning and tests only)."""
     if idx.dtype != torch.int32 or val.dtype != torch.float32:
         raise TypeError(f"{name}: stripes must be int32/float32, got "
                         f"{idx.dtype}/{val.dtype}")
@@ -204,10 +321,16 @@ def _launch(name: str, idx: torch.Tensor, val: torch.Tensor,
         raise ValueError(f"{name}: operand too large for int32 offsets "
                          f"(stripes {tuple(idx.shape)}, B {tuple(b.shape)})")
     if name == "incrs_spmm_pipelined" and (n % 4 or b.data_ptr() % 16):
-        raise ValueError(f"{name}: the cp.async ring copies 16 bytes, so N "
-                         f"must be a multiple of 4 and B 16-byte aligned "
-                         f"(N = {n}); ops.spmm pads N to a multiple of 128")
-    geometry = launch_geometry(name, n, smax, section)
+        raise ValueError(f"{name}: TMA reads B in rows of 16-byte units, "
+                         f"so N must be a multiple of 4 and B 16-byte "
+                         f"aligned (N = {n}); ops.spmm pads N to a multiple "
+                         f"of 128")
+    if geometry is None:
+        geometry = launch_geometry(name, n, smax, section, m=mp,
+                                   sms=_sm_count(idx.device.index))
+    # the stripes are staged by 16-byte copies
+    idx, val = (t if t.data_ptr() % 16 == 0 else t.clone()
+                for t in (idx, val))
     out = torch.empty((mp, n), dtype=torch.float32, device=idx.device)
     if mp == 0 or n == 0:
         return out
@@ -279,8 +402,9 @@ def incrs_spmm_reuse(idx: torch.Tensor, val: torch.Tensor, b: torch.Tensor,
 def incrs_spmm_pipelined(idx: torch.Tensor, val: torch.Tensor,
                          b: torch.Tensor, *, section: int = 256,
                          bm: int = 128, bn: int = 128) -> torch.Tensor:
-    """Same contract as ``incrs_spmm``; B streams through a multi-stage
-    cp.async ring in shared memory. Bitwise equal to the other orders. On
-    the card N must be a multiple of 4 and B 16-byte aligned."""
+    """Same contract as ``incrs_spmm``; B streams by TMA through a ring in
+    shared memory, shared by a cluster of CTAs. Bitwise equal to the other
+    orders. On the card N must be a multiple of 4 and B 16-byte
+    aligned."""
     return _run("incrs_spmm_pipelined", idx, val, b, section, bm, bn,
                 kernel=idx.device.type != "cpu")

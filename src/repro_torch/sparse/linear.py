@@ -183,7 +183,7 @@ class _SparseMM(torch.autograd.Function):
         raise NotImplementedError(
             "the BSR backward pass (dx through the transposed block lists, "
             "dW over the live blocks) is the training slice of the port, "
-            "not ported yet (ROADMAP queue 1 item 6)")
+            "not ported yet (ROADMAP queue 1 item 2)")
 
 
 def _sparse_mm(values: torch.Tensor, x: torch.Tensor,

@@ -233,3 +233,126 @@ def test_engine_launches_one_kernel_per_wave(cuda, variant):
         assert done[i].out.shape == want.shape
         assert np.abs(done[i].out - want).max() <= \
             F64_TOL * np.abs(want).max()
+
+
+def _random_stripes(m, n_sec, smax, section, seed, *, live=0.6,
+                    heavy_rows=0, empty_section=None):
+    """Stripes made directly: distinct random (unsorted) columns per row
+    and section, pads between live slots. ``heavy_rows`` rows at the top
+    keep every slot live and the others few (one row tile then holds most
+    of the non-zeros); ``empty_section`` is all pads."""
+    rng = np.random.default_rng(seed)
+    idx = np.argsort(rng.random((m, n_sec, section)), axis=-1)[..., :smax]
+    keep = rng.random(idx.shape) < live
+    if heavy_rows:
+        keep[:heavy_rows] = True
+        keep[heavy_rows:] &= rng.random(keep[heavy_rows:].shape) < 0.1
+    idx = np.where(keep, idx, -1).astype(np.int32)
+    if empty_section is not None:
+        idx[:, empty_section] = -1
+    val = rng.normal(size=idx.shape).astype(np.float32)
+    return idx, val
+
+
+# (label, M, sections, smax, section, N): the skewed operand; M no multiple
+# of the pipelined cluster's 64 rows; smax 1 and 33; an all-pad section;
+# one section; N = 4, 36 and 640; sections over 256 rows (several TMA
+# boxes per CTA at 512: 128 rows each of 4).
+EDGE_STRIPES = [("skewed", 300, 6, 33, 256, 512),
+                ("m_off_cluster", 77, 3, 20, 256, 128),
+                ("smax_1", 90, 4, 1, 256, 64),
+                ("smax_33", 130, 5, 33, 256, 36),
+                ("all_pad_section", 70, 5, 12, 256, 128),
+                ("one_section", 64, 1, 40, 256, 640),
+                ("n_4", 50, 3, 9, 256, 4),
+                ("n_36", 65, 2, 17, 256, 36),
+                ("n_640", 40, 3, 33, 256, 640),
+                ("section_300", 45, 3, 16, 300, 96),
+                ("section_512", 33, 2, 24, 512, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", EDGE_STRIPES, ids=lambda c: c[0])
+def test_three_orders_bitwise_on_edge_stripes(cuda, case):
+    label, m, n_sec, smax, section, n = case
+    idx, val = _random_stripes(
+        m, n_sec, smax, section, seed=m + n,
+        heavy_rows=24 if label == "skewed" else 0,
+        empty_section=2 if label == "all_pad_section" else None)
+    rng = np.random.default_rng(n)
+    bt = torch.from_numpy(rng.normal(size=(n_sec * section, n)).astype(
+        np.float32)).to(cuda)
+    idx_t = torch.from_numpy(idx).to(cuda)
+    val_t = torch.from_numpy(val).to(cuda)
+    kw = dict(section=section, bm=8, bn=n)
+    outs = [getattr(K, name)(idx_t, val_t, bt, **kw) for name in PORT]
+    torch.cuda.synchronize()
+    ref = K.plain("incrs_spmm", idx_t, val_t, bt, **kw)
+    scale = max(float(ref.abs().max()), 1e-30)
+    for out in outs:
+        assert out.shape == (m, n)
+        assert float((out - ref).abs().max()) <= KERNEL_TOL * scale
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.gpu
+def test_skewed_operand_repeated(cuda):
+    """A ring stage refilled while a slower CTA of the cluster still reads
+    it gives wrong sums only now and then: the skewed operand (one row
+    tile of four holds most non-zeros, so its CTA lags its cluster) run
+    many times, every run bitwise equal to expand."""
+    idx, val = _random_stripes(256, 24, 48, 256, seed=5, heavy_rows=40)
+    bt = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(24 * 256, 512)).astype(np.float32)).to(cuda)
+    idx_t = torch.from_numpy(idx).to(cuda)
+    val_t = torch.from_numpy(val).to(cuda)
+    kw = dict(section=256, bm=8, bn=512)
+    want = K.incrs_spmm(idx_t, val_t, bt, **kw)
+    for _ in range(20):
+        assert torch.equal(K.incrs_spmm_pipelined(idx_t, val_t, bt, **kw),
+                           want)
+
+
+@pytest.mark.gpu
+def test_a_cluster_the_card_cannot_place_raises(cuda):
+    """Sixteen CTAs exceed the portable cluster size: the launcher refuses
+    before any launch, the wrapper raises, and nothing is counted."""
+    idx, val = _random_stripes(256, 2, 8, 256, seed=1)
+    idx_t = torch.from_numpy(idx).to(cuda)
+    val_t = torch.from_numpy(val).to(cuda)
+    bt = torch.zeros(512, 64, device=cuda)
+    good = K.pipelined_geometry(256, 64, 8, 256)
+    bad = good._replace(cluster=16, row_tiles=32, box_rows=16)
+    before = K.LAUNCHES["incrs_spmm_pipelined"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        K._launch("incrs_spmm_pipelined", idx_t, val_t, bt, 256,
+                  geometry=bad)
+    assert K.LAUNCHES["incrs_spmm_pipelined"] == before
+    out = K._launch("incrs_spmm_pipelined", idx_t, val_t, bt, 256,
+                    geometry=good)
+    assert torch.equal(out, K.incrs_spmm(idx_t, val_t, bt, section=256,
+                                         bm=8, bn=64))
+
+
+@pytest.mark.gpu
+def test_gathering_orders_take_any_n_and_alignment(cuda):
+    """N = 37 (expand's scalar loads), B a view 4 bytes off its
+    allocation, and stripes 4 bytes off theirs (expand copies them to an
+    aligned buffer before its 16-byte stripe copies): expand and reuse
+    stay bitwise equal and within tolerance of the plain version."""
+    m, n_sec, smax, section, n = 40, 3, 7, 256, 37   # no row padding
+    idx, val = _random_stripes(m + 1, n_sec, smax, section, seed=3)
+    idx_t = torch.from_numpy(idx).to(cuda)[1:]     # 84 bytes a row: off 16
+    val_t = torch.from_numpy(val).to(cuda)[1:]
+    assert idx_t.is_contiguous() and idx_t.data_ptr() % 16
+    flat = torch.from_numpy(np.random.default_rng(4).normal(
+        size=n_sec * section * n + 1).astype(np.float32)).to(cuda)
+    bt = flat[1:].view(n_sec * section, n)
+    kw = dict(section=section, bm=8, bn=n)
+    expand = K.incrs_spmm(idx_t, val_t, bt, **kw)
+    reuse = K.incrs_spmm_reuse(idx_t, val_t, bt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(expand, reuse)
+    ref = K.plain("incrs_spmm", idx_t, val_t, bt, **kw)
+    assert float((expand - ref).abs().max()) <= \
+        KERNEL_TOL * float(ref.abs().max())

@@ -1,10 +1,10 @@
-"""The host side of the flash-attention and InCRS reuse kernels, without a
-card: the flash wrapper's routing rule by type and its refusals, checked on
-tensor metadata alone (CPU and meta tensors); the launch geometry both
+"""The host side of the flash-attention and InCRS kernels, without a card:
+the flash wrapper's routing rule by type and its refusals, checked on
+tensor metadata alone (CPU and meta tensors); the launch geometry the
 wrappers compute and hand to their C launchers (query tiles, panels,
-shared memory); and the per-row error the bf16 flash kernel is held to,
-against a planted fault and against the JAX Pallas kernel in interpret
-mode.
+clusters, rings, shared memory); the build's hash of the headers a source
+includes; and the per-row error the bf16 flash kernel is held to, against
+a planted fault and against the JAX Pallas kernel in interpret mode.
 """
 import numpy as np
 import pytest
@@ -22,8 +22,10 @@ from repro_torch.kernels import incrs_spmm as K           # noqa: E402
 from repro_torch.kernels import ops                       # noqa: E402
 
 # An H100: 132 SMs, 64 resident warps, 2,048 threads, 32 blocks and
-# 228 KB of shared memory (227 KB for one block) on each.
+# 228 KB of shared memory (227 KB for one block, 1 KB reserved for each)
+# on each.
 SMS, SM_THREADS, SM_BLOCKS, SM_SMEM = 132, 2048, 32, 233_472
+CTA_RESERVED = 1024
 
 
 def _meta(*shape, dtype=torch.bfloat16):
@@ -207,7 +209,10 @@ def test_reuse_geometry_covers_every_column(n):
 def test_reuse_shared_memory_no_longer_grows_with_n(smax):
     at_512 = K.reuse_smem_bytes(512, smax)
     assert K.reuse_smem_bytes(65536, smax) == at_512
-    assert at_512 == 2 * (4 * 2 * smax * 4 + 8)   # two rows at N >= 512
+    # two rows at N >= 512: raw rows of smax rounded up to 4, plus 4,
+    # compacted rows of smax rounded up to 2, 16 bytes of counts
+    assert at_512 == K.stripe_bytes(2, smax) == \
+        2 * 16 * (-(-smax // 4) * 4 + 4 + -(-smax // 2) * 2 + 1)
     # wide N is taken: (threads per row, shared memory) for the launcher
     assert K.launch_geometry("incrs_spmm_reuse", 65536, smax, 256) == \
         (128, at_512)
@@ -216,22 +221,133 @@ def test_reuse_shared_memory_no_longer_grows_with_n(smax):
 
 
 def test_launch_geometry_of_the_other_orders():
-    assert K.launch_geometry("incrs_spmm", 512, 33, 256) == ()
-    assert K.launch_geometry("incrs_spmm_pipelined", 512, 33, 256) == \
-        (K.PIPE_STAGES * 256 * K.PIPE_COLS * 4,)
+    # expand: 8 warps, one row each, each with its own stripes
+    expand = K.launch_geometry("incrs_spmm", 512, 33, 256)
+    assert expand == (8, 8 * K.stripe_bytes(1, 33)) == (8, 9600)
+    # pipelined at incrs-docword: 24 rows x two 64-column blocks a CTA,
+    # clusters of 2, a ring of 3 (256, 64) f32 stages and their barriers
+    pipe = K.launch_geometry("incrs_spmm_pipelined", 512, 33, 256, m=768)
+    assert pipe == K.PipeGeometry(cols_per_lane=2, warps=24, cluster=2,
+                                  stages=3, box_rows=128, boxes=1,
+                                  row_tiles=32, col_tiles=4, smem=225584)
+    assert pipe.smem == 128 + 3 * (256 * 64 * 4 + 16) + \
+        K.stripe_bytes(24, 33)
     with pytest.raises(ValueError, match="shared memory"):
-        K.launch_geometry("incrs_spmm_pipelined", 512, 33, 1024)
+        K.launch_geometry("incrs_spmm_pipelined", 512, 33, 1024, m=768)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.launch_geometry("incrs_spmm", 512, 10_000, 256)
+
+
+def _docword_stripes():
+    wl = WORKLOADS["incrs-docword"]
+    inc = InCRS.from_crs(datasets.synthesize(wl.dataset, seed=0),
+                         wl.section, wl.block)
+    mp, _, smax = ops.prepare_incrs(inc, device="cpu").idx.shape
+    assert (mp, smax) == (768, 33)
+    return mp, smax
+
+
+def _resident(threads, smem, blocks):
+    """CTAs of ``threads`` threads and ``smem`` bytes resident on the card
+    at once, of ``blocks`` launched."""
+    per_sm = min(SM_THREADS // threads, SM_BLOCKS,
+                 SM_SMEM // (smem + CTA_RESERVED))
+    return min(blocks, per_sm * SMS)
+
+
+def test_pipelined_fills_the_card_at_docword():
+    """incrs-docword at N = 512: the whole grid is resident at once (one
+    CTA an SM: the ring of 64-column blocks takes most of its shared
+    memory) on all but 4 of the 132 SMs, 24 consumer warps each, and
+    every cluster fits."""
+    mp, smax = _docword_stripes()
+    g = K.launch_geometry("incrs_spmm_pipelined", 512, smax, 256, m=mp)
+    ctas = g.row_tiles * g.col_tiles
+    assert g.row_tiles % g.cluster == 0 and g.row_tiles * g.warps >= mp
+    assert _resident((g.warps + 1) * 32, g.smem, ctas) == ctas
+    assert SMS - 4 <= ctas <= SMS and g.warps >= 16
+    # a 23-row tile would need 136 CTAs: a second wave
+    fewer = K.pipelined_geometry(mp, 512, smax, 256, warps=g.warps - 1)
+    assert fewer.row_tiles * fewer.col_tiles > SMS
+
+
+def test_expand_fills_the_card_at_docword():
+    """incrs-docword at N = 512: at least 16 warps resident on each SM."""
+    mp, smax = _docword_stripes()
+    rows, smem = K.launch_geometry("incrs_spmm", 512, smax, 256)
+    ctas = -(-mp // rows) * -(-512 // K.EXPAND_COLS)
+    assert _resident(rows * 32, smem, ctas) * rows / SMS >= 16
+
+
+_TABLE2 = ("incrs-docword", "incrs-amazon", "incrs-belcastro",
+           "incrs-norris", "incrs-mks")
+
+
+@pytest.mark.parametrize("name", _TABLE2)
+def test_geometry_of_every_order_on_table2(name):
+    """What each wrapper hands its launcher on the Table II operands:
+    shared memory within the card's, an instance the kernel has, a cluster
+    that divides the padded row tiles, a ring stage that covers the
+    section in TMA boxes of at most 256 rows."""
+    wl = WORKLOADS[name]
+    inc = InCRS.from_crs(datasets.synthesize(wl.dataset, seed=0),
+                         wl.section, wl.block)
+    prep = ops.prepare_incrs(inc, device="cpu")
+    mp, _, smax = prep.idx.shape
+    for n in (128, 512, 640):
+        rows, smem = K.launch_geometry("incrs_spmm", n, smax, prep.section)
+        assert rows in K.EXPAND_ROWS and smem <= K.SMEM_LIMIT
+        tpr, smem = K.launch_geometry("incrs_spmm_reuse", n, smax,
+                                      prep.section)
+        assert tpr in K.REUSE_TPR and smem <= K.SMEM_LIMIT
+        g = K.launch_geometry("incrs_spmm_pipelined", n, smax, prep.section,
+                              m=mp)
+        assert g.cols_per_lane in K.PIPE_CPL
+        assert 1 <= g.warps <= K.PIPE_MAX_WARPS and g.smem <= K.SMEM_LIMIT
+        assert g.row_tiles % g.cluster == 0 and g.row_tiles * g.warps >= mp
+        assert g.col_tiles * K.PIPE_BLOCKS * K.PIPE_COLS * \
+            g.cols_per_lane >= n
+        assert g.box_rows <= K.TMA_BOX_MAX
+        assert g.cluster * g.boxes * g.box_rows >= prep.section
+
+
+@pytest.mark.parametrize("section", [1, 2, 3, 100, 256, 300, 512, 600])
+def test_pipelined_ring_covers_any_section(section):
+    """Sections over 256 rows take several boxes per CTA; the cluster
+    always divides the section, so no box starts past it."""
+    g = K.pipelined_geometry(40, 128, 8, section)
+    assert section % g.cluster == 0
+    assert g.box_rows <= K.TMA_BOX_MAX
+    assert g.cluster * g.boxes * g.box_rows >= section
+    assert (g.cluster - 1) * g.boxes * g.box_rows < section
+
+
+def test_library_path_follows_the_headers_a_source_includes(tmp_path,
+                                                           monkeypatch):
+    """A header edit rebuilds every source that includes it, and only
+    those."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "other.cuh").write_text("// other\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.lib_path("k")
+    (tmp_path / "other.cuh").write_text("// other, edited\n")
+    assert _build.lib_path("k") == before
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    assert _build.lib_path("k") != before
+    monkeypatch.undo()
+    for name in ("incrs_spmm", "flash_attention"):
+        assert _build._headers(_build.CSRC / f"{name}.cu") == \
+            [_build.CSRC / "hopper.cuh"]
+        assert "-lcuda" in _build._flags(name)
 
 
 def test_reuse_fills_the_card_at_docword():
     """incrs-docword at N = 512: at least 16 warps resident on each SM
     (the L2 latency of the B gathers needs them)."""
-    wl = WORKLOADS["incrs-docword"]
-    inc = InCRS.from_crs(datasets.synthesize(wl.dataset, seed=0),
-                         wl.section, wl.block)
-    prep = ops.prepare_incrs(inc, device="cpu")
-    mp, _, smax = prep.idx.shape
-    assert (mp, smax) == (768, 33)
+    mp, smax = _docword_stripes()
     _, rows, panel = K.reuse_geometry(512)
     blocks = -(-mp // rows) * -(-512 // panel)
     smem = K.reuse_smem_bytes(512, smax)

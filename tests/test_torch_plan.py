@@ -205,6 +205,16 @@ def test_bsr_backward_raises_instead_of_a_silent_no_grad():
     assert not lin.bound()(torch.randn(64, 3)).requires_grad
 
 
+def test_bsr_backward_names_its_roadmap_item():
+    """The BSR backward is training, queue 1 item 2 (item 6, BSR serving,
+    is done)."""
+    lin = tapi.Linear.from_dense(_weight(), tapi.SparseSpec(
+        "bsr", block=16, density=0.5), device="cpu")
+    y = lin(torch.randn(4, 64, requires_grad=True))
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 2\)"):
+        y.sum().backward()
+
+
 @pytest.mark.parametrize("fmt", ["bsr", "dense"])
 def test_linear_from_jax_computes_the_same(fmt):
     w = _weight(seed=7)

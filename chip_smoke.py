@@ -45,10 +45,14 @@ Phases, each printing one JSON line:
 8. spgemm_times — mesh-docword4 at R = 128: each new kernel's median time
              beside its plain version, the library call and the bound.
 9. plan_kernels — the BSR and dense kernels against their plain versions
-             and float64 on the card: the five Table II operands as BSR
-             (blocks 50, 10, 50, 60, 50) at N = 512, the granite-34b MLP
-             operand W_up^T (24576 x 6144, block 128, density 0.25) in
-             both formats, docword dense, and edge operands.
+             (and, in f32, float64) on the card: the five Table II
+             operands as BSR (blocks 50, 10, 50, 60, 50) at N = 512, the
+             granite-34b MLP operand W_up^T (24576 x 6144, block 128,
+             density 0.25) in both formats, docword dense, and edge
+             operands (split-K, skewed block-rows); granite, docword
+             dense and one general-instance edge each also in bf16 (held
+             row by row). Every call runs twice, bitwise equal, and names
+             the instance and K splits that ran.
 10. plan_serve — the third path: ``SpMMEngine(plan_for_operand(...))``
              as bsr and as dense on the five Table II operands at full
              size and the granite operand, each with the mixed-width
@@ -59,8 +63,15 @@ Phases, each printing one JSON line:
              workloads and once with --spmm-swap, checked for its exit
              code, error and launches (two waves each: its printed rate
              measures nothing).
+             Then bf16 bsr and dense plans of docword served with bf16
+             requests, one launch of the bf16 instance per wave.
 11. plan_times — both kernels at the granite operand and at docword,
-             N = 512: median time, plain version, library call, bound.
+             N = 512, in f32 and in bf16: median time, plain version,
+             library call, bound; the card's SM clock and power while the
+             f32 dense kernel and torch.matmul run at granite
+             (``plan_clocks``); then the dense instances at other K
+             splits, ring depths and (bf16) tile widths
+             (``plan_geometries``).
 12. lm_kernels — the flash-attention kernels against their plain version
              on the card, f32 (the FMA kernel) and bf16 (the tensor-core
              kernel), each call checked to launch its type's kernel:
@@ -133,8 +144,11 @@ STRIPES_MAX_BYTES = 8e9  # condense_merge at R = 32 only below this
 # H100 SXM: HBM rate, and the f32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor-core peak, dense
 KERNEL_TOL = 1e-5        # max|kernel - plain| <= KERNEL_TOL * max|C|
 SERVE_TOL = 1e-4         # max|served - float64 host| <= SERVE_TOL * max|C|
+BF16_TOL = 1e-2          # bf16: per row, max|kernel - plain| <= BF16_TOL *
+                         # that row's max|C| (flash_attention's rule)
 PLAN_KERNELS = (  # (name, source, Pallas kernel it replaces)
     ("bsr_spmm", "src/repro_torch/kernels/csrc/bsr_spmm.cu",
      "src/repro/kernels/bsr_spmm.py:37"),
@@ -400,12 +414,13 @@ def phase_serve(K, engine_mod, table2):
 
 
 def phase_profile(torch, engine_mod, operand, k, *, workload="incrs-docword",
-                  fmt="incrs", kernel_key="expand_kernel"):
+                  fmt="incrs", kernel_keys=("expand_kernel",)):
     """Two more serve runs of ``operand`` (an InCRS or a bound plan, K
     columns) after the counted main path: one plain, for the wall time and
     the host's share of it, then the same run under torch.profiler for the
     card's busy time by kind. The idle share is taken against the plain
-    run, since the profiler slows the host."""
+    run, since the profiler slows the host. A kernel is the format's when
+    its symbol holds one of ``kernel_keys``; the run fails if none did."""
     from torch.profiler import ProfilerActivity, profile
     panels = _trace(k, seed=1)
 
@@ -431,10 +446,12 @@ def phase_profile(torch, engine_mod, operand, k, *, workload="incrs-docword",
         us = getattr(ev, "self_device_time_total",  # on the device events
                      getattr(ev, "self_cuda_time_total", 0.0))
         key = ev.key.lower()
-        kind = (kernel_kind if kernel_key in key else
+        kind = (kernel_kind if any(k in key for k in kernel_keys) else
                 "memcpy_h2d" if "htod" in key else
                 "memcpy_d2h" if "dtoh" in key else "other")
         by_kind[kind] += us / 1e3
+    check(by_kind[kernel_kind] > 0, f"profile of {workload} {fmt}: no device "
+          f"time in a kernel whose symbol holds {kernel_keys}")
     wall_ms = s["elapsed_s"] * 1e3
     busy_ms = sum(by_kind.values())
     emit({"phase": "profile", "workload": workload, "format": fmt,
@@ -873,7 +890,8 @@ def phase_spgemm_times(torch, P, crs, inc, errs, launches):
 
 # ----------------------------------------------------------------------
 # The plan–execute path: bsr and dense operands behind plan_for_operand,
-# on the BSR and the dense kernel.
+# on the BSR and the dense kernels (f32 FMA and bf16 wgmma instances of
+# one GEMM core, and the general kernels for other shapes).
 def _granite(Q):
     """The granite-34b MLP operand: the bsr Linear of W_up and its pruned
     dense A = W_up^T (host f32)."""
@@ -887,48 +905,70 @@ def _granite(Q):
     return lin, np.ascontiguousarray(lin.to_dense().T)
 
 
+def _held(torch, Q, mod, kname, run, plain, want64, geo, label):
+    """One kernel call on the card, twice: the two launches bitwise equal
+    and counted on the instance ``geo`` names; against the plain version
+    on the same inputs (f32: ``KERNEL_TOL * max|C|``; bf16: per row,
+    ``BF16_TOL * `` that row's max|C|, as ``worst_row_error``) and, in
+    f32, against the float64 product ``want64`` (``SERVE_TOL``)."""
+    before = dict(mod.INSTANCE_LAUNCHES)
+    n0 = mod.LAUNCHES[kname]
+    out = run()
+    again = run()
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in mod.INSTANCE_LAUNCHES.items()
+             if v != before[k]}
+    check(mod.LAUNCHES[kname] == n0 + 2 and moved == {geo.instance: 2},
+          f"{kname} on {label}: two launches of {geo.instance}, got "
+          f"{moved}")
+    check(torch.equal(out, again), f"{kname} {geo.instance} (S = "
+          f"{geo.splits}) on {label}: two launches bitwise equal")
+    ref = plain()
+    check(bool(torch.isfinite(out).all()) and out.shape == ref.shape and
+          out.dtype == ref.dtype, f"{kname} finite, right shape and type "
+          f"on {label}")
+    err = float((out.float() - ref.float()).abs().max())
+    line = {"instance": geo.instance, "splits": geo.splits,
+            "dtype": str(out.dtype).replace("torch.", ""),
+            "max_abs_err": err}
+    scale = max(float(want64.abs().max()), 1e-30)
+    err64 = float((out.double() - want64).abs().max())
+    line["max_rel_err_f64"] = err64 / scale
+    if out.dtype == torch.bfloat16:
+        row = Q.F.worst_row_error(out, ref)
+        line["worst_row_err"] = row
+        check(row <= BF16_TOL, f"{kname} bf16 on {label}: worst row "
+              f"{row} > {BF16_TOL}")
+    else:
+        check(err <= KERNEL_TOL * scale, f"{kname} on {label}: max|err| "
+              f"{err} > {KERNEL_TOL} * {scale}")
+        check(err64 <= SERVE_TOL * scale, f"{kname} on {label} vs float64: "
+              f"{err64} > {SERVE_TOL} * {scale}")
+    return line
+
+
 def _bsr_check(torch, Q, row_of, col_of, slots, row_start, b, nbr, a64,
                label):
-    """The BSR kernel on the card against its plain version and the
-    float64 product ``a64 @ b``."""
-    before = Q.KB.LAUNCHES["bsr_spmm"]
-    out = Q.KB.bsr_spmm(row_of, col_of, slots, b, n_block_rows=nbr,
-                        row_start=row_start)
-    torch.cuda.synchronize()
-    check(Q.KB.LAUNCHES["bsr_spmm"] == before + 1,
-          f"bsr_spmm counted its launch on {label}")
-    ref = Q.KB.plain(row_of, col_of, slots, b, n_block_rows=nbr)
-    want = a64 @ b.double()
-    scale = max(float(want.abs().max()), 1e-30)
-    err = float((out - ref).abs().max())
-    err64 = float((out.double() - want).abs().max())
-    check(bool(torch.isfinite(out).all()) and out.shape == want.shape,
-          f"bsr_spmm finite, right shape on {label}")
-    check(err <= KERNEL_TOL * scale, f"bsr_spmm on {label}: max|err| {err} "
-          f"> {KERNEL_TOL} * {scale}")
-    check(err64 <= SERVE_TOL * scale, f"bsr_spmm on {label} vs float64: "
-          f"{err64} > {SERVE_TOL} * {scale}")
-    return {"max_abs_err": err, "max_rel_err_f64": err64 / scale}
+    """The BSR kernel against its plain version and the float64 product
+    ``a64 @ b`` (``a64`` the operand in float64 on the card)."""
+    geo = Q.KB.gemm_geometry(nbr, slots.shape[1], slots.shape[2],
+                             b.shape[1], torch.promote_types(slots.dtype,
+                                                             b.dtype),
+                             nnz=slots.shape[0])
+    return _held(
+        torch, Q, Q.KB, "bsr_spmm",
+        lambda: Q.KB.bsr_spmm(row_of, col_of, slots, b, n_block_rows=nbr,
+                              row_start=row_start),
+        lambda: Q.KB.plain(row_of, col_of, slots, b, n_block_rows=nbr),
+        a64 @ b.double(), geo, label)
 
 
 def _dense_check(torch, Q, a, b, label):
-    before = Q.KD.LAUNCHES["dense_mm"]
-    out = Q.ops.dense_mm(a, b)
-    torch.cuda.synchronize()
-    check(Q.KD.LAUNCHES["dense_mm"] == before + 1,
-          f"dense_mm counted its launch on {label}")
-    ref = Q.KD.plain(a, b)
-    want = a.double() @ b.double()
-    scale = max(float(want.abs().max()), 1e-30)
-    err = float((out - ref).abs().max())
-    err64 = float((out.double() - want).abs().max())
-    check(bool(torch.isfinite(out).all()) and out.shape == want.shape,
-          f"dense_mm finite, right shape on {label}")
-    check(err <= KERNEL_TOL * scale, f"dense_mm on {label}: max|err| {err} "
-          f"> {KERNEL_TOL} * {scale}")
-    check(err64 <= SERVE_TOL * scale, f"dense_mm on {label} vs float64: "
-          f"{err64} > {SERVE_TOL} * {scale}")
-    return {"max_abs_err": err, "max_rel_err_f64": err64 / scale}
+    geo = Q.KD.gemm_geometry(a.shape[0], b.shape[1], a.shape[1],
+                             torch.promote_types(a.dtype, b.dtype))
+    return _held(torch, Q, Q.KD, "dense_mm", lambda: Q.ops.dense_mm(a, b),
+                 lambda: Q.KD.plain(a, b), a.double() @ b.double(), geo,
+                 label)
 
 
 def _bsr_edges():
@@ -948,29 +988,48 @@ def _bsr_edges():
             ("n_1", blocky(500, 600, 50, 50, 0.5), (50, 50), 1),
             ("n_129", blocky(500, 600, 50, 50, 0.5, (2,)), (50, 50), 129),
             ("rect_32x64", blocky(512, 1024, 32, 64, 0.3, (1,)), (32, 64),
-             320)]
+             320),
+            # split-K over short runs: 8 block-rows x 1 column tile
+            ("split_k", blocky(1024, 4096, 128, 128, 0.3), (128, 128), 128),
+            # block-rows of 1 to 32 blocks
+            ("skewed", _skewed_blocks(rng), (128, 128), 256)]
+
+
+def _skewed_blocks(rng):
+    """A (1024, 4096) operand of 128 x 128 blocks whose eight block-rows
+    hold 1, 2, 4, ..., 32 and 0 blocks."""
+    a = np.zeros((1024, 4096), np.float32)
+    for r, count in enumerate((1, 2, 4, 8, 16, 32, 0, 3)):
+        for c in rng.choice(32, size=count, replace=False):
+            a[r * 128:(r + 1) * 128, c * 128:(c + 1) * 128] = \
+                rng.uniform(-1.5, 1.5, size=(128, 128))
+    return a
 
 
 def phase_plan_kernels(torch, Q, table2, granite):
     gen = torch.Generator(device="cuda").manual_seed(3)
     results, errs = [], {}
+    bf16 = torch.bfloat16
     for wl_name, block in TABLE2_BLOCK.items():
         a = table2[wl_name].crs.to_dense()
         bsr = Q.BSR.from_dense(a, (block, block))
         row_of, col_of, slots, rs = Q.ops.prep_bsr(bsr, device="cuda")
         b = torch.randn(a.shape[1], 512, generator=gen, device="cuda")
         a64 = torch.from_numpy(a).to("cuda").double()
-        e = _bsr_check(torch, Q, row_of, col_of, slots, rs, b,
-                       bsr.n_block_rows, a64, f"{wl_name} block {block}")
         line = {"operand": wl_name, "kernel": "bsr_spmm", "shape":
                 list(a.shape), "block": block, "live_blocks": bsr.nnz_blocks,
-                "blocks": bsr.n_block_rows * bsr.n_block_cols, "n": 512, **e}
+                "blocks": bsr.n_block_rows * bsr.n_block_cols, "n": 512,
+                **_bsr_check(torch, Q, row_of, col_of, slots, rs, b,
+                             bsr.n_block_rows, a64,
+                             f"{wl_name} block {block}")}
         if wl_name == "incrs-docword":
-            line_d = {"operand": wl_name, "kernel": "dense_mm",
-                      "shape": list(a.shape), "n": 512,
-                      **_dense_check(torch, Q, a64.float(), b,
-                                     "docword dense")}
-            results.append(line_d)
+            a_t = a64.float()
+            for a_in, b_in in ((a_t, b), (a_t.to(bf16), b.to(bf16))):
+                results.append({"operand": wl_name, "kernel": "dense_mm",
+                                "shape": list(a.shape), "n": 512,
+                                **_dense_check(torch, Q, a_in, b_in,
+                                               "docword dense")})
+            del a_t
         results.append(line)
         del a64, slots, b
     lin, a_g = granite
@@ -978,44 +1037,60 @@ def phase_plan_kernels(torch, Q, table2, granite):
     row_of, col_of, row_start = meta.kernel_index(torch.device("cuda"))
     slots = Q.lin_mod._pad_slots(lin.values.detach(), meta)
     b = torch.randn(a_g.shape[1], 512, generator=gen, device="cuda")
-    a64 = torch.from_numpy(a_g).to("cuda").double()
+    a_t = torch.from_numpy(a_g).to("cuda")
+    a64 = a_t.double()
     blocks = meta.n_block_rows * meta.n_block_rows_t
     check(meta.nnz == round(GRANITE["density"] * blocks),
           f"granite operand keeps {GRANITE['density']} of {blocks} blocks, "
           f"got {meta.nnz}")
-    errs["bsr_spmm"] = _bsr_check(torch, Q, row_of, col_of, slots,
-                                  row_start, b, meta.n_block_rows, a64,
-                                  "granite bsr")
-    errs["dense_mm"] = _dense_check(torch, Q, a64.float(), b,
-                                    "granite dense")
-    for kname in ("bsr_spmm", "dense_mm"):
-        results.append({"operand": GRANITE_NAME, "kernel": kname,
-                        "shape": list(a_g.shape), "block": 128,
-                        "live_blocks": meta.nnz, "blocks": blocks, "n": 512,
-                        **errs[kname]})
-    del a64, slots, b
+    # f32, then bf16 by casting the same device tensors
+    for dt in (torch.float32, bf16):
+        s_in, a_in, b_in = slots.to(dt), a_t.to(dt), b.to(dt)
+        eb = _bsr_check(torch, Q, row_of, col_of, s_in, row_start, b_in,
+                        meta.n_block_rows, a64, f"granite bsr {dt}")
+        ed = _dense_check(torch, Q, a_in, b_in, f"granite dense {dt}")
+        key = "" if dt == torch.float32 else "/bf16"
+        errs["bsr_spmm" + key], errs["dense_mm" + key] = eb, ed
+        for kname, e in (("bsr_spmm", eb), ("dense_mm", ed)):
+            results.append({"operand": GRANITE_NAME, "kernel": kname,
+                            "shape": list(a_g.shape), "block": 128,
+                            "live_blocks": meta.nnz, "blocks": blocks,
+                            "n": 512, **e})
+        del s_in, a_in, b_in
+    del a_t, a64, slots, b
     for label, a, blk, n in _bsr_edges():
         bsr = Q.BSR.from_dense(a, blk)
         row_of, col_of, slots, rs = Q.ops.prep_bsr(bsr, device="cuda")
         b = torch.randn(a.shape[1], n, generator=gen, device="cuda")
-        e = _bsr_check(torch, Q, row_of, col_of, slots, rs, b,
-                       bsr.n_block_rows,
-                       torch.from_numpy(a).to("cuda").double(), label)
-        results.append({"operand": label, "kernel": "bsr_spmm",
-                        "shape": list(a.shape), "block": list(blk),
-                        "live_blocks": bsr.nnz_blocks, "n": n, **e})
+        a64 = torch.from_numpy(a).to("cuda").double()
+        dts = (torch.float32, bf16) if label in ("n_129", "split_k",
+                                                 "skewed") \
+            else (torch.float32,)
+        for dt in dts:
+            results.append({"operand": label, "kernel": "bsr_spmm",
+                            "shape": list(a.shape), "block": list(blk),
+                            "live_blocks": bsr.nnz_blocks, "n": n,
+                            **_bsr_check(torch, Q, row_of, col_of,
+                                         slots.to(dt), rs, b.to(dt),
+                                         bsr.n_block_rows, a64, label)})
     for m, k, n in ((1, 1, 1), (127, 129, 300), (300, 7, 129)):
         a = torch.randn(m, k, generator=gen, device="cuda")
         b = torch.randn(k, n, generator=gen, device="cuda")
-        results.append({"operand": f"ragged {m}x{k}x{n}",
-                        "kernel": "dense_mm", "shape": [m, k], "n": n,
-                        **_dense_check(torch, Q, a, b, f"{m}x{k}x{n}")})
+        dts = (torch.float32, bf16) if (m, k, n) == (127, 129, 300) \
+            else (torch.float32,)
+        for dt in dts:
+            results.append({"operand": f"ragged {m}x{k}x{n}",
+                            "kernel": "dense_mm", "shape": [m, k], "n": n,
+                            **_dense_check(torch, Q, a.to(dt), b.to(dt),
+                                           f"{m}x{k}x{n} {dt}")})
     emit({"phase": "plan_kernels",
-          "tolerance": f"max|kernel-plain| <= {KERNEL_TOL} * max|C|, "
-                       f"max|kernel-float64| <= {SERVE_TOL} * max|C|",
+          "tolerance": f"f32: max|kernel-plain| <= {KERNEL_TOL} * max|C|, "
+                       f"max|kernel-float64| <= {SERVE_TOL} * max|C|; bf16: "
+                       f"per row, max|kernel-plain| <= {BF16_TOL} * the "
+                       f"row's max|C|; every call twice, bitwise equal",
           "checks": results})
     torch.cuda.empty_cache()
-    return {k: v["max_abs_err"] for k, v in errs.items()}
+    return errs
 
 
 _LAUNCHER_NUMBERS = {   # the rates of two waves: printed, not a cell
@@ -1146,6 +1221,8 @@ def phase_plan_serve(torch, Q, table2, granite):
             del bound, eng
         del ref
         torch.cuda.empty_cache()
+    for fmt in ("bsr", "dense"):
+        emit(_serve_bf16(torch, Q, table2, fmt))
     launches = {**Q.KB.LAUNCHES, **Q.KD.LAUNCHES}
     check(all(v > 0 for v in launches.values()),
           f"both plan kernels ran on the plan path: {launches}")
@@ -1168,106 +1245,281 @@ def phase_plan_serve(torch, Q, table2, granite):
     return launches, by_launcher, kept
 
 
-def _plan_work(kname, a_shape, n, nnz=None, block=None, live_cols=None):
-    """(bytes, flops) the function needs: each input read once (for BSR
-    the stored values, the B block-rows some block references, the block
-    lists), C written once; 2 flops per useful multiply-add."""
+
+
+def _serve_bf16(torch, Q, table2, fmt):
+    """A bf16 plan of the docword operand (``Linear.from_dense(...,
+    dtype=bfloat16)``, as bsr with block 50 or as dense) served by
+    ``SpMMEngine`` with bf16 requests (CPU tensors) on the mixed-width
+    trace: every wave launches the bf16 instance its shape takes, once,
+    and each request is held per row against the float64 product of the
+    bf16 values (``BF16_TOL`` of the row's max|C|)."""
+    a = table2["incrs-docword"].crs.to_dense()
+    block = TABLE2_BLOCK["incrs-docword"] if fmt == "bsr" else None
+    spec = Q.api.SparseSpec(fmt, block=block, mask=np.ascontiguousarray(
+        a != 0).T if fmt == "bsr" else None)
+    lin = Q.api.Linear.from_dense(np.ascontiguousarray(a.T), spec,
+                                  dtype=torch.bfloat16, device="cuda")
+    bound = lin.bound()
+    check(bound.values.dtype == torch.bfloat16, f"docword {fmt}: bf16 plan")
+    a16 = torch.from_numpy(np.ascontiguousarray(lin.to_dense().T)).to(
+        "cuda").double()
+    panels = [torch.from_numpy(p).to(torch.bfloat16)
+              for p in _trace(a.shape[1], seed=2)]
+    ref = a16 @ torch.cat(panels, dim=1).to("cuda").double()
+    mod, kname = (Q.KB, "bsr_spmm") if fmt == "bsr" else (Q.KD, "dense_mm")
+    if fmt == "bsr":
+        want = Q.KB.gemm_geometry(a.shape[0] // block, block, block, 128,
+                                  torch.bfloat16, nnz=1).instance
+    else:
+        want = Q.KD.gemm_geometry(a.shape[0], 128, a.shape[1],
+                                  torch.bfloat16).instance
+    before, n0 = dict(mod.INSTANCE_LAUNCHES), mod.LAUNCHES[kname]
+    eng = Q.engine.SpMMEngine(bound, max_wave_cols=512)
+    reqs = [Q.engine.SpMMRequest(i, p) for i, p in enumerate(panels)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    moved = {k: v - before[k] for k, v in mod.INSTANCE_LAUNCHES.items()
+             if v != before[k]}
+    waves = int(eng.stats["waves"])
+    check(moved == {want: waves} and mod.LAUNCHES[kname] - n0 == waves,
+          f"docword bf16 {fmt}: launches {moved} are one {want} per wave "
+          f"({waves})")
+    off, worst = 0, 0.0
+    for r in reqs:
+        width = r.b.shape[1]
+        check(r.done and isinstance(r.out, torch.Tensor) and
+              r.out.dtype == torch.bfloat16 and
+              tuple(r.out.shape) == (a.shape[0], width),
+              f"docword bf16 {fmt} request {r.rid}: a bf16 panel")
+        worst = max(worst, Q.F.worst_row_error(
+            r.out.to("cuda"), ref[:, off:off + width]))
+        off += width
+    check(worst <= BF16_TOL, f"docword bf16 {fmt}: worst row {worst} > "
+          f"{BF16_TOL}")
+    s = eng.stats_summary()
+    return {"phase": "plan_serve",
+            "entry": "SpMMEngine(Linear.from_dense(dtype=bfloat16).bound())",
+            "operand": "incrs-docword", "format": fmt, "block": block,
+            "dtype": "bfloat16", "instance": want, "requests": s["requests"],
+            "waves": waves, "launches": moved,
+            "requests_per_s": s["requests_per_s"],
+            "latency_ms_p50": s["latency_ms"]["p50"],
+            "latency_ms_p99": s["latency_ms"]["p99"],
+            "worst_row_err": worst}
+
+
+def _plan_work(kname, a_shape, n, elem, nnz=None, block=None,
+               live_cols=None):
+    """(bytes, flops) the function needs with ``elem``-byte operands and
+    C: each input read once (for BSR the stored values, the B block-rows
+    some block references, the block lists), C written once; 2 flops per
+    useful multiply-add."""
     m, k = a_shape
     if kname == "dense_mm":
-        return (m * k + k * n + m * n) * 4, 2 * m * n * k
+        return (m * k + k * n + m * n) * elem, 2 * m * n * k
     bm, bk = block
-    nbytes = nnz * bm * bk * 4 + live_cols * bk * n * 4 + m * n * 4 + \
+    nbytes = (nnz * bm * bk + live_cols * bk * n + m * n) * elem + \
         (2 * nnz + m // bm + 2) * 4
     return nbytes, 2 * nnz * bm * bk * n
 
 
-def phase_plan_times(torch, Q, table2, granite, errs, launches,
-                     by_launcher):
-    flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
-    gen = torch.Generator(device="cuda").manual_seed(4)
+# The dense geometries timed beside the picked one, as overrides of
+# gemm_geometry. f32: other K splits (fewer CTAs than slots, or a second
+# wave) and deeper B rings; bf16: the other tile width and ring depths.
+GEMM_SWEEP = {
+    ("granite", "float32"): [{"stages": 3}, {"stages": 4}, {"splits": 2}],
+    ("docword", "float32"): [{"splits": 1}, {"splits": 5}, {"splits": 22},
+                             {"stages": 3}],
+    ("granite", "bfloat16"): [{"tile_n": 128}, {"stages": 3},
+                              {"stages": 2}],
+    ("docword", "bfloat16"): [{"tile_n": 256}, {"splits": 1},
+                              {"splits": 11}]}
+
+
+def _plan_operands_timed(torch, Q, table2, granite, gen, n):
+    """where -> (A on the card (f32), the block lists, block, nnz, live
+    block columns, B (f32))."""
     lin, a_g = granite
-    n = 512
-    rows, line = [], {}
-    ops_ = {}
-    # granite: the bound plan's device-ready operands
     meta = lin.meta
     row_of, col_of, row_start = meta.kernel_index(torch.device("cuda"))
     slots = Q.lin_mod._pad_slots(lin.values.detach(), meta)
-    a_dense = torch.from_numpy(a_g).to("cuda")
-    bg = torch.randn(a_g.shape[1], n, generator=gen, device="cuda")
-    ops_["granite"] = {
-        "bsr_spmm": (lambda: Q.KB.bsr_spmm(row_of, col_of, slots, bg,
-                                           n_block_rows=meta.n_block_rows,
-                                           row_start=row_start),
-                     lambda: Q.KB.plain(row_of, col_of, slots, bg,
-                                        n_block_rows=meta.n_block_rows),
-                     a_dense, (128, 128), meta.nnz,
-                     int(np.unique(np.asarray(meta.col_of)).size)),
-        "dense_mm": (lambda: Q.KD.dense_mm(a_dense, bg),
-                     lambda: Q.KD.plain(a_dense, bg), a_dense, None, None,
-                     None)}
+    out = {"granite": (torch.from_numpy(a_g).to("cuda"),
+                       (row_of, col_of, slots, row_start, meta.n_block_rows),
+                       (128, 128), meta.nnz,
+                       int(np.unique(np.asarray(meta.col_of)).size),
+                       torch.randn(a_g.shape[1], n, generator=gen,
+                                   device="cuda"))}
     a_dw = table2["incrs-docword"].crs.to_dense()
-    bsr_dw = Q.BSR.from_dense(a_dw, (50, 50))
-    d_row_of, d_col_of, d_slots, d_rs = Q.ops.prep_bsr(bsr_dw,
-                                                        device="cuda")
-    a_dw_t = torch.from_numpy(a_dw).to("cuda")
-    bd = torch.randn(a_dw.shape[1], n, generator=gen, device="cuda")
-    ops_["docword"] = {
-        "bsr_spmm": (lambda: Q.KB.bsr_spmm(d_row_of, d_col_of, d_slots, bd,
-                                           n_block_rows=14, row_start=d_rs),
-                     lambda: Q.KB.plain(d_row_of, d_col_of, d_slots, bd,
-                                        n_block_rows=14),
-                     a_dw_t, (50, 50), bsr_dw.nnz_blocks,
-                     int(np.unique(bsr_dw.col_idx).size)),
-        "dense_mm": (lambda: Q.KD.dense_mm(a_dw_t, bd),
-                     lambda: Q.KD.plain(a_dw_t, bd), a_dw_t, None, None,
-                     None)}
-    for where, kernels in ops_.items():
-        b = bg if where == "granite" else bd
-        for kname, (fn, plain, a_t, blk, nnz, live_cols) in kernels.items():
-            nbytes, flops = _plan_work(kname, tuple(a_t.shape), n, nnz, blk,
-                                       live_cols)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / F32_FLOP_PER_S * 1e3
-            ms = _time_ms(torch, fn, flush)
-            plain_ms = _time_ms(torch, plain, flush, reps=10)
-            library, why = None, None
-            try:
-                if kname == "dense_mm":
-                    library = _time_ms(torch, lambda: torch.matmul(a_t, b),
-                                       flush)
-                else:
-                    a_bsr = a_t.to_sparse_bsr(blk)
-                    library = _time_ms(torch, lambda: a_bsr @ b, flush,
-                                       reps=10)
-            except (RuntimeError, NotImplementedError) as exc:
-                why = f"{type(exc).__name__}: {str(exc)[:300]}"
-            line[f"{where}/{kname}"] = {
-                "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
-                "flops": flops, "bound_bytes_ms": t_bytes,
-                "bound_ops_ms": t_ops, "library_ms": library,
-                "library_refused": why,
-                "achieved_tflops": flops / ms / 1e9}
-            if where == "granite":
-                name, source, replaces = next(
-                    r for r in PLAN_KERNELS if r[0] == kname)
-                rows.append({"name": kname, "route": "cuda",
-                             "source": source, "replaces": replaces,
-                             "launches": launches[kname],
-                             "launches_by_path": {
-                                 "engine": launches[kname],
-                                 "launcher_subprocesses":
-                                     by_launcher[kname]},
-                             "max_abs_err": errs[kname], "ms": ms,
-                             "plain_ms": plain_ms,
-                             "bound_ms": max(t_bytes, t_ops),
-                             "bound_by": "bytes" if t_bytes >= t_ops
-                             else "operations", "library_ms": library})
+    blk = TABLE2_BLOCK["incrs-docword"]
+    bsr_dw = Q.BSR.from_dense(a_dw, (blk, blk))
+    d_row_of, d_col_of, d_slots, d_rs = Q.ops.prep_bsr(bsr_dw, device="cuda")
+    out["docword"] = (torch.from_numpy(a_dw).to("cuda"),
+                      (d_row_of, d_col_of, d_slots, d_rs,
+                       bsr_dw.n_block_rows), (blk, blk), bsr_dw.nnz_blocks,
+                      int(np.unique(bsr_dw.col_idx).size),
+                      torch.randn(a_dw.shape[1], n, generator=gen,
+                                  device="cuda"))
+    return out
+
+
+def phase_plan_times(torch, Q, table2, granite, errs, launches,
+                     by_launcher):
+    """Both kernels at the granite operand and at docword, N = 512, in
+    f32 and in bf16: median time, plain version, library call, bound;
+    then the f32 dense geometry sweep (``plan_geometries``)."""
+    flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n = 512
+    line, rows = {}, {}
+    operands = _plan_operands_timed(torch, Q, table2, granite, gen, n)
+    for where, (a_t, lists, blk, nnz, live_cols, b32) in operands.items():
+        row_of, col_of, slots32, rs, nbr = lists
+        for dt in (torch.float32, torch.bfloat16):
+            f32 = dt == torch.float32
+            a_in, b, slots = a_t.to(dt), b32.to(dt), slots32.to(dt)
+            elem, peak = (4, F32_FLOP_PER_S) if f32 else \
+                (2, BF16_TC_FLOP_PER_S)
+            kernels = {
+                "bsr_spmm": (
+                    lambda: Q.KB.bsr_spmm(row_of, col_of, slots, b,
+                                          n_block_rows=nbr, row_start=rs),
+                    lambda: Q.KB.plain(row_of, col_of, slots, b,
+                                       n_block_rows=nbr),
+                    Q.KB.gemm_geometry(nbr, blk[0], blk[1], n, dt,
+                                       nnz=slots.shape[0])),
+                "dense_mm": (
+                    lambda: Q.KD.dense_mm(a_in, b),
+                    lambda: Q.KD.plain(a_in, b),
+                    Q.KD.gemm_geometry(a_t.shape[0], n, a_t.shape[1], dt))}
+            for kname, (fn, plain, geo) in kernels.items():
+                nbytes, flops = _plan_work(kname, tuple(a_t.shape), n, elem,
+                                           nnz, blk, live_cols)
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / peak * 1e3
+                ms = _time_ms(torch, fn, flush)
+                plain_ms = _time_ms(torch, plain, flush, reps=10)
+                library, why = None, None
+                try:
+                    if kname == "dense_mm":
+                        library = _time_ms(torch,
+                                           lambda: torch.matmul(a_in, b),
+                                           flush)
+                    else:
+                        a_bsr = a_in.to_sparse_bsr(blk)
+                        library = _time_ms(torch, lambda: a_bsr @ b, flush,
+                                           reps=10)
+                        del a_bsr
+                except (RuntimeError, NotImplementedError) as exc:
+                    why = f"{type(exc).__name__}: {str(exc)[:300]}"
+                key = f"{where}/{kname}/{str(dt).replace('torch.', '')}"
+                line[key] = {
+                    "instance": geo.instance, "splits": geo.splits,
+                    "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+                    "flops": flops, "bound_bytes_ms": t_bytes,
+                    "bound_ops_ms": t_ops, "library_ms": library,
+                    "library_refused": why,
+                    "achieved_tflops": flops / ms / 1e9}
+                if where == "granite":
+                    rows[(kname, f32)] = {
+                        "instance": geo.instance, "ms": ms,
+                        "plain_ms": plain_ms,
+                        "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops
+                        else "operations", "library_ms": library}
+            del a_in, b, slots
     emit({"phase": "plan_times", "n": n,
-          "library": {"dense_mm": "torch.matmul (f32, TF32 off)",
+          "library": {"dense_mm": "torch.matmul (f32 with TF32 off; bf16)",
                       "bsr_spmm": "A.to_sparse_bsr(block) @ B"},
+          "bound_rates": {"float32": "f32 outside the tensor cores, 67 "
+                                     "TFLOP/s", "bfloat16":
+                          "bf16 tensor cores, 989 TFLOP/s"},
           "kernels": line})
-    return rows
+    a_g, _, _, _, _, b_g = operands["granite"]
+    emit({"phase": "plan_clocks", "operand": "granite", "n": n,
+          "dense_f32_kernel": _clocks_under(
+              torch, lambda: Q.KD.dense_mm(a_g, b_g)),
+          "torch_matmul_f32": _clocks_under(
+              torch, lambda: torch.matmul(a_g, b_g))})
+    _gemm_sweep(torch, Q, operands, flush, n)
+    out = []
+    for kname in ("bsr_spmm", "dense_mm"):
+        _, source, replaces = next(r for r in PLAN_KERNELS if r[0] == kname)
+        r32, r16 = rows[(kname, True)], rows[(kname, False)]
+        out.append({"name": kname, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches[kname],
+                    "launches_by_path": {
+                        "engine": launches[kname],
+                        "launcher_subprocesses": by_launcher[kname]},
+                    "max_abs_err": errs[kname]["max_abs_err"], **r32,
+                    "bf16": {**r16, "worst_row_err":
+                             errs[kname + "/bf16"]["worst_row_err"]}})
+    return out
+
+
+def _clocks_under(torch, fn, seconds=2.0):
+    """nvidia-smi's SM clock, power draw and limit, sampled every 0.25 s
+    while ``fn`` runs back to back for ``seconds``."""
+    import threading
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            samples.append(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60).stdout.strip())
+            stop.wait(0.25)
+    th = threading.Thread(target=sample)
+    th.start()
+    t_end = time.perf_counter() + seconds
+    try:
+        while time.perf_counter() < t_end:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        stop.set()
+        th.join()
+    return samples
+
+
+def _gemm_sweep(torch, Q, operands, flush, n):
+    """The dense instances at granite and at docword: the picked geometry
+    and those of GEMM_SWEEP, each held against the plain version (f32
+    within KERNEL_TOL of max|C|, bf16 row by row)."""
+    for (where, dname), changes in GEMM_SWEEP.items():
+        a32, _, _, _, _, b32 = operands[where]
+        dt = getattr(torch, dname)
+        a_t, b = a32.to(dt), b32.to(dt)
+        m, k = a_t.shape
+        picked = Q.KD.gemm_geometry(m, n, k, dt)
+        ref = Q.KD.plain(a_t, b)
+        scale = float(ref.abs().max())
+        out = []
+        for change in [{}] + changes:
+            geo = Q.KD.gemm_geometry(m, n, k, dt, **change)
+
+            def fn(geo=geo):
+                return Q.KD._launch(a_t, b, geometry=geo)
+            got = fn()
+            err = float((got.float() - ref.float()).abs().max())
+            if dt == torch.float32:
+                check(err <= KERNEL_TOL * scale, f"dense at {where}, "
+                      f"{change}: {err} > {KERNEL_TOL} * {scale}")
+            else:
+                check(Q.F.worst_row_error(got, ref) <= BF16_TOL,
+                      f"dense bf16 at {where}, {change}")
+            out.append({"change": change, "tile_n": geo.tile_n,
+                        "splits": geo.splits, "stages": geo.stages,
+                        "ctas": geo.tiles * geo.splits, "smem": geo.smem,
+                        "ms": _time_ms(torch, fn, flush),
+                        "max_abs_err": err})
+        emit({"phase": "plan_geometries", "kernel": "dense_mm",
+              "dtype": dname, "operand": where, "shape": [m, k], "n": n,
+              "picked": picked._asdict(), "geometries": out})
+        del a_t, b
 
 
 def plan_path(torch, K, ops, engine_mod, table2):
@@ -1275,9 +1527,10 @@ def plan_path(torch, K, ops, engine_mod, table2):
     from repro_torch.core.bsr import BSR
     from repro_torch.kernels import bsr_spmm as KB
     from repro_torch.kernels import dense_mm as KD
+    from repro_torch.kernels import flash_attention as F
     from repro_torch.sparse import api
     from repro_torch.sparse import linear as lin_mod
-    Q = types.SimpleNamespace(K=K, KB=KB, KD=KD, ops=ops, api=api,
+    Q = types.SimpleNamespace(K=K, KB=KB, KD=KD, F=F, ops=ops, api=api,
                               lin_mod=lin_mod, BSR=BSR, engine=engine_mod)
     t0 = time.perf_counter()
     granite = _granite(Q)
@@ -1288,8 +1541,10 @@ def plan_path(torch, K, ops, engine_mod, table2):
     launches, by_launcher, kept = phase_plan_serve(torch, Q, table2,
                                                    granite)
     for (label, fmt), bound in sorted(kept.items()):
+        # the general kernels' symbols, and the GEMM core's by its source
         phase_profile(torch, engine_mod, bound, bound.shape[1],
-                      workload=label, fmt=fmt, kernel_key=f"{fmt}_kernel")
+                      workload=label, fmt=fmt,
+                      kernel_keys=(f"{fmt}_kernel", f"{fmt}src"))
     del kept, bound
     torch.cuda.empty_cache()
     return phase_plan_times(torch, Q, table2, granite, errs, launches,
@@ -1310,7 +1565,6 @@ LM_FAULT_ROW = 4096           # the planted fault: key tile 0 dropped from
                               # granite's query rows at and past this one
 LM_DEPTH = 4                  # granite-34b cut from 88 layers, widths kept
 LM_LOGIT_TOL = 1e-3           # f32 decode logits vs teacher-forced prefill
-BF16_TC_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor-core peak, dense
 # (label, B, S, KV, G, hd, window, soft cap): granite-34b's prefill wave,
 # mixtral-8x7b's and recurrentgemma-2b's attention shapes, edge shapes.
 LM_KERNEL_CASES = [

@@ -25,8 +25,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # Libraries a source links beyond the CUDA runtime: libcuda, for the TMA
-# tensor maps that flash_attention.cu and incrs_spmm.cu encode on the host.
-LINK = {"flash_attention": ("-lcuda",), "incrs_spmm": ("-lcuda",)}
+# tensor maps that these sources encode on the host.
+LINK = {name: ("-lcuda",) for name in ("bsr_spmm", "dense_mm",
+                                       "flash_attention", "incrs_spmm")}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

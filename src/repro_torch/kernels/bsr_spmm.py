@@ -2,41 +2,49 @@
 
 The port of ``repro.kernels.bsr_spmm``. ``bsr_spmm`` takes the kernel block
 lists of ``ops.prep_bsr`` (``row_of`` sorted with its trailing sentinel,
-``col_of``, the stored ``values``) and reaches the CUDA kernel written by
-hand for Hopper in ``csrc/bsr_spmm.cu``: one CTA per (block-row, column
-tile) walks that row's run of stored blocks. The runs start at
+``col_of``, the stored ``values``) and reaches the CUDA kernels written by
+hand for Hopper in ``csrc/bsr_spmm.cu``: one CTA per (block-row, rows,
+column tile) walks that row's run of stored blocks. The runs start at
 ``row_start``, the prefix counters of the block-rows, which prep derives
 once (``block_row_starts``): a launch derives nothing.
 
-The Pallas kernel needs N to be a multiple of its column tile and its
-caller pads B; this kernel masks the ragged column tile itself, so there
-is no ``bn``. C has shape (n_block_rows * bm, N) and ``b.dtype``; the sums
-are f32. On the card the kernel takes f32 only.
+The values and B are promoted to one type as JAX and the plain version
+promote them. Block shapes the GEMM core of ``csrc/gemm_sm90.cuh`` takes
+(bm a multiple of 64, bk of 16 in f32 and of 64 in bf16) run its f32-FMA
+or bf16-wgmma instance; any other shape runs the general kernel of its
+type (``gemm_geometry``). The Pallas kernel needs N to be a multiple of its
+column tile and its caller pads B; these kernels mask the ragged column
+tile themselves, so there is no ``bn``. C has shape (n_block_rows * bm, N)
+and ``b.dtype``; the sums are f32.
 
 A tensor on the CPU takes the plain torch version (a gather, one batched
-product and an ``index_add``); a CUDA tensor launches the kernel or
-raises. ``LAUNCHES`` counts the kernel's launches.
+product and an ``index_add``); a CUDA tensor launches a kernel or raises.
+``LAUNCHES`` counts the launches, ``INSTANCE_LAUNCHES`` each instance's.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
+from . import _gemm
+from ._gemm import GemmGeometry
 from .ref import bsr_spmm as _plain_bsr
 
-# Shared memory one block may use on an H100 (227 KB).
-SMEM_LIMIT = 232_448
-_GRID_Y_MAX = 65_535
+INSTANCES = _gemm.INSTANCES
+GENERAL_TM = (1, 2, 4, 8)      # the general kernel's instances
 
 LAUNCHES: Dict[str, int] = {"bsr_spmm": 0}
+INSTANCE_LAUNCHES: Dict[str, int] = {name: 0 for name in INSTANCES}
 
 
 def reset_launches() -> None:
     LAUNCHES["bsr_spmm"] = 0
+    for name in INSTANCES:
+        INSTANCE_LAUNCHES[name] = 0
 
 
 def block_row_starts(row_of, n_block_rows: int) -> np.ndarray:
@@ -48,14 +56,61 @@ def block_row_starts(row_of, n_block_rows: int) -> np.ndarray:
                            side="left").astype(np.int32)
 
 
+def general_layout(bm: int) -> Tuple[int, int, int, int, int, int]:
+    """The general kernel's layout for block rows ``bm``: (rows a thread
+    ``tm``, row threads, column threads, rows allocated, column tile
+    ``bn``, CTAs along one block's rows)."""
+    rows = min(bm, 128)
+    need = -(-rows // 16)          # rows a thread for <= 16 row threads
+    tm = next(t for t in GENERAL_TM if need <= t or t == GENERAL_TM[-1])
+    row_threads = -(-rows // tm)
+    col_threads = min(256 // row_threads, 64)
+    return (tm, row_threads, col_threads, row_threads * tm, col_threads * 4,
+            -(-bm // 128))
+
+
+def gemm_geometry(n_block_rows: int, bm: int, bk: int, n: int,
+                  dtype: torch.dtype, *, nnz: int, aligned: bool = True,
+                  splits: Optional[int] = None, stages: Optional[int] = None,
+                  tile_n: Optional[int] = None) -> GemmGeometry:
+    """The launch of C = BSR(A) @ B in ``dtype`` (f32 or bf16) for
+    ``n_block_rows`` block-rows of (bm, bk) blocks, ``nnz`` stored, and N
+    columns: the fast instance of the type where bm is a multiple of 64,
+    bk of its K step and N of 16 bytes (operands on 16 bytes), else the
+    general one. ``splits``, ``stages`` and ``tile_n`` override the rule
+    (sweeps)."""
+    if dtype not in _gemm.FAST:
+        raise TypeError(f"bsr_spmm: no instance for {dtype}")
+    instance = _gemm.FAST[dtype]
+    tk = _gemm.TILE_K[instance]
+    if aligned and bm % 64 == 0 and bk % tk == 0 and \
+            n % _gemm.VECTOR[dtype] == 0:
+        steps = nnz * (bk // tk) / max(n_block_rows, 1)   # mean per tile
+        return _gemm.fast_geometry(
+            instance, n_block_rows * -(-bm // _gemm.TILE_M), n, steps,
+            splits=splits, stages=stages, tile_n=tile_n)
+    layout = general_layout(bm)
+    bn = layout[4]
+    if -(-n // bn) > _gemm.GRID_Y_MAX:
+        raise ValueError(f"bsr_spmm: N = {n} needs more column tiles of "
+                         f"{bn} than the grid allows")
+    row_tiles = n_block_rows * layout[5]
+    if row_tiles > _gemm.GRID_X_MAX:
+        raise ValueError(f"bsr_spmm: {row_tiles} row tiles exceed the grid")
+    geo = GemmGeometry(_gemm.GENERAL[dtype], min(bm, 128), bn, 16, 1, 0,
+                       256, 16 * (layout[3] + 1 + bn) * 4, row_tiles,
+                       -(-n // bn), layout)
+    _gemm.check_smem(geo)
+    return geo
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.library("bsr_spmm")
     if not getattr(lib, "_repro_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bsr_spmm.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.bsr_spmm.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                 i, i, p, p, p, i, p]
         lib.bsr_spmm.restype = i
-        lib.bsr_spmm_smem_bytes.argtypes = [i]
-        lib.bsr_spmm_smem_bytes.restype = ctypes.c_size_t
         lib.bsr_spmm_error_string.argtypes = [i]
         lib.bsr_spmm_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
@@ -92,13 +147,12 @@ def _check(row_of: torch.Tensor, col_of: torch.Tensor, values: torch.Tensor,
 
 
 def _launch(col_of: torch.Tensor, values: torch.Tensor, b: torch.Tensor,
-            row_start: torch.Tensor, n_block_rows: int) -> torch.Tensor:
-    """Validate, allocate C, launch on the current stream and count the
-    launch. Raises on anything the kernel does not take."""
-    if values.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"bsr_spmm: the kernel takes f32 values and B, got "
-                        f"{values.dtype} and {b.dtype}; bf16 is a later "
-                        f"mode (ROADMAP)")
+            row_start: torch.Tensor, n_block_rows: int,
+            geometry: Optional[GemmGeometry] = None) -> torch.Tensor:
+    """Validate, promote, allocate C, launch on the current stream and
+    count the launch. Raises on anything the kernels do not take.
+    ``geometry`` overrides ``gemm_geometry`` (for sweeps)."""
+    dt = _gemm.compute_dtype(values.dtype, b.dtype, "bsr_spmm")
     if col_of.dtype != torch.int32 or row_start.dtype != torch.int32:
         raise TypeError(f"bsr_spmm: col_of and row_start must be int32, got "
                         f"{col_of.dtype} and {row_start.dtype}")
@@ -106,29 +160,34 @@ def _launch(col_of: torch.Tensor, values: torch.Tensor, b: torch.Tensor,
                     (row_start, "row_start")):
         if not t.is_contiguous():
             raise ValueError(f"bsr_spmm: {what} must be contiguous")
-    _, bm, bk = values.shape
-    n = b.shape[1]
-    out = torch.empty((n_block_rows * bm, n), dtype=torch.float32,
-                      device=b.device)
-    if out.numel() == 0:
-        return out
+    out_dtype = b.dtype
+    values, b = values.to(dt), b.to(dt)
+    nnz, bm, bk = values.shape
+    k, n = b.shape
+    out = torch.empty((n_block_rows * bm, n), dtype=dt, device=b.device)
+    if out.numel() == 0 or k == 0:
+        return out.zero_().to(out_dtype)
+    geo = geometry or gemm_geometry(
+        n_block_rows, bm, bk, n, dt, nnz=nnz,
+        aligned=_gemm.aligned(values, b, out))
+    ws, tickets = _gemm.workspace(geo, b.device)
+    layout = (ctypes.c_int * 6)(*(geo.layout or (0,) * 6))
     lib = _library()
-    smem = lib.bsr_spmm_smem_bytes(bm)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"bsr_spmm: needs {smem} bytes of shared memory "
-                         f"per block, over the card's {SMEM_LIMIT}")
-    if n > _GRID_Y_MAX * 64:
-        raise ValueError(f"bsr_spmm: N = {n} needs more column tiles than "
-                         f"the grid allows")
     stream = torch.cuda.current_stream(b.device).cuda_stream
     err = lib.bsr_spmm(row_start.data_ptr(), col_of.data_ptr(),
                        values.data_ptr(), b.data_ptr(), out.data_ptr(),
-                       n_block_rows, bm, bk, n, b.device.index, stream)
+                       n_block_rows, bm, bk, k, n, nnz,
+                       INSTANCES.index(geo.instance), geo.tile_n, geo.splits,
+                       geo.stages, geo.smem, layout,
+                       ws.data_ptr() if ws is not None else None,
+                       tickets.data_ptr() if tickets is not None else None,
+                       b.device.index, stream)
     if err:
         raise RuntimeError(f"bsr_spmm: CUDA error {err} at launch: "
                            f"{lib.bsr_spmm_error_string(err).decode()}")
     LAUNCHES["bsr_spmm"] += 1
-    return out
+    INSTANCE_LAUNCHES[geo.instance] += 1
+    return out if out_dtype == dt else out.to(out_dtype)
 
 
 def plain(row_of: torch.Tensor, col_of: torch.Tensor, values: torch.Tensor,

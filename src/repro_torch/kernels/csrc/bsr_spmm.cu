@@ -4,54 +4,67 @@
 // bsr_spmm.py:37/:63), the forward of the BSR sparse linear layer and of
 // every `bsr` plan.
 //
-// Inputs: the stored blocks `values` f32 (nnz, bm, bk), each block's
+// Inputs: the stored blocks `values` (nnz, bm, bk), each block's
 // block-column `col_of` int32 (nnz,), sorted by block-row, and the start of
 // each block-row's run `row_start` int32 (n_block_rows + 1,), derived once
-// from the kernel's `row_of` list at prep; B f32 (K, N) row-major. Output:
-// C f32 (n_block_rows * bm, N). Block sides are arbitrary and may differ
-// (bm != bk); N is masked, so it need not be a multiple of any tile.
+// from the kernel's `row_of` list at prep; B (K, N) row-major. values and
+// B are f32 or bf16 (the wrapper promotes the pair to one type). Output: C
+// (n_block_rows * bm, N) in that type, the f32 accumulator cast once.
+// Block sides are arbitrary and may differ (bm != bk); N is masked, so it
+// need not be a multiple of any tile.
 //
 // The Pallas grid walks the stored blocks in order, resets its VMEM
 // accumulator when row_of changes and flushes at a row's last block: it
 // relies on consecutive grid steps revisiting one output tile. CUDA has no
-// such order between blocks, so here one CTA owns one (block-row, column
-// tile) of C, up to 128 rows of it, and loops over that row's run of
-// stored blocks itself. The contraction of a block-row is the sequence of
-// (block t, k) pairs, t ascending then k ascending; the CTA stages it in
-// chunks of 16 pairs, which may span several blocks when bk is small
-// (10 at belcastro), so a small block does not cost one barrier per block.
-// Each chunk stages the (rows, 16) slice of A's values, transposed, and the
-// matching 16 rows of B (block-row col_of[t], row k) over the column tile
-// in shared memory. Each thread holds a (TM, 4) register tile and sums
-// with __fmaf_rn in exactly that (t, k) order, from 0, so every output
-// element has one fixed summation order. The tile is written once.
+// such order between blocks, so here one CTA owns one (block-row, rows,
+// column tile) of C and loops over that row's run of stored blocks itself:
+// the contraction of a block-row is the sequence of (block t, k) pairs, t
+// ascending then k ascending, and every output element is summed in
+// exactly that order. An empty run writes zeros; ops.bsr_kernel_meta also
+// puts one zero tile in every empty block-row, as the Pallas contract
+// needs, so both ways every output row is written.
 //
-// An empty run writes zeros; ops.bsr_kernel_meta also puts one zero tile
-// in every empty block-row, as the Pallas contract needs, so both ways
-// every output row is written.
-//
-// Shared memory: 16 x (rows + 1) + 16 x bn floats, at most 16.7 KB for any
-// block shape, under the 48 KB a block gets without opting in; the wrapper
-// still checks it against the card's 227 KB.
+// Four instances, chosen by the wrapper (bsr_spmm.gemm_geometry) from the
+// type, the block shape, N and the operands' 16-byte alignment, never
+// after a failure:
+// - F32_FMA and BF16_WGMMA: the shared core of gemm_sm90.cuh with the BSR
+//   K-tile source (bm a multiple of 64; bk a multiple of 16 for f32, of 64
+//   for bf16; N a multiple of 4, of 8 for bf16). A 128 x 128 tile of C per
+//   CTA (128 x 256 in bf16 where N > 128; rows past bm are zeros), split-K
+//   over a row's run where the tiles under-fill the card.
+// - GENERAL_F32 / GENERAL_BF16 (bsr_kernel<TM, T>): any block shape. The
+//   CTA stages its (t, k) pairs in chunks of 16, which may span several
+//   blocks when bk is small (10 at belcastro), so a small block does not
+//   cost one barrier per block: the (rows, 16) slice of A's values,
+//   transposed, and the matching 16 rows of B over the column tile, in
+//   shared memory as f32; each thread holds a (TM, 4) register tile.
+//   Shared memory 16 x (rows + 1) + 16 x bn floats, at most 16.7 KB.
 //
 // What bounds it on the H100: operations. At the granite-34b MLP operand
 // (W_up^T, 24576 x 6144, block 128, 2,304 of 9,216 blocks live) and N = 512
-// it does 38.65 GFLOP against 214 MB (values, B, C): 0.58 ms at the f32 rate
-// outside the tensor cores, 0.064 ms of bytes. This first version uses f32
-// FMA from a register tile; wgmma (which would need TF32 or bf16) and TMA
-// are later work. No TF32: the sums are IEEE f32.
+// it does 38.65 GFLOP against 214 MB (values, B, C) in f32: 0.58 ms at the
+// f32 rate outside the tensor cores, 0.064 ms of bytes; in bf16 0.039 ms of
+// tensor-core operations.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_sm90.cuh"
+
 namespace {
+
+// The instance ids of the wrapper's bsr_spmm.INSTANCES.
+enum Instance : int { F32_FMA = 0, BF16_WGMMA = 1, GENERAL_F32 = 2,
+                      GENERAL_BF16 = 3 };
 
 constexpr int kThreads = 256;
 constexpr int kRowsMax = 128;  // rows of one block a CTA covers
 constexpr int kKc = 16;        // (block, k) pairs staged per chunk
 constexpr int kTn = 4;         // columns per thread (one float4)
-constexpr int kColThreadsMax = 64;  // column tile at most 256 wide
 
+// The general instance's layout, computed by the wrapper
+// (bsr_spmm.general_layout).
 struct Layout {
   int tm;           // rows per thread
   int row_threads;  // threads along the rows
@@ -61,29 +74,11 @@ struct Layout {
   int n_sub;        // CTAs along one block's rows
 };
 
-Layout layout_for(int bm) {
-  Layout l;
-  const int rows = bm < kRowsMax ? bm : kRowsMax;
-  const int need = (rows + 15) / 16;  // rows per thread for <= 16 row threads
-  l.tm = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : 8;
-  l.row_threads = (rows + l.tm - 1) / l.tm;
-  l.col_threads = kThreads / l.row_threads;
-  if (l.col_threads > kColThreadsMax) l.col_threads = kColThreadsMax;
-  l.rows_alloc = l.row_threads * l.tm;
-  l.bn = l.col_threads * kTn;
-  l.n_sub = (bm + kRowsMax - 1) / kRowsMax;
-  return l;
-}
-
-size_t smem_for(const Layout& l) {
-  return (size_t)kKc * (l.rows_alloc + 1 + l.bn) * sizeof(float);
-}
-
-template <int TM>
+template <int TM, typename T>
 __global__ void __launch_bounds__(kThreads)
 bsr_kernel(const int* __restrict__ row_start, const int* __restrict__ col_of,
-           const float* __restrict__ values, const float* __restrict__ b,
-           float* __restrict__ c, int n, int bm, int bk, Layout l) {
+           const T* __restrict__ values, const T* __restrict__ b,
+           T* __restrict__ c, int n, int bm, int bk, Layout l) {
   extern __shared__ float smem[];
   const int as_stride = l.rows_alloc + 1;   // odd: the transposed store
   float* As = smem;                         // [kKc][as_stride]
@@ -119,12 +114,12 @@ bsr_kernel(const int* __restrict__ row_start, const int* __restrict__ col_of,
     for (int e = tid; e < l.rows_alloc * kc; e += kThreads) {
       const int row = e / kc, j = e % kc;
       As[j * as_stride + row] =
-          row < rows ? values[s_aoff[j] + (size_t)row * bk] : 0.0f;
+          row < rows ? to_f(values[s_aoff[j] + (size_t)row * bk]) : 0.0f;
     }
     for (int e = tid; e < kc * l.bn; e += kThreads) {
       const int j = e / l.bn, cc = e % l.bn;
       const int col = col0 + cc;
-      Bs[j * l.bn + cc] = col < n ? b[s_boff[j] + col] : 0.0f;
+      Bs[j * l.bn + cc] = col < n ? to_f(b[s_boff[j] + col]) : 0.0f;
     }
     __syncthreads();
     if (active) {
@@ -148,58 +143,130 @@ bsr_kernel(const int* __restrict__ row_start, const int* __restrict__ col_of,
   for (int i = 0; i < TM; ++i) {
     const int row = rt * TM + i;
     if (row >= rows) break;
-    float* cr = c + ((size_t)r * bm + r0 + row) * n;
+    T* cr = c + ((size_t)r * bm + r0 + row) * n;
 #pragma unroll
     for (int j = 0; j < kTn; ++j) {
       const int col = col0 + ct * kTn + j;
-      if (col < n) cr[col] = acc[i][j];
+      if (col < n) from_f(&cr[col], acc[i][j]);
     }
   }
+}
+
+template <typename T>
+int launch_general(const int* row_start, const int* col_of,
+                   const void* values, const void* b, void* c,
+                   int n_block_rows, int bm, int bk, int n, const Layout& l,
+                   int smem, cudaStream_t s) {
+  dim3 grid((unsigned)n_block_rows * l.n_sub, (n + l.bn - 1) / l.bn);
+  const T* v = static_cast<const T*>(values);
+  const T* bb = static_cast<const T*>(b);
+  T* cc = static_cast<T*>(c);
+  switch (l.tm) {
+    case 1:
+      bsr_kernel<1, T><<<grid, kThreads, smem, s>>>(row_start, col_of, v, bb,
+                                                    cc, n, bm, bk, l);
+      break;
+    case 2:
+      bsr_kernel<2, T><<<grid, kThreads, smem, s>>>(row_start, col_of, v, bb,
+                                                    cc, n, bm, bk, l);
+      break;
+    case 4:
+      bsr_kernel<4, T><<<grid, kThreads, smem, s>>>(row_start, col_of, v, bb,
+                                                    cc, n, bm, bk, l);
+      break;
+    case 8:
+      bsr_kernel<8, T><<<grid, kThreads, smem, s>>>(row_start, col_of, v, bb,
+                                                    cc, n, bm, bk, l);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // ---------------------------------------------------------------------------
 // Plain C interface, bound with ctypes. Launches on `stream`, does not
-// synchronise, returns the cudaError_t of the launch (0 = ok).
+// synchronise, returns the cudaError_t of the launch (0 = ok), or 100000 +
+// the CUresult when a TMA tensor map cannot be encoded. The wrapper sizes
+// the launch (bsr_spmm.gemm_geometry): B is (k, n); the instance, its
+// tile's columns (128; 128 or 256 for BF16_WGMMA), the K splits (the grid's
+// y), the ring's stages, the dynamic shared memory and, for the general
+// instance, its layout (tm, row_threads, col_threads, rows_alloc, bn,
+// n_sub); `ws` (splits x tiles x 128 x tile_n f32) and `tickets` (tiles
+// int32, zeroed) only when splits > 1.
 extern "C" {
 
-size_t bsr_spmm_smem_bytes(int bm) { return smem_for(layout_for(bm)); }
+const char* bsr_spmm_error_string(int err) { return hopper_error_string(err); }
 
-const char* bsr_spmm_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
-int bsr_spmm(const int* row_start, const int* col_of, const float* values,
-             const float* b, float* c, int n_block_rows, int bm, int bk,
-             int n, int device, void* stream) {
-  if (bm <= 0 || bk <= 0 || n <= 0 || n_block_rows <= 0)
+int bsr_spmm(const int* row_start, const int* col_of, const void* values,
+             const void* b, void* c, int n_block_rows, int bm, int bk, int k,
+             int n, int nnz, int instance, int tile_n, int splits, int stages,
+             int smem, const int* layout, float* ws, int* tickets, int device,
+             void* stream) {
+  if (bm <= 0 || bk <= 0 || k <= 0 || n <= 0 || n_block_rows <= 0 ||
+      nnz < 0 || splits <= 0)
     return (int)cudaErrorInvalidValue;
   int err = (int)cudaSetDevice(device);
   if (err) return err;
-  const Layout l = layout_for(bm);
-  const size_t smem = smem_for(l);
-  dim3 grid((unsigned)n_block_rows * l.n_sub, (n + l.bn - 1) / l.bn);
   cudaStream_t s = (cudaStream_t)stream;
-  switch (l.tm) {
-    case 1:
-      bsr_kernel<1><<<grid, kThreads, smem, s>>>(row_start, col_of, values,
-                                                 b, c, n, bm, bk, l);
-      break;
-    case 2:
-      bsr_kernel<2><<<grid, kThreads, smem, s>>>(row_start, col_of, values,
-                                                 b, c, n, bm, bk, l);
-      break;
-    case 4:
-      bsr_kernel<4><<<grid, kThreads, smem, s>>>(row_start, col_of, values,
-                                                 b, c, n, bm, bk, l);
-      break;
-    default:
-      bsr_kernel<8><<<grid, kThreads, smem, s>>>(row_start, col_of, values,
-                                                 b, c, n, bm, bk, l);
-      break;
+  const int n_sub = (bm + kTileM - 1) / kTileM;
+  const int col_tiles = (n + tile_n - 1) / tile_n;
+  const int tiles = n_block_rows * n_sub * col_tiles;
+  const Split sp{ws, tickets, tiles};
+  if ((instance == F32_FMA && tile_n != kTileN) ||
+      (instance == BF16_WGMMA && tile_n != 128 && tile_n != 256))
+    return (int)cudaErrorInvalidValue;
+  switch (instance) {
+    case F32_FMA: {
+      const BsrSrc<float, kF32Bk> src{
+          row_start, col_of, static_cast<const float*>(values),
+          static_cast<const float*>(b), static_cast<float*>(c), n, bm, bk,
+          n_sub, col_tiles, 0, 0, 0, 0, 0};
+      return launch_gemm_f32(src, tiles, splits, stages, smem, sp, s);
+    }
+    case BF16_WGMMA: {
+      // values (nnz, bm, bk) as (bk, bm, nnz), innermost first; a map
+      // needs a non-empty extent, and no tile loads a block of an empty
+      // list.
+      CUtensorMap ta, tb;
+      const cuuint64_t dims[3] = {(cuuint64_t)bk, (cuuint64_t)bm,
+                                  (cuuint64_t)(nnz > 0 ? nnz : 1)};
+      const cuuint64_t strides[2] = {(cuuint64_t)bk * 2,
+                                     (cuuint64_t)bm * bk * 2};
+      const cuuint32_t box[3] = {kBf16Bk, kTileM, 1};
+      err = encode_bf16(&ta, values, 3, dims, strides, box);
+      if (!err) err = encode_b_bf16(&tb, b, k, n);
+      if (err) return err;
+      const auto* v16 = static_cast<const __nv_bfloat16*>(values);
+      const auto* b16 = static_cast<const __nv_bfloat16*>(b);
+      auto* c16 = static_cast<__nv_bfloat16*>(c);
+      if (tile_n == 256)
+        return launch_gemm_bf16(
+            ta, tb, BsrSrc<__nv_bfloat16, kBf16Bk, 256>{
+                        row_start, col_of, v16, b16, c16, n, bm, bk, n_sub,
+                        col_tiles, 0, 0, 0, 0, 0},
+            tiles, splits, stages, smem, sp, s);
+      return launch_gemm_bf16(
+          ta, tb, BsrSrc<__nv_bfloat16, kBf16Bk, 128>{
+                      row_start, col_of, v16, b16, c16, n, bm, bk, n_sub,
+                      col_tiles, 0, 0, 0, 0, 0},
+          tiles, splits, stages, smem, sp, s);
+    }
+    case GENERAL_F32:
+    case GENERAL_BF16: {
+      const Layout l{layout[0], layout[1], layout[2], layout[3], layout[4],
+                     layout[5]};
+      if (instance == GENERAL_F32)
+        return launch_general<float>(row_start, col_of, values, b, c,
+                                     n_block_rows, bm, bk, n, l, smem, s);
+      return launch_general<__nv_bfloat16>(row_start, col_of, values, b, c,
+                                           n_block_rows, bm, bk, n, l, smem,
+                                           s);
+    }
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -78,7 +78,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "hopper.cuh"   // mbarriers, TMA, kTensorMapError
+#include "hopper.cuh"   // mbarriers, TMA, wgmma helpers, kTensorMapError
 
 namespace {
 
@@ -296,33 +296,6 @@ constexpr int kAlign = 1024;               // the swizzle atom
 
 __host__ __device__ constexpr int tile_bytes(int hdp) { return hdp * 128; }
 
-// wgmma shared-memory descriptor, 128-byte swizzle. Offsets in bytes.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
-  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
-  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
-  d |= (uint64_t)1 << 62;
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators
-// across the asynchronous window of a wgmma.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B from shared memory,
 // both K-major.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
@@ -473,7 +446,7 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap tq,
                  make_desc(dk + off, 16, 1024), 1);
       }
       wgmma_commit();
-      wgmma_wait0();
+      wgmma_wait<0>();
       fence_regs(s);
 
       // Online softmax in log2 units: with a cap, the capped logit times
@@ -571,7 +544,7 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap tq,
           wgmma_rs(o[r], a[t], make_desc(dv + r * kRegion + t * 2048, kRegion,
                                          1024));
       wgmma_commit();
-      wgmma_wait0();
+      wgmma_wait<0>();
 #pragma unroll
       for (int r = 0; r < kR; ++r) fence_regs(o[r]);
     }

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) helpers shared by the kernels that take operands by TMA:
 // mbarriers, bulk tensor copies (plain and multicast to a cluster), cluster
-// barriers and remote arrives, and the error convention of a tensor map
-// that cannot be encoded. Included by flash_attention.cu and incrs_spmm.cu;
-// the build hashes it with each source that includes it (_build.lib_path).
+// barriers and remote arrives, the wgmma descriptor and fences, and the
+// error convention of a tensor map that cannot be encoded. Included by
+// flash_attention.cu, incrs_spmm.cu and gemm_sm90.cuh (dense_mm.cu,
+// bsr_spmm.cu); the build hashes it with each source that includes it
+// (_build.lib_path).
 #pragma once
 
 #include <cuda.h>
@@ -52,6 +54,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
     if (t0 == 0) t0 = t;
     else if (t - t0 > 8000000000ll) __trap();
   }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
 // Arrives on the mbarrier at the same shared offset as `bar` in the CTA of
@@ -130,6 +137,51 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map
       ::"r"(dst), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(c4), "r"(bar)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(dst), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (sm_90a only).
+// Shared-memory descriptor of an operand tile in the 128-byte swizzle that
+// TMA writes (1,024-byte atoms of 8 rows x 128 bytes). Offsets in bytes:
+// K-major, lbo 16 and sbo 1,024 (the next 8 rows); MN-major, lbo the next
+// 64 elements along M or N and sbo the next 8 rows along K.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous window of a wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -147,8 +147,10 @@ class ServeEngine:
 @dataclasses.dataclass
 class SpMMRequest:
     rid: int
-    b: np.ndarray                          # (K, cols) dense operand
-    out: Optional[np.ndarray] = None       # (M, cols) result
+    # (K, cols) dense operand: a numpy array, or a CPU tensor for a type
+    # numpy lacks (bfloat16); ``out`` comes back in the same kind and dtype
+    b: Any
+    out: Any = None                        # (M, cols) result
     done: bool = False
     t_submit: Optional[float] = None       # stamped by engine.submit()
     t_done: Optional[float] = None         # stamped when the result lands
@@ -163,7 +165,7 @@ class _SplitPart:
     rid: int
     parent: SpMMRequest
     offset: int                            # column offset into parent.out
-    b: np.ndarray                          # column-slice VIEW of parent.b
+    b: Any                                 # column-slice VIEW of parent.b
     t_submit: Optional[float] = None
 
 
@@ -209,8 +211,28 @@ def _operand_device(a) -> Optional[torch.device]:
     return None
 
 
-def _torch_dtype(dt) -> torch.dtype:
-    return torch.from_numpy(np.empty(0, dtype=dt)).dtype
+def _torch_dtype(b) -> torch.dtype:
+    """The torch dtype of a request panel (a numpy array or a CPU
+    tensor)."""
+    if isinstance(b, torch.Tensor):
+        return b.dtype
+    return torch.from_numpy(np.empty(0, dtype=b.dtype)).dtype
+
+
+def _host_tensor(b) -> torch.Tensor:
+    return b if isinstance(b, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(b))
+
+
+def _in_kind_of(panel: torch.Tensor, b):
+    """A result panel (a CPU tensor) in the request's own dtype and kind:
+    a tensor for a tensor request, a numpy array for an array (numpy has
+    no bfloat16, so a bf16 panel is widened first)."""
+    if isinstance(b, torch.Tensor):
+        return panel.to(b.dtype)
+    if panel.dtype == torch.bfloat16:
+        panel = panel.float()
+    return panel.numpy().astype(b.dtype)
 
 
 class SpMMEngine:
@@ -327,8 +349,10 @@ class SpMMEngine:
             self._t_first_submit = req.t_submit
         cols = req.b.shape[1]
         if cols > self.max_wave_cols:
-            req.out = np.empty((self.prep.shape[0], cols),
-                               dtype=req.b.dtype)
+            req.out = torch.empty((self.prep.shape[0], cols),
+                                  dtype=req.b.dtype) \
+                if isinstance(req.b, torch.Tensor) else \
+                np.empty((self.prep.shape[0], cols), dtype=req.b.dtype)
             n_parts = -(-cols // self.max_wave_cols)
             req._parts_left = n_parts
             for i in range(n_parts):
@@ -352,7 +376,7 @@ class SpMMEngine:
             return False
         t0 = time.perf_counter()
         wave_dt = functools.reduce(torch.promote_types,
-                                   (_torch_dtype(r.b.dtype) for r in wave))
+                                   (_torch_dtype(r.b) for r in wave))
         if wave_dt.is_floating_point and torch.finfo(wave_dt).bits > 32:
             warnings.warn(
                 f"SpMMEngine: wave dtype {wave_dt} exceeds the fused "
@@ -365,8 +389,7 @@ class SpMMEngine:
         off = 0
         for r in wave:
             width = r.b.shape[1]
-            host[:, off:off + width].copy_(torch.from_numpy(
-                np.ascontiguousarray(r.b)))
+            host[:, off:off + width].copy_(_host_tensor(r.b))
             off += width
         if bucket > cols:
             host[:, cols:].zero_()
@@ -389,9 +412,10 @@ class SpMMEngine:
         if isinstance(self.prep, ops.PreparedOperand):
             w.c = ops.spmm(self.prep, w.b, variant=self.variant)
         else:                                       # a bound plan
-            b = w.b
-            if b.device.type == "cuda":     # its kernels take f32, as the
-                b = b.to(torch.float32)     # InCRS wrapper casts B
+            b = w.b     # the kernels promote it with the plan's values;
+            if b.dtype.is_floating_point and \
+                    torch.finfo(b.dtype).bits > 32:    # they sum in f32,
+                b = b.to(torch.float32)     # as JAX without x64 does
             w.c = self.prep(b)
         self._staged = None         # a launch that raised keeps the wave
         w.t_dispatch = t0
@@ -404,13 +428,13 @@ class SpMMEngine:
         if isinstance(r, _SplitPart):
             parent = r.parent
             parent.out[:, r.offset:r.offset + panel.shape[1]] = \
-                panel.astype(parent.b.dtype)
+                _in_kind_of(panel, parent.b)
             parent._parts_left -= 1
             if parent._parts_left:
                 return
             r = parent                     # last part: parent completes
         else:
-            r.out = panel.astype(r.b.dtype)
+            r.out = _in_kind_of(panel, r.b)
         r.done = True
         r.t_done = t_done
         if r.t_submit is not None:
@@ -426,7 +450,7 @@ class SpMMEngine:
         if w is None:
             return
         self._inflight = None
-        c = w.c.cpu().numpy()
+        c = w.c.cpu()
         t_done = time.perf_counter()
         wall_s = t_done - w.t_dispatch
         off = 0

@@ -149,8 +149,10 @@ def _dense_apply(p: DenseLinearParams, x: torch.Tensor) -> torch.Tensor:
 
 
 def _dense_to_dense(p: DenseLinearParams) -> np.ndarray:
-    return np.asarray(_dense_masked(p.values, p.meta).detach().cpu()
-                      .numpy(), np.float32)
+    w = _dense_masked(p.values, p.meta).detach().cpu()
+    if w.dtype == torch.bfloat16:             # numpy has no bfloat16
+        w = w.float()
+    return np.asarray(w.numpy(), np.float32)
 
 
 def _make_dense(w, spec: SparseSpec, dtype=torch.float32,

@@ -203,7 +203,10 @@ def to_dense(p: SparseLinearParams) -> np.ndarray:
     """Densify W (d_in, d_out) from the current values (host numpy)."""
     blk = p.meta.block
     d_in, d_out = p.meta.d_in, p.meta.d_out
-    vals = p.values.detach().cpu().numpy()
+    vals = p.values.detach().cpu()
+    if vals.dtype == torch.bfloat16:          # numpy has no bfloat16
+        vals = vals.float()
+    vals = vals.numpy()
     tiles = np.zeros((d_out // blk, d_in // blk, blk, blk), vals.dtype)
     rows, cols = real_blocks(p.meta)
     tiles[rows, cols] = vals

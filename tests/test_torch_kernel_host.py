@@ -355,3 +355,161 @@ def test_reuse_fills_the_card_at_docword():
     resident = min(blocks, per_sm * SMS)
     warps_per_sm = resident * K.REUSE_THREADS // 32 / SMS
     assert warps_per_sm >= 16
+
+
+# ----------------------------------------------------------------------
+# Dense and BSR: the instance each wrapper launches, its K splits and its
+# shared memory (``gemm_geometry``), and the C dispatch it names.
+from repro_torch.kernels import _gemm                      # noqa: E402
+from repro_torch.kernels import bsr_spmm as KB             # noqa: E402
+from repro_torch.kernels import dense_mm as KD             # noqa: E402
+
+F32, BF16 = torch.float32, torch.bfloat16
+# (M, K, N): granite-34b's W_up^T at N = 512, docword's operand, an
+# engine wave of 128 columns, and ragged edges.
+DENSE_SHAPES = [(24576, 6144, 512), (700, 12000, 512), (700, 12000, 128),
+                (1, 1, 1), (127, 129, 300), (300, 7, 129), (33, 1000, 5),
+                (127, 136, 264), (256, 512, 384)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", DENSE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dense_geometry_picks_the_instance_by_type_and_shape(dtype, shape):
+    m, k, n = shape
+    g = KD.gemm_geometry(m, n, k, dtype)
+    vec = 4 if dtype == F32 else 8
+    fast = k % vec == 0 and n % vec == 0
+    assert g.instance == (_gemm.FAST if fast else _gemm.GENERAL)[dtype]
+    assert g.instance in KD.INSTANCES and g.smem <= _gemm.SMEM_LIMIT
+    assert g.row_tiles * g.tile_m >= m and g.col_tiles * g.tile_n >= n
+    assert g.tiles * g.splits <= _gemm.GRID_X_MAX * _gemm.GRID_Y_MAX
+    if fast:
+        steps = -(-k // g.tile_k)
+        assert g.splits * _gemm.MIN_SPLIT_STEPS <= max(steps,
+                                                       _gemm.MIN_SPLIT_STEPS)
+    else:
+        assert g.splits == 1
+    # an operand off 16 bytes takes the general kernel of its type
+    assert KD.gemm_geometry(m, n, k, dtype, aligned=False).instance == \
+        _gemm.GENERAL[dtype]
+
+
+@pytest.mark.parametrize("dtype,splits,ctas", [(F32, 11, 264),
+                                               (BF16, 5, 120)],
+                         ids=["f32", "bf16"])
+def test_split_k_fills_the_card_at_docword(dtype, splits, ctas):
+    """docword's dense operand (700 x 12000) at N = 512 has 24 tiles of
+    128 x 128; split-K fills the card's resident slots (two f32 CTAs an
+    SM, one bf16 CTA) in one wave. granite's 768 tiles need no split, and
+    its bf16 tiles widen to 128 x 256 (384 of them still fill the card)."""
+    g = KD.gemm_geometry(700, 512, 12000, dtype)
+    slots = SMS * _gemm.CTAS_PER_SM[g.instance]
+    assert (g.tiles, g.splits, g.tile_n) == (24, splits, 128)
+    assert g.tiles * g.splits == ctas <= slots < g.tiles * (g.splits + 1)
+    wide = KD.gemm_geometry(24576, 512, 6144, dtype)
+    assert wide.splits == 1
+    assert (wide.tile_n, wide.tiles) == ((256, 384) if dtype == BF16
+                                         else (128, 768))
+    assert KB.gemm_geometry(192, 128, 128, 512, dtype,
+                            nnz=2304).tile_n == wide.tile_n
+    # an engine wave of 128 columns keeps the 128-wide tile
+    assert KD.gemm_geometry(24576, 128, 6144, dtype).tile_n == 128
+
+
+# (n_block_rows, bm, bk, N, nnz): granite's W_up^T as BSR (block 128,
+# density 0.25), the Table II blocks (50, 10, 60), 64 x 64, 32 x 64, bm
+# over 128, and a short operand that split-K fills.
+BSR_SHAPES = [(192, 128, 128, 512, 2304), (14, 50, 50, 512, 1000),
+              (120, 10, 10, 512, 9000), (4, 60, 60, 1, 9),
+              (10, 64, 64, 512, 48), (8, 32, 64, 320, 20),
+              (2, 200, 100, 33, 4), (8, 128, 128, 128, 77),
+              (6, 64, 16, 96, 30)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", BSR_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bsr_geometry_picks_the_instance_by_type_and_shape(dtype, shape):
+    nbr, bm, bk, n, nnz = shape
+    g = KB.gemm_geometry(nbr, bm, bk, n, dtype, nnz=nnz)
+    tk = 16 if dtype == F32 else 64
+    fast = bm % 64 == 0 and bk % tk == 0 and n % (4 if dtype == F32
+                                                  else 8) == 0
+    assert g.instance == (_gemm.FAST if fast else _gemm.GENERAL)[dtype]
+    assert g.smem <= _gemm.SMEM_LIMIT
+    if fast:
+        assert g.row_tiles == nbr * -(-bm // 128) and g.layout == ()
+        steps = nnz * (bk // tk) / nbr
+        slots = SMS * _gemm.CTAS_PER_SM[g.instance]
+        assert g.splits == 1 or (g.tiles * g.splits <= slots and
+                                 g.splits * _gemm.MIN_SPLIT_STEPS <= steps)
+    else:
+        tm, row_threads, col_threads, rows_alloc, bn, n_sub = g.layout
+        assert tm in KB.GENERAL_TM and g.splits == 1
+        assert rows_alloc == row_threads * tm >= min(bm, 128)
+        assert row_threads * col_threads <= 256 and bn == 4 * col_threads
+        assert (g.row_tiles, g.col_tiles) == (nbr * n_sub, -(-n // bn))
+        assert g.smem == 16 * (rows_alloc + 1 + bn) * 4
+    assert KB.gemm_geometry(nbr, bm, bk, n, dtype, nnz=nnz,
+                            aligned=False).instance == _gemm.GENERAL[dtype]
+
+
+def test_bsr_grid_limit_follows_the_column_tile():
+    """The general instance tiles N by its own column tile (not by 64):
+    N fits while its column tiles fit the grid's y."""
+    for bm in (10, 50, 60, 200):
+        bn = KB.general_layout(bm)[4]
+        n_max = _gemm.GRID_Y_MAX * bn
+        assert KB.gemm_geometry(4, bm, bm, n_max, F32,
+                                nnz=4).col_tiles == _gemm.GRID_Y_MAX
+        with pytest.raises(ValueError, match="column tiles"):
+            KB.gemm_geometry(4, bm, bm, n_max + 1, F32, nnz=4)
+
+
+@pytest.mark.parametrize("instance", ["f32_fma", "bf16_wgmma"])
+def test_fast_shared_memory_and_stages(instance):
+    lo, hi = _gemm.STAGES_RANGE[instance]
+    for stages in range(lo, hi + 1):
+        assert _gemm.smem_bytes(instance, stages, 256) <= _gemm.SMEM_LIMIT
+    assert _gemm.smem_bytes("f32_fma", 4) == 49_152
+    assert _gemm.smem_bytes("bf16_wgmma", 4) == 132_160
+    assert _gemm.smem_bytes("bf16_wgmma", 4, 256) == 197_696
+    with pytest.raises(ValueError, match="stages"):
+        _gemm.fast_geometry(instance, 1, 1, 10, stages=hi + 1)
+    with pytest.raises(ValueError, match="stages"):
+        _gemm.fast_geometry(instance, 1, 1, 10, stages=1)
+
+
+@pytest.mark.parametrize("source", ["dense_mm", "bsr_spmm"])
+def test_every_instance_is_in_the_dispatch(source):
+    """Each instance the host function can return has its id in the
+    source's enum and a case in its launcher's switch; both sources
+    include the shared core and link libcuda for its tensor maps."""
+    from repro_torch.kernels import _build
+    import re
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    enum = dict((name, int(i)) for name, i in re.findall(
+        r"\b([A-Z0-9_]+) = (\d+)", text.split("enum Instance")[1]
+        .split("};")[0]))
+    assert enum == {name.upper(): i for i, name in enumerate(_gemm.INSTANCES)}
+    for name in _gemm.INSTANCES:
+        assert f"case {name.upper()}:" in text
+    if source == "bsr_spmm":
+        for tm in KB.GENERAL_TM:
+            assert f"case {tm}:" in text and f"bsr_kernel<{tm}, T>" in text
+    assert _build._headers(_build.CSRC / f"{source}.cu") == \
+        [_build.CSRC / "gemm_sm90.cuh", _build.CSRC / "hopper.cuh"]
+    assert "-lcuda" in _build._flags(source)
+
+
+@pytest.mark.parametrize("a,b,want", [
+    (F32, F32, F32), (BF16, BF16, BF16), (BF16, F32, F32),
+    (F32, BF16, F32), (torch.float16, torch.float16, None),
+    (torch.float64, F32, None), (BF16, torch.float16, F32)])
+def test_operands_promote_as_the_plain_versions_do(a, b, want):
+    if want is None:
+        with pytest.raises(TypeError, match="f32 or bf16"):
+            _gemm.compute_dtype(a, b, "dense_mm")
+    else:
+        assert _gemm.compute_dtype(a, b, "dense_mm") == want

@@ -358,3 +358,34 @@ def test_launcher_refuses_a_block_that_does_not_divide():
     with pytest.raises(ValueError, match="must divide"):
         serve.main(["--spmm", "--device", "cpu", "--format", "bsr",
                     "--workload", "incrs-docword", "--scale", "0.06"])
+
+
+@pytest.mark.parametrize("fmt", ["bsr", "dense"])
+def test_engine_on_a_bf16_plan_matches_jax_linear(fmt):
+    """A bf16 plan (``Linear.from_dense(..., dtype=bfloat16)``) served by
+    the engine with bf16 requests (CPU tensors), held against the JAX
+    ``Linear`` of the same dtype on the same numpy inputs: ``1e-2 *
+    max|C|`` (C is rounded to bf16 on both sides, the sums are f32 in
+    different orders). The engine keeps the wave's type, as JAX's does."""
+    w = _weight(64, 96, seed=12)
+    block = 16 if fmt == "bsr" else None
+    jb = japi.Linear.from_dense(w, japi.SparseSpec(fmt, block=block),
+                                dtype=jnp.bfloat16).bound()
+    tlin = tapi.Linear.from_dense(w, tapi.SparseSpec(fmt, block=block),
+                                  dtype=torch.bfloat16, device="cpu")
+    assert tlin.values.dtype == torch.bfloat16
+    np.testing.assert_array_equal(tlin.to_dense(), np.asarray(
+        japi.Linear.from_dense(w, japi.SparseSpec(fmt, block=block),
+                               dtype=jnp.bfloat16).to_dense(), np.float32))
+    eng = teng.SpMMEngine(tlin.bound(), max_wave_cols=128)
+    rng = np.random.default_rng(13)
+    panels = [rng.normal(size=(64, width)).astype(np.float32)
+              for width in (40, 24, 200)]
+    for i, p in enumerate(panels):
+        eng.submit(teng.SpMMRequest(i, torch.from_numpy(p).bfloat16()))
+    done = {r.rid: r for r in eng.run()}
+    for i, p in enumerate(panels):
+        want = np.asarray(jb(jnp.asarray(p, jnp.bfloat16)), np.float32)
+        got = done[i].out
+        assert isinstance(got, torch.Tensor) and got.dtype == torch.bfloat16
+        _close(got.float().numpy(), want, tol=1e-2)

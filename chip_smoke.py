@@ -44,6 +44,15 @@ Phases, each printing one JSON line:
              before and read just after.
 8. spgemm_times — mesh-docword4 at R = 128: each new kernel's median time
              beside its plain version, the library call and the bound.
+   spgemm_operands — index matching and condense on the eight Table IV
+             operands at R = 128 (mesh-docword4 also at R = 32), each in
+             the ring instance and the general one (the first design),
+             beside torch.sparse.mm, the bound and the ring's packing
+             pre-pass alone; the instance match_geometry picks.
+   spgemm_geometries — the ring at other rows per warp, ring depths and
+             (condense) items a CTA, each bitwise equal to the rule's;
+             each instance's CTAs an SM from the occupancy calculator,
+             the ring's grid checked to fit one wave.
 9. plan_kernels — the BSR and dense kernels against their plain versions
              (and, in f32, float64) on the card: the five Table II
              operands as BSR (blocks 50, 10, 50, 60, 50) at N = 512, the
@@ -467,13 +476,16 @@ def phase_profile(torch, engine_mod, operand, k, *, workload="incrs-docword",
           "requests_per_s": s["requests_per_s"]})
 
 
-def _time_ms(torch, fn, flush, reps=30):
-    """Median ms of ``fn`` over CUDA events, L2 flushed before each run."""
+def _time_ms(torch, fn, flush, reps=30, lead=1):
+    """Median ms of ``fn`` over CUDA events, L2 flushed before each run
+    (``lead`` times: more work queued ahead of a short kernel whose
+    wrapper takes the host longer than one flush takes the card)."""
     for _ in range(3):
         fn()
     pairs = []
     for _ in range(reps):
-        flush.zero_()       # evicts L2, and keeps the card busy while the
+        for _ in range(lead):
+            flush.zero_()   # evicts L2, and keeps the card busy while the
         s = torch.cuda.Event(enable_timing=True)   # host enqueues fn
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -635,14 +647,35 @@ def _spgemm_edges():
                                  sparse(77, 640, 0.08))}
 
 
+def _match_geo(P, ai, bi, rounds, kernel, **kw):
+    m, n_rounds, rmax_a = ai.shape
+    return P.IM.match_geometry(m, bi.shape[0], n_rounds, rmax_a,
+                               bi.shape[2], rounds, kernel, **kw)
+
+
 def _check_match(torch, P, ai, av, bi, bv, *, rounds, bm, label):
-    """Index matching against its plain version; condense against the plain
-    per-round partials; merge against plain merge and condense + merge
-    against index matching, bit for bit. Frees the stripes."""
+    """Index matching against its plain version, its repeat and the other
+    instance (``match_geometry``: the ring and the general kernel);
+    condense against the plain per-round partials and its repeat; merge
+    against plain merge and condense + merge against index matching, bit
+    for bit. Frees the stripes. Returns the errors and the instances."""
     kw = dict(rounds=rounds, bm=bm, bn=bm)
+    geo = _match_geo(P, ai, bi, rounds, "index_match_spmm")
+    other = _match_geo(P, ai, bi, rounds, "index_match_spmm",
+                       instance=({"ring": "general", "general": "ring"}
+                                 [geo.instance]))
     before = _counters(P)
     fused = P.IM.index_match_spmm(ai, av, bi, bv, **kw)
     torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in _counters(P).items()}
+    again = P.IM.index_match_spmm(ai, av, bi, bv, **kw)
+    cross = P.IM.index_match_spmm(ai, av, bi, bv, geometry=other, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(again, fused),
+          f"index_match bitwise equal to its repeat on {label}")
+    check(torch.equal(cross, fused), f"index_match {geo.instance} bitwise "
+          f"equal to {other.instance} on {label}")
+    del again, cross
     ref = P.IM.plain(ai, av, bi, bv, **kw)
     scale = max(float(ref.abs().max()), 1e-30)
     err7 = float((fused - ref).abs().max())
@@ -650,11 +683,16 @@ def _check_match(torch, P, ai, av, bi, bv, *, rounds, bm, label):
     check(err7 <= KERNEL_TOL * scale, f"index_match on {label}: max|err| "
           f"{err7} > {KERNEL_TOL} * {scale}")
     del ref
+    before_cm = _counters(P)
     stripes = P.SK.spgemm_condense(ai, av, bi, bv, **kw)
     merged = P.SK.spgemm_merge(stripes, bm=bm, bn=bm)
     torch.cuda.synchronize()
+    moved.update({k: v - before_cm[k] for k, v in _counters(P).items()
+                  if k != "index_match_spmm"})
     check(torch.equal(merged, fused),
           f"condense + merge bitwise equal to index_match on {label}")
+    check(torch.equal(P.SK.spgemm_condense(ai, av, bi, bv, **kw), stripes),
+          f"condense bitwise equal to its repeat on {label}")
     check(torch.equal(P.SK.plain_merge(stripes, bm=bm, bn=bm), merged),
           f"merge bitwise equal to its plain version on {label}")
     err8 = 0.0
@@ -663,13 +701,15 @@ def _check_match(torch, P, ai, av, bi, bv, *, rounds, bm, label):
         err8 = max(err8, float((stripes[t] - part).abs().max()))
     check(err8 <= KERNEL_TOL * scale, f"condense on {label}: max|err| "
           f"{err8} > {KERNEL_TOL} * {scale}")
-    moved = {k: v - before[k] for k, v in _counters(P).items()}
     check(all(moved[k] == 1 for k in ("index_match_spmm", "spgemm_condense",
                                       "spgemm_merge")),
           f"index_match, condense and merge counted their launch on {label}")
     del stripes, merged
-    return {"index_match_spmm": err7, "spgemm_condense": err8,
-            "spgemm_merge": 0.0}
+    cond = _match_geo(P, ai, bi, rounds, "spgemm_condense")
+    return ({"index_match_spmm": err7, "spgemm_condense": err8,
+             "spgemm_merge": 0.0},
+            {"index_match_spmm": geo.instance,
+             "spgemm_condense": cond.instance})
 
 
 def _check_gather(torch, P, inc, label):
@@ -692,31 +732,34 @@ def phase_spgemm_kernels(torch, P, table4):
         for rounds in (128, 32) if wl_name == "mesh-docword4" else (128,):
             ai, av = P.ops.prep_rounds(crs, rounds, device="cuda")
             bi, bv = P.ops.prep_rounds(crs, rounds, device="cuda")
-            errs = _check_match(torch, P, ai, av, bi, bv, rounds=rounds,
-                                bm=128, label=f"{wl_name} R={rounds}")
+            errs, inst = _check_match(torch, P, ai, av, bi, bv,
+                                      rounds=rounds, bm=128,
+                                      label=f"{wl_name} R={rounds}")
             if wl_name == "mesh-docword4" and rounds == 128:
                 errs_docword = errs
             if rounds == 128:
                 errs["incrs_gather"] = _check_gather(
                     torch, P, P.InCRS.from_crs(crs), wl_name)
             results.append({"operand": wl_name, "rounds": rounds,
-                            "prep": list(ai.shape), "max_abs_err": errs})
+                            "prep": list(ai.shape), "instances": inst,
+                            "max_abs_err": errs})
             del ai, av, bi, bv
     for label, (a, bt) in _spgemm_edges().items():
         ca, cb = P.CRS.from_dense(a), P.CRS.from_dense(bt)
         ai, av = P.ops.prep_rounds(ca, 128, pad_rows_to=8, device="cuda")
         bi, bv = P.ops.prep_rounds(cb, 128, pad_rows_to=8, device="cuda")
         ai, av, bi, bv = P.ops.pad_common_rmax(ai, av, bi, bv)
-        errs = _check_match(torch, P, ai, av, bi, bv, rounds=128, bm=8,
-                            label=label)
+        errs, inst = _check_match(torch, P, ai, av, bi, bv, rounds=128,
+                                  bm=8, label=label)
         errs["incrs_gather"] = _check_gather(torch, P,
                                              P.InCRS.from_dense(a), label)
         results.append({"operand": label, "a": list(a.shape),
                         "bt": list(bt.shape), "prep": list(ai.shape),
-                        "max_abs_err": errs})
+                        "instances": inst, "max_abs_err": errs})
     emit({"phase": "spgemm_kernels",
           "tolerance": f"max|kernel-plain| <= {KERNEL_TOL} * max|C|; "
-                       f"merge, condense+merge and gather bitwise",
+                       f"merge, condense+merge, the two index-matching "
+                       f"instances, every repeat and the gather bitwise",
           "checks": results})
     return errs_docword
 
@@ -761,6 +804,7 @@ def phase_spgemm(torch, P, table4):
         calls.append(("condense_merge", 128, "spgemm.spgemm"))
         for variant, rounds, entry in calls:
             before = _counters(P)
+            before_inst = dict(P.IM.INSTANCE_LAUNCHES)
             t0 = time.perf_counter()
             if entry == "spgemm.spgemm":
                 out, est = P.spgemm.spgemm(crs, crs, rounds=rounds)
@@ -773,6 +817,9 @@ def phase_spgemm(torch, P, table4):
             wall_ms = (time.perf_counter() - t0) * 1e3
             moved = {k: v - before[k] for k, v in _counters(P).items()
                      if v != before[k]}
+            inst = {k: v - before_inst[k]
+                    for k, v in P.IM.INSTANCE_LAUNCHES.items()
+                    if v != before_inst[k]}
             check(moved == ENGINE_LAUNCHES[variant],
                   f"{wl_name} {entry} {variant} R={rounds}: launches {moved}"
                   f" are {ENGINE_LAUNCHES[variant]}")
@@ -780,7 +827,7 @@ def phase_spgemm(torch, P, table4):
                     "engine": variant, "rounds": rounds,
                     "shape": [m, m], "nnz": crs.nnz, "matched_pairs": pairs,
                     "prep": _prep_shape(P.ops, crs, rounds), "launches": moved,
-                    "wall_ms": wall_ms}
+                    "instances": inst, "wall_ms": wall_ms}
             if entry == "spgemm.spgemm":
                 sparse_out = est < P.spgemm.SPARSE_OUTPUT_THRESHOLD
                 check(isinstance(out, P.CRS) == sparse_out,
@@ -803,6 +850,11 @@ def phase_spgemm(torch, P, table4):
     launches = _counters(P)
     for name, _, _ in SPGEMM_KERNELS:
         check(launches[name] > 0, f"{name} ran on the spgemm path")
+    for name in P.IM.KERNELS:
+        check(P.IM.INSTANCE_LAUNCHES[f"{name}/ring"] > 0,
+              f"{name}'s ring instance ran on the spgemm path")
+    emit({"phase": "spgemm_instances",
+          "launches": dict(P.IM.INSTANCE_LAUNCHES)})
     return launches
 
 
@@ -886,6 +938,138 @@ def phase_spgemm_times(torch, P, crs, inc, errs, launches):
                       "incrs_gather": "A_csr.to_dense()"},
           "dense_mm_ms": dense_mm_ms, "kernels": line})
     return rows
+
+
+def _match_work(ai, bi, pairs, m, stripes):
+    """(bytes, flops) that index matching (``stripes`` False: C, m x m) or
+    condense (the f32 stripes) must move and do: both idx arrays in full
+    (pads are read to be skipped), the live values, the output once; 2
+    flops per matched pair."""
+    live = int((ai >= 0).sum()) + int((bi >= 0).sum())
+    nbytes = (ai.numel() + bi.numel()) * 4 + live * 4
+    out = ai.shape[1] * ai.shape[0] * bi.shape[0] if stripes else m * m
+    return nbytes + out * 4, 2 * pairs
+
+
+def _bound_ms(work):
+    return max(work[0] / HBM_BYTES_PER_S, work[1] / F32_FLOP_PER_S) * 1e3
+
+
+# Flushes queued ahead of each timed index-matching call in the operand
+# and geometry phases: at mesh-arenas the kernels take 0.05 ms, less than
+# the wrapper's host time, and one flush (0.08 ms) left the card idle.
+MATCH_LEAD = 4
+
+
+def phase_spgemm_operands(torch, P, table4):
+    """Both kernels on every Table IV operand at R = 128 (mesh-docword4
+    also at R = 32), each in the ring instance and in the general one
+    (the first design, unchanged: the times before), median of 30
+    launches with L2 flushed, beside torch.sparse.mm(A_csr, At_csr) and
+    the bound; the instance match_geometry picks is named."""
+    flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
+    lines = []
+    cases = [(name, 128) for name in table4] + [("mesh-docword4", 32)]
+    for wl_name, rounds in cases:
+        crs = table4[wl_name]
+        ai, av = P.ops.prep_rounds(crs, rounds, device="cuda")
+        bi, bv = P.ops.prep_rounds(crs, rounds, device="cuda")
+        m = crs.shape[0]
+        pairs = _matched_pairs(crs)
+        line = {"phase": "spgemm_operand", "workload": wl_name,
+                "rounds": rounds, "prep": list(ai.shape)}
+        for kernel, fn in (("index_match_spmm", P.IM.index_match_spmm),
+                           ("spgemm_condense", P.SK.spgemm_condense)):
+            row = {"picked": _match_geo(P, ai, bi, rounds, kernel).instance}
+            for inst in P.IM.INSTANCES:
+                geo = _match_geo(P, ai, bi, rounds, kernel, instance=inst)
+                row[f"{inst}_ms"] = _time_ms(torch, lambda: fn(
+                    ai, av, bi, bv, rounds=rounds, geometry=geo), flush,
+                    lead=MATCH_LEAD)
+            row["bound_ms"] = _bound_ms(_match_work(
+                ai, bi, pairs, m, kernel == "spgemm_condense"))
+            line[kernel] = row
+        a_csr = torch.sparse_csr_tensor(
+            torch.from_numpy(crs.row_ptr),
+            torch.from_numpy(crs.col_idx.astype(np.int64)),
+            torch.from_numpy(crs.values), size=crs.shape).to("cuda")
+        at_csr = a_csr.to_dense().T.contiguous().to_sparse_csr()
+        line["sparse_mm_ms"] = _time_ms(
+            torch, lambda: torch.sparse.mm(a_csr, at_csr), flush, reps=10,
+            lead=MATCH_LEAD)
+        line["pack_ms"] = _time_ms(
+            torch, lambda: P.IM.pack(ai, av, bi, bv, rounds), flush,
+            lead=MATCH_LEAD)
+        emit(line)
+        lines.append(line)
+        del ai, av, bi, bv, a_csr, at_csr
+        torch.cuda.empty_cache()
+    return lines
+
+
+# Ring geometries off the rule at mesh-docword4, R = 128 (the rule's own
+# first): index matching at other rows per warp (tile heights of 14 x
+# rpw) and ring depths; condense at other rows per warp, ring depths and
+# (tile, round) items a CTA: 94, one tile's rounds a CTA (84 CTAs); 24; 1,
+# one item a CTA (7,896 CTAs). The rule gives 132 CTAs 60 items each.
+MATCH_SWEEP = {
+    "index_match_spmm": [{}, {"rows_per_warp": 5}, {"rows_per_warp": 8},
+                         {"rows_per_warp": 12}, {"rows_per_warp": 16},
+                         {"stages": 4}, {"stages": 8}],
+    "spgemm_condense": [{}, {"rows_per_warp": 8}, {"rows_per_warp": 12},
+                        {"stages": 4}, {"stages": 8}, {"chunk": 94},
+                        {"chunk": 24}, {"chunk": 1}],
+}
+
+
+def phase_spgemm_geometries(torch, P, crs):
+    """The ring at other geometries, each held bit for bit to the rule's
+    (condense through merge), and each instance's CTAs an SM from the
+    card's occupancy calculator: the ring's persistent grid must fit one
+    wave of them."""
+    flush = torch.empty(64 * 2 ** 20, device="cuda")
+    rounds = 128
+    ai, av = P.ops.prep_rounds(crs, rounds, device="cuda")
+    bi, bv = P.ops.prep_rounds(crs, rounds, device="cuda")
+    want = P.IM.index_match_spmm(ai, av, bi, bv, rounds=rounds)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    occupancy, sweep = {}, []
+    for kernel, overrides in MATCH_SWEEP.items():
+        for inst in P.IM.INSTANCES:
+            geo = _match_geo(P, ai, bi, rounds, kernel, instance=inst)
+            ctas = P.IM.ctas_per_sm(geo)
+            check(ctas == P.IM.CTAS_PER_SM[inst],
+                  f"{kernel} {inst}: {ctas} CTAs an SM, the geometry "
+                  f"assumes {P.IM.CTAS_PER_SM[inst]}")
+            if inst == "ring":
+                check(geo.grid <= sms * ctas, f"{kernel} ring grid "
+                      f"{geo.grid} fits one wave of {sms} x {ctas}")
+            occupancy[f"{kernel}/{inst}"] = {
+                "ctas_per_sm": ctas, "grid": geo.grid, "smem": geo.smem,
+                "threads": geo.threads}
+        for over in overrides:
+            geo = _match_geo(P, ai, bi, rounds, kernel, instance="ring",
+                             **over)
+            if kernel == "index_match_spmm":
+                run = lambda: P.IM.index_match_spmm(
+                    ai, av, bi, bv, rounds=rounds, geometry=geo)
+                same = torch.equal(run(), want)
+            else:
+                run = lambda: P.SK.spgemm_condense(
+                    ai, av, bi, bv, rounds=rounds, geometry=geo)
+                same = torch.equal(P.SK.spgemm_merge(run()), want)
+            check(same, f"{kernel} at {over} bitwise equal to the rule's")
+            sweep.append({"kernel": kernel, "override": over,
+                          "rows_per_warp": geo.rows_per_warp,
+                          "tile_m": geo.tile_m, "stages": geo.stages,
+                          "cap": geo.cap, "grid": geo.grid,
+                          "chunk": geo.chunk,
+                          "ms": _time_ms(torch, run, flush,
+                                         lead=MATCH_LEAD)})
+            torch.cuda.empty_cache()
+    emit({"phase": "spgemm_geometries", "workload": "mesh-docword4",
+          "rounds": rounds, "prep": list(ai.shape), "sms": sms,
+          "occupancy": occupancy, "sweep": sweep})
 
 
 # ----------------------------------------------------------------------
@@ -1979,6 +2163,8 @@ def main() -> int:
     docword4 = table4["mesh-docword4"]
     rows += phase_spgemm_times(torch, P, docword4, InCRS.from_crs(docword4),
                                errs_dw, spgemm_launches)
+    phase_spgemm_operands(torch, P, table4)
+    phase_spgemm_geometries(torch, P, docword4)
     del table4, P
     rows += plan_path(torch, K, ops, engine_mod, table2)
     del table2, docword

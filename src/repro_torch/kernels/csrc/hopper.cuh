@@ -1,10 +1,10 @@
 // Hopper (sm_90a) helpers shared by the kernels that take operands by TMA:
-// mbarriers, bulk tensor copies (plain and multicast to a cluster), cluster
-// barriers and remote arrives, the wgmma descriptor and fences, and the
-// error convention of a tensor map that cannot be encoded. Included by
-// flash_attention.cu, incrs_spmm.cu and gemm_sm90.cuh (dense_mm.cu,
-// bsr_spmm.cu); the build hashes it with each source that includes it
-// (_build.lib_path).
+// mbarriers, bulk copies (1-D, and tensor tiles plain and multicast to a
+// cluster), cluster barriers and remote arrives, the wgmma descriptor and
+// fences, and the error convention of a tensor map that cannot be encoded.
+// Included by flash_attention.cu, incrs_spmm.cu, index_match.cu and
+// gemm_sm90.cuh (dense_mm.cu, bsr_spmm.cu); the build hashes it with each
+// source that includes it (_build.lib_path).
 #pragma once
 
 #include <cuda.h>
@@ -90,6 +90,18 @@ __device__ __forceinline__ void cluster_sync() {
 
 __device__ __forceinline__ void fence_mbar_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// `bytes` contiguous bytes from global `src` to shared `dst` by the copy
+// engine, completing `bytes` of the mbarrier's transaction count. `src`,
+// `dst` and `bytes` are multiples of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst,

@@ -9,10 +9,13 @@ two passes:
   merge     C = sum of S[t] over t ascending, f32, one cast at the end.
 
 Both reach the CUDA kernels written by hand for Hopper in
-``kernels/csrc/index_match.cu``. Condense computes p with the same device
-function as the fused kernel, and merge adds the rounds in the fused
-kernel's order, so condense + merge equals ``index_match_spmm`` bit for bit
-on identically prepped operands, the JAX contract. The plain versions keep
+``kernels/csrc/index_match.cu``. Condense runs in the instance that
+``index_match_spmm.match_geometry`` picks (the ring, its (tile, round)
+items spread over the CTAs, or the general kernel) and computes p with
+the same device function as the fused kernel of that instance, and merge
+adds the rounds in the fused kernel's order, so condense + merge equals
+``index_match_spmm`` bit for bit on identically prepped operands, the JAX
+contract. The plain versions keep
 the same property on the CPU: plain condense stores the plain per-round
 partials, and plain merge adds them as the plain fused version does.
 
@@ -21,7 +24,7 @@ kernel or raises. ``LAUNCHES`` counts each kernel's launches.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -72,13 +75,15 @@ def plain_merge(stripes: torch.Tensor, *, bm: int = 128, bn: int = 128,
 
 def spgemm_condense(a_idx: torch.Tensor, a_val: torch.Tensor,
                     b_idx: torch.Tensor, b_val: torch.Tensor, *,
-                    rounds: int = 128, bm: int = 128,
-                    bn: int = 128) -> torch.Tensor:
+                    rounds: int = 128, bm: int = 128, bn: int = 128,
+                    geometry: Optional[_im.MatchGeometry] = None
+                    ) -> torch.Tensor:
     """Partial stripes S[n_rounds, M, N] f32: S[t] = A_t @ B_t.T per round.
 
     Summing over the first axis in ascending order (``spgemm_merge``)
     gives C = A @ B.T. The array is indexed with 64-bit offsets: it may
-    exceed 2**31 elements.
+    exceed 2**31 elements. ``geometry`` overrides
+    ``index_match_spmm.match_geometry`` on the card (sweeps).
     """
     if a_idx.device.type == "cpu":
         return plain_condense(a_idx, a_val, b_idx, b_val, rounds=rounds,
@@ -91,7 +96,7 @@ def spgemm_condense(a_idx: torch.Tensor, a_val: torch.Tensor,
     out = torch.empty((n_rounds, m, n), dtype=torch.float32,
                       device=a_idx.device)
     if _im.launch_match("spgemm_condense", a_idx, a_val, b_idx, b_val, out,
-                        rounds):
+                        rounds, geometry):
         LAUNCHES["spgemm_condense"] += 1
     return out
 

@@ -8,6 +8,12 @@ and no JAX: ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
 tests/test_torch_cuda_spgemm.py`` (the shared conftest imports JAX). On a
 machine without CUDA every test skips.
 
+Both instances of index matching and condense (``match_geometry``: the
+ring and the general kernel) are held to each other, to their repeats and
+to condense + merge bit for bit, on pads in any slot, an index repeated
+in a round window, empty tiles, wide windows and ring geometries off the
+rule.
+
 Tolerances: index matching and condense against their plain versions
 ``1e-5 * max|C|`` (the plain version multiplies dense round windows, in
 another order); against the float64 product ``1e-4 * max|C|`` (f32
@@ -121,6 +127,166 @@ def test_match_kernels_against_plain_and_each_other(cuda, name, rounds):
                                                      1e-30)
     if name == "zero":
         assert not fused.any()
+
+
+def _shuffle_slots(idx, val, seed):
+    """The same operand with each (row, round)'s slots in a random order:
+    pads between and before live slots."""
+    rng = np.random.default_rng(seed)
+    perm = torch.from_numpy(np.argsort(rng.random(tuple(idx.shape)),
+                                       axis=2)).to(idx.device)
+    return (idx.gather(2, perm).contiguous(),
+            val.gather(2, perm).contiguous())
+
+
+def _instance_pair(name, rounds):
+    """(A, Bt) dense f32 for the instance tests: the CASES, plus empty
+    tiles (rounds whose windows are empty across whole 128-row tiles on
+    one side), a window of 40 non-zeros (rmax > 32, not R), and a tall A
+    that takes several tiles a CTA."""
+    rng = np.random.default_rng(11)
+    if name == "empty_tiles":
+        a = _sparse(rng, 600, 4 * rounds, 0.05)
+        a[100:, rounds:2 * rounds] = 0.0       # round 1: rows >= 100 empty
+        a[:, 3 * rounds:] = 0.0                # round 3: empty everywhere
+        bt = _sparse(rng, 300, 4 * rounds, 0.05)
+        bt[:, 2 * rounds:3 * rounds] = 0.0     # round 2: B empty
+        return a, bt
+    if name == "rmax_40":
+        a = _sparse(rng, 90, 3 * rounds, 0.04)
+        for r in range(0, 90, 7):
+            a[r, rounds + rng.choice(rounds, min(40, rounds - 4),
+                                     replace=False)] = 1.0 + r
+        return a, a
+    if name == "tall":
+        return _sparse(rng, 1100, 2 * rounds, 0.03), \
+            _sparse(rng, 260, 2 * rounds, 0.05)
+    return _pair(name, rounds)
+
+
+INSTANCE_CASES = CASES + ["interleaved", "repeats", "empty_tiles", "rmax_40",
+                          "tall"]
+
+
+def _repeat_slots(idx, val):
+    """Every 5th row repeats its first slot of each round in its last
+    (padded) slot: an index twice in one round window, which the one-hot
+    form sums."""
+    idx, val = idx.clone(), val.clone()
+    rows = torch.arange(0, idx.shape[0], 5, device=idx.device)
+    free = (idx[rows, :, 0] >= 0) & (idx[rows, :, -1] < 0)
+    last_i, last_v = idx[rows, :, -1], val[rows, :, -1]
+    idx[rows, :, -1] = torch.where(free, idx[rows, :, 0], last_i)
+    val[rows, :, -1] = torch.where(free, val[rows, :, 0] * 0.5, last_v)
+    return idx, val
+
+
+def _match_geo(kernel, ai, bi, rounds, **kw):
+    m, n_rounds, ra = ai.shape
+    return IM.match_geometry(m, bi.shape[0], n_rounds, ra, bi.shape[2],
+                             rounds, kernel, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounds", [32, 128])
+@pytest.mark.parametrize("name", INSTANCE_CASES)
+def test_instances_bitwise_equal_and_repeatable(cuda, name, rounds):
+    """Each instance of index matching against its repeat, its condense +
+    merge and the other instance, bit for bit; against its plain version
+    within KERNEL_TOL. Pads may sit anywhere in the slot axis."""
+    a, bt = _instance_pair("docword4" if name in ("interleaved", "repeats")
+                           else name, rounds)
+    ai, av = _prep(a, rounds, 64, cuda)
+    bi, bv = _prep(bt, rounds, 32, cuda)
+    ai, av, bi, bv = ops.pad_common_rmax(ai, av, bi, bv)
+    if name == "interleaved":
+        ai, av = _shuffle_slots(ai, av, 1)
+        bi, bv = _shuffle_slots(bi, bv, 2)
+        assert bool(((ai[..., :-1] < 0) & (ai[..., 1:] >= 0)).any())
+    if name == "repeats":
+        ai, av = _repeat_slots(ai, av)
+        bi, bv = _repeat_slots(bi, bv)
+        assert bool((bi[..., -1] >= 0).any())
+    if name == "rmax_40" and rounds == 128:
+        assert 32 < ai.shape[2] < rounds
+    kw = dict(rounds=rounds, bm=64, bn=32)
+    ref = IM.plain(ai, av, bi, bv, **kw)
+    scale = max(float(ref.abs().max()), 1e-30)
+    fused = {}
+    for inst in IM.INSTANCES:
+        gf = _match_geo("index_match_spmm", ai, bi, rounds, instance=inst)
+        gc = _match_geo("spgemm_condense", ai, bi, rounds, instance=inst)
+        assert (gf.instance, gc.instance) == (inst, inst)
+        before = dict(IM.INSTANCE_LAUNCHES)
+        out = IM.index_match_spmm(ai, av, bi, bv, geometry=gf, **kw)
+        again = IM.index_match_spmm(ai, av, bi, bv, geometry=gf, **kw)
+        stripes = SK.spgemm_condense(ai, av, bi, bv, geometry=gc, **kw)
+        stripes2 = SK.spgemm_condense(ai, av, bi, bv, geometry=gc, **kw)
+        merged = SK.spgemm_merge(stripes, bm=64, bn=32)
+        torch.cuda.synchronize()
+        assert IM.INSTANCE_LAUNCHES[f"index_match_spmm/{inst}"] == \
+            before[f"index_match_spmm/{inst}"] + 2
+        assert IM.INSTANCE_LAUNCHES[f"spgemm_condense/{inst}"] == \
+            before[f"spgemm_condense/{inst}"] + 2
+        assert torch.equal(out, again) and torch.equal(stripes, stripes2)
+        assert torch.equal(merged, out)
+        assert float((out - ref).abs().max()) <= KERNEL_TOL * scale
+        for t in range(stripes.shape[0]):
+            part = IM.round_partial(ai, av, bi, bv, t, rounds)
+            assert float((stripes[t] - part).abs().max()) <= \
+                KERNEL_TOL * scale
+        fused[inst] = out
+    assert torch.equal(fused["ring"], fused["general"])
+    if name == "zero":
+        assert not fused["ring"].any()
+
+
+# Ring geometries off the rule: rows per warp, ring depth, condense's
+# items per CTA (1: a CTA an item; 7: chunks that cut tiles' rounds).
+RING_SWEEP = [dict(rows_per_warp=1), dict(rows_per_warp=16),
+              dict(stages=4), dict(stages=8), dict(chunk=1), dict(chunk=7)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("over", RING_SWEEP,
+                         ids=lambda d: "-".join(f"{k}{v}" for k, v in
+                                                d.items()))
+def test_ring_geometries_agree_with_the_general_instance(cuda, over):
+    a, bt = _instance_pair("tall", 128)
+    ai, av = _prep(a, 128, 64, cuda)
+    bi, bv = _prep(bt, 128, 32, cuda)
+    ai, av, bi, bv = ops.pad_common_rmax(ai, av, bi, bv)
+    kw = dict(rounds=128, bm=64, bn=32)
+    want = IM.index_match_spmm(
+        ai, av, bi, bv, geometry=_match_geo("index_match_spmm", ai, bi, 128,
+                                            instance="general"), **kw)
+    fk = {k: v for k, v in over.items() if k != "chunk"}
+    out = IM.index_match_spmm(
+        ai, av, bi, bv, geometry=_match_geo("index_match_spmm", ai, bi, 128,
+                                            instance="ring", **fk), **kw)
+    stripes = SK.spgemm_condense(
+        ai, av, bi, bv, geometry=_match_geo("spgemm_condense", ai, bi, 128,
+                                            instance="ring", **over), **kw)
+    merged = SK.spgemm_merge(stripes, bm=64, bn=32)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(merged, want)
+
+
+@pytest.mark.gpu
+def test_a_window_too_wide_for_the_ring_runs_the_general_instance(cuda):
+    a, bt = _pair("ragged", 256)
+    ai, av = _prep(a, 256, 64, cuda)
+    bi, bv = _prep(bt, 256, 32, cuda)
+    ai, av, bi, bv = ops.pad_common_rmax(ai, av, bi, bv)
+    kw = dict(rounds=256, bm=64, bn=32)
+    assert _match_geo("index_match_spmm", ai, bi, 256).instance == "general"
+    before = IM.INSTANCE_LAUNCHES["index_match_spmm/general"]
+    out = IM.index_match_spmm(ai, av, bi, bv, **kw)
+    torch.cuda.synchronize()
+    assert IM.INSTANCE_LAUNCHES["index_match_spmm/general"] == before + 1
+    ref = IM.plain(ai, av, bi, bv, **kw)
+    assert float((out - ref).abs().max()) <= \
+        KERNEL_TOL * float(ref.abs().max())
 
 
 @pytest.mark.gpu

@@ -513,3 +513,139 @@ def test_operands_promote_as_the_plain_versions_do(a, b, want):
             _gemm.compute_dtype(a, b, "dense_mm")
     else:
         assert _gemm.compute_dtype(a, b, "dense_mm") == want
+
+
+# ----------------------------------------------------------------------
+# Index matching and condense: ``match_geometry``, the one source of their
+# launch (instance, rows per warp, ring depth, entry bytes a stage, shared
+# memory, persistent grid, condense's items a CTA), on the Table IV
+# operands as ``prep_rounds`` pads them, and the C dispatch it names.
+from functools import lru_cache                           # noqa: E402
+
+from repro_torch.kernels import index_match_spmm as IM    # noqa: E402
+
+TABLE4 = ("mesh-amazon4", "mesh-docword4", "mesh-mks4", "mesh-norris4",
+          "mesh-arenas", "mesh-bates", "mesh-gleich", "mesh-sch")
+MATCH_KERNELS = ("index_match_spmm", "spgemm_condense")
+
+
+@lru_cache(maxsize=None)
+def _table4_prep(name, rounds):
+    """(M padded to 128, n_rounds, rmax) of ``prep_rounds`` on the operand,
+    from its round groups (no prep)."""
+    crs = datasets.synthesize(WORKLOADS[name].dataset, seed=0)
+    counts = ops.round_groups(crs, rounds)[1]
+    return (-(-crs.shape[0] // 128) * 128, counts.shape[1],
+            max(1, int(counts.max(initial=0))))
+
+
+def _table4_cases():
+    return [(n, 128) for n in TABLE4] + [("mesh-docword4", 32)]
+
+
+def test_match_instances_are_the_dispatch():
+    """INSTANCES are the ids of index_match.cu's enum Instance, and the C
+    side's ring constants are the ones the geometry computes with."""
+    from repro_torch.kernels import _build
+    import re
+    text = (_build.CSRC / "index_match.cu").read_text()
+    enum = dict((name, int(i)) for name, i in re.findall(
+        r"\b([A-Z]+) = (\d+)", text.split("enum Instance")[1]
+        .split("};")[0]))
+    assert enum == {name.upper(): i for i, name in enumerate(IM.INSTANCES)}
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
+    assert int(const["kRingWarps"]) == IM.RING_WARPS
+    assert (int(const["kRingWarps"]) + 2) * 32 == IM.RING_THREADS
+    assert int(const["kRingCols"]) == IM.RING_COLS
+    assert int(const["kMaxRowsPerWarp"]) == IM.RING_MAX_ROWS_PER_WARP
+    assert 1 << int(const["kRowShift"]) == IM.RING_MAX_ROUNDS
+    assert _build._headers(_build.CSRC / "index_match.cu") == \
+        [_build.CSRC / "hopper.cuh"]
+
+
+@pytest.mark.parametrize("kernel", MATCH_KERNELS)
+@pytest.mark.parametrize("case", _table4_cases(),
+                         ids=lambda c: f"{c[0]}-R{c[1]}")
+def test_match_geometry_on_table4(case, kernel):
+    """The ring takes every Table IV operand: its shared memory fits one
+    block, and its persistent grid is one wave of one CTA an SM that walks
+    every tile (fused) or every (tile, round) item (condense)."""
+    name, rounds = case
+    m, n_rounds, rmax = _table4_prep(name, rounds)
+    g = IM.match_geometry(m, m, n_rounds, rmax, rmax, rounds, kernel)
+    assert g.instance == "ring" and g.instance in IM.INSTANCES
+    assert g.smem <= 232_448 and g.stripes == (kernel == MATCH_KERNELS[1])
+    assert g.smem == IM.ring_smem(rounds, g.tile_m, g.stages, g.cap)
+    assert g.cap >= IM.RING_MIN_CAP and g.cap % 16 == 0
+    assert g.tile_m == IM.RING_WARPS * g.rows_per_warp
+    assert g.row_tiles * g.tile_m >= m and g.col_tiles * 128 >= m
+    assert g.grid <= SMS * IM.CTAS_PER_SM["ring"]
+    if g.stripes:
+        items = g.tiles * n_rounds
+        assert g.grid * g.chunk >= items > (g.grid - 1) * g.chunk
+    else:
+        assert g.grid == min(g.tiles, SMS)
+    # the general instance is at hand for the same operand
+    old = IM.match_geometry(m, m, n_rounds, rmax, rmax, rounds, kernel,
+                            instance="general")
+    assert old.instance == "general" and old.smem <= 232_448
+
+
+def test_match_geometry_fills_the_card_at_docword():
+    """mesh-docword4 at R = 128, (1536, 94, 45): index matching takes 10
+    rows a warp, tiles of 140 x 128, 11 x 12 = 132 of them, one a CTA and
+    an SM (today's 64 x 128 tiles needed 288 CTAs, a second wave at two
+    an SM); condense takes the tallest tile and spreads the 7,896 (tile,
+    round) items 60 a CTA over 132 CTAs."""
+    m, n_rounds, rmax = _table4_prep("mesh-docword4", 128)
+    assert (m, n_rounds, rmax) == (1536, 94, 45)
+    f = IM.match_geometry(m, m, n_rounds, rmax, rmax, 128)
+    assert (f.instance, f.rows_per_warp, f.tile_m) == ("ring", 10, 140)
+    assert (f.row_tiles, f.col_tiles, f.grid) == (11, 12, 132)
+    g = IM.match_geometry(m, m, n_rounds, rmax, rmax, 128,
+                          "spgemm_condense")
+    assert (g.tile_m, g.tiles, g.grid, g.chunk) == (224, 84, 132, 60)
+    old = IM.match_geometry(m, m, n_rounds, rmax, rmax, 128,
+                            instance="general")
+    assert old.grid == 288 > SMS * IM.CTAS_PER_SM["general"]
+
+
+@pytest.mark.parametrize("rounds", [32, 64, 128, 160, 192])
+@pytest.mark.parametrize("stages", [None, 4, 8, 12])
+def test_ring_shared_memory_fits(rounds, stages):
+    """Two windows of R x 128 f32 and the ring fit one block at every rows
+    per warp; the entry bytes a stage shrink as R grows."""
+    for rpw in range(1, IM.RING_MAX_ROWS_PER_WARP + 1):
+        try:
+            g = IM.match_geometry(4096, 4096, 50, 40, 40, rounds,
+                                  instance="ring", rows_per_warp=rpw,
+                                  stages=stages)
+        except ValueError:
+            assert stages is not None and \
+                IM.ring_cap(rounds, 14 * rpw, stages) < IM.RING_MIN_CAP
+            continue
+        assert g.smem <= 232_448
+        assert g.stages == (stages or IM.RING_STAGES)
+        assert g.cap == IM.ring_cap(rounds, g.tile_m, g.stages)
+
+
+def test_general_instance_where_the_ring_does_not_fit():
+    """R = 256: the ring's two windows alone are 256 KB; B rows past
+    2**23 do not fit an entry's row bits: both take the general kernel,
+    and asking for the ring there raises. The general kernel's own limits
+    (a window of R | 1 rows of 128 f32 within 227 KB; M within its grid)
+    still raise."""
+    g = IM.match_geometry(2048, 2048, 40, 30, 30, 256)
+    assert g.instance == "general" and g.smem == 128 * 257 * 4
+    with pytest.raises(ValueError, match="ring instance"):
+        IM.match_geometry(2048, 2048, 40, 30, 30, 256, instance="ring")
+    big = IM.match_geometry(256, 2 ** 23, 40, 1, 1, 128)
+    assert big.instance == "general"
+    with pytest.raises(ValueError, match="grid"):
+        IM.match_geometry(2 ** 23, 256, 40, 1, 1, 128)
+    with pytest.raises(ValueError, match="shared memory"):
+        IM.match_geometry(2048, 2048, 40, 30, 30, 1024)
+    with pytest.raises(ValueError, match="stages"):
+        IM.match_geometry(2048, 2048, 40, 30, 30, 128, stages=3)
+    with pytest.raises(ValueError, match="rows_per_warp"):
+        IM.match_geometry(2048, 2048, 40, 30, 30, 128, rows_per_warp=17)

@@ -35,24 +35,42 @@ Phases, each printing one JSON line:
              versions on the card: the eight Table IV operands as A·Aᵀ at
              R = 128 (mesh-docword4 also at R = 32) and edge operands;
              condense + merge and merge bitwise equal to index matching and
-             to plain merge, the gather bitwise equal to its plain version.
+             to plain merge, the gather bitwise equal to its plain version
+             and its repeat; each of the four kernels' two instances
+             bitwise equal to each other.
 7. spgemm  — the second path: ``ops.spmm(A, A)`` through every engine, an
              InCRS right-hand side, R = 32, and ``spgemm.spgemm`` on the
              eight Table IV workloads at their published sizes, every C
              checked against the float64 product on the host and every
-             call's launches against its engine. Counters are zeroed just
-             before and read just after.
-8. spgemm_times — mesh-docword4 at R = 128: each new kernel's median time
-             beside its plain version, the library call and the bound.
-   spgemm_operands — index matching and condense on the eight Table IV
-             operands at R = 128 (mesh-docword4 also at R = 32), each in
-             the ring instance and the general one (the first design),
-             beside torch.sparse.mm, the bound and the ring's packing
-             pre-pass alone; the instance match_geometry picks.
+             call's launches against its engine, each call's wall split
+             into host time, device span and wait, and the caching
+             allocator's cudaMalloc, cudaFree and retry counts around it.
+             Counters are zeroed just before and read just after; the
+             second designs' instances must each have run.
+   spgemm_alloc — mesh-mks4's and mesh-bates' condense + merge calls in
+             turn, the allocator's cache warm and emptied, each call's
+             wall, CPU time and allocator counters, and one fresh
+             cudaMalloc of bates' R = 32 stripes.
+8. spgemm_times — mesh-docword4 at R = 128: each kernel's median time
+             beside its plain version, the library call and the bound
+             (the gather and merge also in their first designs).
+   spgemm_operands — the eight Table IV operands at R = 128, and at R =
+             32 where the stripes fit: index matching and condense (R =
+             128, docword also at 32), each in the ring instance and the
+             general one (the first design), beside torch.sparse.mm, the
+             bound and the ring's packing pre-pass alone; merge (ring and
+             general, beside stripes.sum(0) and stripes.sum(), a read of
+             the same bytes) and the gather (R = 128; tile and general,
+             beside A_csr.to_dense(), a fill of the output and a pad of
+             the stripes to the output's shape), each with its bound; the
+             instance each rule picks.
    spgemm_geometries — the ring at other rows per warp, ring depths and
-             (condense) items a CTA, each bitwise equal to the rule's;
-             each instance's CTAs an SM from the occupancy calculator,
-             the ring's grid checked to fit one wave.
+             (condense) items a CTA, the gather's tile at other sections
+             an item (also at mesh-sch), merge's ring at other chunks and
+             depths (also at mesh-mks4), each bitwise equal to the rule's;
+             each instance's
+             CTAs an SM from the occupancy calculator, every persistent
+             grid checked to fit one wave.
 9. plan_kernels — the BSR and dense kernels against their plain versions
              (and, in f32, float64) on the card: the five Table II
              operands as BSR (blocks 50, 10, 50, 60, 50) at N = 512, the
@@ -619,6 +637,21 @@ def _reset_counters(P):
         mod.reset_launches()
 
 
+def _instances(P):
+    return {**P.IM.INSTANCE_LAUNCHES, **P.SK.MERGE_INSTANCE_LAUNCHES,
+            **P.G.INSTANCE_LAUNCHES}
+
+
+# The instances of the second designs, each of which must run on the
+# spgemm path; and the caching allocator's counters read around each call
+# of that path (cudaMalloc calls, cudaFree calls, retries after a failed
+# cudaMalloc that first frees the cache).
+NEW_INSTANCES = ("index_match_spmm/ring", "spgemm_condense/ring",
+                 "spgemm_merge/ring", "incrs_gather/tile")
+ALLOC_STATS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
+               "num_sync_all_streams")
+
+
 def _spgemm_edges():
     """(A, Bt) dense pairs that reach each masked edge of the kernels."""
     rng = np.random.default_rng(17)
@@ -695,6 +728,12 @@ def _check_match(torch, P, ai, av, bi, bv, *, rounds, bm, label):
           f"condense bitwise equal to its repeat on {label}")
     check(torch.equal(P.SK.plain_merge(stripes, bm=bm, bn=bm), merged),
           f"merge bitwise equal to its plain version on {label}")
+    n_rounds, sm, sn = stripes.shape
+    merge_geo = P.SK.merge_geometry(sm * sn, n_rounds)
+    general = P.SK.merge_geometry(sm * sn, n_rounds, instance="general")
+    check(torch.equal(P.SK.spgemm_merge(stripes, bm=bm, bn=bm,
+                                        geometry=general), merged),
+          f"merge {merge_geo.instance} bitwise equal to general on {label}")
     err8 = 0.0
     for t in range(stripes.shape[0]):
         part = P.IM.round_partial(ai, av, bi, bv, t, rounds)
@@ -709,11 +748,18 @@ def _check_match(torch, P, ai, av, bi, bv, *, rounds, bm, label):
     return ({"index_match_spmm": err7, "spgemm_condense": err8,
              "spgemm_merge": 0.0},
             {"index_match_spmm": geo.instance,
-             "spgemm_condense": cond.instance})
+             "spgemm_condense": cond.instance,
+             "spgemm_merge": merge_geo.instance})
 
 
 def _check_gather(torch, P, inc, label):
+    """The gather against its plain version and its repeat, and the
+    instance the rule picks against the other (the first design), bit for
+    bit. Returns the error and the instance."""
     prep = P.ops.prepare_incrs(inc, pad_rows_to=8, device="cuda")
+    geo = P.G.gather_geometry(*prep.idx.shape, prep.section)
+    other = P.G.gather_geometry(*prep.idx.shape, prep.section,
+                                instance="general")
     before = P.G.LAUNCHES["incrs_gather"]
     out = P.G.incrs_gather(prep.idx, prep.val, section=prep.section, bm=8)
     torch.cuda.synchronize()
@@ -722,7 +768,14 @@ def _check_gather(torch, P, inc, label):
     ref = P.G.plain(prep.idx, prep.val, section=prep.section, bm=8)
     check(torch.equal(out, ref),
           f"incrs_gather bitwise equal to its plain version on {label}")
-    return float((out - ref).abs().max())
+    again = P.G.incrs_gather(prep.idx, prep.val, section=prep.section, bm=8)
+    first = P.G.incrs_gather(prep.idx, prep.val, section=prep.section, bm=8,
+                             geometry=other)
+    check(torch.equal(again, out),
+          f"incrs_gather bitwise equal to its repeat on {label}")
+    check(torch.equal(first, out), f"incrs_gather {geo.instance} bitwise "
+          f"equal to {other.instance} on {label}")
+    return float((out - ref).abs().max()), geo.instance
 
 
 def phase_spgemm_kernels(torch, P, table4):
@@ -738,7 +791,7 @@ def phase_spgemm_kernels(torch, P, table4):
             if wl_name == "mesh-docword4" and rounds == 128:
                 errs_docword = errs
             if rounds == 128:
-                errs["incrs_gather"] = _check_gather(
+                errs["incrs_gather"], inst["incrs_gather"] = _check_gather(
                     torch, P, P.InCRS.from_crs(crs), wl_name)
             results.append({"operand": wl_name, "rounds": rounds,
                             "prep": list(ai.shape), "instances": inst,
@@ -751,15 +804,16 @@ def phase_spgemm_kernels(torch, P, table4):
         ai, av, bi, bv = P.ops.pad_common_rmax(ai, av, bi, bv)
         errs, inst = _check_match(torch, P, ai, av, bi, bv, rounds=128,
                                   bm=8, label=label)
-        errs["incrs_gather"] = _check_gather(torch, P,
-                                             P.InCRS.from_dense(a), label)
+        errs["incrs_gather"], inst["incrs_gather"] = _check_gather(
+            torch, P, P.InCRS.from_dense(a), label)
         results.append({"operand": label, "a": list(a.shape),
                         "bt": list(bt.shape), "prep": list(ai.shape),
                         "instances": inst, "max_abs_err": errs})
     emit({"phase": "spgemm_kernels",
           "tolerance": f"max|kernel-plain| <= {KERNEL_TOL} * max|C|; "
-                       f"merge, condense+merge, the two index-matching "
-                       f"instances, every repeat and the gather bitwise",
+                       f"merge, condense+merge, the two instances of index "
+                       f"matching, of merge and of the gather, every "
+                       f"repeat and the gather bitwise",
           "checks": results})
     return errs_docword
 
@@ -804,8 +858,13 @@ def phase_spgemm(torch, P, table4):
         calls.append(("condense_merge", 128, "spgemm.spgemm"))
         for variant, rounds, entry in calls:
             before = _counters(P)
-            before_inst = dict(P.IM.INSTANCE_LAUNCHES)
+            before_inst = _instances(P)
+            mem0 = torch.cuda.memory_stats()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            cpu0 = time.process_time()
             t0 = time.perf_counter()
+            ev0.record()
             if entry == "spgemm.spgemm":
                 out, est = P.spgemm.spgemm(crs, crs, rounds=rounds)
             elif entry == "ops.spmm(InCRS rhs)":
@@ -813,12 +872,17 @@ def phase_spgemm(torch, P, table4):
             else:
                 out = P.ops.spmm(crs, crs, variant=variant, rounds=rounds,
                                  device="cuda")
+            ev1.record()
+            t1 = time.perf_counter()
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+            t2 = time.perf_counter()
+            cpu_ms = (time.process_time() - cpu0) * 1e3
+            wall_ms = (t2 - t0) * 1e3
+            mem1 = torch.cuda.memory_stats()
             moved = {k: v - before[k] for k, v in _counters(P).items()
                      if v != before[k]}
             inst = {k: v - before_inst[k]
-                    for k, v in P.IM.INSTANCE_LAUNCHES.items()
+                    for k, v in _instances(P).items()
                     if v != before_inst[k]}
             check(moved == ENGINE_LAUNCHES[variant],
                   f"{wl_name} {entry} {variant} R={rounds}: launches {moved}"
@@ -827,7 +891,18 @@ def phase_spgemm(torch, P, table4):
                     "engine": variant, "rounds": rounds,
                     "shape": [m, m], "nnz": crs.nnz, "matched_pairs": pairs,
                     "prep": _prep_shape(P.ops, crs, rounds), "launches": moved,
-                    "instances": inst, "wall_ms": wall_ms}
+                    "instances": inst, "wall_ms": wall_ms,
+                    # the wall split: the host until the call returned
+                    # (its own waits on the card included), the card from
+                    # before the call to its last launch's end, the host's
+                    # wait for the card after the return, and the CPU time
+                    # the process got (far under the wall: it was not
+                    # running)
+                    "host_ms": (t1 - t0) * 1e3,
+                    "device_span_ms": ev0.elapsed_time(ev1),
+                    "sync_wait_ms": (t2 - t1) * 1e3, "cpu_ms": cpu_ms,
+                    "alloc": {k: mem1.get(k, 0) - mem0.get(k, 0) for k in
+                              ALLOC_STATS}}
             if entry == "spgemm.spgemm":
                 sparse_out = est < P.spgemm.SPARSE_OUTPUT_THRESHOLD
                 check(isinstance(out, P.CRS) == sparse_out,
@@ -850,12 +925,49 @@ def phase_spgemm(torch, P, table4):
     launches = _counters(P)
     for name, _, _ in SPGEMM_KERNELS:
         check(launches[name] > 0, f"{name} ran on the spgemm path")
-    for name in P.IM.KERNELS:
-        check(P.IM.INSTANCE_LAUNCHES[f"{name}/ring"] > 0,
-              f"{name}'s ring instance ran on the spgemm path")
-    emit({"phase": "spgemm_instances",
-          "launches": dict(P.IM.INSTANCE_LAUNCHES)})
+    instances = _instances(P)
+    for name in NEW_INSTANCES:
+        check(instances[name] > 0, f"{name} ran on the spgemm path")
+    emit({"phase": "spgemm_instances", "launches": instances})
     return launches
+
+
+def phase_spgemm_alloc(torch, P, table4):
+    """The sequence behind one slow call of an earlier run (mesh-bates,
+    condense + merge at R = 32, 11 s of wall after mesh-mks4's 13.5 GB of
+    stripes): mesh-mks4's condense + merge at R = 128, then mesh-bates' at
+    R = 32, with the allocator's cache warm and after emptying it, each
+    call's wall, CPU time and allocator counters; and one fresh cudaMalloc
+    of bates' 3.6 GB stripe array alone."""
+    lines = []
+    for cache in ("warm", "emptied", "warm"):
+        for wl_name, rounds in (("mesh-mks4", 128), ("mesh-bates", 32)):
+            if cache == "emptied":
+                torch.cuda.empty_cache()
+            crs = table4[wl_name]
+            mem0 = torch.cuda.memory_stats()
+            cpu0, t0 = time.process_time(), time.perf_counter()
+            out = P.ops.spmm(crs, crs, variant="condense_merge",
+                             rounds=rounds, device="cuda")
+            torch.cuda.synchronize()
+            lines.append({
+                "workload": wl_name, "rounds": rounds, "cache": cache,
+                "wall_ms": (time.perf_counter() - t0) * 1e3,
+                "cpu_ms": (time.process_time() - cpu0) * 1e3,
+                "alloc": {k: torch.cuda.memory_stats().get(k, 0) -
+                          mem0.get(k, 0) for k in ALLOC_STATS}})
+            del out
+    mp, n_rounds, _ = _prep_shape(P.ops, table4["mesh-bates"], 32)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    block = torch.empty((n_rounds, mp, mp), device="cuda")
+    torch.cuda.synchronize()
+    malloc_ms = (time.perf_counter() - t0) * 1e3
+    del block
+    torch.cuda.empty_cache()
+    emit({"phase": "spgemm_alloc", "calls": lines,
+          "fresh_stripes_malloc_ms": malloc_ms,
+          "stripes_bytes": 4 * n_rounds * mp * mp})
 
 
 def phase_spgemm_times(torch, P, crs, inc, errs, launches):
@@ -912,6 +1024,20 @@ def phase_spgemm_times(torch, P, crs, inc, errs, launches):
         "incrs_gather": _time_ms(torch, lambda: a_csr.to_dense(), flush),
     }
     dense_mm_ms = _time_ms(torch, lambda: a_dense @ a_dense.T, flush)
+    # the first designs, in the same run (general instances)
+    first = {
+        "spgemm_merge": P.SK.merge_geometry(mp * mp, n_rounds,
+                                            instance="general"),
+        "incrs_gather": P.G.gather_geometry(*prep.idx.shape, prep.section,
+                                            instance="general"),
+    }
+    first_ms = {
+        "spgemm_merge": _time_ms(torch, lambda: P.SK.spgemm_merge(
+            stripes, geometry=first["spgemm_merge"]), flush),
+        "incrs_gather": _time_ms(torch, lambda: P.G.incrs_gather(
+            prep.idx, prep.val, section=prep.section,
+            geometry=first["incrs_gather"]), flush),
+    }
     rows, line = [], {}
     for name, source, replaces in SPGEMM_KERNELS:
         fn, plain = runs[name]
@@ -930,6 +1056,8 @@ def phase_spgemm_times(torch, P, crs, inc, errs, launches):
         line[name] = {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
                       "flops": flops, "bound_bytes_ms": t_bytes,
                       "bound_ops_ms": t_ops, "library_ms": library[name]}
+        if name in first_ms:
+            line[name]["first_design_ms"] = first_ms[name]
     emit({"phase": "spgemm_times", "workload": "mesh-docword4",
           "rounds": rounds, "prep": list(ai.shape),
           "gather_stripes": list(prep.idx.shape), "matched_pairs": pairs,
@@ -961,15 +1089,59 @@ def _bound_ms(work):
 MATCH_LEAD = 4
 
 
+def _merge_work(stripes):
+    """(bytes, flops) of merge: the stripes read once, C written once; a
+    flop a stripe element."""
+    n_rounds, m, n = stripes.shape
+    return (n_rounds + 1) * m * n * 4, n_rounds * m * n
+
+
+def _gather_work(prep):
+    """(bytes, flops) of the gather: the idx stripes in full (pads are read
+    to be skipped), the live values, the dense output once."""
+    live = int(((prep.idx >= 0) & (prep.idx < prep.section)).sum())
+    out = prep.idx.shape[0] * prep.idx.shape[1] * prep.section
+    return prep.idx.numel() * 4 + live * 4 + out * 4, 0
+
+
+def _stream_row(torch, run, geometry, library, work, flush, yardsticks):
+    """One stream kernel on one operand: the instance its rule picks and
+    each instance's median time (``run(geometry)``), the first design
+    bitwise equal to the rule's launch, beside the library call, the
+    bound, and ``yardsticks``: torch calls that move the same bytes with
+    no arithmetic, what the card reaches on such traffic."""
+    rule = run(None)
+    row = {"picked": geometry(None).instance}
+    for inst in ("general", row["picked"]):
+        geo = geometry(inst)
+        check(torch.equal(run(geo), rule),
+              f"{inst} instance bitwise equal to the rule's launch")
+        row[f"{inst}_ms"] = _time_ms(torch, lambda: run(geo), flush)
+    row["library_ms"] = _time_ms(torch, library, flush)
+    for name, fn in yardsticks.items():
+        row[name] = _time_ms(torch, fn, flush)
+    row["bytes"] = work[0]
+    row["bound_ms"] = _bound_ms(work)
+    return row
+
+
 def phase_spgemm_operands(torch, P, table4):
-    """Both kernels on every Table IV operand at R = 128 (mesh-docword4
-    also at R = 32), each in the ring instance and in the general one
-    (the first design, unchanged: the times before), median of 30
-    launches with L2 flushed, beside torch.sparse.mm(A_csr, At_csr) and
-    the bound; the instance match_geometry picks is named."""
+    """Every Table IV operand at R = 128 (and at R = 32 where its stripes
+    fit ``STRIPES_MAX_BYTES``): index matching and condense (R = 128, and
+    mesh-docword4 at R = 32), each in the ring instance and in the general
+    one (the first design, unchanged: the times before), beside
+    torch.sparse.mm(A_csr, At_csr), the bound and the ring's packing
+    pre-pass alone; merge on the condensed stripes (ring and general,
+    beside stripes.sum(0)) and, at R = 128, the gather of the operand's
+    section stripes (tile and general, beside A_csr.to_dense()); median
+    of 30 launches with L2 flushed; the instance each rule picks."""
     flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
     lines = []
-    cases = [(name, 128) for name in table4] + [("mesh-docword4", 32)]
+    cases = [(name, 128) for name in table4]
+    for name, crs in table4.items():
+        mp, n_rounds, _ = _prep_shape(P.ops, crs, 32)
+        if 4 * n_rounds * mp * mp < STRIPES_MAX_BYTES:
+            cases.append((name, 32))
     for wl_name, rounds in cases:
         crs = table4[wl_name]
         ai, av = P.ops.prep_rounds(crs, rounds, device="cuda")
@@ -978,31 +1150,68 @@ def phase_spgemm_operands(torch, P, table4):
         pairs = _matched_pairs(crs)
         line = {"phase": "spgemm_operand", "workload": wl_name,
                 "rounds": rounds, "prep": list(ai.shape)}
-        for kernel, fn in (("index_match_spmm", P.IM.index_match_spmm),
-                           ("spgemm_condense", P.SK.spgemm_condense)):
-            row = {"picked": _match_geo(P, ai, bi, rounds, kernel).instance}
-            for inst in P.IM.INSTANCES:
-                geo = _match_geo(P, ai, bi, rounds, kernel, instance=inst)
-                row[f"{inst}_ms"] = _time_ms(torch, lambda: fn(
-                    ai, av, bi, bv, rounds=rounds, geometry=geo), flush,
-                    lead=MATCH_LEAD)
-            row["bound_ms"] = _bound_ms(_match_work(
-                ai, bi, pairs, m, kernel == "spgemm_condense"))
-            line[kernel] = row
         a_csr = torch.sparse_csr_tensor(
             torch.from_numpy(crs.row_ptr),
             torch.from_numpy(crs.col_idx.astype(np.int64)),
             torch.from_numpy(crs.values), size=crs.shape).to("cuda")
-        at_csr = a_csr.to_dense().T.contiguous().to_sparse_csr()
-        line["sparse_mm_ms"] = _time_ms(
-            torch, lambda: torch.sparse.mm(a_csr, at_csr), flush, reps=10,
-            lead=MATCH_LEAD)
-        line["pack_ms"] = _time_ms(
-            torch, lambda: P.IM.pack(ai, av, bi, bv, rounds), flush,
-            lead=MATCH_LEAD)
+        if rounds == 128 or wl_name == "mesh-docword4":
+            for kernel, fn in (("index_match_spmm", P.IM.index_match_spmm),
+                               ("spgemm_condense", P.SK.spgemm_condense)):
+                row = {"picked": _match_geo(P, ai, bi, rounds,
+                                            kernel).instance}
+                for inst in P.IM.INSTANCES:
+                    geo = _match_geo(P, ai, bi, rounds, kernel,
+                                     instance=inst)
+                    row[f"{inst}_ms"] = _time_ms(torch, lambda: fn(
+                        ai, av, bi, bv, rounds=rounds, geometry=geo), flush,
+                        lead=MATCH_LEAD)
+                row["bound_ms"] = _bound_ms(_match_work(
+                    ai, bi, pairs, m, kernel == "spgemm_condense"))
+                line[kernel] = row
+            at_csr = a_csr.to_dense().T.contiguous().to_sparse_csr()
+            line["sparse_mm_ms"] = _time_ms(
+                torch, lambda: torch.sparse.mm(a_csr, at_csr), flush,
+                reps=10, lead=MATCH_LEAD)
+            del at_csr
+            line["pack_ms"] = _time_ms(
+                torch, lambda: P.IM.pack(ai, av, bi, bv, rounds), flush,
+                lead=MATCH_LEAD)
+        stripes = P.SK.spgemm_condense(ai, av, bi, bv, rounds=rounds)
+        del ai, av, bi, bv
+        n_rounds, sm, sn = stripes.shape
+        line["spgemm_merge"] = _stream_row(
+            torch, lambda geo: P.SK.spgemm_merge(stripes, geometry=geo),
+            lambda inst: P.SK.merge_geometry(sm * sn, n_rounds,
+                                             instance=inst),
+            lambda: stripes.sum(0), _merge_work(stripes), flush,
+            {"read_ms": lambda: stripes.sum()})     # the stripes, read
+        line["spgemm_merge"]["geometry"] = \
+            P.SK.merge_geometry(sm * sn, n_rounds)._asdict()
+        del stripes
+        torch.cuda.empty_cache()
+        if rounds == 128:
+            prep = P.ops.prepare_incrs(P.InCRS.from_crs(crs), pad_rows_to=8,
+                                       device="cuda")
+            shape = (*prep.idx.shape, prep.section)
+            dense = torch.empty((shape[0], shape[1] * shape[3]),
+                                device="cuda")
+            line["incrs_gather"] = _stream_row(
+                torch, lambda geo: P.G.incrs_gather(
+                    prep.idx, prep.val, section=prep.section, geometry=geo),
+                lambda inst: P.G.gather_geometry(*shape, instance=inst),
+                lambda: a_csr.to_dense(), _gather_work(prep), flush,
+                {"write_ms": dense.zero_,      # the dense output, written
+                 # the stripes read and the dense output written: each
+                 # (row, section) padded from smax to section columns
+                 "pad_ms": lambda: torch.nn.functional.pad(
+                     prep.val, (0, max(0, shape[3] - shape[2])))})
+            line["incrs_gather"]["stripes"] = list(shape)
+            line["incrs_gather"]["geometry"] = \
+                P.G.gather_geometry(*shape)._asdict()
+            del prep, dense
         emit(line)
         lines.append(line)
-        del ai, av, bi, bv, a_csr, at_csr
+        del a_csr
         torch.cuda.empty_cache()
     return lines
 
@@ -1022,11 +1231,12 @@ MATCH_SWEEP = {
 }
 
 
-def phase_spgemm_geometries(torch, P, crs):
+def phase_spgemm_geometries(torch, P, crs, large, small):
     """The ring at other geometries, each held bit for bit to the rule's
     (condense through merge), and each instance's CTAs an SM from the
     card's occupancy calculator: the ring's persistent grid must fit one
-    wave of them."""
+    wave of them. Then the same for the gather and merge (merge also on
+    ``large``'s stripes, the gather also on ``small``'s)."""
     flush = torch.empty(64 * 2 ** 20, device="cuda")
     rounds = 128
     ai, av = P.ops.prep_rounds(crs, rounds, device="cuda")
@@ -1067,9 +1277,133 @@ def phase_spgemm_geometries(torch, P, crs):
                           "ms": _time_ms(torch, run, flush,
                                          lead=MATCH_LEAD)})
             torch.cuda.empty_cache()
+    del want
+    stream_sweep = _stream_sweep(torch, P, crs, ai, av, bi, bv, rounds,
+                                 flush, sms, occupancy)
+    prep = list(ai.shape)
+    del ai, av, bi, bv
+    stream_sweep += _merge_sweep_large(torch, P, large, rounds, flush)
+    stream_sweep += _gather_sweep(torch, P, small, "mesh-sch",
+                                  GATHER_SWEEP_SMALL, flush)
     emit({"phase": "spgemm_geometries", "workload": "mesh-docword4",
-          "rounds": rounds, "prep": list(ai.shape), "sms": sms,
-          "occupancy": occupancy, "sweep": sweep})
+          "rounds": rounds, "prep": prep, "sms": sms,
+          "occupancy": occupancy, "sweep": sweep,
+          "stream_sweep": stream_sweep})
+
+
+# The stream kernels off their rules at mesh-docword4: the gather's tile
+# at 1 to 8 sections an item (the rule takes 2: 154 slots, one batch); the
+# merge ring at chunks of 1,024 to 8,192 floats (the rule takes 3,072,
+# at most three a CTA on 264 CTAs; 5,960 splits the plane evenly over 132
+# SMs off 128-byte lines) and 2 to 8 stages (the rule takes 4).
+GATHER_SWEEP = [{}, {"sections": 1}, {"sections": 3}, {"sections": 4},
+                {"sections": 6}, {"sections": 8}]
+MERGE_SWEEP = [{}, {"stages": 2}, {"stages": 3}, {"stages": 6},
+               {"stages": 8}, {"chunk": 1024}, {"chunk": 2048},
+               {"chunk": 4096}, {"chunk": 5960}, {"chunk": 6144},
+               {"chunk": 8192}, {"chunk": 8192, "stages": 3}]
+
+
+# Merge's ring at mesh-mks4, R = 128 (13.5 GB of stripes; the rule takes
+# 4,096 floats, at most 53 a CTA on 264 CTAs).
+MERGE_SWEEP_LARGE = [{}, {"chunk": 2048}, {"chunk": 3072}, {"chunk": 6144},
+                     {"chunk": 8192, "stages": 3}]
+# The gather's tile at mesh-sch, whose stripes hold 3 slots a section
+# (3600, 15, 3): items of 1 to 15 sections (the whole row).
+GATHER_SWEEP_SMALL = [{}, {"sections": 1}, {"sections": 2}, {"sections": 4},
+                      {"sections": 8}, {"sections": 15},
+                      {"instance": "general"}]
+
+
+def _gather_sweep(torch, P, crs, name, overrides, flush):
+    """The gather at ``overrides`` of its rule on ``crs``'s section
+    stripes, each bitwise equal to the rule's launch."""
+    prep = P.ops.prepare_incrs(P.InCRS.from_crs(crs), pad_rows_to=8,
+                               device="cuda")
+    shape = (*prep.idx.shape, prep.section)
+    want = P.G.incrs_gather(prep.idx, prep.val, section=prep.section)
+    sweep = []
+    for over in overrides:
+        geo = P.G.gather_geometry(*shape, **over)
+        run = lambda: P.G.incrs_gather(prep.idx, prep.val,
+                                       section=prep.section, geometry=geo)
+        check(torch.equal(run(), want),
+              f"incrs_gather at {over} bitwise equal to the rule's")
+        sweep.append({"kernel": "incrs_gather", "workload": name,
+                      "override": over, "geometry": geo._asdict(),
+                      "ms": _time_ms(torch, run, flush)})
+    return sweep
+
+
+def _merge_sweep_large(torch, P, crs, rounds, flush):
+    ai, av = P.ops.prep_rounds(crs, rounds, device="cuda")
+    stripes = P.SK.spgemm_condense(ai, av, ai, av, rounds=rounds)
+    del ai, av
+    n_rounds, sm, sn = stripes.shape
+    want = P.SK.spgemm_merge(stripes)
+    sweep = []
+    for over in MERGE_SWEEP_LARGE:
+        geo = P.SK.merge_geometry(sm * sn, n_rounds, **over)
+        run = lambda: P.SK.spgemm_merge(stripes, geometry=geo)
+        check(torch.equal(run(), want),
+              f"spgemm_merge at {over} bitwise equal to the rule's")
+        sweep.append({"kernel": "spgemm_merge", "workload": "mesh-mks4",
+                      "override": over, "geometry": geo._asdict(),
+                      "ms": _time_ms(torch, run, flush)})
+    del stripes, want
+    torch.cuda.empty_cache()
+    return sweep
+
+
+def _stream_sweep(torch, P, crs, ai, av, bi, bv, rounds, flush, sms,
+                  occupancy):
+    """Each stream kernel's CTAs an SM from the occupancy calculator (the
+    tile's must be what its geometry assumes, and each persistent grid one
+    wave), then the sweeps, each launch bitwise equal to the rule's."""
+    stripes = P.SK.spgemm_condense(ai, av, bi, bv, rounds=rounds)
+    n_rounds, sm, sn = stripes.shape
+    prep = P.ops.prepare_incrs(P.InCRS.from_crs(crs), pad_rows_to=8,
+                               device="cuda")
+    shape = (*prep.idx.shape, prep.section)
+    kernels = {
+        "incrs_gather": (
+            lambda **kw: P.G.gather_geometry(*shape, **kw),
+            lambda geo: P.G.incrs_gather(prep.idx, prep.val,
+                                         section=prep.section, geometry=geo),
+            P.G.ctas_per_sm, GATHER_SWEEP),
+        "spgemm_merge": (
+            lambda **kw: P.SK.merge_geometry(sm * sn, n_rounds, **kw),
+            lambda geo: P.SK.spgemm_merge(stripes, geometry=geo),
+            P.SK.merge_ctas_per_sm, MERGE_SWEEP),
+    }
+    sweep = []
+    for kernel, (geometry, run, ctas_of, overrides) in kernels.items():
+        rule = geometry()
+        want = run(None)
+        for inst in ("general", rule.instance):
+            geo = geometry(instance=inst)
+            ctas = ctas_of(geo)
+            if inst != "general":
+                check(ctas >= 1 and geo.grid <= sms * ctas,
+                      f"{kernel} {inst} grid {geo.grid} fits one wave of "
+                      f"{sms} x {ctas}")
+            if kernel == "incrs_gather" and inst == "tile":
+                check(ctas == geo.ctas_per_sm, f"incrs_gather tile: {ctas} "
+                      f"CTAs an SM, the geometry assumes {geo.ctas_per_sm}")
+            occupancy[f"{kernel}/{inst}"] = {
+                "ctas_per_sm": ctas, "grid": geo.grid, "smem": geo.smem,
+                "threads": geo.threads}
+        for over in overrides:
+            geo = geometry(**over)
+            check(torch.equal(run(geo), want),
+                  f"{kernel} at {over} bitwise equal to the rule's")
+            sweep.append({"kernel": kernel, "override": over,
+                          "geometry": geo._asdict(),
+                          "ctas_per_sm": ctas_of(geo),
+                          "ms": _time_ms(torch, lambda: run(geo), flush)})
+    del stripes, prep
+    torch.cuda.empty_cache()
+    return sweep
 
 
 # ----------------------------------------------------------------------
@@ -2156,6 +2490,7 @@ def main() -> int:
               for name in TABLE4}
     errs_dw = phase_spgemm_kernels(torch, P, table4)
     spgemm_launches = phase_spgemm(torch, P, table4)
+    phase_spgemm_alloc(torch, P, table4)
     for r in rows:              # densify reaches the fused InCRS kernel too
         r["launches_by_path"] = {"serve": r["launches"],
                                  "spgemm": spgemm_launches[r["name"]]}
@@ -2164,7 +2499,8 @@ def main() -> int:
     rows += phase_spgemm_times(torch, P, docword4, InCRS.from_crs(docword4),
                                errs_dw, spgemm_launches)
     phase_spgemm_operands(torch, P, table4)
-    phase_spgemm_geometries(torch, P, docword4)
+    phase_spgemm_geometries(torch, P, docword4, table4["mesh-mks4"],
+                            table4["mesh-sch"])
     del table4, P
     rows += plan_path(torch, K, ops, engine_mod, table2)
     del table2, docword

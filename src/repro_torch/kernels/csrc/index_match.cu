@@ -6,7 +6,7 @@
 //       src/repro/kernels/index_match_spmm.py:48/:68)
 //   ring_kernel<true>, match_kernel<true> <- _condense_kernel
 //       (spgemm_condense, src/repro/spgemm/kernels.py:48/:59)
-//   merge_kernel <- _merge_kernel (spgemm_merge,
+//   merge_ring_kernel, merge_kernel <- _merge_kernel (spgemm_merge,
 //       src/repro/spgemm/kernels.py:97/:111)
 //
 // Inputs: idx int32 / val f32 of shape (rows, n_rounds, rmax), each slot the
@@ -65,8 +65,9 @@
 // explicit __fmaf_rn from 0 in ascending slot order; the two definitions
 // run the same FMAs in the same order, so the designs agree too. The fused
 // kernels add p into their accumulators with __fadd_rn, rounds ascending
-// from 0; merge_kernel adds S[t] the same way. So condense + merge equals
-// the fused kernel bit for bit, the JAX contract (spgemm/kernels.py:16-19),
+// from 0; both merge designs add S[t] the same way. So condense + merge
+// equals the fused kernel bit for bit, the JAX contract
+// (spgemm/kernels.py:16-19),
 // nvcc cannot contract the sums differently in the two, and no float
 // atomics touch an output. The windows take them only where a B row
 // repeats an index in a round (ops.prep_rounds never does; exact for one
@@ -80,9 +81,17 @@
 // output column, matched or not (1.1 G at mesh-docword4, R = 128: about
 // 0.15 ms of the SMs' shared-memory bandwidth). Condense adds the stripe
 // array's write (0.89 GB there), merge reads it back: both are streams of
-// bytes, so the stripe writes are coalesced along N and merge reads float4
-// along N, 4 consecutive columns per thread, with 4 rounds' loads in
-// flight. No tensor cores and no TF32: the sums are IEEE f32.
+// bytes, so the stripe writes are coalesced along N. Merge, two designs
+// (spgemm.kernels.merge_geometry): ring (merge_ring_kernel), a persistent
+// grid of two CTAs an SM; each CTA owns contiguous chunks of the (M, N)
+// plane, and a producer thread streams the chunk of round t, t ascending,
+// into a ring of shared-memory stages by 1-D bulk copies, so each round's
+// read is one contiguous burst of the chunk; 8 consumer warps add each
+// stage into registers and write the chunk of C once, float4 __stcs.
+// general (merge_kernel), the first design, for a plane that is not a
+// multiple of 4 or stripes off 16 bytes: a thread owns 4 consecutive
+// elements and reads them round after round, a plane apart. No tensor
+// cores and no TF32: the sums are IEEE f32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -283,6 +292,100 @@ merge_kernel(const float* __restrict__ s, float* __restrict__ c,
         }
         c[e + q] = acc;
       }
+    }
+  }
+}
+
+// The ring design of merge. Item i is the chunk [i * chunk, (i + 1) *
+// chunk) of the plane (the last one shorter); CTA b takes items b, b +
+// gridDim.x, ... Stage q of the ring holds `chunk` floats; full[q] (one
+// arrival and the copy's bytes) and empty[q] (one arrival a consumer warp)
+// order it. The producer's copies run across item boundaries, so the next
+// chunk's rounds land while this chunk's last ones are added. Needs plane,
+// chunk and both pointers on 16 bytes (the wrapper's geometry says so).
+constexpr int kMergeWarps = 8;                       // consumer warps
+constexpr int kMergeRingThreads = (kMergeWarps + 1) * 32;
+constexpr int kMergeVec = 8;                         // float4 a consumer
+constexpr int kMergeMaxChunk = kMergeVec * 4 * kMergeWarps * 32;  // 8192
+
+__global__ void __launch_bounds__(kMergeRingThreads, 1)
+merge_ring_kernel(const float* __restrict__ s, float* __restrict__ c,
+                  long long plane, int n_rounds, int chunk, int stages,
+                  long long items) {
+  extern __shared__ __align__(16) unsigned char sraw[];
+  float* ring = reinterpret_cast<float*>(sraw);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(sraw + (size_t)stages * chunk * 4);
+  uint64_t* empty = full + stages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int q = 0; q < stages; ++q) {
+      mbar_init(smem_u32(full + q), 1);
+      mbar_init(smem_u32(empty + q), kMergeWarps);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == kMergeWarps) {                         // the producer
+    if (lane == 0) {
+      int q = 0, phase = 0;
+      bool reuse = false;          // stage q held an earlier copy
+      for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+        const long long e0 = it * chunk;
+        const uint32_t bytes =
+            (uint32_t)(min((long long)chunk, plane - e0) * 4);
+        for (int t = 0; t < n_rounds; ++t) {
+          if (reuse) mbar_wait(smem_u32(empty + q), phase ^ 1);
+          mbar_expect_tx(smem_u32(full + q), bytes);
+          bulk_load(smem_u32(ring + (size_t)q * chunk),
+                    s + (size_t)t * plane + e0, bytes, smem_u32(full + q));
+          if (++q == stages) {
+            q = 0;
+            phase ^= 1;
+            reuse = true;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  int q = 0, phase = 0;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const long long e0 = it * chunk;
+    const int len = (int)min((long long)chunk, plane - e0);
+    float4 acc[kMergeVec];
+#pragma unroll
+    for (int j = 0; j < kMergeVec; ++j)
+      acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int t = 0; t < n_rounds; ++t) {
+      mbar_wait(smem_u32(full + q), phase);
+      const float4* st = reinterpret_cast<const float4*>(ring) +
+                         (size_t)q * (chunk / 4);
+#pragma unroll
+      for (int j = 0; j < kMergeVec; ++j) {
+        const int e = j * kMergeWarps * 32 + tid;    // float4 of the chunk
+        if (4 * e < len) {
+          const float4 v = st[e];
+          acc[j].x = __fadd_rn(acc[j].x, v.x);
+          acc[j].y = __fadd_rn(acc[j].y, v.y);
+          acc[j].z = __fadd_rn(acc[j].z, v.z);
+          acc[j].w = __fadd_rn(acc[j].w, v.w);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(empty + q));
+      if (++q == stages) {
+        q = 0;
+        phase ^= 1;
+      }
+    }
+    float4* c4 = reinterpret_cast<float4*>(c + e0);
+#pragma unroll
+    for (int j = 0; j < kMergeVec; ++j) {
+      const int e = j * kMergeWarps * 32 + tid;
+      if (4 * e < len) __stcs(c4 + e, acc[j]);
     }
   }
 }
@@ -1025,18 +1128,49 @@ int index_match_pack(const int* ai, const float* av, const int* bi,
       n_rounds, rounds, (cudaStream_t)stream);
 }
 
-int spgemm_merge(const float* s, float* c, long long plane, int n_rounds,
+// CTAs of a merge instance that one SM holds at `smem` bytes of dynamic
+// shared memory, from the occupancy calculator.
+int spgemm_merge_ctas_per_sm(int instance, size_t smem, int* ctas) {
+  const void* fn = instance == RING ? (const void*)merge_ring_kernel
+                                    : (const void*)merge_kernel;
+  int err = set_smem(fn, smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, fn, instance == RING ? kMergeRingThreads : kMergeThreads, smem);
+}
+
+// C (the plane, `plane` floats) = the sum over t ascending of S[t].
+// GENERAL: merge_kernel (chunk, stages, grid and smem are not read). RING:
+// merge_ring_kernel on `grid` CTAs, items of `chunk` floats through
+// `stages` stages, `smem` bytes of shared memory.
+int spgemm_merge(int instance, const float* s, float* c, long long plane,
+                 int n_rounds, int chunk, int stages, int grid, size_t smem,
                  int device, void* stream) {
+  if (plane < 1 || n_rounds < 0) return cudaErrorInvalidValue;
   int err = (int)cudaSetDevice(device);
   if (err) return err;
-  const long long groups = (plane + 3) / 4;
-  long long blocks = (groups + kMergeThreads - 1) / kMergeThreads;
-  if (blocks > 132LL * 64) blocks = 132LL * 64;   // grid-stride beyond
-  if (blocks < 1) blocks = 1;
-  const int vec = (plane % 4 == 0 && ((uintptr_t)s & 15) == 0 &&
-                   ((uintptr_t)c & 15) == 0);
-  merge_kernel<<<(unsigned)blocks, kMergeThreads, 0, (cudaStream_t)stream>>>(
-      s, c, plane, n_rounds, vec);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (instance == GENERAL) {
+    const long long groups = (plane + 3) / 4;
+    long long blocks = (groups + kMergeThreads - 1) / kMergeThreads;
+    if (blocks > 132LL * 64) blocks = 132LL * 64;   // grid-stride beyond
+    const int vec = (plane % 4 == 0 && ((uintptr_t)s & 15) == 0 &&
+                     ((uintptr_t)c & 15) == 0);
+    merge_kernel<<<(unsigned)blocks, kMergeThreads, 0, st>>>(
+        s, c, plane, n_rounds, vec);
+    return (int)cudaGetLastError();
+  }
+  if (instance != RING || n_rounds < 1 || plane % 4 || chunk < 4 ||
+      chunk % 4 || chunk > kMergeMaxChunk || stages < 1 ||
+      ((uintptr_t)s & 15) || ((uintptr_t)c & 15) ||
+      smem < (size_t)stages * (chunk * 4 + 16))
+    return cudaErrorInvalidValue;
+  const long long items = (plane + chunk - 1) / chunk;
+  if (grid < 1 || grid > items) return cudaErrorInvalidValue;
+  err = set_smem((const void*)merge_ring_kernel, smem);
+  if (err) return err;
+  merge_ring_kernel<<<grid, kMergeRingThreads, smem, st>>>(
+      s, c, plane, n_rounds, chunk, stages, items);
   return (int)cudaGetLastError();
 }
 

@@ -218,7 +218,9 @@ def match_geometry(m: int, n: int, n_rounds: int, rmax_a: int, rmax_b: int,
 def library() -> ctypes.CDLL:
     """``csrc/index_match.cu`` built and bound: index_match_launch (both
     instances of index matching and condense), index_match_pack (the
-    ring's pre-pass alone), spgemm_merge and index_match_ctas_per_sm."""
+    ring's pre-pass alone), spgemm_merge (both instances of merge) and
+    the occupancy of each instance, index_match_ctas_per_sm and
+    spgemm_merge_ctas_per_sm."""
     lib = _build.library("index_match")
     if not getattr(lib, "_repro_bound", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -226,8 +228,11 @@ def library() -> ctypes.CDLL:
             i, i, p, p, p, p, p, i, i, i, i, i, i, p, p, p, p, i, i, i, i,
             ll, ctypes.c_size_t, i, p]
         lib.index_match_launch.restype = i
-        lib.spgemm_merge.argtypes = [p, p, ll, i, i, p]
+        lib.spgemm_merge.argtypes = [i, p, p, ll, i, i, i, i,
+                                     ctypes.c_size_t, i, p]
         lib.spgemm_merge.restype = i
+        lib.spgemm_merge_ctas_per_sm.argtypes = [i, ctypes.c_size_t, p]
+        lib.spgemm_merge_ctas_per_sm.restype = i
         lib.index_match_pack.argtypes = [p, p, p, p, i, i, i, i, i, i, p,
                                          p, p, p, i, p]
         lib.index_match_pack.restype = i

@@ -14,6 +14,11 @@ to condense + merge bit for bit, on pads in any slot, an index repeated
 in a round window, empty tiles, wide windows and ring geometries off the
 rule.
 
+The gather's tile instance and merge's ring are held to their first
+designs (``gather_geometry``, ``merge_geometry`` overrides) and to the
+CPU's plain versions, an index repeated in a stripe, widths that are not
+a multiple of 4 and views 4 bytes off 16 included.
+
 Tolerances: index matching and condense against their plain versions
 ``1e-5 * max|C|`` (the plain version multiplies dense round windows, in
 another order); against the float64 product ``1e-4 * max|C|`` (f32
@@ -303,6 +308,166 @@ def test_gather_bitwise_equal_to_plain(cuda, name):
     assert np.array_equal(out.cpu().numpy()[:a.shape[0], :a.shape[1]], a)
 
 
+def _stripes_with_repeats(seed, m, n_sec, smax, section):
+    """Random section stripes (pads anywhere) in which row 1, section 0
+    carries one index three times, in slots 0, 2 and smax - 1: summed in
+    slot order, ((0 + 0.1) + 1e8) - 1e8 = 0."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-1, section, size=(m, n_sec, smax)).astype(np.int32)
+    idx[rng.random(idx.shape) < 0.4] = -1
+    val = rng.standard_normal(idx.shape).astype(np.float32)
+    idx[1, 0, [0, 2, smax - 1]] = 5
+    val[1, 0, [0, 2, smax - 1]] = [0.1, 1e8, -1e8]
+    return torch.from_numpy(idx), torch.from_numpy(val)
+
+
+def _off16(t, dev):
+    """A contiguous copy of ``t`` on ``dev`` whose data sits 4 bytes past
+    a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("section", [37, 256])
+def test_gather_sums_a_repeat_in_slot_order_as_the_cpu_does(cuda, section):
+    """An index three times in one stripe: the tile instance equals the
+    CPU's plain version bit for bit, and its own repeat."""
+    idx, val = _stripes_with_repeats(21, 24, 5, 40, section)
+    want = G.plain(idx, val, section=section)
+    assert want[1, 5] == 0.0
+    before = G.INSTANCE_LAUNCHES["incrs_gather/tile"]
+    out = G.incrs_gather(idx.to(cuda), val.to(cuda), section=section)
+    again = G.incrs_gather(idx.to(cuda), val.to(cuda), section=section)
+    torch.cuda.synchronize()
+    assert G.INSTANCE_LAUNCHES["incrs_gather/tile"] == before + 2
+    assert torch.equal(out.cpu(), want) and torch.equal(again, out)
+
+
+GATHER_EDGES = {   # (m, n_sections, smax, section, misaligned)
+    "width_37x3": (16, 3, 9, 37, None),
+    "width_odd_sections": (16, 7, 20, 18, None),
+    "out_off16": (24, 5, 12, 256, "out"),
+    "stripes_off16": (24, 5, 12, 256, "stripes"),
+    "rows_8": (8, 47, 77, 256, None),
+    "batches": (16, 2, 600, 256, None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(GATHER_EDGES))
+def test_gather_edges_bitwise_equal_to_the_cpu(cuda, name):
+    """A width that is not a multiple of 4 (the scalar stores), an output
+    or stripes 4 bytes off 16, 8 rows, and items of more slots than one
+    batch: the tile instance against the CPU's plain version, bit for
+    bit."""
+    m, n_sec, smax, section, off = GATHER_EDGES[name]
+    idx, val = _stripes_with_repeats(22, m, n_sec, smax, section)
+    want = G.plain(idx, val, section=section)
+    di, dv = idx.to(cuda), val.to(cuda)
+    if off == "stripes":
+        di, dv = _off16(idx, cuda), _off16(val, cuda)
+    out = None
+    if off == "out":
+        out = _off16(torch.full(want.shape, 7.0), cuda)
+    geo = G.gather_geometry(m, n_sec, smax, section)
+    assert geo.instance == "tile"
+    got = G.incrs_gather(di, dv, section=section, out=out)
+    torch.cuda.synchronize()
+    assert out is None or got is out
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("over", [dict(instance="general"), dict(sections=1),
+                                  dict(sections=2), dict(sections=47)],
+                         ids=lambda d: "-".join(f"{k}{v}" for k, v in
+                                                d.items()))
+def test_gather_first_design_and_tiles_agree(cuda, over):
+    """The first design stays reachable through a geometry override; on
+    prepped stripes (no index repeats) it and the tile instance at other
+    item widths equal the rule's launch bit for bit."""
+    a, _ = _pair("docword4", 128)
+    prep = ops.prepare_incrs(InCRS.from_dense(a), pad_rows_to=8,
+                             device=cuda)
+    want = G.incrs_gather(prep.idx, prep.val, section=prep.section)
+    m, n_sec, smax = prep.idx.shape
+    sections = min(over.get("sections", 1), n_sec)
+    geo = G.gather_geometry(m, n_sec, smax, prep.section,
+                            instance=over.get("instance"),
+                            sections=None if "instance" in over else
+                            sections)
+    before = dict(G.INSTANCE_LAUNCHES)
+    got = G.incrs_gather(prep.idx, prep.val, section=prep.section,
+                         geometry=geo)
+    torch.cuda.synchronize()
+    assert G.INSTANCE_LAUNCHES[f"incrs_gather/{geo.instance}"] == \
+        before[f"incrs_gather/{geo.instance}"] + 1
+    assert torch.equal(got, want)
+
+
+MERGE_EDGES = {   # (n_rounds, M, N, bm, bn, misaligned)
+    "one_round": (1, 64, 96, 8, 8, False),
+    "stripes_off16": (5, 64, 96, 8, 8, True),
+    "plane_odd": (6, 35, 33, 1, 1, False),
+    "many_items": (3, 512, 520, 8, 8, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(MERGE_EDGES))
+def test_merge_edges_bitwise_equal_to_plain(cuda, name):
+    """One round, stripes 4 bytes off 16 and a plane that is not a
+    multiple of 4 (both the general instance, the rule says), and a plane
+    of many chunks: bit for bit against plain merge on the card and on
+    the CPU."""
+    n_rounds, m, n, bm, bn, off = MERGE_EDGES[name]
+    rng = np.random.default_rng(23)
+    host = torch.from_numpy(rng.standard_normal((n_rounds, m, n))
+                            .astype(np.float32))
+    host[0, 0, :3] = torch.tensor([-0.0, 1e30, -1e30])
+    stripes = _off16(host, cuda) if off else host.to(cuda)
+    geo = SK.merge_geometry(m * n, n_rounds,
+                            stripes.data_ptr() % 16 == 0)
+    assert geo.instance == ("general" if off or (m * n) % 4 else "ring")
+    before = SK.MERGE_INSTANCE_LAUNCHES[f"spgemm_merge/{geo.instance}"]
+    got = SK.spgemm_merge(stripes, bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    assert SK.MERGE_INSTANCE_LAUNCHES[f"spgemm_merge/{geo.instance}"] == \
+        before + 1
+    assert torch.equal(got, SK.plain_merge(stripes, bm=bm, bn=bn))
+    assert torch.equal(got.cpu(), SK.plain_merge(host, bm=bm, bn=bn))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("over", [dict(instance="general"),
+                                  dict(chunk=1024), dict(chunk=4),
+                                  dict(chunk=8192, stages=2),
+                                  dict(stages=12, chunk=2048)],
+                         ids=lambda d: "-".join(f"{k}{v}" for k, v in
+                                                d.items()))
+def test_merge_first_design_and_rings_agree(cuda, over):
+    """The first design stays reachable through a geometry override; it
+    and the ring at other chunks and depths equal the rule's launch and
+    the fused index matching, bit for bit."""
+    a, bt = _pair("docword4", 128)
+    ai, av = _prep(a, 128, 64, cuda)
+    bi, bv = _prep(bt, 128, 32, cuda)
+    kw = dict(rounds=128, bm=64, bn=32)
+    fused = IM.index_match_spmm(ai, av, bi, bv, **kw)
+    stripes = SK.spgemm_condense(ai, av, bi, bv, **kw)
+    n_rounds, m, n = stripes.shape
+    assert SK.merge_geometry(m * n, n_rounds).instance == "ring"
+    geo = SK.merge_geometry(m * n, n_rounds, **over)
+    got = SK.spgemm_merge(stripes, bm=64, bn=32, geometry=geo)
+    torch.cuda.synchronize()
+    assert torch.equal(got, SK.spgemm_merge(stripes, bm=64, bn=32))
+    assert torch.equal(got, fused)
+
+
 def _deltas(before):
     now = {**K1.LAUNCHES, **G.LAUNCHES, **IM.LAUNCHES, **SK.LAUNCHES}
     return {k: v - before[k] for k, v in now.items() if v != before[k]}
@@ -386,6 +551,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                     device=cuda), bm=64, bn=64)
     with pytest.raises(TypeError):
         G.incrs_gather(idx, val.double(), bm=8)
+    off = _off16(torch.zeros((2, 64, 64)), cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        SK.spgemm_merge(off, bm=64, bn=64,
+                        geometry=SK.merge_geometry(64 * 64, 2))
     # 100 rounds of 16384 x 16384 f32 stripes: 107 GB, refused up front.
     big = torch.full((16384, 100, 1), -1, dtype=torch.int32, device=cuda)
     zeros = torch.zeros(big.shape, device=cuda)

@@ -649,3 +649,194 @@ def test_general_instance_where_the_ring_does_not_fit():
         IM.match_geometry(2048, 2048, 40, 30, 30, 128, stages=3)
     with pytest.raises(ValueError, match="rows_per_warp"):
         IM.match_geometry(2048, 2048, 40, 30, 30, 128, rows_per_warp=17)
+
+
+# The two stream kernels' launches: the gather's tile instance
+# (gather_geometry) on the Table IV operands' section stripes, and merge's
+# ring (merge_geometry) on their (n_rounds, M, N) stripes at R = 128 and
+# 32, and the C dispatch each names.
+from repro_torch.kernels import incrs_gather as G         # noqa: E402
+from repro_torch.spgemm import kernels as SK              # noqa: E402
+
+
+def _dispatch(source):
+    """``{name: id}`` of ``enum Instance`` and the ``constexpr int`` values
+    (plain numbers) of ``csrc/<source>.cu``."""
+    from repro_torch.kernels import _build
+    import re
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    enum = dict((name.lower(), int(i)) for name, i in re.findall(
+        r"\b([A-Z]+) = (\d+)", text.split("enum Instance")[1]
+        .split("};")[0]))
+    const = {k: int(v) for k, v in
+             re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+    return enum, const
+
+
+def test_gather_and_merge_instances_are_the_dispatch():
+    """INSTANCES are the ids of the .cu files' enum Instance, and the C
+    side's constants are the ones the geometries compute with."""
+    enum, const = _dispatch("incrs_gather")
+    assert enum == {name: i for i, name in enumerate(G.INSTANCES)}
+    assert const["kTileWarps"] * 32 == G.TILE_THREADS
+    assert const["kTileWarps"] == G.TILE_WARPS
+    assert const["kTileMinCtas"] == G.TILE_MAX_CTAS
+    assert const["kBatchChunks"] * 32 == G.TILE_BATCH
+    assert const["kThreads"] == G.GENERAL_THREADS
+    enum, const = _dispatch("index_match")
+    assert enum == {name: i for i, name in enumerate(SK.MERGE_INSTANCES)}
+    assert const["kMergeWarps"] == SK.MERGE_WARPS
+    assert const["kMergeThreads"] == SK.MERGE_GENERAL_THREADS
+    assert const["kMergeVec"] * 4 * SK.MERGE_WARPS * 32 == \
+        SK.MERGE_MAX_CHUNK
+
+
+@lru_cache(maxsize=None)
+def _table4_stripes(name):
+    """(M padded to 8, n_sections, smax) of the gather's section stripes of
+    the operand (``ops.prepare_incrs``, section 256), as the densify
+    engine preps it."""
+    crs = datasets.synthesize(WORKLOADS[name].dataset, seed=0)
+    prep = ops.prepare_incrs(InCRS.from_crs(crs), pad_rows_to=8,
+                             device="cpu")
+    return tuple(prep.idx.shape) + (prep.section,)
+
+
+def _gather_cover(g, m, n_sec):
+    """How often each (row, section) of the output is written: warp w of
+    the grid takes items w, w + warps, ..., item i is row i // groups,
+    sections from (i % groups) * g.sections, up to g.sections of them."""
+    warps = g.grid * G.TILE_WARPS
+    groups = -(-n_sec // g.sections)
+    assert g.items == m * groups
+    count = np.zeros((m, n_sec), np.int64)
+    for w in range(min(warps, g.items)):
+        items = np.arange(w, g.items, warps)
+        row, grp = items // groups, items % groups
+        for d in range(g.sections):
+            sec = grp * g.sections + d
+            keep = sec < n_sec
+            np.add.at(count, (row[keep], sec[keep]), 1)
+    return count
+
+
+@pytest.mark.parametrize("name", TABLE4)
+def test_gather_geometry_on_table4(name):
+    """The tile instance takes every Table IV operand's stripes: a CTA's
+    8 tiles fit its shared memory, the persistent grid is one wave of the
+    CTAs an SM holds, and every (row, section) of the output is written by
+    exactly one warp's item."""
+    m, n_sec, smax, section = _table4_stripes(name)
+    g = G.gather_geometry(m, n_sec, smax, section)
+    enum, _ = _dispatch("incrs_gather")
+    assert g.instance == "tile" and g.instance in enum
+    assert g.smem <= 232_448
+    assert g.smem == G.TILE_WARPS * g.tile * 4
+    assert g.tile >= g.sections * section and g.tile % 4 == 0
+    assert g.sections * smax <= G.TILE_BATCH or g.sections == 1
+    per_sm = min(SM_THREADS // g.threads, SM_BLOCKS,
+                 SM_SMEM // (g.smem + CTA_RESERVED), G.TILE_MAX_CTAS)
+    assert g.ctas_per_sm == per_sm >= 1
+    assert g.grid <= SMS * g.ctas_per_sm
+    assert _resident(g.threads, g.smem, g.grid) == g.grid
+    assert (_gather_cover(g, m, n_sec) == 1).all()
+    old = G.gather_geometry(m, n_sec, smax, section, instance="general")
+    assert old.instance == "general" and old.grid == m
+
+
+def test_gather_geometry_at_docword():
+    """mesh-docword4's stripes (1504, 47, 77): 2 sections an item (154
+    slots, one batch; 2 KB tiles), 24 items a row, 36,096 items over 528
+    CTAs of 8 warps, 4 CTAs an SM: one wave."""
+    m, n_sec, smax, section = _table4_stripes("mesh-docword4")
+    assert (m, n_sec, smax, section) == (1504, 47, 77, 256)
+    g = G.gather_geometry(m, n_sec, smax, section)
+    assert (g.sections, g.tile, g.smem) == (2, 512, 16_384)
+    assert (g.items, g.grid, g.ctas_per_sm) == (36_096, 528, 4)
+
+
+def test_gather_geometry_overrides_and_the_general_instance():
+    """``sections`` overrides the rule; a section whose 8 tiles do not fit
+    one SM, and stripes with no slot, take the general instance, where
+    asking for the tile instance raises."""
+    g = G.gather_geometry(64, 10, 7, 256, sections=1)
+    assert (g.instance, g.sections, g.smem) == ("tile", 1, 8 * 1024)
+    assert (_gather_cover(g, 64, 10) == 1).all()
+    g = G.gather_geometry(64, 10, 7, 37, sections=3)
+    assert g.tile == 112 and (_gather_cover(g, 64, 10) == 1).all()
+    with pytest.raises(ValueError, match="sections"):
+        G.gather_geometry(64, 10, 7, 256, sections=11)
+    with pytest.raises(ValueError, match="shared memory"):
+        G.gather_geometry(64, 10, 7, 4096, sections=10)
+    wide = G.gather_geometry(64, 3, 7, 8192)
+    assert wide.instance == "general" and wide.grid == 64
+    with pytest.raises(ValueError, match="tile instance"):
+        G.gather_geometry(64, 3, 7, 8192, instance="tile")
+    assert G.gather_geometry(64, 3, 0, 256).instance == "general"
+    with pytest.raises(ValueError, match="range"):
+        G.gather_geometry(64, 2 ** 16, 2 ** 15, 256)
+
+
+def _merge_cases():
+    return [(n, r) for n in TABLE4 for r in (128, 32)]
+
+
+@pytest.mark.parametrize("case", _merge_cases(),
+                         ids=lambda c: f"{c[0]}-R{c[1]}")
+def test_merge_geometry_on_table4(case):
+    """The ring takes every Table IV operand's stripes at R = 128 and 32:
+    its stages fit one block, its grid is one wave of two CTAs an SM, its
+    chunks sit on 4 KB, the items cover the plane exactly once, and the
+    CTAs' shares differ by at most one item."""
+    name, rounds = case
+    m, n_rounds, _ = _table4_prep(name, rounds)
+    plane = m * m
+    g = SK.merge_geometry(plane, n_rounds)
+    enum, _ = _dispatch("index_match")
+    assert g.instance == "ring" and g.instance in enum
+    assert g.smem <= 232_448 and g.smem == SK.merge_smem(g.chunk, g.stages)
+    assert g.chunk in SK.MERGE_CHUNKS and g.chunk % 1024 == 0
+    assert g.items * g.chunk >= plane > (g.items - 1) * g.chunk
+    assert g.grid <= SMS * SK.MERGE_CTAS_PER_SM
+    assert _resident(g.threads, g.smem, g.grid) == g.grid
+    share = np.bincount(np.arange(g.items) % g.grid, minlength=g.grid)
+    assert share.min() >= 1 and share.max() - share.min() <= 1
+    starts = np.arange(g.items) * g.chunk
+    ends = np.minimum(starts + g.chunk, plane)
+    assert starts[0] == 0 and ends[-1] == plane
+    assert (starts[1:] == ends[:-1]).all()
+    old = SK.merge_geometry(plane, n_rounds, instance="general")
+    assert old.instance == "general"
+    assert old.grid * SK.MERGE_GENERAL_THREADS * 4 >= plane or \
+        old.grid == SK.MERGE_GENERAL_MAX_GRID
+
+
+def test_merge_geometry_at_docword():
+    """mesh-docword4 at R = 128: the 1536 x 1536 plane in 768 chunks of
+    3,072 floats, at most 3 a CTA on 264 CTAs (4,096 would give 3 of
+    4,096, 6,144 2 of 6,144), 4 stages (48 KB)."""
+    g = SK.merge_geometry(1536 * 1536, 94)
+    assert (g.chunk, g.items, g.grid, g.stages) == (3072, 768, 264, 4)
+    assert g.smem == 4 * (3072 * 4 + 16)
+
+
+def test_merge_geometry_overrides_and_the_general_instance():
+    """A plane that is not a multiple of 4, stripes off 16 bytes, and no
+    round take the general instance, where asking for the ring raises;
+    chunk and stages override the rule within their limits."""
+    for plane, rounds, aligned in ((4098, 3, True), (4096, 3, False),
+                                   (4096, 0, True)):
+        g = SK.merge_geometry(plane, rounds, aligned)
+        assert g.instance == "general"
+        with pytest.raises(ValueError, match="ring instance"):
+            SK.merge_geometry(plane, rounds, aligned, instance="ring")
+    g = SK.merge_geometry(4096 * 32, 7, chunk=2048, stages=8)
+    assert (g.chunk, g.stages, g.items, g.grid) == (2048, 8, 64, 64)
+    with pytest.raises(ValueError, match="chunk"):
+        SK.merge_geometry(4096, 3, chunk=6)
+    with pytest.raises(ValueError, match="chunk"):
+        SK.merge_geometry(4096, 3, chunk=SK.MERGE_MAX_CHUNK + 4)
+    with pytest.raises(ValueError, match="stages"):
+        SK.merge_geometry(4096, 3, stages=1)
+    with pytest.raises(ValueError, match="shared memory"):
+        SK.merge_geometry(2 ** 20, 3, chunk=SK.MERGE_MAX_CHUNK, stages=12)

@@ -27,6 +27,7 @@ import jax.numpy as jnp                                   # noqa: E402
 from repro import spgemm as jspgemm                       # noqa: E402
 from repro.core.crs import CRS as JCRS                    # noqa: E402
 from repro.core.incrs import InCRS as JInCRS              # noqa: E402
+from repro.kernels import incrs_gather as jgather         # noqa: E402
 from repro.kernels import ops as jops                     # noqa: E402
 from repro_torch import convert                           # noqa: E402
 from repro_torch import spgemm as tspgemm                 # noqa: E402
@@ -209,6 +210,74 @@ def test_gather_matches_jax_incrs_to_dense_bit_for_bit(bm):
     with pytest.raises(ValueError, match="multiple of bm"):
         tgather.incrs_gather(prep.idx[:prep.padded_rows - 1],
                              prep.val[:prep.padded_rows - 1], bm=bm)
+
+
+def _stripes_with_repeats(seed, m, n_sec, smax, section):
+    """Random section stripes (pads anywhere) in which row 1, section 0
+    carries one index three times, in slots 0, 2 and smax - 1."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-1, section, size=(m, n_sec, smax)).astype(np.int32)
+    idx[rng.random(idx.shape) < 0.4] = -1
+    val = rng.standard_normal(idx.shape).astype(np.float32)
+    idx[1, 0, [0, 2, smax - 1]] = 5
+    val[1, 0, [0, 2, smax - 1]] = [0.1, 1e8, -1e8]
+    return idx, val
+
+
+def _slot_order(idx, val, section):
+    """The dense rows, each element the sum of its values in slot order
+    from 0 in f32."""
+    m, n_sec, smax = idx.shape
+    out = np.zeros((m, n_sec * section), np.float32)
+    for r, s, q in np.ndindex(m, n_sec, smax):
+        if 0 <= idx[r, s, q] < section:
+            c = s * section + idx[r, s, q]
+            out[r, c] = np.float32(out[r, c] + val[r, s, q])
+    return out
+
+
+def test_gather_sums_a_repeated_index_in_slot_order():
+    """The plain version adds an index that repeats in a stripe in slot
+    order, ((0 + 0.1) + 1e8) - 1e8 = 0: what the tile kernel is held to on
+    the card; the JAX kernel (interpret mode) agrees within TOL but at the
+    repeat, where its one-hot sum takes its own order. ``out``
+    takes the result in place, a view off 16 bytes included."""
+    idx, val = _stripes_with_repeats(11, 16, 3, 9, 37)
+    want = _slot_order(idx, val, 37)
+    assert want[1, 5] == 0.0
+    ti, tv = torch.from_numpy(idx), torch.from_numpy(val)
+    got = tgather.incrs_gather(ti, tv, section=37, bm=8)
+    _bits_equal(got.numpy(), want)
+    jgot = jgather.incrs_gather(jnp.asarray(idx), jnp.asarray(val),
+                                section=37, bm=8, interpret=True)
+    jgot = np.array(jgot)
+    assert jgot[1, 5] in (np.float32(0.0), np.float32(0.1))  # its order
+    jgot[1, 5] = want[1, 5]
+    np.testing.assert_allclose(jgot, want, **TOL)
+    buf = torch.full((16 * 111 + 1,), 7.0)
+    view = buf[1:].view(16, 111)
+    assert view.data_ptr() % 16 and \
+        tgather.incrs_gather(ti, tv, section=37, bm=8, out=view) is view
+    _bits_equal(view.numpy(), want)
+    with pytest.raises(ValueError, match="out must be"):
+        tgather.incrs_gather(ti, tv, section=37, bm=8,
+                             out=torch.empty(16, 110))
+
+
+def test_geometry_overrides_do_not_reach_the_cpu():
+    """On the CPU the plain versions run whatever launch is asked for."""
+    idx, val = _stripes_with_repeats(12, 8, 2, 4, 16)
+    ti, tv = torch.from_numpy(idx), torch.from_numpy(val)
+    geo = tgather.gather_geometry(8, 2, 4, 16, instance="general")
+    _bits_equal(tgather.incrs_gather(ti, tv, section=16, geometry=geo)
+                .numpy(), _slot_order(idx, val, 16))
+    stripes = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (5, 8, 8)).astype(np.float32))
+    geo = tsk.merge_geometry(64, 5, instance="general")
+    before = dict(tsk.MERGE_INSTANCE_LAUNCHES)
+    _bits_equal(tsk.spgemm_merge(stripes, bm=8, bn=8, geometry=geo).numpy(),
+                tsk.plain_merge(stripes, bm=8, bn=8).numpy())
+    assert tsk.MERGE_INSTANCE_LAUNCHES == before
 
 
 def test_densify_engine_matches_jax_composed_by_hand():

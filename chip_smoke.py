@@ -99,7 +99,23 @@ Phases, each printing one JSON line:
              (``plan_clocks``); then the dense instances at other K
              splits, ring depths and (bf16) tile widths
              (``plan_geometries``).
-12. lm_kernels — the flash-attention kernels against their plain version
+12. train — the fifth path: granite-34b's MLP (W_up 6144 -> 24576, tanh,
+             W_down back) trained at full width for 8 AdamW steps on 512
+             token rows, once as incrs (density 0.1, section 256) and once
+             as bsr (block 128, density 0.25): the packing timed; step 0's
+             gradients (live slots) and dL/dh within 1e-4 of a float64
+             host oracle; l2's dx kernel on the transposed stripes or
+             block lists within 1e-5 of its plain version; each product
+             of a step timed alone (the forwards, dx beside its plain
+             version and a library call, each dW beside the dense x^T dy);
+             then the steps, each split by CUDA events into forward,
+             backward and optimizer, with peak memory. Counters are zeroed
+             just before the steps and read just after: 3 launches of the
+             format's kernel a step and none of another. The loss falls,
+             pad slots and zero tiles stay 0.0, the trained l1 is served
+             by SpMMEngine within 1e-4 of float64 one launch a wave, and
+             the training example runs as a subprocess.
+13. lm_kernels — the flash-attention kernels against their plain version
              on the card, f32 (the FMA kernel) and bf16 (the tensor-core
              kernel), each call checked to launch its type's kernel:
              granite-34b's prefill wave (B = 2,
@@ -108,7 +124,7 @@ Phases, each printing one JSON line:
              cap 30, window 2048, hd 256) and edge shapes. bf16 is held
              on every query row; at granite's wave the same check must
              reject a planted fault (key tile 0 dropped past row 4096).
-13. lm_serve — the fourth path: granite-34b at full width, depth cut to
+14. lm_serve — the fourth path: granite-34b at full width, depth cut to
              4 layers, served by ``ServeEngine``: 2 requests of 8,192
              tokens (one wave through the kernel, one launch per layer)
              and 4 of 512 (the dense branch, no launch), counters zeroed
@@ -116,7 +132,7 @@ Phases, each printing one JSON line:
              f32 decode logits against a teacher-forced prefill; the
              launcher as a subprocess. Device time is sorted by kernel
              symbol: the flash kernels by the names the wrapper exports.
-14. lm_times — the bf16 kernel at granite's wave: median time, TFLOP/s
+15. lm_times — the bf16 kernel at granite's wave: median time, TFLOP/s
              and share of the bound, beside the f32 kernel on the same
              values, the plain version and scaled_dot_product_attention.
 
@@ -2070,6 +2086,333 @@ def plan_path(torch, K, ops, engine_mod, table2):
 
 
 # ----------------------------------------------------------------------
+# Training: granite-34b's MLP (src/repro/configs/granite_34b.py: d_model
+# 6144, d_ff 24576) as the student of the port's training example, W_up
+# 6144 -> 24576, tanh, W_down 24576 -> 6144, at full width, once per
+# format: incrs at density 0.1, section 256 and block 32 (S_DEFAULT /
+# B_DEFAULT), bsr at block 128 and density 0.25 (BlockSparsity's
+# default, the GRANITE operand above). A dense teacher seeded normal with
+# scale 0.02; T = 512 token rows; 8 AdamW steps with the example's
+# settings (lr 3e-3, no weight decay, 2 warmup steps).
+TRAIN = {"d_model": 6144, "d_ff": 24576, "tokens": 512, "steps": 8,
+         "scale": 0.02, "seed": 11}
+TRAIN_SPECS = {"incrs": {"density": 0.1, "section": 256, "block": 32},
+               "bsr": {"density": 0.25, "block": 128}}
+TRAIN_KERNEL = {"incrs": "incrs_spmm", "bsr": "bsr_spmm"}
+GRAD_TOL = 1e-4          # step 0: max|g - g64| <= GRAD_TOL * max|g64|
+TRAIN_LAUNCHES = 3       # a step: two forwards and l2's dx (x needs none)
+
+
+def _train_modules():
+    from repro_torch.examples import train_unstructured as ex
+    from repro_torch.kernels import bsr_spmm as KB
+    from repro_torch.kernels import dense_mm as KD
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import incrs_gather as G
+    from repro_torch.kernels import incrs_spmm as K
+    from repro_torch.kernels import index_match_spmm as IM
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import api
+    from repro_torch.sparse import linear as lin_mod
+    from repro_torch.spgemm import kernels as SK
+    from repro_torch.train import optimizer as O
+    return types.SimpleNamespace(ex=ex, K=K, KB=KB, KD=KD, F=F, G=G, IM=IM,
+                                 SK=SK, ops=ops, api=api, lin_mod=lin_mod,
+                                 O=O)
+
+
+def _zero_every_count(R):
+    for mod in (R.K, R.G, R.IM, R.SK, R.KB, R.KD, R.F):
+        mod.reset_launches()
+
+
+def _every_count(R):
+    return {**R.K.LAUNCHES, **R.G.LAUNCHES, **R.IM.LAUNCHES,
+            **R.SK.LAUNCHES, **R.KB.LAUNCHES, **R.KD.LAUNCHES,
+            **R.F.LAUNCHES}
+
+
+def _train_data(torch):
+    """The teacher's batch on the card: x (T, d_model) and y = tanh(x @
+    W1) @ W2, both teacher weights seeded normal with scale 0.02."""
+    g = TRAIN
+    gen = torch.Generator(device="cuda").manual_seed(g["seed"])
+    x = torch.randn(g["tokens"], g["d_model"], generator=gen, device="cuda")
+    w1 = torch.randn(g["d_model"], g["d_ff"], generator=gen,
+                     device="cuda") * g["scale"]
+    w2 = torch.randn(g["d_ff"], g["d_model"], generator=gen,
+                     device="cuda") * g["scale"]
+    y = torch.tanh(x @ w1) @ w2
+    return x, y
+
+
+def _train_student(torch, R, fmt):
+    """The two layers packed under the format's spec (weights drawn on the
+    host from a seed, as ``Linear.init`` draws them); the packing's host
+    seconds."""
+    g = TRAIN
+    spec = R.api.SparseSpec(fmt, **TRAIN_SPECS[fmt])
+    layers, pack_s = {}, 0.0
+    for i, (name, shape) in enumerate((("l1", (g["d_model"], g["d_ff"])),
+                                       ("l2", (g["d_ff"], g["d_model"])))):
+        w = (torch.randn(shape, generator=torch.Generator().manual_seed(
+            g["seed"] + 1 + i)) * g["scale"]).numpy()
+        t0 = time.perf_counter()
+        layers[name] = R.api.Linear.from_dense(w, spec, device="cuda")
+        torch.cuda.synchronize()
+        pack_s += time.perf_counter() - t0
+        del w
+    return torch.nn.ModuleDict(layers), pack_s
+
+
+def _dx_l2(R, fmt, lin, dyt):
+    vals = lin.values.detach()
+    if fmt == "incrs":
+        return R.lin_mod._incrs_dx(lin.meta, vals, dyt)
+    return R.lin_mod._bsr_dx(lin.meta, vals, dyt)
+
+
+def _train_products(torch, R, fmt, model, x, y):
+    """Each product of one step alone, on the operands the main path
+    gives it: the two forwards, l2's dx, both layers' dW; the plain
+    version of l2's dx on the same transposed operand; each kernel
+    product's (bytes, flops) as this run's data needs them; and the
+    operands themselves."""
+    lm, l1, l2 = R.lin_mod, model["l1"], model["l2"]
+    v1, v2 = l1.values.detach(), l2.values.detach()
+    m1, m2 = l1.meta, l2.meta
+    n = x.shape[0]
+    with torch.no_grad():
+        h = torch.tanh(R.api.apply(l1, x))
+        out = R.api.apply(l2, h)
+        dout = 2.0 * (out - y) / out.numel()
+        dyt = dout.T.contiguous()
+        dpre = _dx_l2(R, fmt, l2, dyt).T * (1 - h * h)
+    if fmt == "incrs":
+        def fwd(m, v, b):
+            return lm._incrs_product(m.fwd_idx, v, (m.d_out, m.d_in),
+                                     m.section, b)
+
+        def dw(m, a, d):
+            return lm._stripe_dw(m.fwd_idx, m.section, a, d)
+        flat = torch.cat([v2.reshape(-1), v2.new_zeros(1)])
+        tvals = flat.index_select(0, m2.t_gather).view(m2.bwd_idx.shape)
+        bn = R.ops.default_bn(n)
+        kp = m2.bwd_idx.shape[1] * m2.section
+        b_pad = torch.nn.functional.pad(dyt, (0, -(-n // bn) * bn - n, 0,
+                                              kp - dyt.shape[0]))
+
+        def plain_dx():
+            return R.K.plain("incrs_spmm", m2.bwd_idx, tvals, b_pad,
+                             section=m2.section, bm=128, bn=bn)[:m2.d_in, :n]
+        P = R.ops.PreparedOperand
+        work = {k: _incrs_bound(torch, p, n)[:2] for k, p in (
+            ("fwd_l1", P(m1.fwd_idx, v1, (m1.d_out, m1.d_in), m1.section)),
+            ("fwd_l2", P(m2.fwd_idx, v2, (m2.d_out, m2.d_in), m2.section)),
+            ("dx_l2", P(m2.bwd_idx, tvals, (m2.d_in, m2.d_out),
+                        m2.section)))}
+    else:
+        def fwd(m, v, b):
+            return lm._bsr_forward(m, lm._pad_slots(v, m), b)
+
+        def dw(m, a, d):
+            return lm._bsr_dw(m, a, d.T.contiguous())
+        gi = m2.grad_index(v2.device)
+        tslots = lm._scatter_slots(v2.index_select(0, gi.t_perm).transpose(
+            1, 2), gi.t_vpos, len(m2.t_col_of))
+        t_row_of, t_col_of, _ = m2.kernel_index_t(v2.device)
+
+        def plain_dx():
+            return R.KB.plain(t_row_of, t_col_of, tslots, dyt,
+                              n_block_rows=m2.n_block_rows_t)
+        blk = (m1.block, m1.block)
+        work = {k: _plan_work("bsr_spmm", shape, n, 4, len(cols), blk,
+                              int(np.unique(np.asarray(cols)).size))
+                for k, shape, cols in (
+                    ("fwd_l1", (m1.d_out, m1.d_in), m1.col_of),
+                    ("fwd_l2", (m2.d_out, m2.d_in), m2.col_of),
+                    ("dx_l2", (m2.d_in, m2.d_out), m2.t_col_of))}
+    prods = {"fwd_l1": lambda: fwd(m1, v1, x.T),
+             "fwd_l2": lambda: fwd(m2, v2, h.T),
+             "dx_l2": lambda: _dx_l2(R, fmt, l2, dyt),
+             "dw_l1": lambda: dw(m1, x, dpre),
+             "dw_l2": lambda: dw(m2, h, dout)}
+    return prods, plain_dx, work, (h, dout, dyt, dpre)
+
+
+def _dx_library(torch, R, fmt, l2, dyt, flush):
+    """One PyTorch call for l2's dx^T = W2 @ dy^T on the same values:
+    ``torch.sparse.mm`` of W2 as CSR (incrs) or W2 as BSR @ dy^T (bsr)."""
+    w2 = torch.from_numpy(np.ascontiguousarray(l2.to_dense())).to("cuda")
+    try:
+        if fmt == "incrs":
+            a = w2.to_sparse_csr()
+            return _time_ms(torch, lambda: torch.sparse.mm(a, dyt), flush,
+                            reps=10), None
+        a = w2.to_sparse_bsr((l2.meta.block, l2.meta.block))
+        return _time_ms(torch, lambda: a @ dyt, flush, reps=3), None
+    except (RuntimeError, NotImplementedError) as exc:
+        return None, f"{type(exc).__name__}: {str(exc)[:300]}"
+
+
+def phase_train(torch, R, fmt):
+    """One format: pack, hold step 0's gradients against float64 and l2's
+    dx kernel against its plain version, time each product, take the
+    counted steps, check the loss and the frozen slots, serve the trained
+    l1, run the example as a subprocess. Returns the kernel's row
+    additions."""
+    g = TRAIN
+    kname = TRAIN_KERNEL[fmt]
+    flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
+    x, y = _train_data(torch)
+    model, pack_s = _train_student(torch, R, fmt)
+    shapes = {k: list(lin.values.shape) for k, lin in model.items()}
+    if fmt == "incrs":
+        shapes.update({f"{k}_bwd_idx": list(lin.meta.bwd_idx.shape)
+                       for k, lin in model.items()})
+    t0 = time.perf_counter()
+    grad_err = R.ex.grad_errors(model, x, y)        # float64 on the host
+    oracle_s = time.perf_counter() - t0
+    for k, err in grad_err.items():
+        check(err <= GRAD_TOL, f"train {fmt}: {k} off float64 by {err} > "
+              f"{GRAD_TOL} of its max")
+    prods, plain_dx, work, (h, dout, dyt, dpre) = _train_products(
+        torch, R, fmt, model, x, y)
+    got, ref = prods["dx_l2"](), plain_dx()
+    torch.cuda.synchronize()
+    scale = max(float(ref.abs().max()), 1e-30)
+    dx_err = float((got - ref).abs().max())
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+          f"train {fmt}: dx kernel finite, of the plain version's shape")
+    check(dx_err <= KERNEL_TOL * scale, f"train {fmt}: dx kernel off its "
+          f"plain version by {dx_err} > {KERNEL_TOL} * {scale}")
+    del got, ref
+    parts = {}
+    for name, fn in prods.items():
+        parts[name] = {"ms": _time_ms(torch, fn, flush, reps=10)}
+        if name in work:
+            nbytes, flops = work[name]
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / F32_FLOP_PER_S * 1e3
+            parts[name].update(bytes=nbytes, flops=flops,
+                               bound_ms=max(t_bytes, t_ops),
+                               bound_by="bytes" if t_bytes >= t_ops
+                               else "operations")
+    parts["dx_l2"]["plain_ms"] = _time_ms(torch, plain_dx, flush, reps=3)
+    parts["dx_l2"]["library_ms"], parts["dx_l2"]["library_refused"] = \
+        _dx_library(torch, R, fmt, model["l2"], dyt, flush)
+    parts["dx_l2"]["max_abs_err"] = dx_err
+    # the dense outer products the live-slot dW avoids, as yardsticks
+    parts["dw_l1"]["dense_matmul_ms"] = _time_ms(
+        torch, lambda: x.T @ dpre, flush, reps=10)
+    parts["dw_l2"]["dense_matmul_ms"] = _time_ms(
+        torch, lambda: h.T @ dout, flush, reps=10)
+    del h, dout, dyt, dpre, prods, plain_dx
+    torch.cuda.empty_cache()
+
+    cfg = R.O.AdamWConfig(lr=3e-3, weight_decay=0.0,
+                          warmup_steps=max(2, g["steps"] // 10),
+                          total_steps=g["steps"])
+    params = dict(model.named_parameters())
+    state = R.O.adamw_init(cfg, params)
+    timing = {k: [] for k in ("fwd_ms", "bwd_ms", "opt_ms", "step_ms",
+                              "wall_ms")}
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_every_count(R)
+    for _ in range(g["steps"]):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss = R.ex.mlp_loss(model, x, y)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        ev[2].record()
+        _, state, _ = R.O.adamw_update(cfg, dict(zip(params, grads)), state,
+                                       params)
+        ev[3].record()
+        losses.append(float(loss.detach()))
+        timing["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        for key, (a, b) in (("fwd_ms", (0, 1)), ("bwd_ms", (1, 2)),
+                            ("opt_ms", (2, 3)), ("step_ms", (0, 3))):
+            timing[key].append(ev[a].elapsed_time(ev[b]))
+        del loss, grads
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _every_count(R).items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    check(counts == {kname: TRAIN_LAUNCHES * g["steps"]},
+          f"train {fmt}: {TRAIN_LAUNCHES} launches of {kname} a step and "
+          f"no other kernel, got {counts} in {g['steps']} steps")
+    with torch.no_grad():
+        final = float(R.ex.mlp_loss(model, x, y))
+    check(final < losses[0], f"train {fmt}: loss {losses[0]} -> {final} "
+          f"did not fall")
+    frozen = 0
+    for lin in model.values():
+        vals = lin.values.detach()
+        if fmt == "incrs":
+            pad = lin.meta.fwd_idx < 0
+        else:
+            vals = R.lin_mod._pad_slots(vals, lin.meta)
+            pad = torch.ones(vals.shape[0], dtype=torch.bool, device="cuda")
+            pad[list(lin.meta.vpos)] = False
+        frozen += int(pad.sum())
+        check(bool((vals[pad] == 0).all()), f"train {fmt}: pad slots and "
+              f"zero tiles still 0.0")
+    before = _every_count(R)[kname]
+    eng, served_err = R.ex.serve_check(model["l1"],
+                                       np.random.default_rng(g["seed"]),
+                                       n=3, cols=192, max_wave_cols=512)
+    served_launches = _every_count(R)[kname] - before
+    check(served_err <= SERVE_TOL, f"train {fmt}: served l1 off float64 by "
+          f"{served_err} > {SERVE_TOL} of max|C|")
+    check(served_launches == eng.stats["waves"], f"train {fmt}: one "
+          f"launch a wave, {served_launches} for {eng.stats['waves']}")
+    served = {"requests": eng.stats["requests"], "waves": eng.stats["waves"],
+              "launches": served_launches, "max_rel_err": served_err}
+    del model, params, state, eng, x, y, flush
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.train_unstructured",
+         "--format", fmt], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        emit({"phase": "train_example", "format": fmt, "rc": proc.returncode,
+              "stdout": proc.stdout[-2000:], "stderr": proc.stderr[-2000:]})
+    check(proc.returncode == 0, f"train {fmt}: the example exited 0")
+    emit({"phase": "train", "format": fmt, "model": "granite-34b MLP",
+          "tokens": g["tokens"], "steps": g["steps"],
+          "spec": TRAIN_SPECS[fmt], "values_shapes": shapes,
+          "pack_s": pack_s, "oracle_s": oracle_s, "grad_err_f64": grad_err,
+          "products": parts, "step_median": {
+              k: statistics.median(v) for k, v in timing.items()},
+          "step_times": timing, "peak_memory_bytes": peak,
+          "launches": counts, "launches_per_step":
+              counts.get(kname, 0) / g["steps"], "losses": losses,
+          "final_loss": final, "frozen_slots": frozen,
+          "served": served,
+          "example_rc": proc.returncode,
+          "example_tail": proc.stdout.strip().splitlines()[-3:]})
+    dx = parts["dx_l2"]
+    return kname, counts.get(kname, 0), {
+        k: dx[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms", "max_abs_err")}
+
+
+def train_path(torch):
+    """Phase train for both formats: the training rows' additions."""
+    R = _train_modules()
+    out = {}
+    for fmt in ("incrs", "bsr"):
+        out[fmt] = phase_train(torch, R, fmt)
+        torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------
 # LM serving: granite-34b through ServeEngine, prompts of FLASH_THRESHOLD
 # tokens or more prefilling through the flash-attention kernel.
 LM_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -2439,7 +2782,7 @@ def phase_lm_times(torch, F, errs, launches, by_launcher):
 
 
 def lm_path(torch):
-    """Phases 12-14: the LM serving path and the flash kernel's rows."""
+    """Phases 13-15: the LM serving path and the flash kernel's rows."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as F
     from repro_torch.models import model as M
@@ -2504,6 +2847,12 @@ def main() -> int:
     del table4, P
     rows += plan_path(torch, K, ops, engine_mod, table2)
     del table2, docword
+    torch.cuda.empty_cache()
+    for kname, launches_train, dx in train_path(torch).values():
+        r = next(r for r in rows if r["name"] == kname)
+        r["launches_by_path"]["train"] = launches_train
+        r["launches"] += launches_train
+        r["train_dx"] = dx
     rows += lm_path(torch)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)

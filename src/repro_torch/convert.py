@@ -1,11 +1,12 @@
 """Carry an operand's or a model's state across from the JAX package.
 
 The system's state is the sparse operand, a sparse layer's values and
-metadata, or an LM's weights. These take the fields of a ``repro``
-``CRS``, ``InCRS``, ``BSR``, ``PreparedOperand``, per-round prep,
-sparse-linear params or model params as numpy arrays (``np.asarray`` of
-each) and lists, and build the port's objects from them, so both packages
-can be fed the same operand or weights.
+metadata, its optimizer state, or an LM's weights. These take the fields
+of a ``repro`` ``CRS``, ``InCRS``, ``BSR``, ``PreparedOperand``, per-round
+prep, sparse-linear params, AdamW state or model params as numpy arrays
+(``np.asarray`` of each) and lists, and build the port's objects from
+them, so both packages can be fed the same operand or weights, and a JAX
+training run can go on in the port.
 """
 from __future__ import annotations
 
@@ -101,24 +102,46 @@ _BSR_META_TUPLES = ("row_of", "col_of", "vpos", "t_perm", "t_row_of",
 
 def linear_from_jax(values, meta_fields: Dict[str, Any], fmt: str, *,
                     device=None):
-    """The port's ``sparse.Linear`` from a JAX ``SparseLinearParams``
-    (``fmt="bsr"``) or ``DenseLinearParams`` (``fmt="dense"``).
+    """The port's ``sparse.Linear`` from a JAX ``InCRSLinearParams``
+    (``fmt="incrs"``), ``SparseLinearParams`` (``fmt="bsr"``) or
+    ``DenseLinearParams`` (``fmt="dense"``).
 
     ``values`` is ``np.asarray(params.values)``; ``meta_fields`` holds the
-    meta's fields (``dataclasses.asdict``-style, tuples as lists) with the
-    pattern given as ``"mask"`` (its element mask, or None) and optional
-    ``"version"``. Both packages then compute the same C."""
+    meta's fields (``dataclasses.asdict``-style, tuples as lists, the
+    InCRS stripe indices ``fwd_idx``/``bwd_idx``/``t_gather`` as arrays)
+    with the pattern given as ``"mask"`` (its element mask, or None) and
+    optional ``"version"``. Both packages then compute the same C and the
+    same gradients."""
     from .sparse import api, linear
     from .sparse.pattern import SparsityPattern
-    if fmt not in ("bsr", "dense"):
-        raise ValueError(f"fmt must be 'bsr' or 'dense', got {fmt!r}")
+    if fmt not in ("incrs", "bsr", "dense"):
+        raise ValueError(f"fmt must be 'incrs', 'bsr' or 'dense', got "
+                         f"{fmt!r}")
     meta_fields = dict(meta_fields)
     mask = meta_fields.pop("mask", None)
     version = int(meta_fields.pop("version", 0))
     meta_fields.pop("pattern", None)
     pattern: Optional[SparsityPattern] = None if mask is None else \
         SparsityPattern(np.asarray(mask, bool), version)
-    vals = torch.from_numpy(np.array(values)).to(resolve_device(device))
+    dev = resolve_device(device)
+    vals = torch.from_numpy(np.array(values)).to(dev)
+    if fmt == "incrs":
+        idx = {f: torch.from_numpy(np.array(meta_fields[f], np.int32)).to(dev)
+               for f in ("fwd_idx", "bwd_idx", "t_gather")}
+        meta = linear.InCRSLinearMeta(
+            idx["fwd_idx"], idx["bwd_idx"], idx["t_gather"],
+            *(int(meta_fields[f]) for f in ("d_in", "d_out", "section",
+                                             "nnz", "block")),
+            pattern=pattern)
+        if vals.shape != meta.fwd_idx.shape or vals.dtype != torch.float32 \
+                or idx["t_gather"].shape != (meta.bwd_idx.numel(),):
+            raise ValueError(f"values {tuple(vals.shape)} {vals.dtype} and "
+                             f"t_gather {tuple(idx['t_gather'].shape)} do "
+                             f"not fit stripes {tuple(meta.fwd_idx.shape)} "
+                             f"and {tuple(meta.bwd_idx.shape)}")
+        if pattern is not None:
+            pattern.packed["incrs"] = meta
+        return api.Linear(linear.InCRSLinearParams(vals, meta))
     if fmt == "bsr":
         meta = linear.SparseLinearMeta(
             int(meta_fields["d_in"]), int(meta_fields["d_out"]),
@@ -137,6 +160,36 @@ def linear_from_jax(values, meta_fields: Dict[str, Any], fmt: str, *,
         raise ValueError(f"values {tuple(vals.shape)} are not "
                          f"({meta.d_in}, {meta.d_out})")
     return api.Linear(api.DenseLinearParams(vals, meta))
+
+
+def adamw_state_from_jax(state: Dict[str, Any], *, device=None
+                         ) -> Dict[str, Any]:
+    """The port's AdamW state (``train.optimizer``) from a JAX one.
+
+    ``state`` is ``{"m": {name: leaf}, "v": {name: leaf}, "count": c}``
+    with numpy leaves keyed by the port's parameter names (the JAX tree
+    flattened by the caller): an f32 moment, or ``{"q": int8, "s": f32}``
+    when the moments are quantized. The port's next ``adamw_update`` then
+    takes the step the JAX one would."""
+    dev = resolve_device(device)
+
+    def leaf(x):
+        if isinstance(x, dict):
+            if set(x) != {"q", "s"}:
+                raise ValueError(f"a quantized moment is {{'q', 's'}}, got "
+                                 f"{sorted(x)}")
+            return {"q": torch.from_numpy(np.array(x["q"], np.int8)).to(dev),
+                    "s": torch.from_numpy(np.array(x["s"], np.float32)
+                                          ).to(dev)}
+        return torch.from_numpy(np.array(x, np.float32)).to(dev)
+
+    if set(state["m"]) != set(state["v"]):
+        raise ValueError(f"m and v name different parameters: "
+                         f"{sorted(state['m'])} and {sorted(state['v'])}")
+    return {"m": {k: leaf(x) for k, x in state["m"].items()},
+            "v": {k: leaf(x) for k, x in state["v"].items()},
+            "count": torch.tensor(int(np.asarray(state["count"])),
+                                  dtype=torch.int32, device=dev)}
 
 
 def model_from_jax(cfg, params: Dict[str, Any], *, device=None):

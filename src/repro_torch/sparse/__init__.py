@@ -1,4 +1,5 @@
-"""Sparse layers and plans behind one front door (``bsr`` and ``dense``).
+"""Sparse layers and plans behind one front door (``incrs``, ``bsr`` and
+``dense``).
 
 ``SparseSpec`` (what the operand looks like), ``plan``/``MatmulPlan``
 (prep once, execute many), ``BoundPlan`` (a plan over values: the serving
@@ -10,8 +11,9 @@ from .api import (FORMATS, BoundPlan, DenseLinearMeta,  # noqa: F401
                   DenseLinearParams, FormatAdapter, Linear, MatmulPlan,
                   SparseSpec, adapter_of, apply, plan, plan_for_operand,
                   register_format)
-from .linear import (SparseLinearMeta, SparseLinearParams,  # noqa: F401
-                     real_blocks, to_dense)
+from .linear import (InCRSLinearMeta, InCRSLinearParams,  # noqa: F401
+                     SparseLinearMeta, SparseLinearParams,
+                     incrs_to_dense_weight, real_blocks, to_dense)
 from .pattern import (FamilyOps, SparsityPattern,  # noqa: F401
                       expand_block_mask, get_pattern, magnitude_mask,
                       nm_mask, parse_nm)

@@ -1,7 +1,7 @@
-"""One front door: ``SparseSpec`` -> ``plan`` -> execute, for ``bsr`` and
-``dense``.
+"""One front door: ``SparseSpec`` -> ``plan`` -> execute, for ``incrs``,
+``bsr`` and ``dense``.
 
-The port of ``repro.sparse.api``, serving half. A ``SparseSpec`` names
+The port of ``repro.sparse.api``, single-device. A ``SparseSpec`` names
 WHAT the sparse operand looks like (format x selection x geometry);
 ``plan`` turns a concrete spec into a ``MatmulPlan`` whose static
 metadata is built once; ``MatmulPlan.bind(values)`` gives a ``BoundPlan``,
@@ -10,18 +10,22 @@ wave: ``bound(B)`` is C = A @ B with A = W^T.
 
 ``Linear`` is the layer face: an ``nn.Module`` whose only ``Parameter``
 is ``values``, built by ``Linear.from_dense``/``Linear.init`` under a
-spec. Its forward runs the family's forward (the BSR kernel for ``bsr``;
-``x @ W`` for ``dense``, as the JAX package leaves it to XLA).
+spec. Its forward runs the family's forward (the fused InCRS kernel for
+``incrs``, the BSR kernel for ``bsr``; ``x @ W`` for ``dense``, as the
+JAX package leaves it to XLA), and its backward pass the family's VJP
+(``sparse.linear``): ``incrs`` and ``bsr`` layers train.
 
-What binding does once, so that a wave does no host work: the device
+What binding does once, so that a wave does no host work: the stripe
+operand of ``incrs`` (its indices on the values' device), the device
 index lists of the BSR kernel (kept on the meta), the values scattered
 into the zero-tile-padded slot list, and the dense A = W^T made
-contiguous on the device. A ``bsr`` plan reaches only the BSR kernel and
-a ``dense`` plan only the dense kernel.
+contiguous on the device. An ``incrs`` plan reaches only the fused InCRS
+kernel, a ``bsr`` plan only the BSR kernel and a ``dense`` plan only the
+dense kernel.
 
-Not ported yet: the ``incrs`` and ``crs`` formats in ``plan`` (ROADMAP
-queue 1 items 2 and 5), row-sharding (``mesh``, item 8), the TPU tuning
-members of ``MatmulPlan`` (items 9-10) and the lifecycle (``repack``).
+Not ported yet: the ``crs`` format in ``plan`` (ROADMAP queue 1 item
+5), row-sharding (``mesh``, item 8), the TPU tuning members of
+``MatmulPlan`` (items 9-10) and the lifecycle (``repack``, item 5).
 """
 from __future__ import annotations
 
@@ -43,9 +47,6 @@ from .pattern import (FamilyOps, SparsityPattern, _FAMILIES,
 FORMATS = ("dense", "bsr", "crs", "incrs")
 
 _NOT_PORTED = {
-    "incrs": "the trainable InCRS family (_incrs_from_dense/_pack_incrs) "
-             "is not ported yet (ROADMAP queue 1 item 2); serve an InCRS "
-             "operand through SpMMEngine(InCRS) or ops.spmm",
     "crs": "the crs plan (CRSPlanMeta and the rhs_format route) is not "
            "ported yet (ROADMAP queue 1 item 5, its open part); run "
            "ops.spmm(a_crs, bt_crs) or spgemm.spgemm",
@@ -58,16 +59,17 @@ class SparseSpec:
     """WHAT one sparse operand looks like.
 
     ``format``    one of ``dense`` | ``bsr`` | ``crs`` | ``incrs``, always
-                  given (only ``dense`` and ``bsr`` plan in the port so
-                  far; the other two raise in ``plan``).
+                  given (``crs`` does not plan in the port yet: it
+                  raises).
     selection     at most one of ``density`` (magnitude, one global
                   threshold), ``mask`` (explicit element mask of W — kept
                   slots stay live even at value 0.0), ``pattern`` (an
                   existing ``SparsityPattern``), or a structured ``policy``
                   like ``"2:4"``. Nothing set -> keep the non-zeros.
-    geometry      ``block`` is the tile side for ``bsr``. The InCRS and crs
-                  geometry (``section``, ``rounds``, ``rhs_format``) comes
-                  with those formats' plans.
+    geometry      ``section``/``block`` for InCRS stripes (defaults
+                  ``core.incrs.S_DEFAULT``/``B_DEFAULT``); ``block`` is the
+                  tile side for ``bsr``. The crs geometry (``rounds``,
+                  ``rhs_format``) comes with that format's plan.
     ``mesh``      row-sharding is not ported: setting it raises.
 
     ``eq=False`` -> identity hash/eq. Derive variants with
@@ -78,6 +80,7 @@ class SparseSpec:
     mask: Optional[np.ndarray] = None
     pattern: Optional[SparsityPattern] = None
     policy: str = "magnitude"
+    section: Optional[int] = None
     block: Optional[int] = None
     mesh: Any = None
 
@@ -251,7 +254,33 @@ def _make_bsr(w, spec: SparseSpec, dtype=torch.float32, device=None):
                                device=device, _pattern=pat)
 
 
+def _make_incrs(w, spec: SparseSpec, dtype=torch.float32, device=None):
+    """The InCRS family packs f32 stripe values (the fused kernel sums in
+    f32): another dtype raises instead of coming back as f32."""
+    if dtype != torch.float32:
+        raise ValueError(f"format 'incrs' stores f32 stripe values (the "
+                         f"fused kernel's accumulation dtype); "
+                         f"dtype={dtype} is not supported")
+    kw = dict(section=spec.section, block=spec.block, device=device)
+    if spec.policy != "magnitude":
+        return _lin._incrs_from_dense(
+            w, mask=magnitude_mask(w, None, policy=spec.policy), **kw)
+    return _lin._incrs_from_dense(w, density=spec.density, mask=spec.mask,
+                                  _pattern=spec.pattern, **kw)
+
+
 # ---- per-format plan execution ----------------------------------------
+def _incrs_call(meta, prep: ops.PreparedOperand, b) -> torch.Tensor:
+    return ops.spmm(prep, torch.as_tensor(b))
+
+
+def _incrs_ready(meta, values: torch.Tensor) -> ops.PreparedOperand:
+    """The stripe operand over ``values``, its indices on their device."""
+    return ops.PreparedOperand(meta.fwd_idx.to(values.device),
+                               values.detach().contiguous(),
+                               (meta.d_out, meta.d_in), meta.section)
+
+
 def _dense_call(meta, a: torch.Tensor, b) -> torch.Tensor:
     return ops.spmm(a, torch.as_tensor(b), device=a.device)
 
@@ -285,6 +314,14 @@ register_format("dense", DenseLinearParams, FormatAdapter(
     spec_of=lambda meta: SparseSpec("dense", pattern=meta.pattern),
     plan_values=lambda inner: _dense_masked(inner.values, inner.meta).T,
     ready=_dense_ready))
+
+register_format("incrs", _lin.InCRSLinearParams, FormatAdapter(
+    "incrs",
+    make=_make_incrs, apply=_lin._incrs_apply, call=_incrs_call,
+    pack=lambda meta, w: _lin._incrs_pack_values(meta, w),
+    spec_of=lambda meta: SparseSpec("incrs", section=meta.section,
+                                    block=meta.block, pattern=meta.pattern),
+    ready=_incrs_ready))
 
 register_format("bsr", _lin.SparseLinearParams, FormatAdapter(
     "bsr",
@@ -518,9 +555,13 @@ class Linear(torch.nn.Module):
         ad = adapter_of(self.inner)
         return BoundPlan(self.plan, ad.plan_values(self.inner).detach())
 
-    def to_dense(self) -> np.ndarray:
-        """Densify W (d_in, d_out) from the current values."""
-        return _FAMILIES[self._cls].to_dense(self.inner)
+    def to_dense(self, values: Optional[torch.Tensor] = None
+                 ) -> np.ndarray:
+        """Densify W (d_in, d_out) from the current values, or from
+        ``values`` laid out like them (their gradient, say)."""
+        node = self.inner if values is None else self._cls(values,
+                                                           self.meta)
+        return _FAMILIES[self._cls].to_dense(node)
 
 
 def apply(p, x):

@@ -1,33 +1,55 @@
-"""The BSR sparse linear family: block-sparse weights on the BSR kernel.
+"""Sparse linear layers, trainable: the BSR and InCRS families.
 
-The port of the BSR half of ``repro.sparse.linear``, forward only:
+The port of ``repro.sparse.linear``, single-device. Both families are
+``torch.autograd.Function``s whose forward and dx run the port's CUDA
+kernels (on CPU tensors, their plain versions):
 
-  y = x @ W            with W^T stored as BSR (out-major blocks)
+  BSR    y  = x @ W     the BSR kernel over W^T's blocks (out-major)
+         dx = dy @ W^T  the BSR kernel again, over the TRANSPOSED block
+                        lists (a permutation of blocks + a swap of block
+                        dims, fixed at pack time)
+         dW             per-block products of the REAL blocks only; the
+                        zero tiles put in for empty block-rows stay frozen
+  InCRS  y  = x @ W     the fused InCRS kernel over W^T's section stripes
+         dx = dy @ W^T  the fused kernel over the TRANSPOSED stripes, whose
+                        values are a gather (``t_gather``) of the forward
+                        values
+         dW             restricted to the live slots: x's columns gathered
+                        by the stripe ``idx``, one section at a time, T
+                        multiply-adds a slot; pad slots get exactly 0.0
 
-``SparseLinearMeta`` is the JAX meta field for field (the kernel block
-lists with their zero tiles, the transposed lists and the permutation
-``t_perm`` that the backward pass will use), so the training slice can
-add the VJP on the same metadata. The backward pass (dx through a second
-BSR product over the transposed lists, dW restricted to the live blocks)
-is not ported: ``_SparseMM.backward`` raises.
+dx runs only when the input needs a gradient. dW is torch ops, as it is
+jnp (no Pallas kernel) in the JAX package.
 
-The metadata is static host data (tuples). The device index tensors a
-launch needs (``row_of``, ``col_of`` and the block-row run starts) are
-made once per meta and device and kept on the meta, never per call.
+``SparseLinearMeta`` is static host data (tuples); the device index
+tensors a launch or a backward pass needs are made once per meta and
+device and kept on the meta. ``InCRSLinearMeta`` holds its stripe
+indices as int32 tensors on the device of the values.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.bsr import BSR
+from ..core.crs import CRS
+from ..core.incrs import B_DEFAULT, S_DEFAULT, InCRS
 from ..kernels import bsr_spmm as _bsr_k
 from ..kernels import ops
 from .pattern import (FamilyOps, SparsityPattern, expand_block_mask,
-                      register_family)
+                      magnitude_mask, register_family)
+
+
+class _GradIndex(NamedTuple):
+    """int64 device index tensors of the BSR backward pass."""
+    vpos: torch.Tensor       # real block -> slot in the padded fwd list
+    t_perm: torch.Tensor     # bwd block -> its fwd block
+    t_vpos: torch.Tensor     # real block -> slot in the padded bwd list
+    rows: torch.Tensor       # block-row of each real block (W^T)
+    cols: torch.Tensor       # block-column of each real block (W^T)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +60,8 @@ class SparseLinearMeta:
     lists: they include one explicit zero tile per empty block-row (the
     kernel writes each output block-row from its block run) plus the
     trailing sentinel. ``vpos[q]`` is the slot of real (trainable) block
-    ``q`` inside that padded sequence; pad slots hold zeros.
+    ``q`` inside that padded sequence; pad slots hold zeros and receive no
+    gradient.
     """
     d_in: int
     d_out: int
@@ -54,8 +77,8 @@ class SparseLinearMeta:
     # the generated __eq__/__hash__
     pattern: Any = dataclasses.field(default=None, compare=False,
                                      repr=False)
-    # device -> (row_of, col_of, row_start) int32 tensors, made once
-    _device: Dict[str, Tuple[torch.Tensor, ...]] = dataclasses.field(
+    # (what, device) -> device tensors, made once
+    _device: Dict[Tuple[str, str], Any] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
 
     @property
@@ -70,19 +93,39 @@ class SparseLinearMeta:
     def n_block_rows_t(self) -> int:
         return self.d_in // self.block
 
+    def _lists(self, row_of, col_of, n_block_rows, device, key):
+        hit = self._device.get((key, str(device)))
+        if hit is None:
+            row_of = np.asarray(row_of, np.int32)
+            row_start = _bsr_k.block_row_starts(row_of[:-1], n_block_rows)
+            hit = self._device[(key, str(device))] = tuple(
+                torch.from_numpy(x).to(device) for x in
+                (row_of, np.asarray(col_of, np.int32), row_start))
+        return hit
+
     def kernel_index(self, device: torch.device
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(row_of, col_of, row_start) int32 on ``device`` for the forward
         launch, made on first use and kept."""
-        key = str(device)
+        return self._lists(self.row_of, self.col_of, self.n_block_rows,
+                           device, "fwd")
+
+    def kernel_index_t(self, device: torch.device
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(t_row_of, t_col_of, t_row_start) int32 on ``device`` for dx's
+        launch over the transposed lists, made on first use and kept."""
+        return self._lists(self.t_row_of, self.t_col_of, self.n_block_rows_t,
+                           device, "bwd")
+
+    def grad_index(self, device: torch.device) -> _GradIndex:
+        """The backward pass's index tensors on ``device``, made once."""
+        key = ("grad", str(device))
         hit = self._device.get(key)
         if hit is None:
-            row_of = np.asarray(self.row_of, np.int32)
-            row_start = _bsr_k.block_row_starts(row_of[:-1],
-                                                self.n_block_rows)
-            hit = self._device[key] = tuple(
-                torch.from_numpy(x).to(device) for x in
-                (row_of, np.asarray(self.col_of, np.int32), row_start))
+            rows, cols = real_blocks(self)
+            hit = self._device[key] = _GradIndex(*(
+                torch.as_tensor(np.asarray(x, np.int64), device=device)
+                for x in (self.vpos, self.t_perm, self.t_vpos, rows, cols)))
         return hit
 
 
@@ -148,17 +191,27 @@ def _bsr_from_mask(w: np.ndarray, mask: np.ndarray, block: int,
 
 
 # ----------------------------------------------------------------------
-def _pad_slots(values: torch.Tensor, meta: SparseLinearMeta) -> torch.Tensor:
-    """Scatter real block values into the zero-tile-padded kernel slot
-    sequence (contiguous; the values themselves when no block-row was
-    empty). A bound plan does this once, at bind."""
-    n_slots = len(meta.col_of)
+def _scatter_slots(values: torch.Tensor, vpos: torch.Tensor,
+                   n_slots: int) -> torch.Tensor:
+    """Real block values scattered into a zero-tile-padded kernel slot
+    sequence (contiguous; the values themselves when nothing is
+    padded)."""
     if n_slots == values.shape[0]:
         return values.contiguous()
     slots = values.new_zeros((n_slots,) + tuple(values.shape[1:]))
-    vpos = torch.as_tensor(meta.vpos, dtype=torch.long, device=values.device)
     slots[vpos] = values
     return slots
+
+
+def _pad_slots(values: torch.Tensor, meta: SparseLinearMeta) -> torch.Tensor:
+    """The forward kernel's padded slot sequence (contiguous; the values
+    themselves when no block-row was empty). A bound plan does this once,
+    at bind."""
+    n_slots = len(meta.col_of)
+    if n_slots == values.shape[0]:
+        return values.contiguous()
+    return _scatter_slots(values, meta.grad_index(values.device).vpos,
+                          n_slots)
 
 
 def _bsr_forward(meta: SparseLinearMeta, slots: torch.Tensor,
@@ -171,19 +224,53 @@ def _bsr_forward(meta: SparseLinearMeta, slots: torch.Tensor,
                                  row_start=row_start)
 
 
+def _bsr_dx(meta: SparseLinearMeta, values: torch.Tensor,
+            dyt: torch.Tensor) -> torch.Tensor:
+    """dx^T[d_in, T] = W @ dy^T: the BSR kernel over the transposed lists,
+    whose blocks are the forward blocks permuted and transposed."""
+    gi = meta.grad_index(values.device)
+    tvals = values.index_select(0, gi.t_perm).transpose(1, 2)
+    slots = _scatter_slots(tvals, gi.t_vpos, len(meta.t_col_of))
+    row_of, col_of, row_start = meta.kernel_index_t(values.device)
+    return ops.bsr_matmul_arrays(row_of, col_of, slots, dyt,
+                                 n_block_rows=meta.n_block_rows_t,
+                                 row_start=row_start)
+
+
+def _bsr_dw(meta: SparseLinearMeta, x: torch.Tensor,
+            dyt: torch.Tensor) -> torch.Tensor:
+    """dW^T block p at (r, c) = dy[:, r-block]^T x[:, c-block], f32, for
+    the real blocks only: the zero tiles stay frozen. ``dyt`` is dy^T,
+    contiguous."""
+    gi = meta.grad_index(dyt.device)
+    blk, t = meta.block, dyt.shape[1]
+    dyb = dyt.view(meta.n_block_rows, blk, t)
+    xb = x.T.reshape(meta.n_block_rows_t, blk, t)
+    return torch.bmm(dyb.index_select(0, gi.rows).to(torch.float32),
+                     xb.index_select(0, gi.cols).to(torch.float32
+                                                    ).transpose(1, 2))
+
+
 class _SparseMM(torch.autograd.Function):
     """y[T, out] = x[T, in] @ W, W^T stored as BSR values."""
 
     @staticmethod
     def forward(ctx, values, x, meta):
+        ctx.save_for_backward(values, x)
+        ctx.meta = meta
         return _bsr_forward(meta, _pad_slots(values, meta), x.T).T
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(
-            "the BSR backward pass (dx through the transposed block lists, "
-            "dW over the live blocks) is the training slice of the port, "
-            "not ported yet (ROADMAP queue 1 item 2)")
+        values, x = ctx.saved_tensors
+        meta = ctx.meta
+        dyt = dy.T.contiguous()                                # (out, T)
+        dvals = dx = None
+        if ctx.needs_input_grad[1]:
+            dx = _bsr_dx(meta, values, dyt).T.to(x.dtype)
+        if ctx.needs_input_grad[0]:
+            dvals = _bsr_dw(meta, x, dyt).to(values.dtype)
+        return dvals, dx, None
 
 
 def _sparse_mm(values: torch.Tensor, x: torch.Tensor,
@@ -192,7 +279,8 @@ def _sparse_mm(values: torch.Tensor, x: torch.Tensor,
 
 
 def _bsr_apply(p: SparseLinearParams, x: torch.Tensor) -> torch.Tensor:
-    """x: (..., d_in) -> (..., d_out) through the BSR kernel."""
+    """x: (..., d_in) -> (..., d_out) through the BSR kernel;
+    differentiable wrt ``p.values`` and ``x``."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, p.meta.d_in)
     y = _sparse_mm(p.values, x2, p.meta)
@@ -224,5 +312,238 @@ def _bsr_pack_values(meta: SparseLinearMeta, w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(tiles[rows, cols])
 
 
+# ----------------------------------------------------------------------
+# The InCRS family: element-level sparsity through the fused InCRS kernel.
+@dataclasses.dataclass(frozen=True, eq=False)
+class InCRSLinearMeta:
+    """Static metadata of one trainable InCRS weight, the stripe indices
+    on the device of the values. ``eq=False``: identity hash/eq."""
+    fwd_idx: torch.Tensor     # (Op, Si, smax) int32 — W^T stripes, -1 pad
+    bwd_idx: torch.Tensor     # (Ip, So, smax_t) int32 — W stripes, -1 pad
+    t_gather: torch.Tensor    # (Ip*So*smax_t,) int32 — bwd slot -> flat fwd
+    #                           slot (the one-past-the-end slot reads 0.0)
+    d_in: int
+    d_out: int
+    section: int
+    nnz: int                  # live non-zeros
+    block: int = B_DEFAULT    # InCRS counter block
+    pattern: Any = None       # the SparsityPattern of this meta
+
+
+@dataclasses.dataclass
+class InCRSLinearParams:
+    values: torch.Tensor      # (Op, Si, smax) f32 — the trainable tensor
+    meta: InCRSLinearMeta
+
+    @property
+    def pattern(self) -> "SparsityPattern | None":
+        return self.meta.pattern
+
+
+def _transpose_gather(fwd_idx: np.ndarray, bwd_idx: np.ndarray,
+                      section: int, d_in: int) -> np.ndarray:
+    """Map every bwd stripe slot to the flat fwd slot holding the same
+    non-zero (pad slots -> the extra zero slot at index fwd_idx.size).
+
+    Keys are the global (out, in) coordinates: fwd slot (r, s, k) holds
+    W^T[r, idx + s*section]; bwd slot (r', s', k') holds W[r', idx' +
+    s'*section] = W^T[idx' + s'*section, r']. Both key lists are sorted
+    (stably: they come in sorted runs) and matched rank for rank, the
+    same map as the JAX packer's binary search.
+    """
+    r_f, s_f, _ = np.indices(fwd_idx.shape)
+    fmask = fwd_idx >= 0
+    fkey = (r_f[fmask].astype(np.int64) * d_in
+            + fwd_idx[fmask] + s_f[fmask].astype(np.int64) * section)
+    fpos = np.flatnonzero(fmask.ravel())
+    order = np.argsort(fkey, kind="stable")
+    fkey, fpos = fkey[order], fpos[order]
+    r_b, s_b, _ = np.indices(bwd_idx.shape)
+    bmask = bwd_idx >= 0
+    bkey = ((bwd_idx[bmask].astype(np.int64)
+             + s_b[bmask].astype(np.int64) * section) * d_in + r_b[bmask])
+    border = np.argsort(bkey, kind="stable")
+    if bkey.size != fkey.size or not np.array_equal(bkey[border], fkey):
+        raise ValueError("fwd/bwd stripe non-zero sets must be transposes "
+                         "of each other")
+    t_gather = np.full(bwd_idx.size, fwd_idx.size, dtype=np.int32)
+    t_gather[np.flatnonzero(bmask.ravel())[border]] = fpos
+    return t_gather
+
+
+def _resolve_pattern(w: np.ndarray, density, mask,
+                     _pattern) -> SparsityPattern:
+    """One rule for every constructor: an explicit pattern wins; else an
+    explicit element mask of W (slots it keeps stay live even at value
+    0.0); else a global-threshold magnitude selection at ``density``
+    (None -> exactly the non-zeros)."""
+    if _pattern is not None:
+        return _pattern
+    if mask is not None:
+        if density is not None:
+            raise ValueError("pass density OR mask, not both")
+        return SparsityPattern(mask)
+    return SparsityPattern(magnitude_mask(w, density))
+
+
+def _pack_incrs(w: np.ndarray, pat: SparsityPattern, section: int,
+                block: int, *, device=None) -> InCRSLinearParams:
+    """Pack dense W values under ``pat`` into the trainable fused-kernel
+    form on ``device`` (default CUDA): the stripes of W^T and of W, and
+    the gather between them. The one InCRS packer; the constructors only
+    decide where the pattern comes from."""
+    dev = ops.resolve_device(device)
+    d_in, d_out = w.shape
+    if pat.shape != (d_in, d_out):
+        raise ValueError(f"pattern mask shape {pat.shape} != weight shape "
+                         f"{(d_in, d_out)}")
+    w = np.ascontiguousarray(w, np.float32)
+    incrs = InCRS.from_crs(
+        CRS.from_mask(np.ascontiguousarray(w.T),
+                      np.ascontiguousarray(pat.mask.T)),
+        section=section, block=block)
+    incrs_t = InCRS.from_crs(CRS.from_mask(w, pat.mask), section=section,
+                             block=block)
+    fwd_idx, fwd_val = ops.prep_sections(incrs, pad_rows_to=128,
+                                         device="cpu")
+    bwd_idx, _ = ops.prep_sections(incrs_t, pad_rows_to=128, device="cpu")
+    t_gather = _transpose_gather(fwd_idx.numpy(), bwd_idx.numpy(), section,
+                                 d_in)
+    meta = InCRSLinearMeta(fwd_idx.to(dev), bwd_idx.to(dev),
+                           torch.from_numpy(t_gather).to(dev), d_in, d_out,
+                           section, incrs.crs.nnz, block=block, pattern=pat)
+    pat.packed["incrs"] = meta
+    return InCRSLinearParams(fwd_val.to(dev), meta)
+
+
+def _incrs_from_dense(w: np.ndarray, density: Optional[float] = None,
+                      section: Optional[int] = None,
+                      block: Optional[int] = None, *,
+                      mask: Optional[np.ndarray] = None, device=None,
+                      _pattern: Optional[SparsityPattern] = None
+                      ) -> InCRSLinearParams:
+    """Pack a dense W (d_in, d_out), optionally magnitude-pruned to
+    element ``density`` or under an explicit element ``mask`` of W whose
+    slots stay live even at value 0.0, into the trainable form on
+    ``device``."""
+    section = S_DEFAULT if section is None else section
+    block = B_DEFAULT if block is None else block
+    w = np.asarray(w, np.float32)
+    return _pack_incrs(w, _resolve_pattern(w, density, mask, _pattern),
+                       section, block, device=device)
+
+
+def _incrs_init(generator: torch.Generator, d_in: int, d_out: int,
+                density: float, scale: float = 0.02,
+                **kw) -> InCRSLinearParams:
+    """Random-normal W (std ``scale``, drawn on the CPU from
+    ``generator``), magnitude-pruned to ``density`` and packed."""
+    w = torch.randn((d_in, d_out), generator=generator) * scale
+    return _incrs_from_dense(w.numpy(), density, **kw)
+
+
+def _incrs_product(idx: torch.Tensor, values: torch.Tensor,
+                   shape: Tuple[int, int], section: int,
+                   b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B through the fused kernel (``ops.spmm``'s ``auto``), A the
+    stripes ``(idx, values)`` as they are now: never through
+    ``ops.prepare_incrs``'s memo, which would serve older values."""
+    return ops.spmm(ops.PreparedOperand(idx, values, shape, section), b)
+
+
+def _incrs_dx(meta: InCRSLinearMeta, values: torch.Tensor,
+              dyt: torch.Tensor) -> torch.Tensor:
+    """dx^T[d_in, T] = W @ dy^T: the fused kernel over the transposed
+    stripes, their values gathered from the forward ones (t_gather sends
+    pad slots to the appended zero)."""
+    flat = torch.cat([values.reshape(-1), values.new_zeros(1)])
+    tvals = flat.index_select(0, meta.t_gather).view(meta.bwd_idx.shape)
+    return _incrs_product(meta.bwd_idx, tvals, (meta.d_in, meta.d_out),
+                          meta.section, dyt)
+
+
+def _stripe_dw(idx: torch.Tensor, section: int, x: torch.Tensor,
+               dy: torch.Tensor) -> torch.Tensor:
+    """dW^T restricted to the live slots of one stripe set.
+
+    dW^T[r, c] = sum_t dy[t, r] x[t, c], evaluated ONLY at the live
+    slots: x's columns gathered by the stripe idx, one T-long
+    multiply-add a slot. One section at a time, so the gathered x peaks at
+    (Op, smax, T) and is freed before the next. Pad slots get 0.0."""
+    op, n_sections, smax = idx.shape
+    t = x.shape[0]
+    kp = n_sections * section
+    xpt = torch.nn.functional.pad(x.to(torch.float32),
+                                  (0, kp - x.shape[1])).T.contiguous()
+    dyp = torch.nn.functional.pad(dy.to(torch.float32),
+                                  (0, op - dy.shape[1]))          # (T, Op)
+    dvals = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
+    for s in range(n_sections):
+        gs = idx[:, s]
+        gcol = torch.where(gs >= 0, gs + s * section, 0)
+        xg = xpt.index_select(0, gcol.reshape(-1)).view(op, smax, t)
+        dvals[:, s] = torch.einsum("rkt,tr->rk", xg, dyp)
+        del xg
+    return dvals.masked_fill_(idx < 0, 0.0)
+
+
+class _InCRSMM(torch.autograd.Function):
+    """y[T, d_out] = x[T, d_in] @ W, W^T stored as section stripes."""
+
+    @staticmethod
+    def forward(ctx, values, x, meta):
+        ctx.save_for_backward(values, x)
+        ctx.meta = meta
+        return _incrs_product(meta.fwd_idx, values, (meta.d_out, meta.d_in),
+                              meta.section, x.T).T
+
+    @staticmethod
+    def backward(ctx, dy):
+        values, x = ctx.saved_tensors
+        meta = ctx.meta
+        dvals = dx = None
+        if ctx.needs_input_grad[1]:
+            dx = _incrs_dx(meta, values, dy.T).T.to(x.dtype)
+        if ctx.needs_input_grad[0]:
+            dvals = _stripe_dw(meta.fwd_idx, meta.section, x,
+                               dy).to(values.dtype)
+        return dvals, dx, None
+
+
+def _incrs_apply(p: InCRSLinearParams, x: torch.Tensor) -> torch.Tensor:
+    """x: (..., d_in) -> (..., d_out) through the fused InCRS kernel;
+    differentiable wrt ``p.values`` and ``x``."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, p.meta.d_in)
+    y = _InCRSMM.apply(p.values, x2, p.meta)
+    return y.reshape(*lead, p.meta.d_out)
+
+
+def incrs_to_dense_weight(p: InCRSLinearParams) -> np.ndarray:
+    """Densify W (d_in, d_out) from the CURRENT values (host numpy)."""
+    idx = p.meta.fwd_idx.cpu().numpy()
+    vals = p.values.detach().cpu().numpy()
+    wt = np.zeros((idx.shape[0], idx.shape[1] * p.meta.section), np.float32)
+    r, s, k = np.nonzero(idx >= 0)
+    wt[r, idx[r, s, k] + s * p.meta.section] = vals[r, s, k]
+    return wt[:p.meta.d_out, :p.meta.d_in].T
+
+
+def _incrs_pack_values(meta: InCRSLinearMeta, w: np.ndarray) -> np.ndarray:
+    """Dense W -> (Op, Si, smax) stripe values of meta's live slots."""
+    idx = meta.fwd_idx.cpu().numpy()
+    wt = np.asarray(w, np.float32).T
+    kp = idx.shape[1] * meta.section
+    wtp = np.zeros((idx.shape[0], kp), np.float32)
+    wtp[:wt.shape[0], :wt.shape[1]] = wt
+    vals = np.zeros(idx.shape, np.float32)
+    r, s, k = np.nonzero(idx >= 0)
+    vals[r, s, k] = wtp[r, idx[r, s, k] + s * meta.section]
+    return vals
+
+
 register_family(SparseLinearParams, FamilyOps(
     "bsr", to_dense=lambda n: np.asarray(to_dense(n), np.float32)))
+
+register_family(InCRSLinearParams, FamilyOps(
+    "incrs", to_dense=incrs_to_dense_weight))

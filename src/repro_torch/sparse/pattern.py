@@ -9,8 +9,8 @@ hold every mask equal to the JAX package's bit for bit.
 
 The family registry keeps only ``to_dense``, what ``Linear.to_dense``
 needs. ``PruneSchedule`` and the lifecycle moves (``repack``,
-``magnitude_repack``, ``repack_onto``) belong to the training slice
-(ROADMAP queue 1).
+``magnitude_repack``, ``repack_onto``) are not ported yet (ROADMAP queue
+1 item 5).
 """
 from __future__ import annotations
 

@@ -25,6 +25,7 @@ from repro_torch.core.crs import CRS                      # noqa: E402
 from repro_torch.core.incrs import InCRS                  # noqa: E402
 from repro_torch.serve import engine as teng              # noqa: E402
 from repro_torch.sparse import api as tapi                # noqa: E402
+from repro_torch.sparse import linear as tlin             # noqa: E402
 
 C_TOL = 1e-5
 SERVE_TOL = 1e-4
@@ -158,15 +159,31 @@ def test_plan_and_matmul_plan_match_jax():
 
 
 def test_unported_formats_name_their_roadmap_items():
+    """``crs`` still raises naming its item; ``incrs`` (ported with the
+    training slice) now builds through plan, plan_for_operand and
+    Linear.from_dense."""
     w = _weight()
-    for fmt, item in (("incrs", "item 2"), ("crs", "item 5")):
-        spec = tapi.SparseSpec(fmt, mask=w != 0)
-        with pytest.raises(NotImplementedError, match=item):
-            tapi.plan(spec)
-        with pytest.raises(NotImplementedError, match=item):
-            tapi.plan_for_operand(w.T, tapi.SparseSpec(fmt))
-        with pytest.raises(NotImplementedError, match=item):
-            tapi.Linear.from_dense(w, spec, device="cpu")
+    spec = tapi.SparseSpec("crs", mask=w != 0)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tapi.plan(spec)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tapi.plan_for_operand(w.T, tapi.SparseSpec("crs"))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tapi.Linear.from_dense(w, spec, device="cpu")
+    spec = tapi.SparseSpec("incrs", mask=w != 0, section=32, block=8)
+    b = np.random.default_rng(9).normal(size=(64, 5)).astype(np.float32)
+    lin = tapi.Linear.from_dense(w, spec, device="cpu")
+    assert lin.format == "incrs" and lin.nnz == int((w != 0).sum())
+    assert np.array_equal(lin.to_dense(), w)
+    assert lin.spec.section == 32 and lin.spec.block == 8
+    p = tapi.plan(spec, (64, 5))
+    assert p.shape == (96, 64) and p.meta.section == 32
+    _close(p.bind(p.pack(w), device="cpu")(b).numpy(), w.T @ b)
+    _close(tapi.plan_for_operand(w.T, tapi.SparseSpec("incrs"),
+                                 device="cpu")(b).numpy(), w.T @ b)
+    _close(lin.bound()(b).numpy(), w.T @ b)
+    with pytest.raises(ValueError, match="f32 stripe values"):
+        tapi.Linear.from_dense(w, spec, dtype=torch.bfloat16, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         tapi.SparseSpec("bsr", block=16, mesh=object())
     with pytest.raises(ValueError, match="format must be"):
@@ -193,26 +210,45 @@ def test_resolve_device_gives_cuda_its_index(monkeypatch):
 
 
 def test_bsr_backward_raises_instead_of_a_silent_no_grad():
-    lin = tapi.Linear.from_dense(_weight(), tapi.SparseSpec(
+    """The BSR backward gives real gradients (it once raised rather than
+    give none): dW on the live blocks, dx through the transposed lists."""
+    w = _weight()
+    lin = tapi.Linear.from_dense(w, tapi.SparseSpec(
         "bsr", block=16, density=0.5), device="cpu")
     x = torch.randn(4, 64, requires_grad=True)
     y = lin(x)
     assert y.requires_grad
-    with pytest.raises(NotImplementedError, match="training slice"):
-        y.sum().backward()
+    y.sum().backward()
+    live = lin.pattern.mask
+    gw = lin.to_dense(lin.values.grad)
+    ones = np.ones((4, w.shape[1]), np.float32)
+    want = x.detach().numpy().T @ ones
+    _close(gw[live], want[live])
+    assert not gw[~live].any()
+    _close(x.grad.numpy(), ones @ lin.to_dense().T)
     with torch.no_grad():                          # serving needs no grad
         assert not lin(x).requires_grad
     assert not lin.bound()(torch.randn(64, 3)).requires_grad
 
 
 def test_bsr_backward_names_its_roadmap_item():
-    """The BSR backward is training, queue 1 item 2 (item 6, BSR serving,
-    is done)."""
-    lin = tapi.Linear.from_dense(_weight(), tapi.SparseSpec(
-        "bsr", block=16, density=0.5), device="cpu")
-    y = lin(torch.randn(4, 64, requires_grad=True))
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 2\)"):
-        y.sum().backward()
+    """The BSR backward, once queue 1 item 2, runs: the gradients of a
+    layer with an empty block-row equal those of its dense weight."""
+    w = _weight()
+    mask = np.array([[1, 0, 1, 1], [0, 0, 0, 0], [0, 1, 0, 0],
+                     [1, 1, 1, 1], [0, 0, 0, 0], [0, 0, 1, 0]], bool)
+    p = tlin._bsr_from_mask(w, mask, 16, device="cpu")
+    lin = tapi.Linear(p)
+    x = torch.randn(6, 64, requires_grad=True)
+    dy = torch.randn(6, w.shape[1])
+    lin(x).backward(dy)
+    wd = torch.from_numpy(lin.to_dense()).requires_grad_()
+    xd = x.detach().clone().requires_grad_()
+    (xd @ wd).backward(dy)
+    live = lin.pattern.mask
+    _close(lin.to_dense(lin.values.grad)[live], wd.grad.numpy()[live])
+    _close(x.grad.numpy(), xd.grad.numpy())
+    assert lin.values.grad.shape == (p.meta.nnz, 16, 16)
 
 
 @pytest.mark.parametrize("fmt", ["bsr", "dense"])
@@ -232,7 +268,7 @@ def test_linear_from_jax_computes_the_same(fmt):
     b = np.random.default_rng(8).normal(size=(64, 12)).astype(np.float32)
     _close(tl.bound()(b).numpy(), np.asarray(jl.bound()(jnp.asarray(b))))
     with pytest.raises(ValueError, match="fmt"):
-        convert.linear_from_jax(np.asarray(jl.values), fields, "incrs")
+        convert.linear_from_jax(np.asarray(jl.values), fields, "crs")
 
 
 def _trace(k, cap, seed=1):

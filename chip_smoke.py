@@ -115,7 +115,35 @@ Phases, each printing one JSON line:
              pad slots and zero tiles stay 0.0, the trained l1 is served
              by SpMMEngine within 1e-4 of float64 one launch a wave, and
              the training example runs as a subprocess.
-13. lm_kernels — the flash-attention kernels against their plain version
+13. lifecycle — after each format's phase train, on its trained student
+             (the sixth path): an SpMMEngine serves l1 (W_up) with the
+             first half of phase 3's trace; the prune callback re-prunes
+             l1 at one due step (incrs to density 0.05, bsr to block
+             density 0.125), timed on the host; one wave is launched, the
+             repacked l1 is hot-swapped in (``swap_pattern``, timed) and
+             the rest of the trace served: every request within 1e-4 of
+             float64 of the weight in force when its wave launched, one
+             launch a wave, counters zeroed just before. Then step 0's
+             gradients on the new live set against float64, 2 AdamW steps
+             on the repacked moments (3 launches a step, no other kernel,
+             split forward / backward / optimizer), survivors carried over
+             and pruned slots gone, pad slots and zero tiles 0.0, latency
+             before and after the swap (and the served operand's kernel
+             alone on a 512-column panel, before and after), peak memory;
+             after both formats, the reprune example as a subprocess.
+14. crs_plan — the seventh path: granite-34b's W_up^T (24576 x 6144,
+             density 0.1) planned once by ``plan_for_operand`` as ``crs``
+             (R = 128), times B^T = top-5 % activations (307 of 6,144 per
+             row, 512 rows): index matching and condense + merge (a crs and
+             an InCRS B^T), each called twice (RHS prep, then a memo hit),
+             C within 1e-4 of float64 on the host, condense + merge bitwise
+             equal to index matching, counters zeroed just before; the
+             plan's and the bind's host time; each kernel on the plan's
+             operands against its plain version, timed beside its bound and
+             a library call. Then mesh-docword4 at R = 128 and 32: a bound
+             plan's calls beside ops.spmm(A, A) through the same engine,
+             bitwise equal.
+15. lm_kernels — the flash-attention kernels against their plain version
              on the card, f32 (the FMA kernel) and bf16 (the tensor-core
              kernel), each call checked to launch its type's kernel:
              granite-34b's prefill wave (B = 2,
@@ -124,7 +152,7 @@ Phases, each printing one JSON line:
              cap 30, window 2048, hd 256) and edge shapes. bf16 is held
              on every query row; at granite's wave the same check must
              reject a planted fault (key tile 0 dropped past row 4096).
-14. lm_serve — the fourth path: granite-34b at full width, depth cut to
+16. lm_serve — the fourth path: granite-34b at full width, depth cut to
              4 layers, served by ``ServeEngine``: 2 requests of 8,192
              tokens (one wave through the kernel, one launch per layer)
              and 4 of 512 (the dense branch, no launch), counters zeroed
@@ -132,7 +160,7 @@ Phases, each printing one JSON line:
              f32 decode logits against a teacher-forced prefill; the
              launcher as a subprocess. Device time is sorted by kernel
              symbol: the flash kernels by the names the wrapper exports.
-15. lm_times — the bf16 kernel at granite's wave: median time, TFLOP/s
+17. lm_times — the bf16 kernel at granite's wave: median time, TFLOP/s
              and share of the bound, beside the f32 kernel on the same
              values, the plain version and scaled_dot_product_attention.
 
@@ -1084,14 +1112,15 @@ def phase_spgemm_times(torch, P, crs, inc, errs, launches):
     return rows
 
 
-def _match_work(ai, bi, pairs, m, stripes):
-    """(bytes, flops) that index matching (``stripes`` False: C, m x m) or
-    condense (the f32 stripes) must move and do: both idx arrays in full
-    (pads are read to be skipped), the live values, the output once; 2
-    flops per matched pair."""
+def _match_work(ai, bi, pairs, m, stripes, n=None):
+    """(bytes, flops) that index matching (``stripes`` False: C, m x n, n
+    = m by default) or condense (the f32 stripes) must move and do: both
+    idx arrays in full (pads are read to be skipped), the live values, the
+    output once; 2 flops per matched pair."""
     live = int((ai >= 0).sum()) + int((bi >= 0).sum())
     nbytes = (ai.numel() + bi.numel()) * 4 + live * 4
-    out = ai.shape[1] * ai.shape[0] * bi.shape[0] if stripes else m * m
+    out = ai.shape[1] * ai.shape[0] * bi.shape[0] if stripes \
+        else m * (m if n is None else n)
     return nbytes + out * 4, 2 * pairs
 
 
@@ -2104,6 +2133,8 @@ TRAIN_LAUNCHES = 3       # a step: two forwards and l2's dx (x needs none)
 
 
 def _train_modules():
+    from repro_torch.core.crs import CRS
+    from repro_torch.core.incrs import InCRS
     from repro_torch.examples import train_unstructured as ex
     from repro_torch.kernels import bsr_spmm as KB
     from repro_torch.kernels import dense_mm as KD
@@ -2112,13 +2143,17 @@ def _train_modules():
     from repro_torch.kernels import incrs_spmm as K
     from repro_torch.kernels import index_match_spmm as IM
     from repro_torch.kernels import ops
+    from repro_torch.serve import engine
     from repro_torch.sparse import api
     from repro_torch.sparse import linear as lin_mod
+    from repro_torch.sparse import pattern
     from repro_torch.spgemm import kernels as SK
     from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer
     return types.SimpleNamespace(ex=ex, K=K, KB=KB, KD=KD, F=F, G=G, IM=IM,
                                  SK=SK, ops=ops, api=api, lin_mod=lin_mod,
-                                 O=O)
+                                 O=O, CRS=CRS, InCRS=InCRS, engine=engine,
+                                 pattern=pattern, trainer=trainer)
 
 
 def _zero_every_count(R):
@@ -2255,12 +2290,60 @@ def _dx_library(torch, R, fmt, l2, dyt, flush):
         return None, f"{type(exc).__name__}: {str(exc)[:300]}"
 
 
+def _frozen_slots(torch, R, fmt, model):
+    """Check that every pad slot (incrs) and zero tile (bsr) of the
+    model's layers is exactly 0.0; returns how many there are."""
+    frozen = 0
+    for lin in model.values():
+        vals = lin.values.detach()
+        if fmt == "incrs":
+            pad = lin.meta.fwd_idx < 0
+        else:
+            vals = R.lin_mod._pad_slots(vals, lin.meta)
+            pad = torch.ones(vals.shape[0], dtype=torch.bool, device="cuda")
+            pad[list(lin.meta.vpos)] = False
+        frozen += int(pad.sum())
+        check(bool((vals[pad] == 0).all()), f"{fmt}: pad slots and zero "
+              f"tiles still 0.0")
+    return frozen
+
+
+def _timed_steps(torch, R, cfg, model, state, x, y, steps):
+    """``steps`` AdamW steps, each split by CUDA events into forward,
+    backward and optimizer; the parameters are taken from the model each
+    step. Returns (losses, timings, state)."""
+    timing = {k: [] for k in ("fwd_ms", "bwd_ms", "opt_ms", "step_ms",
+                              "wall_ms")}
+    losses = []
+    for _ in range(steps):
+        params = dict(model.named_parameters())
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss = R.ex.mlp_loss(model, x, y)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        ev[2].record()
+        _, state, _ = R.O.adamw_update(cfg, dict(zip(params, grads)), state,
+                                       params)
+        ev[3].record()
+        losses.append(float(loss.detach()))
+        timing["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        for key, (a, b) in (("fwd_ms", (0, 1)), ("bwd_ms", (1, 2)),
+                            ("opt_ms", (2, 3)), ("step_ms", (0, 3))):
+            timing[key].append(ev[a].elapsed_time(ev[b]))
+        del loss, grads
+    torch.cuda.synchronize()
+    return losses, timing, state
+
+
 def phase_train(torch, R, fmt):
     """One format: pack, hold step 0's gradients against float64 and l2's
     dx kernel against its plain version, time each product, take the
     counted steps, check the loss and the frozen slots, serve the trained
     l1, run the example as a subprocess. Returns the kernel's row
-    additions."""
+    additions and the trained student, its AdamW state and data (phase
+    lifecycle takes them over)."""
     g = TRAIN
     kname = TRAIN_KERNEL[fmt]
     flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
@@ -2313,32 +2396,12 @@ def phase_train(torch, R, fmt):
     cfg = R.O.AdamWConfig(lr=3e-3, weight_decay=0.0,
                           warmup_steps=max(2, g["steps"] // 10),
                           total_steps=g["steps"])
-    params = dict(model.named_parameters())
-    state = R.O.adamw_init(cfg, params)
-    timing = {k: [] for k in ("fwd_ms", "bwd_ms", "opt_ms", "step_ms",
-                              "wall_ms")}
-    losses = []
+    state = R.O.adamw_init(cfg, dict(model.named_parameters()))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_every_count(R)
-    for _ in range(g["steps"]):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        t0 = time.perf_counter()
-        ev[0].record()
-        loss = R.ex.mlp_loss(model, x, y)
-        ev[1].record()
-        grads = torch.autograd.grad(loss, list(params.values()))
-        ev[2].record()
-        _, state, _ = R.O.adamw_update(cfg, dict(zip(params, grads)), state,
-                                       params)
-        ev[3].record()
-        losses.append(float(loss.detach()))
-        timing["wall_ms"].append((time.perf_counter() - t0) * 1e3)
-        for key, (a, b) in (("fwd_ms", (0, 1)), ("bwd_ms", (1, 2)),
-                            ("opt_ms", (2, 3)), ("step_ms", (0, 3))):
-            timing[key].append(ev[a].elapsed_time(ev[b]))
-        del loss, grads
-    torch.cuda.synchronize()
+    losses, timing, state = _timed_steps(torch, R, cfg, model, state, x, y,
+                                         g["steps"])
     counts = {k: v for k, v in _every_count(R).items() if v}
     peak = torch.cuda.max_memory_allocated()
     check(counts == {kname: TRAIN_LAUNCHES * g["steps"]},
@@ -2348,18 +2411,7 @@ def phase_train(torch, R, fmt):
         final = float(R.ex.mlp_loss(model, x, y))
     check(final < losses[0], f"train {fmt}: loss {losses[0]} -> {final} "
           f"did not fall")
-    frozen = 0
-    for lin in model.values():
-        vals = lin.values.detach()
-        if fmt == "incrs":
-            pad = lin.meta.fwd_idx < 0
-        else:
-            vals = R.lin_mod._pad_slots(vals, lin.meta)
-            pad = torch.ones(vals.shape[0], dtype=torch.bool, device="cuda")
-            pad[list(lin.meta.vpos)] = False
-        frozen += int(pad.sum())
-        check(bool((vals[pad] == 0).all()), f"train {fmt}: pad slots and "
-              f"zero tiles still 0.0")
+    frozen = _frozen_slots(torch, R, fmt, model)
     before = _every_count(R)[kname]
     eng, served_err = R.ex.serve_check(model["l1"],
                                        np.random.default_rng(g["seed"]),
@@ -2371,7 +2423,7 @@ def phase_train(torch, R, fmt):
           f"launch a wave, {served_launches} for {eng.stats['waves']}")
     served = {"requests": eng.stats["requests"], "waves": eng.stats["waves"],
               "launches": served_launches, "max_rel_err": served_err}
-    del model, params, state, eng, x, y, flush
+    del eng, flush
     torch.cuda.empty_cache()
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
                os.environ.get("PYTHONPATH", ""))
@@ -2397,19 +2449,573 @@ def phase_train(torch, R, fmt):
           "example_rc": proc.returncode,
           "example_tail": proc.stdout.strip().splitlines()[-3:]})
     dx = parts["dx_l2"]
-    return kname, counts.get(kname, 0), {
+    handoff = {"model": model, "state": state, "cfg": cfg, "x": x, "y": y,
+               "final_loss": final, "step_median": {
+                   k: statistics.median(v) for k, v in timing.items()},
+               "peak_memory_bytes": peak}
+    return (kname, counts.get(kname, 0), {
         k: dx[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                           "library_ms", "max_abs_err")}
+                           "library_ms", "max_abs_err")}), handoff
 
 
 def train_path(torch):
-    """Phase train for both formats: the training rows' additions."""
+    """Phases train and lifecycle, one format after the other (phase
+    lifecycle takes over the student phase train trained): each format's
+    training row additions and its lifecycle launches."""
     R = _train_modules()
     out = {}
     for fmt in ("incrs", "bsr"):
-        out[fmt] = phase_train(torch, R, fmt)
+        row, handoff = phase_train(torch, R, fmt)
         torch.cuda.empty_cache()
+        out[fmt] = row, phase_lifecycle(torch, R, fmt, handoff)
+        del handoff
+        torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.train_reprune",
+         "--device", "cuda"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    emit({"phase": "lifecycle_example", "rc": proc.returncode,
+          "stdout": proc.stdout.strip()[-1500:],
+          "stderr": proc.stderr.strip()[-1500:]})
+    check(proc.returncode == 0, "the reprune example exited 0")
     return out
+
+
+# ----------------------------------------------------------------------
+# The lifecycle: phase train's trained student is served, re-pruned by the
+# prune callback at one due step, hot-swapped into the running engine and
+# trained on.
+LIFECYCLE_DENSITY = {"incrs": 0.05, "bsr": 0.125}   # the due step's target
+LIFECYCLE_STEPS = 2
+
+
+def _latency_ms(reqs):
+    lat = sorted((r.t_done - r.t_submit) * 1e3 for r in reqs)
+    return {"p50": statistics.median(lat),
+            "p99": lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))]}
+
+
+def _operand_plain(torch, R, fmt, op, panel):
+    """The plain version of the kernel a bound ``incrs`` or ``bsr`` plan
+    launches, on that plan's own device operands and ``panel``."""
+    if fmt == "incrs":
+        prep = op._ready
+        n = panel.shape[1]
+        bn = R.ops.default_bn(n)
+        b = torch.nn.functional.pad(panel, (
+            0, -(-n // bn) * bn - n,
+            0, prep.n_sections * prep.section - panel.shape[0]))
+        return R.K.plain("incrs_spmm", prep.idx, prep.val, b,
+                         section=prep.section, bm=128,
+                         bn=bn)[:prep.shape[0], :n]
+    meta = op.plan.meta
+    row_of, col_of, _ = meta.kernel_index(panel.device)
+    return R.KB.plain(row_of, col_of, op._ready, panel,
+                      n_block_rows=meta.n_block_rows)
+
+
+def _operand_work(torch, R, fmt, op, n):
+    """(bytes, flops) of a bound ``incrs`` or ``bsr`` plan's kernel at
+    ``n`` columns, as this operand's data needs them."""
+    if fmt == "incrs":
+        return _incrs_bound(torch, op._ready, n)[:2]
+    meta = op.plan.meta
+    return _plan_work("bsr_spmm", (meta.d_out, meta.d_in), n, 4,
+                      len(meta.col_of), (meta.block, meta.block),
+                      int(np.unique(np.asarray(meta.col_of)).size))
+
+
+def _served_operands(torch, R, fmt, ops_by_side, panel, flush):
+    """The engine's operand before and after the swap (the trained
+    pattern, and the repacked stripes or block lists), each launched once
+    on ``panel`` and held against its plain version on the same inputs,
+    then timed with the plain version and its bound beside it."""
+    kname = TRAIN_KERNEL[fmt]
+    out = {}
+    for side, op in ops_by_side.items():
+        n0 = _every_count(R)[kname]
+        got = op(panel)
+        torch.cuda.synchronize()
+        check(_every_count(R)[kname] == n0 + 1, f"lifecycle {fmt}: the "
+              f"{side} operand launches {kname} once")
+        ref = _operand_plain(torch, R, fmt, op, panel)
+        check(tuple(got.shape) == tuple(ref.shape) and
+              bool(torch.isfinite(got).all()), f"lifecycle {fmt}: {side} "
+              f"operand's kernel finite, of the plain version's shape")
+        scale = max(float(ref.abs().max()), 1e-30)
+        err = float((got - ref).abs().max())
+        check(err <= KERNEL_TOL * scale, f"lifecycle {fmt}: {side} "
+              f"operand's kernel off its plain version by {err} > "
+              f"{KERNEL_TOL} * {scale}")
+        del got, ref
+        nbytes, flops = _operand_work(torch, R, fmt, op, panel.shape[1])
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
+        out[side] = {"max_abs_err": err, "bytes": nbytes, "flops": flops,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "ms": _time_ms(torch, lambda: op(panel), flush),
+                     "plain_ms": _time_ms(
+                         torch, lambda: _operand_plain(torch, R, fmt, op,
+                                                       panel), flush,
+                         reps=3)}
+    return out
+
+
+def phase_lifecycle(torch, R, fmt, h):
+    """Serve the trained l1 (W_up) with the first half of phase 3's
+    mixed-width trace; re-prune l1 through ``make_prune_callback`` at one
+    due step; launch one wave, then ``swap_pattern`` the repacked layer
+    into the running engine and serve the second half; each request
+    against float64 of the weight in force when its wave launched. The
+    engine's operand before and after the swap against the kernel's plain
+    version. Then the float64 gradient check on the new live set and 2
+    AdamW steps on the repacked moments. Returns the format kernel's
+    name, its launches on this path and the two operands' checks."""
+    kname = TRAIN_KERNEL[fmt]
+    model, state, cfg, x, y = (h[k] for k in ("model", "state", "cfg", "x",
+                                              "y"))
+    l1 = model["l1"]
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        loss_before = float(R.ex.mlp_loss(model, x, y))
+    w_old = torch.from_numpy(l1.to_dense()).to("cuda").double()
+    mask_old = torch.from_numpy(l1.pattern.mask).to("cuda")
+    version_old, nnz_old = l1.pattern.version, l1.nnz
+    panels = _trace(l1.d_in, seed=3)
+    small, big = panels[:-1], panels[-1]
+    half = len(small) // 2
+    # Like traffic on both sides of the swap: the two halves of the
+    # mixed widths (the width cycle repeats, so their widths match), each
+    # closed by the 1,200-column request the engine splits across waves.
+    sides = {"before": small[:half] + [big], "after": small[half:] + [big]}
+    reqs_before = [R.engine.SpMMRequest(i, p)
+                   for i, p in enumerate(sides["before"])]
+    req_inflight = R.engine.SpMMRequest(len(reqs_before), small[0])
+    reqs_after = [R.engine.SpMMRequest(len(reqs_before) + 1 + i, p)
+                  for i, p in enumerate(sides["after"])]
+    reqs = reqs_before + [req_inflight] + reqs_after
+
+    _zero_every_count(R)
+    eng = R.engine.SpMMEngine(l1, max_wave_cols=512)
+    for r in reqs_before:
+        eng.submit(r)
+    eng.run()
+    waves_before = eng.stats["waves"]
+    # the due step of a schedule that lands on the target at once
+    cb = R.trainer.make_prune_callback(R.pattern.PruneSchedule(
+        LIFECYCLE_DENSITY[fmt], 1, warmup_frac=0.0))
+    t0 = time.perf_counter()
+    info = cb(1, torch.nn.ModuleDict({"l1": l1}), state)
+    torch.cuda.synchronize()
+    repack_s = time.perf_counter() - t0
+    check(info is not None and info["layers"] == 1 and
+          l1.pattern.version == version_old + 1,
+          f"lifecycle {fmt}: one effective repack of l1, got {info}")
+    # a wave launched before the swap keeps the operand it launched with
+    eng.submit(req_inflight)
+    eng.step(retire=False)
+    inflight = {r.rid for r in eng._inflight.items}
+    check(inflight == {req_inflight.rid}, f"lifecycle {fmt}: request "
+          f"{req_inflight.rid} in flight at the swap, got {inflight}")
+    old_op = eng.prep
+    t0 = time.perf_counter()
+    eng.swap_pattern(l1)
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    check(eng.pattern_version == l1.pattern.version and
+          eng.stats["pattern_swaps"] == 1,
+          f"lifecycle {fmt}: the engine records pattern "
+          f"v{l1.pattern.version}, has v{eng.pattern_version}")
+    for r in reqs_after:
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    serve_counts = {k: v for k, v in _every_count(R).items() if v}
+    check(len(eng.finished) == len(reqs) and all(r.done for r in reqs),
+          f"lifecycle {fmt}: every request served")
+    check(serve_counts == {kname: eng.stats["waves"]}, f"lifecycle {fmt}: "
+          f"one launch of {kname} a wave, {serve_counts} for "
+          f"{eng.stats['waves']} waves")
+    w_new = torch.from_numpy(l1.to_dense()).to("cuda").double()
+    mask_new = torch.from_numpy(l1.pattern.mask).to("cuda")
+    worst = {"old": 0.0, "new": 0.0}
+    for r in reqs:
+        which = "old" if r.rid <= req_inflight.rid else "new"
+        want = (w_old if which == "old" else w_new).T @ torch.from_numpy(
+            r.b).to("cuda").double()
+        got = torch.from_numpy(r.out).to("cuda")
+        check(tuple(got.shape) == tuple(want.shape) and
+              bool(torch.isfinite(got).all()),
+              f"lifecycle {fmt} request {r.rid} finite, right shape")
+        cmax = max(float(want.abs().max()), 1e-30)
+        err = float((got.double() - want).abs().max())
+        check(err <= SERVE_TOL * cmax, f"lifecycle {fmt} request {r.rid} "
+              f"({which} weight): {err} > {SERVE_TOL} * {cmax}")
+        worst[which] = max(worst[which], err / cmax)
+    # the repack: survivors carried over exactly, pruned slots gone
+    check(bool((mask_new <= mask_old).all()) and
+          bool((w_new[mask_new] == w_old[mask_new]).all()) and
+          bool((w_new[~mask_new] == 0).all()),
+          f"lifecycle {fmt}: surviving values carried over, pruned slots "
+          f"absent from the new values")
+    pruned = int((mask_old & ~mask_new).sum())
+    del w_old, w_new, mask_old, mask_new
+    check(eng.stats["waves"] - waves_before - 1 == waves_before,
+          f"lifecycle {fmt}: like traffic packs into as many waves on both "
+          f"sides of the swap, {waves_before} and "
+          f"{eng.stats['waves'] - waves_before - 1}")
+    lat = {"before": _latency_ms(reqs_before),
+           "after": _latency_ms(reqs_after)}
+    walls = [w * 1e3 for w in eng._wave_wall_s]
+    wave_ms = {"before": statistics.median(walls[:waves_before]),
+               "after": statistics.median(walls[waves_before + 1:])}
+    # The kernel on the operands the swap moved between (the repacked
+    # ones no earlier phase gave it) against its plain version on one
+    # 512-column panel, and timed; the training steps below run l1's
+    # forward on the repacked operand too. These launches are outside
+    # the counted path.
+    flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
+    panel = torch.from_numpy(np.concatenate(small, axis=1)[:, :512]).to(
+        "cuda")
+    operands = _served_operands(torch, R, fmt,
+                                {"before": old_op, "after": eng.prep},
+                                panel, flush)
+    del flush, panel
+    # where a wave's time goes on either side of the swap: the same
+    # traffic served by a fresh engine over each side's operand
+    for side, op in (("before", old_op), ("after", eng.prep)):
+        phase_profile(torch, R.engine, op, l1.d_in,
+                      workload=f"lifecycle granite W_up, {side} the swap",
+                      fmt=fmt, kernel_keys=("expand_kernel",)
+                      if fmt == "incrs" else ("bsr_kernel", "bsrsrc"))
+    del old_op
+
+    t0 = time.perf_counter()
+    grad_err = R.ex.grad_errors(model, x, y)        # float64, new live set
+    oracle_s = time.perf_counter() - t0
+    for k, err in grad_err.items():
+        check(err <= GRAD_TOL, f"lifecycle {fmt}: {k} off float64 by {err} "
+              f"> {GRAD_TOL} of its max")
+    _zero_every_count(R)
+    losses, timing, state = _timed_steps(torch, R, cfg, model, state, x, y,
+                                         LIFECYCLE_STEPS)
+    step_counts = {k: v for k, v in _every_count(R).items() if v}
+    check(step_counts == {kname: TRAIN_LAUNCHES * LIFECYCLE_STEPS},
+          f"lifecycle {fmt}: {TRAIN_LAUNCHES} launches of {kname} a step "
+          f"and no other kernel, got {step_counts}")
+    with torch.no_grad():
+        final = float(R.ex.mlp_loss(model, x, y))
+    check(all(np.isfinite(losses)) and np.isfinite(final),
+          f"lifecycle {fmt}: finite losses {losses} -> {final}")
+    if fmt == "incrs":
+        check(final <= loss_before, f"lifecycle {fmt}: loss {final} after "
+              f"the repack and {LIFECYCLE_STEPS} steps above its value "
+              f"{loss_before} before the repack")
+    else:
+        # Halving the live blocks of a trained bsr layer costs more loss
+        # than 2 steps win back, so it is held to training on: the loss
+        # falls from its value just after the repack.
+        check(final < losses[0], f"lifecycle {fmt}: loss not falling on "
+              f"the new pattern, {losses} -> {final}")
+    frozen = _frozen_slots(torch, R, fmt, model)
+    peak = torch.cuda.max_memory_allocated()
+    launches = eng.stats["waves"] + step_counts.get(kname, 0)
+    emit({"phase": "lifecycle", "format": fmt, "model": "granite-34b MLP",
+          "layer": "l1 (W_up)", "density": [nnz_old / (l1.d_in * l1.d_out),
+                                            l1.density],
+          "nnz": [nnz_old, l1.nnz], "pruned": pruned,
+          "version": l1.pattern.version, "repack_s": repack_s,
+          "swap_ms": swap_ms, "repack_info": info,
+          "values_shape": list(l1.values.shape),
+          "requests": [len(reqs_before), len(reqs_after)],
+          "columns": [sum(p.shape[1] for p in sides[k])
+                      for k in ("before", "after")],
+          "waves": [waves_before, eng.stats["waves"] - waves_before - 1],
+          "inflight_at_swap": sorted(inflight),
+          "latency_ms": lat, "wave_ms_p50": wave_ms, "wave_ms": walls,
+          "operands_512": operands, "max_rel_err": worst,
+          "serve_launches": serve_counts, "oracle_s": oracle_s,
+          "grad_err_f64": grad_err, "loss_before_repack": loss_before,
+          "losses": losses, "final_loss": final,
+          "step_median_before": h["step_median"],
+          "step_median_after": {k: statistics.median(v)
+                                for k, v in timing.items()},
+          "step_times": timing, "step_launches": step_counts,
+          "frozen_slots": frozen, "peak_memory_bytes": peak,
+          "train_peak_memory_bytes": h["peak_memory_bytes"]})
+    del eng
+    return kname, launches, {k: {f: v[f] for f in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        for k, v in operands.items()}
+
+
+# ----------------------------------------------------------------------
+# The crs plan: granite-34b's W_up^T at phase train's density times top-5 %
+# activations (the regime of examples/spgemm_activations.py), through each
+# route; then mesh-docword4's bound plan beside ops.spmm(A, A).
+CRS_PLAN = {"density": 0.1, "rounds": 128, "tokens": 512, "keep": 307,
+            "seed": 21}
+CRS_ROUTES = {None: {"index_match_spmm": 1},
+              "crs": {"spgemm_condense": 1, "spgemm_merge": 1},
+              "incrs": {"spgemm_condense": 1, "spgemm_merge": 1}}
+CRS_CALLS = 2            # the first call preps the RHS; the second hits
+CRS_TOL = 1e-4           # |C - C64| <= CRS_TOL * (1 + |C64|) elementwise
+DOCWORD_CALLS = 5
+
+
+def _top_k_rows(R, x, k):
+    """CRS of x (T, K) keeping each row's k largest |x|: top-k
+    activations as a sparse B^T."""
+    t, kk = x.shape
+    keep = np.sort(np.argpartition(-np.abs(x), k - 1, axis=1)[:, :k],
+                   axis=1)
+    vals = np.take_along_axis(x, keep, axis=1)
+    return R.CRS(vals.reshape(-1).astype(np.float32),
+                 keep.reshape(-1).astype(np.int32),
+                 np.arange(t + 1, dtype=np.int64) * k, (t, kk))
+
+
+def _timed_call(torch, fn):
+    """``fn()`` with its wall split: the host until it returned, the card
+    from before the call to its last launch's end, the CPU time."""
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    cpu0 = time.process_time()
+    t0 = time.perf_counter()
+    ev0.record()
+    out = fn()
+    ev1.record()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return out, {"wall_ms": (t2 - t0) * 1e3, "host_ms": (t1 - t0) * 1e3,
+                 "device_span_ms": ev0.elapsed_time(ev1),
+                 "cpu_ms": (time.process_time() - cpu0) * 1e3}
+
+
+def _c64_host(pattern, values, bt):
+    """float64 C = A @ Bt^T on the host (scipy.sparse), A's values at the
+    plan's slots in row-major order; and A's CSR row pointer and column
+    indices."""
+    import scipy.sparse as sp
+    mask_a = np.ascontiguousarray(pattern.mask.T)
+    m, k = mask_a.shape
+    indptr = np.zeros(m + 1, np.int64)
+    indptr[1:] = np.cumsum(mask_a.sum(axis=1))
+    cols = np.nonzero(mask_a)[1]
+    a64 = sp.csr_matrix((values.astype(np.float64), cols, indptr),
+                        shape=(m, k))
+    b64 = sp.csr_matrix((bt.values.astype(np.float64), bt.col_idx,
+                         bt.row_ptr), shape=bt.shape)
+    return (a64 @ b64.T).toarray(), indptr, cols
+
+
+def phase_crs_plan(torch, R):
+    """granite-34b's W_up^T (24576 x 6144, density 0.1) planned once by
+    ``plan_for_operand(..., SparseSpec("crs", ...))``, times B^T = top-5 %
+    activations over 512 token rows: the plan's host time, then each route
+    (index matching; condense + merge for a crs and an InCRS B^T) called
+    twice, the second a memo hit of the RHS prep, every C against float64
+    on the host and condense + merge bitwise equal to index matching;
+    counters zeroed just before and read just after. Then each kernel on
+    the plan's operands against its plain version, and timed beside the
+    bound and a library call. Returns the rows' additions."""
+    g, t = CRS_PLAN, TRAIN
+    a = (torch.randn((t["d_ff"], t["d_model"]), generator=torch.Generator()
+                     .manual_seed(g["seed"])) * t["scale"]).numpy()
+    x = np.random.default_rng(g["seed"]).standard_normal(
+        (g["tokens"], t["d_model"])).astype(np.float32)
+    bt = _top_k_rows(R, x, g["keep"])
+    inc_bt = R.InCRS.from_crs(bt)
+    host = {}
+    t0 = time.perf_counter()
+    base = R.api.plan_for_operand(a, R.api.SparseSpec(
+        "crs", density=g["density"], rounds=g["rounds"]), device="cuda")
+    torch.cuda.synchronize()
+    host["plan_for_operand_ms"] = (time.perf_counter() - t0) * 1e3
+    del a
+    pat = base.pattern
+    t0 = time.perf_counter()
+    R.api._crs_plan_meta(pat, g["rounds"])
+    host["crs_plan_meta_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    base.plan.bind(base.values)
+    torch.cuda.synchronize()
+    host["bind_ms"] = (time.perf_counter() - t0) * 1e3
+    plans = {None: base}
+    for f in ("crs", "incrs"):
+        t0 = time.perf_counter()
+        plans[f] = R.api.plan(R.api.SparseSpec(
+            "crs", pattern=pat, rounds=g["rounds"], rhs_format=f)).bind(
+                base.values)
+        torch.cuda.synchronize()
+        host[f"plan_and_bind_{f}_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    c64, indptr, cols = _c64_host(pat, base.values.cpu().numpy(), bt)
+    oracle_s = time.perf_counter() - t0
+    ref = torch.from_numpy(c64).to("cuda")
+    del c64
+    m, n = t["d_ff"], g["tokens"]
+
+    _zero_every_count(R)
+    outs, calls, errs = {}, {}, {}
+    for f, bound in plans.items():
+        rhs = inc_bt if f == "incrs" else bt
+        before = _every_count(R)
+        runs = []
+        for _ in range(CRS_CALLS):
+            out, timing = _timed_call(torch, lambda: bound(rhs))
+            runs.append(timing)
+        moved = {k: v - before[k] for k, v in _every_count(R).items()
+                 if v != before[k]}
+        want = {k: CRS_CALLS * v for k, v in CRS_ROUTES[f].items()}
+        check(moved == want, f"crs plan rhs_format={f}: launches {moved} "
+              f"are {want}")
+        check(tuple(out.shape) == (m, n) and out.dtype == torch.float32 and
+              bool(torch.isfinite(out).all()),
+              f"crs plan rhs_format={f}: finite f32 ({m}, {n})")
+        diff = (out.double() - ref).abs()
+        check(bool((diff <= CRS_TOL * (1 + ref.abs())).all()),
+              f"crs plan rhs_format={f}: max|C - C64| {float(diff.max())} "
+              f"over {CRS_TOL} (rtol = atol)")
+        errs[str(f)] = float(diff.max())
+        outs[f] = out
+        calls[str(f)] = runs
+    counts = {k: v for k, v in _every_count(R).items() if v}
+    for f in ("crs", "incrs"):
+        check(torch.equal(outs[f], outs[None]), f"crs plan: condense + merge "
+              f"(rhs_format={f}) bitwise equal to index matching")
+    c_max = float(ref.abs().max())
+    del outs, ref
+
+    # each kernel on the plan's operands, as the plan launches them
+    ai, av = base._ready
+    bi, bv = R.api._rhs_rounds_prep(base.plan.meta, bt, ai.device)
+    ai, av, bi, bv = R.ops.pad_common_rmax(ai, av, bi, bv)
+    kerr, instances = _check_match(torch, R, ai, av, bi, bv,
+                                   rounds=g["rounds"], bm=128,
+                                   label="granite W_up^T crs plan")
+    flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
+    kw = dict(rounds=g["rounds"], bm=128, bn=128)
+    pairs = int((np.bincount(cols, minlength=t["d_model"]) *
+                 np.bincount(bt.col_idx, minlength=t["d_model"])).sum())
+    stripe_bytes = 4 * ai.shape[1] * ai.shape[0] * bi.shape[0]
+    stripes = R.SK.spgemm_condense(ai, av, bi, bv, **kw)
+    work = {"index_match_spmm": _match_work(ai, bi, pairs, m, False, n=n),
+            "spgemm_condense": _match_work(ai, bi, pairs, m, True),
+            "spgemm_merge": _merge_work(stripes)}
+    runs = {
+        "index_match_spmm": (
+            lambda: R.IM.index_match_spmm(ai, av, bi, bv, **kw),
+            lambda: R.IM.plain(ai, av, bi, bv, **kw)),
+        "spgemm_condense": (
+            lambda: R.SK.spgemm_condense(ai, av, bi, bv, **kw),
+            lambda: R.SK.plain_condense(ai, av, bi, bv, **kw)),
+        "spgemm_merge": (
+            lambda: R.SK.spgemm_merge(stripes, bm=128, bn=128),
+            lambda: R.SK.plain_merge(stripes, bm=128, bn=128))}
+    a_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(indptr), torch.from_numpy(cols.astype(np.int64)),
+        base.values.cpu(), size=(m, t["d_model"])).to("cuda")
+    b_dense = torch.from_numpy(bt.to_dense().T.copy()).to("cuda")
+    library = {"index_match_spmm": _time_ms(
+        torch, lambda: torch.sparse.mm(a_csr, b_dense), flush, reps=10),
+        "spgemm_condense": None,
+        "spgemm_merge": _time_ms(torch, lambda: stripes.sum(0), flush)}
+    del a_csr, b_dense
+    rows, line = {}, {}
+    for name, (fn, plain) in runs.items():
+        ms = _time_ms(torch, fn, flush, reps=10)
+        plain_ms = _time_ms(torch, plain, flush, reps=3)
+        nbytes, flops = work[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
+        rows[name] = {"launches": counts.get(name, 0), "ms": ms,
+                      "plain_ms": plain_ms,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations", "library_ms": library[name],
+                      "max_abs_err": kerr[name], "instance": instances[name]}
+        line[name] = dict(rows[name], bytes=nbytes, flops=flops)
+    del stripes, flush
+    emit({"phase": "crs_plan", "workload": "granite-34b W_up^T x top-5% "
+          "activations", "a_shape": [m, t["d_model"]], "nnz": pat.nnz,
+          "rhs_shape": list(bt.shape), "rhs_nnz": bt.nnz,
+          "rounds": g["rounds"], "prep": {"a": list(ai.shape),
+                                          "b": list(bi.shape)},
+          "matched_pairs": pairs, "stripe_bytes": stripe_bytes,
+          "host": host, "oracle_s": oracle_s, "calls": calls,
+          "max_abs_err_f64": errs, "c_max": c_max, "launches": counts,
+          "library": {"index_match_spmm": "torch.sparse.mm(A_csr, B)",
+                      "spgemm_merge": "stripes.sum(0)"},
+          "kernels": line})
+    return rows
+
+
+def phase_crs_plan_docword(torch, R, crs):
+    """mesh-docword4 (Table IV), C = A @ A^T at R = 128 and 32: a bound crs
+    plan's calls (the first preps the RHS, the rest hit its memo) beside
+    ``ops.spmm(A, A)`` through the same engine on the same operands, each
+    bitwise equal to it; walls split as in phase spgemm."""
+    for rounds in (128, 32):
+        t0 = time.perf_counter()
+        ref_plan = R.api.plan_for_operand(crs, R.api.SparseSpec(
+            "crs", rounds=rounds), device="cuda")
+        torch.cuda.synchronize()
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        cm_plan = R.api.plan(R.api.SparseSpec(
+            "crs", pattern=ref_plan.pattern, rounds=rounds,
+            rhs_format="crs")).bind(ref_plan.values)
+        for engine, bound in (("reference", ref_plan),
+                              ("condense_merge", cm_plan)):
+            spmm, plan = [], []
+            for _ in range(DOCWORD_CALLS):
+                want, timing = _timed_call(torch, lambda: R.ops.spmm(
+                    crs, crs, variant=engine, rounds=rounds, device="cuda"))
+                spmm.append(timing)
+            before = _every_count(R)
+            for _ in range(DOCWORD_CALLS):
+                got, timing = _timed_call(torch, lambda: bound(crs))
+                plan.append(timing)
+            moved = {k: v - before[k] for k, v in _every_count(R).items()
+                     if v != before[k]}
+            check(moved == {k: DOCWORD_CALLS for k in
+                            ENGINE_LAUNCHES[engine]},
+                  f"mesh-docword4 crs plan {engine} R={rounds}: launches "
+                  f"{moved}")
+            check(torch.equal(got, want), f"mesh-docword4 crs plan {engine} "
+                  f"R={rounds}: bitwise equal to ops.spmm(A, A)")
+
+            def med(runs, key):
+                return statistics.median(r[key] for r in runs)
+            emit({"phase": "crs_plan_docword", "workload": "mesh-docword4",
+                  "engine": engine, "rounds": rounds, "shape": list(
+                      got.shape), "nnz": crs.nnz, "plan_host_ms": plan_ms,
+                  "plan_first_call": plan[0], "plan_calls": plan,
+                  "spmm_calls": spmm,
+                  "plan_memo_hit_wall_ms_median": med(plan[1:], "wall_ms"),
+                  "spmm_wall_ms_median": med(spmm, "wall_ms"),
+                  "plan_memo_hit_cpu_ms_median": med(plan[1:], "cpu_ms"),
+                  "spmm_cpu_ms_median": med(spmm, "cpu_ms")})
+            del want, got
+        del ref_plan, cm_plan
+        torch.cuda.empty_cache()
+
+
+def crs_plan_path(torch):
+    """Phase crs_plan at granite and at mesh-docword4: the rows'
+    additions."""
+    from repro_torch.configs.paper_spmm import WORKLOADS
+    from repro_torch.data import datasets
+    R = _train_modules()
+    rows = phase_crs_plan(torch, R)
+    torch.cuda.empty_cache()
+    phase_crs_plan_docword(torch, R, datasets.synthesize(
+        WORKLOADS["mesh-docword4"].dataset, seed=0))
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -2782,7 +3388,7 @@ def phase_lm_times(torch, F, errs, launches, by_launcher):
 
 
 def lm_path(torch):
-    """Phases 13-15: the LM serving path and the flash kernel's rows."""
+    """Phases 15-17: the LM serving path and the flash kernel's rows."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as F
     from repro_torch.models import model as M
@@ -2848,11 +3454,21 @@ def main() -> int:
     rows += plan_path(torch, K, ops, engine_mod, table2)
     del table2, docword
     torch.cuda.empty_cache()
-    for kname, launches_train, dx in train_path(torch).values():
+    for (kname, launches_train, dx), (_, launches_life, operands) in \
+            train_path(torch).values():
         r = next(r for r in rows if r["name"] == kname)
         r["launches_by_path"]["train"] = launches_train
-        r["launches"] += launches_train
+        r["launches_by_path"]["lifecycle"] = launches_life
+        r["launches"] += launches_train + launches_life
         r["train_dx"] = dx
+        r["lifecycle_512"] = operands
+    for kname, add in crs_plan_path(torch).items():
+        r = next(r for r in rows if r["name"] == kname)
+        r.setdefault("launches_by_path", {"spgemm": r["launches"]})[
+            "crs_plan"] = add["launches"]
+        r["launches"] += add["launches"]
+        r["crs_plan"] = {k: v for k, v in add.items() if k != "launches"}
+    torch.cuda.empty_cache()
     rows += lm_path(torch)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)

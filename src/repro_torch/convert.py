@@ -96,6 +96,16 @@ def bsr_from_arrays(values, col_idx, row_ptr, shape: Tuple[int, int],
                (m, k), (bm, bk))
 
 
+def pattern_from_jax(pattern):
+    """The port's ``SparsityPattern`` from a JAX one (or anything with a
+    ``mask`` and a ``version``): the element mask and the version, so the
+    two lineages repack to the same versions. The ``uid`` is the port's
+    own."""
+    from .sparse.pattern import SparsityPattern
+    return SparsityPattern(np.array(pattern.mask, bool),
+                           int(pattern.version))
+
+
 _BSR_META_TUPLES = ("row_of", "col_of", "vpos", "t_perm", "t_row_of",
                     "t_col_of", "t_vpos")
 
@@ -110,8 +120,9 @@ def linear_from_jax(values, meta_fields: Dict[str, Any], fmt: str, *,
     meta's fields (``dataclasses.asdict``-style, tuples as lists, the
     InCRS stripe indices ``fwd_idx``/``bwd_idx``/``t_gather`` as arrays)
     with the pattern given as ``"mask"`` (its element mask, or None) and
-    optional ``"version"``. Both packages then compute the same C and the
-    same gradients."""
+    optional ``"version"``, or as ``"pattern"``, the JAX pattern itself
+    (``pattern_from_jax``). Both packages then compute the same C and the
+    same gradients, and a repack of either gives the same version."""
     from .sparse import api, linear
     from .sparse.pattern import SparsityPattern
     if fmt not in ("incrs", "bsr", "dense"):
@@ -120,9 +131,12 @@ def linear_from_jax(values, meta_fields: Dict[str, Any], fmt: str, *,
     meta_fields = dict(meta_fields)
     mask = meta_fields.pop("mask", None)
     version = int(meta_fields.pop("version", 0))
-    meta_fields.pop("pattern", None)
-    pattern: Optional[SparsityPattern] = None if mask is None else \
-        SparsityPattern(np.asarray(mask, bool), version)
+    jax_pattern = meta_fields.pop("pattern", None)
+    pattern: Optional[SparsityPattern] = None
+    if mask is not None:
+        pattern = SparsityPattern(np.asarray(mask, bool), version)
+    elif jax_pattern is not None:
+        pattern = pattern_from_jax(jax_pattern)
     dev = resolve_device(device)
     vals = torch.from_numpy(np.array(values)).to(dev)
     if fmt == "incrs":

@@ -4,7 +4,9 @@ The port of ``repro.kernels.ops``, all but its row-sharded and tuning
 parts and its deprecated shims. ``prep_sections``
 turns an InCRS operand into the padded per-(row, section) stripes the
 kernels consume, located through the packed counter words alone;
-``prepare_incrs`` memoizes that per live operand; ``spmm`` pads B, picks
+``prepare_incrs`` memoizes that per live operand, or per pattern version
+(``prepare_versioned``: a repack's version bump, or a rebuilt source
+object, misses); ``spmm`` pads B, picks
 the column tile and the grid order, and trims the result.
 ``prep_rounds`` turns a CRS operand into padded per-round rows, and
 ``spmm(CRS, CRS | InCRS)`` runs sparse × sparse C = A @ B.T through one of
@@ -228,13 +230,25 @@ _PREP_CACHE: Dict[Tuple, Tuple[weakref.ref, PreparedOperand]] = {}
 _PREP_CACHE_MAX = 64
 
 
-def prepare_incrs(incrs: InCRS, *, pad_rows_to: int = 128,
+def prepare_incrs(incrs: InCRS, *, pad_rows_to: int = 128, pattern=None,
                   device=None) -> PreparedOperand:
     """Prep an InCRS operand for the fused SpMM, memoized per live operand
     and device (LRU, at most ``_PREP_CACHE_MAX`` entries). The operand is
     treated as immutable once prepped: after mutating ``incrs.crs`` in
-    place, call ``invalidate_prepared``."""
+    place, call ``invalidate_prepared``.
+
+    ``pattern`` (a ``sparse.SparsityPattern``) keys the memo on the
+    pattern lineage instead, guarded by its version AND this InCRS
+    object's identity (``prepare_versioned``)."""
     dev = resolve_device(device)
+    if pattern is not None:
+        return prepare_versioned(
+            pattern,
+            f"incrs/{incrs.section}/{incrs.block}/{pad_rows_to}/{dev}",
+            lambda: PreparedOperand(
+                *prep_sections(incrs, pad_rows_to=pad_rows_to, device=dev),
+                incrs.shape, incrs.section),
+            token=incrs)
     key = (id(incrs), incrs.section, incrs.block, pad_rows_to, str(dev))
     hit = _PREP_CACHE.get(key)
     if hit is not None and hit[0]() is incrs:
@@ -254,6 +268,44 @@ def invalidate_prepared(incrs: InCRS) -> None:
     """Evict every cached ``PreparedOperand`` of ``incrs``."""
     for k in [k for k in _PREP_CACHE if k[0] == id(incrs)]:
         _PREP_CACHE.pop(k, None)
+
+
+# Pattern-version-keyed prep: entries belong to a sparsity-pattern lineage
+# (any object with ``uid`` and ``version``), keyed ``(uid, flavor)``; the
+# flavor names what was built and on which device. A repack bumps the
+# version, so the next lookup rebuilds. An optional ``token`` (the source
+# object) also guards identity: values change WITHOUT a version bump while
+# training on a fixed pattern, so a rebuilt source must miss.
+_VERSIONED_CACHE: Dict[Tuple[int, str], Tuple[int, object, object]] = {}
+_VERSIONED_CACHE_MAX = 32
+
+
+def prepare_versioned(pattern, flavor: str, build, token=None):
+    """Memoize ``build()`` under ``(pattern.uid, flavor)``, guarded by
+    ``pattern.version`` and (when given) the identity of the live object
+    ``token``: a version mismatch or a different or dead token rebuilds
+    and replaces the entry. LRU, at most ``_VERSIONED_CACHE_MAX``
+    entries."""
+    key = (pattern.uid, str(flavor))
+    hit = _VERSIONED_CACHE.get(key)
+    if hit is not None and hit[0] == pattern.version and \
+            (hit[1] is None or hit[1]() is token):
+        _VERSIONED_CACHE[key] = _VERSIONED_CACHE.pop(key)   # LRU promote
+        return hit[2]
+    prep = build()
+    _VERSIONED_CACHE.pop(key, None)
+    if len(_VERSIONED_CACHE) >= _VERSIONED_CACHE_MAX:
+        _VERSIONED_CACHE.pop(next(iter(_VERSIONED_CACHE)))
+    _VERSIONED_CACHE[key] = (
+        pattern.version, weakref.ref(token) if token is not None else None,
+        prep)
+    return prep
+
+
+def invalidate_pattern(pattern) -> None:
+    """Drop every versioned prep entry of ``pattern``'s lineage."""
+    for k in [k for k in _VERSIONED_CACHE if k[0] == pattern.uid]:
+        _VERSIONED_CACHE.pop(k, None)
 
 
 # ----------------------------------------------------------------------

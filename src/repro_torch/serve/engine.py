@@ -9,7 +9,10 @@ or more prefills through the flash kernel.
 ``SpMMEngine`` is the paper's own workload as a service, one fixed sparse
 operand A and a queue of dense right-hand sides to multiply against it. A
 is an InCRS operand (the fused InCRS kernels) or a bound plan of the
-plan–execute API (``bsr`` or ``dense``, one kernel launch per wave each).
+plan–execute API (``incrs``, ``bsr`` or ``dense``, one kernel launch per
+wave each). ``swap_pattern`` replaces A between waves, for instance with
+a re-pruned layer (``sparse.magnitude_repack``), and records its
+pattern's version.
 Requests are packed into waves (``serve.scheduler``), each wave is staged
 on the host, launched, and retired, with the host prep of wave N+1 done
 while wave N computes.
@@ -308,6 +311,10 @@ class SpMMEngine:
                 "pass a sparse.Linear / its .bound())")
         if isinstance(a, api.Linear):
             a = a.bound()
+        if isinstance(a, api.BoundPlan) and a.plan.spec.format == "crs":
+            raise ValueError(
+                "a crs plan multiplies by a sparse B^T (CRS); the engine "
+                "streams dense right-hand sides — call the plan directly")
         if isinstance(a, (ops.PreparedOperand, api.BoundPlan)):
             if a.device != self.device:
                 raise ValueError(f"operand lives on {a.device}, the engine "
@@ -324,10 +331,16 @@ class SpMMEngine:
     # ------------------------------------------------------------------
     def swap_pattern(self, a) -> None:
         """Hot-swap the serving operand between waves, across formats
-        (InCRS, ``bsr`` and ``dense`` plans replace each other freely). The
-        new operand's shape must match the current one; a rejected swap
-        (ValueError) leaves the engine serving the OLD operand. An
-        in-flight wave keeps the operand it was launched with."""
+        (InCRS, ``incrs``, ``bsr`` and ``dense`` plans replace each other
+        freely): deploy a re-pruned layer (``sparse.magnitude_repack``) into
+        the running engine. ``a`` takes what the constructor takes; a
+        layer's or plan's pattern version is recorded in
+        ``pattern_version``. The new operand's shape must match the
+        current one; a rejected swap (ValueError) leaves the engine
+        serving the OLD operand. An in-flight wave keeps the operand it
+        was launched with. The launch checks JAX runs here first
+        (``_check_feasible``) are not ported yet (ROADMAP queue 1 item
+        10)."""
         new_a, new_prep, new_version = self._build_operand(a)
         if tuple(new_prep.shape) != tuple(self.prep.shape):
             raise ValueError(

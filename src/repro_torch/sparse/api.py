@@ -1,5 +1,5 @@
 """One front door: ``SparseSpec`` -> ``plan`` -> execute, for ``incrs``,
-``bsr`` and ``dense``.
+``bsr``, ``dense`` and ``crs``.
 
 The port of ``repro.sparse.api``, single-device. A ``SparseSpec`` names
 WHAT the sparse operand looks like (format x selection x geometry);
@@ -7,6 +7,14 @@ WHAT the sparse operand looks like (format x selection x geometry);
 metadata is built once; ``MatmulPlan.bind(values)`` gives a ``BoundPlan``,
 the self-contained serving operand ``serve.SpMMEngine`` runs wave after
 wave: ``bound(B)`` is C = A @ B with A = W^T.
+
+A ``crs`` plan is the sparse x sparse product of the paper's Alg. 2,
+plan–execute only: C = A @ B^T for a streamed CRS (or InCRS) B^T. The
+plan groups A's non-zeros into per-round rows once (``ai`` and the slot
+of each non-zero, ``scatter``); binding scatters the values into that
+slot array on the device; a call preps only the right-hand side (memoized
+per live object) and runs index matching (``rhs_format`` None or
+``"dense"``) or condense + merge (``"crs"``/``"incrs"``).
 
 ``Linear`` is the layer face: an ``nn.Module`` whose only ``Parameter``
 is ``values``, built by ``Linear.from_dense``/``Linear.init`` under a
@@ -18,18 +26,20 @@ JAX package leaves it to XLA), and its backward pass the family's VJP
 What binding does once, so that a wave does no host work: the stripe
 operand of ``incrs`` (its indices on the values' device), the device
 index lists of the BSR kernel (kept on the meta), the values scattered
-into the zero-tile-padded slot list, and the dense A = W^T made
-contiguous on the device. An ``incrs`` plan reaches only the fused InCRS
-kernel, a ``bsr`` plan only the BSR kernel and a ``dense`` plan only the
-dense kernel.
+into the zero-tile-padded slot list, the dense A = W^T made contiguous
+on the device, and for ``crs`` the round indices on the device and the
+values scattered into their round slots. An ``incrs`` plan reaches only
+the fused InCRS kernel, a ``bsr`` plan only the BSR kernel, a ``dense``
+plan only the dense kernel and a ``crs`` plan only index matching or
+condense + merge.
 
-Not ported yet: the ``crs`` format in ``plan`` (ROADMAP queue 1 item
-5), row-sharding (``mesh``, item 8), the TPU tuning members of
-``MatmulPlan`` (items 9-10) and the lifecycle (``repack``, item 5).
+Not ported yet: row-sharding (``mesh``, ROADMAP queue 1 item 8) and the
+TPU tuning members of ``MatmulPlan`` (items 9-10).
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -46,12 +56,6 @@ from .pattern import (FamilyOps, SparsityPattern, _FAMILIES,
 
 FORMATS = ("dense", "bsr", "crs", "incrs")
 
-_NOT_PORTED = {
-    "crs": "the crs plan (CRSPlanMeta and the rhs_format route) is not "
-           "ported yet (ROADMAP queue 1 item 5, its open part); run "
-           "ops.spmm(a_crs, bt_crs) or spgemm.spgemm",
-}
-
 
 # ----------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -59,8 +63,7 @@ class SparseSpec:
     """WHAT one sparse operand looks like.
 
     ``format``    one of ``dense`` | ``bsr`` | ``crs`` | ``incrs``, always
-                  given (``crs`` does not plan in the port yet: it
-                  raises).
+                  given.
     selection     at most one of ``density`` (magnitude, one global
                   threshold), ``mask`` (explicit element mask of W — kept
                   slots stay live even at value 0.0), ``pattern`` (an
@@ -68,8 +71,11 @@ class SparseSpec:
                   like ``"2:4"``. Nothing set -> keep the non-zeros.
     geometry      ``section``/``block`` for InCRS stripes (defaults
                   ``core.incrs.S_DEFAULT``/``B_DEFAULT``); ``block`` is the
-                  tile side for ``bsr``. The crs geometry (``rounds``,
-                  ``rhs_format``) comes with that format's plan.
+                  tile side for ``bsr``, ``rounds`` the index-matching
+                  window for ``crs``. ``rhs_format`` (crs only) declares
+                  the streamed right-hand side sparse too (``"crs"`` or
+                  ``"incrs"``): a call then runs condense + merge instead
+                  of index matching.
     ``mesh``      row-sharding is not ported: setting it raises.
 
     ``eq=False`` -> identity hash/eq. Derive variants with
@@ -82,12 +88,23 @@ class SparseSpec:
     policy: str = "magnitude"
     section: Optional[int] = None
     block: Optional[int] = None
+    rounds: int = 128
     mesh: Any = None
+    rhs_format: Optional[str] = None
 
     def __post_init__(self):
         if self.format not in FORMATS:
             raise ValueError(f"format must be one of {FORMATS}, "
                              f"got {self.format!r}")
+        if self.rhs_format is not None:
+            if self.rhs_format not in ("dense", "crs", "incrs"):
+                raise ValueError(f"rhs_format must be None, 'dense', 'crs' "
+                                 f"or 'incrs', got {self.rhs_format!r}")
+            if self.rhs_format != "dense" and self.format != "crs":
+                raise ValueError(
+                    f"a sparse rhs_format ({self.rhs_format!r}) is the "
+                    f"SpGEMM path and needs format='crs' (both operands "
+                    f"sparse); format {self.format!r} streams a dense RHS")
         n_sel = sum(x is not None
                     for x in (self.density, self.mask, self.pattern))
         if n_sel > 1:
@@ -171,8 +188,152 @@ def _make_dense(w, spec: SparseSpec, dtype=torch.float32,
                              DenseLinearMeta(*w.shape, pattern=pat))
 
 
-register_family(DenseLinearParams, FamilyOps("dense",
-                                             to_dense=_dense_to_dense))
+def _dense_pack_values(meta: DenseLinearMeta, w) -> np.ndarray:
+    w = np.asarray(w, np.float32)
+    return np.where(meta.pattern.mask, w, np.float32(0.0)) \
+        if meta.pattern is not None else w
+
+
+def _dense_repack(w, pat: SparsityPattern,
+                  like: DenseLinearParams) -> DenseLinearParams:
+    meta = DenseLinearMeta(like.meta.d_in, like.meta.d_out, pattern=pat)
+    values = torch.from_numpy(np.ascontiguousarray(
+        _dense_pack_values(meta, w)))
+    return DenseLinearParams(values.to(device=like.values.device,
+                                       dtype=like.values.dtype), meta)
+
+
+register_family(DenseLinearParams, FamilyOps(
+    "dense",
+    to_dense=_dense_to_dense,
+    pack=_dense_repack,
+    pack_values=_dense_pack_values,
+    default_mask=lambda w, d, n: magnitude_mask(w, d)))
+
+
+# ----------------------------------------------------------------------
+# Index-matching (crs) plan metadata: the fixed sparse operand A is
+# round-prepped ONCE; per call only the streamed CRS right-hand side pays
+# prep. No trainable layer — plan–execute only.
+@dataclasses.dataclass(eq=False)
+class CRSPlanMeta:
+    ai: torch.Tensor          # (Mp, n_rounds, rmax) int32 round indices
+    scatter: torch.Tensor     # (nnz,) int32 flat slots of the val array, in
+    #                           A's row-major non-zero order
+    shape: Tuple[int, int]    # (M, K) of A
+    rounds: int
+    pattern: Any = None
+    rhs_format: Optional[str] = None   # None/dense -> index matching;
+    #                                    "crs"/"incrs" -> condense + merge
+    # (id of a live RHS CRS, device) -> (weakref, its round prep): each
+    # streamed RHS pays prep once
+    _rhs_prep: Dict = dataclasses.field(default_factory=dict, repr=False)
+    # device -> (ai, int64 scatter) on it, made once
+    _device: Dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def device_index(self, device: torch.device
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        hit = self._device.get(str(device))
+        if hit is None:
+            hit = self._device[str(device)] = (
+                self.ai.to(device), self.scatter.to(device, torch.int64))
+        return hit
+
+
+_RHS_PREP_MAX = 8
+
+
+def _rhs_rounds_prep(meta: CRSPlanMeta, b: CRS, device: torch.device):
+    """B^T's round prep on ``device``, memoized per live RHS object (a
+    weakref guards against a recycled id; at most ``_RHS_PREP_MAX``
+    entries, the oldest evicted first)."""
+    key = (id(b), str(device))
+    hit = meta._rhs_prep.get(key)
+    if hit is not None and hit[0]() is b:
+        return hit[1]
+    prep = ops.prep_rounds(b, meta.rounds, pad_rows_to=128, device=device)
+    if len(meta._rhs_prep) >= _RHS_PREP_MAX:
+        meta._rhs_prep.pop(next(iter(meta._rhs_prep)))
+    meta._rhs_prep[key] = (weakref.ref(b), prep)
+    return prep
+
+
+def _crs_plan_meta(pat: SparsityPattern, rounds: int,
+                   rhs_format: Optional[str] = None) -> CRSPlanMeta:
+    """A = W^T's round indices, and the flat (row, round, slot) cell of
+    each of its non-zeros in row-major order: ``ops.prep_rounds``' slot
+    arithmetic (rows padded to 128, rmax = the densest window, at most
+    R), on the mask's non-zeros alone."""
+    mask_a = pat.mask.T                                # A = W^T (M, K)
+    m, k = mask_a.shape
+    rows, cols = np.nonzero(mask_a)                    # row-major order
+    n_rounds = max(1, -(-k // rounds))
+    g = rows.astype(np.int64) * n_rounds + cols // rounds
+    counts = np.bincount(g, minlength=m * n_rounds)
+    rmax = max(1, min(int(counts.max(initial=1)), rounds))
+    group_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    flat = g * rmax + np.arange(g.size, dtype=np.int64) - group_start[g]
+    mp = -(-m // 128) * 128
+    ai = np.full(mp * n_rounds * rmax, -1, np.int32)
+    ai[flat] = cols % rounds
+    return CRSPlanMeta(torch.from_numpy(ai.reshape(mp, n_rounds, rmax)),
+                       torch.from_numpy(flat.astype(np.int32)), (m, k),
+                       rounds, pattern=pat, rhs_format=rhs_format)
+
+
+def _make_crs(w, spec, dtype=torch.float32, device=None):
+    raise ValueError("format 'crs' (both operands sparse) is plan–execute "
+                     "only — use sparse.plan / ops.spmm(a_crs, bt_crs); "
+                     "there is no trainable crs layer")
+
+
+def _crs_ready(meta: CRSPlanMeta, values: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ai, av) on the values' device: the values scattered into their
+    round slots by one device ``index_put``."""
+    if tuple(values.shape) != tuple(meta.scatter.shape):
+        raise ValueError(f"a crs plan binds one value per slot of its "
+                         f"pattern, {meta.scatter.numel()}; got values of "
+                         f"shape {tuple(values.shape)}")
+    ai, scatter = meta.device_index(values.device)
+    av = torch.zeros(ai.numel(), dtype=torch.float32, device=values.device)
+    av[scatter] = values.detach().to(torch.float32)
+    return ai, av.view(ai.shape)
+
+
+def _crs_call(meta: CRSPlanMeta, ready, b, variant: str = "auto"
+              ) -> torch.Tensor:
+    """C = A @ B^T for a CRS (or InCRS) B^T: index matching, or condense +
+    merge when the plan declares a sparse ``rhs_format``; ``variant=
+    "reference"`` forces index matching. C is (M, N) in the promoted type
+    of the two value tensors."""
+    if variant not in ("auto", "reference"):
+        raise ValueError(f"a crs plan's variant is 'auto' or 'reference', "
+                         f"got {variant!r}")
+    if isinstance(b, InCRS):
+        b = b.crs
+    if not isinstance(b, CRS):
+        raise TypeError("a 'crs' plan runs sparse x sparse C = A @ B^T "
+                        "and needs B^T as a CRS (or InCRS)")
+    if b.shape[1] != meta.shape[1]:
+        raise ValueError(f"inner dims disagree: A is {meta.shape}, "
+                         f"Bt is {b.shape} (expected equal col counts)")
+    ai, av = ready
+    bi, bv = _rhs_rounds_prep(meta, b, ai.device)
+    if meta.rhs_format in ("crs", "incrs") and variant != "reference":
+        from .. import spgemm as _spgemm       # circular at module scope
+        out = _spgemm.condense_merge_prepped(ai, av, bi, bv,
+                                             rounds=meta.rounds)
+    else:
+        out = ops.index_match_prepped(ai, av, bi, bv, rounds=meta.rounds)
+    return out[:meta.shape[0], :b.shape[0]]
+
+
+def _crs_pack(meta: CRSPlanMeta, w) -> np.ndarray:
+    """Dense W (d_in, d_out) -> A = W^T's values at the pattern's slots,
+    in row-major order."""
+    a = np.asarray(w, np.float32).T
+    return np.ascontiguousarray(a[meta.pattern.mask.T])
 
 
 # ----------------------------------------------------------------------
@@ -182,35 +343,48 @@ class FormatAdapter:
     a dense weight, layer apply, plan execution, and spec recovery."""
     name: str
     make: Callable                     # (w, spec, dtype, device) -> params
-    apply: Callable                    # (params, x) -> y
-    call: Callable                     # (meta, ready, b) -> C
+    apply: Optional[Callable]          # (params, x) -> y; None: no layer
+    call: Callable                     # (meta, ready, b[, variant]) -> C
     pack: Callable                     # (meta, w) -> plan values (numpy)
     spec_of: Callable                  # (meta) -> SparseSpec
     plan_values: Callable = lambda inner: inner.values  # layer -> plan vals
     # (meta, values) -> what ``call`` executes with: the device-ready form
     # a BoundPlan builds once, at bind
     ready: Callable = lambda meta, values: values
+    # whether ``call`` takes a ``variant=`` (crs: "auto" or "reference")
+    takes_variant: bool = False
 
 
 _ADAPTERS: Dict[str, FormatAdapter] = {}
 _BY_CLS: Dict[type, FormatAdapter] = {}
 
 
-def register_format(fmt: str, params_cls: type,
+def register_format(fmt: str, params_cls: Optional[type],
                     adapter: FormatAdapter) -> None:
     """The spec registry: consumers (Linear, plans, engines) discover
     formats here instead of per-family isinstance chains."""
     _ADAPTERS[fmt] = adapter
-    _BY_CLS[params_cls] = adapter
+    if params_cls is not None:
+        _BY_CLS[params_cls] = adapter
 
 
 def _adapter(spec: SparseSpec) -> FormatAdapter:
-    """The adapter of ``spec``'s format; the formats not ported yet raise
-    ``NotImplementedError`` naming their ROADMAP item."""
-    if spec.format in _NOT_PORTED:
-        raise NotImplementedError(f"format {spec.format!r}: "
-                                  f"{_NOT_PORTED[spec.format]}")
-    return _ADAPTERS[spec.format]
+    ad = _ADAPTERS.get(spec.format)
+    if ad is None:
+        raise ValueError(f"no kernel family serves format {spec.format!r}")
+    return ad
+
+
+def _execute(spec: SparseSpec, meta, ready, b, variant: Optional[str]):
+    """One call of a plan over its device-ready values; only a format
+    whose ``call`` takes a variant accepts one."""
+    ad = _adapter(spec)
+    if variant is None:
+        return ad.call(meta, ready, b)
+    if not ad.takes_variant:
+        raise ValueError(f"a {spec.format!r} plan runs one kernel and "
+                         f"takes no variant, got {variant!r}")
+    return ad.call(meta, ready, b, variant=variant)
 
 
 def adapter_of(node: Any) -> FormatAdapter:
@@ -331,6 +505,14 @@ register_format("bsr", _lin.SparseLinearParams, FormatAdapter(
                                     pattern=meta.pattern),
     ready=_bsr_ready))
 
+register_format("crs", None, FormatAdapter(
+    "crs",
+    make=_make_crs, apply=None, call=_crs_call, pack=_crs_pack,
+    spec_of=lambda meta: SparseSpec("crs", rounds=meta.rounds,
+                                    pattern=meta.pattern,
+                                    rhs_format=meta.rhs_format),
+    ready=_crs_ready, takes_variant=True))
+
 
 # ----------------------------------------------------------------------
 @dataclasses.dataclass(eq=False)
@@ -340,12 +522,13 @@ class MatmulPlan:
     kernel orientation). ``pack`` turns a dense W (d_in, d_out) into the
     plan's packed values; ``bind`` closes over one values tensor."""
     spec: SparseSpec
-    meta: Any                 # family meta; None for an unmasked dense plan
+    meta: Any                 # family meta; CRSPlanMeta; None for dense
 
-    def __call__(self, values, b):
-        """C = A @ B for ``values`` on their device."""
-        ad = _adapter(self.spec)
-        return ad.call(self.meta, ad.ready(self.meta, values), b)
+    def __call__(self, values, b, *, variant: Optional[str] = None):
+        """C = A @ B for ``values`` on their device (crs: C = A @ B^T for
+        a CRS B^T; ``variant="reference"`` forces index matching)."""
+        ready = _adapter(self.spec).ready(self.meta, values)
+        return _execute(self.spec, self.meta, ready, b, variant)
 
     def pack(self, w) -> np.ndarray:
         """Dense W (d_in, d_out) -> packed plan values (for 'dense' the
@@ -371,6 +554,8 @@ class MatmulPlan:
     def shape(self) -> Optional[Tuple[int, int]]:
         """(M, K) of the sparse operand A = W^T; None for an unpatterned
         dense plan (the bound values carry the shape)."""
+        if isinstance(self.meta, CRSPlanMeta):
+            return self.meta.shape
         if self.meta is not None and hasattr(self.meta, "d_out"):
             return (self.meta.d_out, self.meta.d_in)
         pat = self.pattern
@@ -391,8 +576,10 @@ class BoundPlan:
         self._ready = _adapter(self.plan.spec).ready(self.plan.meta,
                                                      self.values)
 
-    def __call__(self, b) -> torch.Tensor:
-        return _adapter(self.plan.spec).call(self.plan.meta, self._ready, b)
+    def __call__(self, b, *, variant: Optional[str] = None
+                 ) -> torch.Tensor:
+        return _execute(self.plan.spec, self.plan.meta, self._ready, b,
+                        variant)
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -436,6 +623,9 @@ def plan(spec: SparseSpec, rhs_shape: Optional[Tuple[int, ...]] = None
                          f"with K={pat.d_in}")
     spec = dataclasses.replace(spec, density=None, mask=None, pattern=pat,
                                policy="magnitude")
+    if spec.format == "crs":
+        return MatmulPlan(spec, _crs_plan_meta(pat, spec.rounds,
+                                               rhs_format=spec.rhs_format))
     inner = _adapter(spec).make(np.zeros(pat.shape, np.float32), spec,
                                 device="cpu")
     return MatmulPlan(spec, inner.meta)
@@ -466,7 +656,15 @@ def plan_for_operand(a, spec: SparseSpec, *, device=None) -> BoundPlan:
             spec.mask is None and spec.pattern is None and \
             spec.policy == "magnitude":
         spec = dataclasses.replace(spec, mask=np.ascontiguousarray(a != 0).T)
-    return Linear.from_dense(w, spec, device=device).bound()
+    if spec.format == "crs":                   # plan–execute only
+        p = plan(dataclasses.replace(spec, density=None, mask=None,
+                                     pattern=spec.resolve_pattern(w),
+                                     policy="magnitude"))
+        return p.bind(p.pack(w), device=device)
+    lin = Linear.from_dense(w, spec, device=device)
+    # the layer is dropped here, so its values need no copy (``bound()``)
+    return BoundPlan(lin.plan, adapter_of(lin.inner).plan_values(
+        lin.inner).detach())
 
 
 # ----------------------------------------------------------------------
@@ -506,6 +704,17 @@ class Linear(torch.nn.Module):
             w = w.detach().cpu().numpy()
         return cls(_adapter(spec).make(np.asarray(w, np.float32), spec,
                                        dtype=dtype, device=device))
+
+    def set_inner(self, inner) -> None:
+        """Take ``inner`` (a node of the same family, e.g. a repack of
+        this layer's) as the layer: its meta and a new ``values``
+        ``Parameter`` under the same name."""
+        if type(inner) is not self._cls:
+            raise TypeError(f"a {self._cls.__name__} layer cannot take a "
+                            f"{type(inner).__name__}")
+        self.values = torch.nn.Parameter(inner.values.detach(),
+                                         requires_grad=True)
+        self.meta = inner.meta
 
     # -- one apply ------------------------------------------------------
     def forward(self, x):
@@ -550,10 +759,13 @@ class Linear(torch.nn.Module):
         return MatmulPlan(self.spec, self.meta)
 
     def bound(self) -> BoundPlan:
-        """Servable C = A @ B view over the CURRENT values (A = W^T),
-        detached from autograd."""
+        """Servable C = A @ B over a copy of the CURRENT values (A = W^T),
+        detached from autograd: an optimizer step on the layer does not
+        change what the bound plan serves (swap a new ``bound()`` into an
+        engine to deploy it)."""
         ad = adapter_of(self.inner)
-        return BoundPlan(self.plan, ad.plan_values(self.inner).detach())
+        return BoundPlan(self.plan,
+                         ad.plan_values(self.inner).detach().clone())
 
     def to_dense(self, values: Optional[torch.Tensor] = None
                  ) -> np.ndarray:
@@ -573,6 +785,7 @@ def apply(p, x):
 
 __all__ = [
     "FORMATS", "SparseSpec", "MatmulPlan", "BoundPlan", "Linear",
+    "CRSPlanMeta",
     "DenseLinearParams", "DenseLinearMeta", "FormatAdapter",
     "register_format", "adapter_of", "plan", "plan_for_operand", "apply",
 ]

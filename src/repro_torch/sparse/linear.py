@@ -542,8 +542,22 @@ def _incrs_pack_values(meta: InCRSLinearMeta, w: np.ndarray) -> np.ndarray:
     return vals
 
 
+# A repack packs on the device of the old node's values.
 register_family(SparseLinearParams, FamilyOps(
-    "bsr", to_dense=lambda n: np.asarray(to_dense(n), np.float32)))
+    "bsr",
+    to_dense=lambda n: np.asarray(to_dense(n), np.float32),
+    pack=lambda w, pat, like: _bsr_from_mask(
+        w, pat.block_mask(like.meta.block), like.meta.block,
+        dtype=like.values.dtype, device=like.values.device, _pattern=pat),
+    pack_values=_bsr_pack_values,
+    default_mask=lambda w, d, n: magnitude_mask(w, d, block=n.meta.block),
+    granularity="block"))
 
 register_family(InCRSLinearParams, FamilyOps(
-    "incrs", to_dense=incrs_to_dense_weight))
+    "incrs",
+    to_dense=incrs_to_dense_weight,
+    pack=lambda w, pat, like: _pack_incrs(
+        w, pat, like.meta.section, like.meta.block,
+        device=like.values.device),
+    pack_values=_incrs_pack_values,
+    default_mask=lambda w, d, n: magnitude_mask(w, d)))

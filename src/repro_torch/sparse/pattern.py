@@ -7,10 +7,16 @@ slice needs: ``SparsityPattern`` (element mask of W + lineage ``uid`` and
 block granularity), ``nm_mask`` and ``parse_nm``. Numpy only; the tests
 hold every mask equal to the JAX package's bit for bit.
 
-The family registry keeps only ``to_dense``, what ``Linear.to_dense``
-needs. ``PruneSchedule`` and the lifecycle moves (``repack``,
-``magnitude_repack``, ``repack_onto``) are not ported yet (ROADMAP queue
-1 item 5).
+The lifecycle: ``PruneSchedule`` says when a train loop re-prunes and
+to what density (the cubic Zhu–Gupta curve). ``repack(node, new_mask)``
+densifies a layer's current values, evolves its pattern (same ``uid``,
+``version + 1``) and packs under the new mask: surviving values carry
+over, slots new to the pattern start at 0.0. ``magnitude_repack`` picks
+the new mask by magnitude at the family's granularity, and
+``repack_onto`` moves a per-slot tensor (an AdamW moment) onto a
+repacked node's layout. Each family registers how to densify, pack and
+select (``FamilyOps``); a repacked node keeps its values, and builds its
+device index tensors, on the device of the old node's values.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import itertools
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
+import torch
 
 from ..core.bsr import magnitude_block_mask
 
@@ -185,18 +192,82 @@ def magnitude_mask(w: np.ndarray, density: Optional[float],
     if density is None or density >= 1.0:
         return w != 0.0
     keep = max(1, int(round(w.size * density)))
-    thresh = np.partition(np.abs(w).ravel(), -keep)[-keep]
-    return (np.abs(w) >= thresh) & (w != 0.0)
+    live = w != 0.0
+    # The keep-th largest |w| over all elements: among the non-zeros when
+    # there are at least keep of them, else 0.0. Partitioning only the
+    # non-zeros gives the same threshold (a repacked layer is mostly zeros).
+    nz = np.abs(w[live])
+    thresh = np.partition(nz, -keep)[-keep] if keep <= nz.size \
+        else np.float32(0.0)
+    return (np.abs(w) >= thresh) & live
+
+
+# ----------------------------------------------------------------------
+def validate_schedule(total_steps: int, final_density: float,
+                      warmup_frac: float) -> None:
+    """Input validation of the cubic schedule (``PruneSchedule`` and
+    ``prune.sparsity_schedule``)."""
+    if not 0.0 < final_density <= 1.0:
+        raise ValueError(f"final_density must be in (0, 1], "
+                         f"got {final_density}")
+    if total_steps <= 0:
+        raise ValueError(f"total_steps must be positive, got {total_steps}")
+    if not 0.0 <= warmup_frac < 1.0:
+        raise ValueError(f"warmup_frac must be in [0, 1), got {warmup_frac}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PruneSchedule:
+    """WHEN to re-prune and to WHAT density.
+
+    ``density_at`` is the cubic Zhu & Gupta curve (dense through
+    ``warmup_frac`` of training, then decaying to ``final_density`` at
+    ``total_steps``); ``every`` sets the re-prune cadence in steps.
+    """
+    final_density: float
+    total_steps: int
+    warmup_frac: float = 0.1
+    every: int = 1
+
+    def __post_init__(self):
+        validate_schedule(self.total_steps, self.final_density,
+                          self.warmup_frac)
+        if self.every <= 0:
+            raise ValueError(f"every must be positive, got {self.every}")
+
+    def density_at(self, step: int) -> float:
+        t0 = self.warmup_frac * self.total_steps
+        if step <= t0:
+            return 1.0
+        f = min(1.0, (step - t0) / max(self.total_steps - t0, 1))
+        return self.final_density + \
+            (1.0 - self.final_density) * (1 - f) ** 3
+
+    def due(self, step: int) -> bool:
+        """True when a train loop should re-prune AT this step: on the
+        ``every`` cadence, once the schedule has left the dense warmup."""
+        return step % self.every == 0 and self.density_at(step) < 1.0
 
 
 # ----------------------------------------------------------------------
 # Family registry: ``sparse.linear`` and ``sparse.api`` register each params
-# class with how to densify its current values.
+# class with the operations the lifecycle needs. Everything below
+# dispatches on type(node).
 @dataclasses.dataclass(frozen=True)
 class FamilyOps:
     name: str
     # node -> dense W (d_in, d_out) of the node's CURRENT values
     to_dense: Callable[[Any], np.ndarray]
+    # (dense W, pattern, like_node) -> new node packed under pattern, with
+    # like_node's section/block, dtype and device
+    pack: Callable[[np.ndarray, SparsityPattern, Any], Any]
+    # (meta, dense W) -> values (numpy) packed into an EXISTING meta
+    pack_values: Callable[[Any, np.ndarray], np.ndarray]
+    # (dense W, density, like_node) -> element mask at the family's
+    # granularity (elementwise for InCRS, whole blocks for BSR)
+    default_mask: Callable[[np.ndarray, float, Any], np.ndarray]
+    # "element" families accept n:m; "block" families prune whole tiles
+    granularity: str = "element"
 
 
 _FAMILIES: Dict[type, FamilyOps] = {}
@@ -206,11 +277,111 @@ def register_family(cls: type, ops: FamilyOps) -> None:
     _FAMILIES[cls] = ops
 
 
+def is_lifecycle_node(x: Any) -> bool:
+    """True for a sparse-linear params object the lifecycle can repack:
+    a registered family carrying a pattern, not stacked."""
+    if type(x) not in _FAMILIES or get_pattern(x) is None:
+        return False
+    return not is_stacked_node(x)
+
+
+def is_stacked_node(x: Any) -> bool:
+    """True for a registered params object whose values carry a leading
+    per-stage axis over one shared pattern (the stages disagree on what
+    to prune, so it cannot be repacked). The port builds no such node
+    yet (ROADMAP queue 1 item 12): this answers False for all it makes."""
+    if type(x) not in _FAMILIES or get_pattern(x) is None:
+        return False
+    idx = getattr(x.meta, "fwd_idx", None)
+    return idx is not None and x.values.ndim != idx.ndim
+
+
 def get_pattern(node: Any) -> Optional[SparsityPattern]:
     return getattr(node.meta, "pattern", None)
 
 
+def _family(node: Any) -> FamilyOps:
+    fam = _FAMILIES.get(type(node))
+    if fam is None:
+        raise TypeError(f"{type(node).__name__} is not a registered "
+                        f"sparse-linear family")
+    return fam
+
+
+def node_to_dense(node: Any) -> np.ndarray:
+    """Dense W (d_in, d_out) of a node's current values (host numpy)."""
+    return _family(node).to_dense(node)
+
+
+# ----------------------------------------------------------------------
+def repack(node: Any, new_mask: np.ndarray, *,
+           version: Optional[int] = None) -> Any:
+    """Re-pack ``node`` under ``new_mask``: values surviving the pattern
+    change carry over exactly, slots new to the pattern start at 0.0. The
+    returned node carries an evolved pattern (same ``uid``, version
+    bumped, or pinned to ``version``) and fresh metadata on the device of
+    ``node``'s values."""
+    fam = _family(node)
+    return _repack_dense(node, fam.to_dense(node), new_mask, version=version)
+
+
+def _repack_dense(node: Any, w: np.ndarray, new_mask: np.ndarray, *,
+                  version: Optional[int] = None) -> Any:
+    fam = _family(node)
+    pat = get_pattern(node)
+    if pat is None:
+        raise ValueError(f"{type(node).__name__} carries no SparsityPattern"
+                         f" — rebuild it through a lifecycle constructor")
+    return fam.pack(w, pat.evolve(new_mask, version=version), node)
+
+
+def magnitude_repack(node: Any, density: float, *,
+                     policy: str = "magnitude") -> Any:
+    """Re-prune ``node`` to ``density`` by magnitude of its CURRENT values
+    (elementwise for InCRS and dense, whole blocks for BSR). Returns
+    ``node`` itself, with no version bump, when the selection does not
+    move the mask.
+
+    ``policy="n:m"`` (e.g. ``"2:4"``) keeps exactly n of every m along
+    d_in instead (density n/m); element-level families only."""
+    fam = _family(node)
+    w = fam.to_dense(node)
+    if policy != "magnitude":
+        n, m = parse_nm(policy)
+        if fam.granularity != "element":
+            raise ValueError(
+                f"n:m selection is element-level; the {fam.name!r} family "
+                f"prunes whole blocks — use policy='magnitude'")
+        new_mask = nm_mask(w, n, m)
+    else:
+        new_mask = fam.default_mask(w, density, node)
+    pat = get_pattern(node)
+    if pat is not None and np.array_equal(new_mask, pat.mask):
+        return node
+    return _repack_dense(node, w, new_mask)
+
+
+def repack_onto(node: Any, like: Any) -> Any:
+    """Repack ``node``'s values onto ``like``'s already-packed metadata:
+    ``like`` with ``node``'s per-slot values moved to its layout, in
+    ``node``'s dtype, on the device of ``like``'s values. Used for AdamW
+    moments after a repack: surviving slots keep their moments, slots new
+    to the pattern start at 0."""
+    fam = _family(node)
+    if type(like) is not type(node):
+        raise TypeError(f"repack_onto: {type(node).__name__} vs "
+                        f"{type(like).__name__}")
+    vals = fam.pack_values(like.meta, fam.to_dense(node))
+    return dataclasses.replace(like, values=torch.from_numpy(
+        np.ascontiguousarray(vals)).to(device=like.values.device,
+                                        dtype=node.values.dtype))
+
+
 __all__ = [
-    "SparsityPattern", "FamilyOps", "magnitude_mask", "nm_mask",
-    "parse_nm", "expand_block_mask", "register_family", "get_pattern",
+    "SparsityPattern", "PruneSchedule", "FamilyOps",
+    "magnitude_mask", "nm_mask", "parse_nm", "expand_block_mask",
+    "validate_schedule",
+    "register_family", "is_lifecycle_node", "is_stacked_node",
+    "get_pattern", "node_to_dense",
+    "repack", "magnitude_repack", "repack_onto",
 ]

@@ -19,7 +19,8 @@ def _port_files():
            os.path.join(ROOT, "tests", "test_torch_cuda_spgemm.py"),
            os.path.join(ROOT, "tests", "test_torch_cuda_plan.py"),
            os.path.join(ROOT, "tests", "test_torch_cuda_lm.py"),
-           os.path.join(ROOT, "tests", "test_torch_cuda_train.py")]
+           os.path.join(ROOT, "tests", "test_torch_cuda_train.py"),
+           os.path.join(ROOT, "tests", "test_torch_cuda_lifecycle.py")]
     for base, _, files in os.walk(PORT):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return sorted(out)

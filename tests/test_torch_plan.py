@@ -159,16 +159,22 @@ def test_plan_and_matmul_plan_match_jax():
 
 
 def test_unported_formats_name_their_roadmap_items():
-    """``crs`` still raises naming its item; ``incrs`` (ported with the
-    training slice) now builds through plan, plan_for_operand and
-    Linear.from_dense."""
+    """``crs`` (ported with the lifecycle slice) now plans and binds
+    through plan and plan_for_operand, and refuses Linear.from_dense as
+    JAX does; ``incrs`` (ported with the training slice) builds through
+    plan, plan_for_operand and Linear.from_dense."""
+    from repro_torch.core.crs import CRS as TCRS
     w = _weight()
-    spec = tapi.SparseSpec("crs", mask=w != 0)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tapi.plan(spec)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tapi.plan_for_operand(w.T, tapi.SparseSpec("crs"))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    spec = tapi.SparseSpec("crs", mask=w != 0, rounds=32)
+    bt = np.where(np.random.default_rng(8).random((7, 64)) < 0.2, 1.5,
+                  0.0).astype(np.float32)
+    p = tapi.plan(spec)
+    assert p.shape == (96, 64) and p.meta.rounds == 32
+    _close(p.bind(p.pack(w), device="cpu")(TCRS.from_dense(bt)).numpy(),
+           w.T @ bt.T)
+    _close(tapi.plan_for_operand(w.T, tapi.SparseSpec("crs"), device="cpu")(
+        TCRS.from_dense(bt)).numpy(), w.T @ bt.T)
+    with pytest.raises(ValueError, match="plan–execute only"):
         tapi.Linear.from_dense(w, spec, device="cpu")
     spec = tapi.SparseSpec("incrs", mask=w != 0, section=32, block=8)
     b = np.random.default_rng(9).normal(size=(64, 5)).astype(np.float32)
@@ -192,8 +198,7 @@ def test_unported_formats_name_their_roadmap_items():
         tapi.SparseSpec("bsr", density=0.1, mask=w != 0)
     with pytest.raises(TypeError):
         tapi.SparseSpec(block=16)                  # the format is required
-    with pytest.raises(TypeError):                 # comes with the crs plan
-        tapi.SparseSpec("crs", rhs_format="crs")
+    assert tapi.SparseSpec("crs", rhs_format="crs").rounds == 128
 
 
 def test_resolve_device_gives_cuda_its_index(monkeypatch):

@@ -19,11 +19,13 @@ Phases, each printing one JSON line:
              product on the host; then the serving launcher once as a
              subprocess. Launch counters are zeroed just before and read
              just after, and must equal the waves.
-4. profile — incrs-docword served twice more: plain for the wall time and
-             the host's staging, then under torch.profiler for device time
-             by kind (kernel, copies); the idle share of the card. After
-             phase 10 the same for docword as bsr and as dense plans and
-             for the granite bsr plan.
+4. profile — incrs-docword served again in a fresh process (this script
+             with --profile): plain for the wall time and the host's
+             staging, then under torch.profiler for device time by kind
+             (kernel, copies); the idle share of the card. After phase 10
+             the same for docword as bsr and as dense plans and for the
+             granite bsr plan, and in phase 13 for the lifecycle's
+             operands.
 5. times   — the three InCRS orders' median times over CUDA events on
              each Table II operand at N = 512 (incrs-docword also at 128
              and 640), beside ``torch.sparse.mm`` and the bound of the
@@ -64,13 +66,6 @@ Phases, each printing one JSON line:
              beside A_csr.to_dense(), a fill of the output and a pad of
              the stripes to the output's shape), each with its bound; the
              instance each rule picks.
-   spgemm_geometries — the ring at other rows per warp, ring depths and
-             (condense) items a CTA, the gather's tile at other sections
-             an item (also at mesh-sch), merge's ring at other chunks and
-             depths (also at mesh-mks4), each bitwise equal to the rule's;
-             each instance's
-             CTAs an SM from the occupancy calculator, every persistent
-             grid checked to fit one wave.
 9. plan_kernels — the BSR and dense kernels against their plain versions
              (and, in f32, float64) on the card: the five Table II
              operands as BSR (blocks 50, 10, 50, 60, 50) at N = 512, the
@@ -99,6 +94,21 @@ Phases, each printing one JSON line:
              (``plan_clocks``); then the dense instances at other K
              splits, ring depths and (bf16) tile widths
              (``plan_geometries``).
+   tenancy — the eighth path: one ``TenantPool`` over the five Table II
+             operands as raw InCRS, docword as a bsr plan (block 50) and
+             as a dense plan, and granite-34b's W_up^T as two raw-InCRS
+             checkpoints of one W pruned to density 0.1 and 0.05; its
+             budget is one byte below the two granite tenants together.
+             Phase 3's mixed-width trace is interleaved across the
+             tenants, each request submitted (a revival timed) and
+             drained before the next, counters zeroed just before: every
+             request within 1e-4 of float64, one launch a wave of the
+             tenant's kernel, each granite tenant evicted and revived.
+             Then the memory evictions free (an InCRS tenant's at least
+             its counted bytes; a plan tenant's printed), the pool's
+             stats, each tenant's latency, revivals and shared memory a
+             launch, a CUDA engine's cost-model seed, and the serve bench
+             (--smoke) and the spmm_serve example as subprocesses.
 12. train — the fifth path: granite-34b's MLP (W_up 6144 -> 24576, tanh,
              W_down back) trained at full width for 8 AdamW steps on 512
              token rows, once as incrs (density 0.1, section 256) and once
@@ -241,7 +251,13 @@ PROFILED = {("incrs-docword", "bsr"), ("incrs-docword", "dense"),
             (GRANITE_NAME, "bsr")}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -484,58 +500,128 @@ def phase_serve(K, engine_mod, table2):
     return launches
 
 
-def phase_profile(torch, engine_mod, operand, k, *, workload="incrs-docword",
-                  fmt="incrs", kernel_keys=("expand_kernel",)):
-    """Two more serve runs of ``operand`` (an InCRS or a bound plan, K
-    columns) after the counted main path: one plain, for the wall time and
-    the host's share of it, then the same run under torch.profiler for the
-    card's busy time by kind. The idle share is taken against the plain
-    run, since the profiler slows the host. A kernel is the format's when
-    its symbol holds one of ``kernel_keys``; the run fails if none did."""
+def profile_job(operand, k, *, workload="incrs-docword", fmt="incrs",
+                kernel_keys=("expand_kernel",)):
+    """One operand for ``phase_profile``: an InCRS or a bound plan, its K
+    columns, and the kernel symbols that are its format's."""
+    return {"operand": operand, "k": k, "workload": workload, "fmt": fmt,
+            "kernel_keys": list(kernel_keys)}
+
+
+def phase_profile(torch, jobs):
+    """Serve runs of each ``profile_job`` after the counted main path, in
+    one fresh process (``chip_smoke.py --profile``, given the jobs through
+    a file under ``build/``): one to warm, one plain for the wall time and
+    the host's share of it, then the same run under torch.profiler for
+    the card's busy time by kind. Late in this long process the profiler
+    records only part of a serve's launches, and in a fresh one all of
+    them. The idle share is taken against the plain run, since the
+    profiler slows the host. A kernel is the format's when its symbol
+    holds one of the job's ``kernel_keys``; the run fails if none did. Up
+    to ``PROFILE_TRIES`` profiled runs are made until one records such a
+    kernel for every wave; the fullest is reported, with each run's count
+    of those records."""
+    path = os.path.join(ROOT, "build", "profile_jobs.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(jobs, path)
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--profile", path],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    finally:
+        os.remove(path)
+    labels = [f"{j['workload']} {j['fmt']}" for j in jobs]
+    check(proc.returncode == 0, f"profile of {labels}: the child exited "
+          f"{proc.returncode}: {proc.stderr.strip()[-2000:]}")
+    results = [json.loads(line) for line in proc.stdout.splitlines()
+               if line.startswith("{")]
+    check(len(results) == len(jobs), f"profile of {labels}: "
+          f"{len(results)} results")
+    for job, res in zip(jobs, results):
+        s, s_prof, by_kind, seen = (res["plain"], res["profiled"],
+                                    res["device_ms_by_kind"], res["seen"])
+        check(max(seen) > 0, f"profile of {job['workload']} {job['fmt']}: "
+              f"no device time in a kernel whose symbol holds "
+              f"{job['kernel_keys']} in {len(seen)} sessions")
+        wall_ms = s["elapsed_s"] * 1e3
+        busy_ms = sum(by_kind.values())
+        emit({"phase": "profile", "workload": job["workload"],
+              "format": job["fmt"], "variant": "auto", "waves": s["waves"],
+              "wall_ms": wall_ms,
+              "wall_ms_profiled": s_prof["elapsed_s"] * 1e3,
+              "device_ms_by_kind": by_kind, "device_busy_ms": busy_ms,
+              "kernel_records_by_session": seen,
+              "profile_complete": max(seen) == s_prof["waves"],
+              "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
+              else "not measured",
+              "host_staging_ms": s["prep_s_total"] * 1e3,
+              "host_staging_hidden_ms": s["prep_s_hidden"] * 1e3,
+              "wave_ms_sum": s["wave_ms"]["mean"] * s["waves"],
+              "prep_overlap_fraction": s["prep_overlap_fraction"],
+              "requests_per_s": s["requests_per_s"]})
+
+
+# Profiled serve runs per profile at most.
+PROFILE_TRIES = 3
+
+
+def profile_child(path) -> int:
+    """The fresh process of ``phase_profile``: for each job saved at
+    ``path``, serve its operand with phase 3's trace (warm, plain, then
+    profiled) and print one JSON line of the plain and profiled
+    summaries, the device ms by kind of the fullest profiled run and each
+    run's count of the format's kernel records."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
-    panels = _trace(k, seed=1)
+    sys.path.insert(0, SRC)
+    from repro_torch.serve import engine as engine_mod
+    for job in torch.load(path, weights_only=False):
+        operand, keys = job["operand"], tuple(job["kernel_keys"])
+        panels = _trace(job["k"], seed=1)
 
-    def serve():
-        eng = engine_mod.SpMMEngine(operand, max_wave_cols=512,
-                                    device="cuda")
-        for i, p in enumerate(panels):
-            eng.submit(engine_mod.SpMMRequest(i, p))
-        eng.run()
-        torch.cuda.synchronize()
-        return eng.stats_summary()
+        def serve():
+            eng = engine_mod.SpMMEngine(operand, max_wave_cols=512,
+                                        device="cuda")
+            for i, p in enumerate(panels):
+                eng.submit(engine_mod.SpMMRequest(i, p))
+            eng.run()
+            torch.cuda.synchronize()
+            return eng.stats_summary()
 
-    s = serve()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        s_prof = serve()
-    kernel_kind = f"kernel_{fmt}"
-    by_kind = {kernel_kind: 0.0, "memcpy_h2d": 0.0, "memcpy_d2h": 0.0,
-               "other": 0.0}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue            # host ops: their device time is counted
-        us = getattr(ev, "self_device_time_total",  # on the device events
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        key = ev.key.lower()
-        kind = (kernel_kind if any(k in key for k in kernel_keys) else
-                "memcpy_h2d" if "htod" in key else
-                "memcpy_d2h" if "dtoh" in key else "other")
-        by_kind[kind] += us / 1e3
-    check(by_kind[kernel_kind] > 0, f"profile of {workload} {fmt}: no device "
-          f"time in a kernel whose symbol holds {kernel_keys}")
-    wall_ms = s["elapsed_s"] * 1e3
-    busy_ms = sum(by_kind.values())
-    emit({"phase": "profile", "workload": workload, "format": fmt,
-          "variant": "auto", "waves": s["waves"], "wall_ms": wall_ms,
-          "wall_ms_profiled": s_prof["elapsed_s"] * 1e3,
-          "device_ms_by_kind": by_kind, "device_busy_ms": busy_ms,
-          "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
-          else "not measured",
-          "host_staging_ms": s["prep_s_total"] * 1e3,
-          "host_staging_hidden_ms": s["prep_s_hidden"] * 1e3,
-          "wave_ms_sum": s["wave_ms"]["mean"] * s["waves"],
-          "prep_overlap_fraction": s["prep_overlap_fraction"],
-          "requests_per_s": s["requests_per_s"]})
+        serve()                 # the operand's first launches in a process
+        s = serve()
+        kernel_kind = f"kernel_{job['fmt']}"
+        seen, best = [], None
+        for _ in range(PROFILE_TRIES):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                s_prof = serve()
+            by_kind = {kernel_kind: 0.0, "memcpy_h2d": 0.0,
+                       "memcpy_d2h": 0.0, "other": 0.0}
+            n_kernels = 0
+            for ev in prof.key_averages():
+                if ev.device_type != torch.autograd.DeviceType.CUDA:
+                    continue    # host ops: their device time is counted
+                us = getattr(ev, "self_device_time_total",  # on the device
+                             getattr(ev, "self_cuda_time_total", 0.0))
+                key = ev.key.lower()
+                kind = (kernel_kind if any(k in key for k in keys) else
+                        "memcpy_h2d" if "htod" in key else
+                        "memcpy_d2h" if "dtoh" in key else "other")
+                by_kind[kind] += us / 1e3
+                n_kernels += ev.count if kind == kernel_kind else 0
+            seen.append(n_kernels)
+            if best is None or n_kernels > best[0]:
+                best = (n_kernels, by_kind, s_prof)
+            if n_kernels == s_prof["waves"]:
+                break
+        print(json.dumps({"plain": s, "profiled": best[2],
+                          "device_ms_by_kind": best[1], "seen": seen}),
+              flush=True)
+    return 0
 
 
 def _time_ms(torch, fn, flush, reps=30, lead=1):
@@ -1261,196 +1347,6 @@ def phase_spgemm_operands(torch, P, table4):
     return lines
 
 
-# Ring geometries off the rule at mesh-docword4, R = 128 (the rule's own
-# first): index matching at other rows per warp (tile heights of 14 x
-# rpw) and ring depths; condense at other rows per warp, ring depths and
-# (tile, round) items a CTA: 94, one tile's rounds a CTA (84 CTAs); 24; 1,
-# one item a CTA (7,896 CTAs). The rule gives 132 CTAs 60 items each.
-MATCH_SWEEP = {
-    "index_match_spmm": [{}, {"rows_per_warp": 5}, {"rows_per_warp": 8},
-                         {"rows_per_warp": 12}, {"rows_per_warp": 16},
-                         {"stages": 4}, {"stages": 8}],
-    "spgemm_condense": [{}, {"rows_per_warp": 8}, {"rows_per_warp": 12},
-                        {"stages": 4}, {"stages": 8}, {"chunk": 94},
-                        {"chunk": 24}, {"chunk": 1}],
-}
-
-
-def phase_spgemm_geometries(torch, P, crs, large, small):
-    """The ring at other geometries, each held bit for bit to the rule's
-    (condense through merge), and each instance's CTAs an SM from the
-    card's occupancy calculator: the ring's persistent grid must fit one
-    wave of them. Then the same for the gather and merge (merge also on
-    ``large``'s stripes, the gather also on ``small``'s)."""
-    flush = torch.empty(64 * 2 ** 20, device="cuda")
-    rounds = 128
-    ai, av = P.ops.prep_rounds(crs, rounds, device="cuda")
-    bi, bv = P.ops.prep_rounds(crs, rounds, device="cuda")
-    want = P.IM.index_match_spmm(ai, av, bi, bv, rounds=rounds)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    occupancy, sweep = {}, []
-    for kernel, overrides in MATCH_SWEEP.items():
-        for inst in P.IM.INSTANCES:
-            geo = _match_geo(P, ai, bi, rounds, kernel, instance=inst)
-            ctas = P.IM.ctas_per_sm(geo)
-            check(ctas == P.IM.CTAS_PER_SM[inst],
-                  f"{kernel} {inst}: {ctas} CTAs an SM, the geometry "
-                  f"assumes {P.IM.CTAS_PER_SM[inst]}")
-            if inst == "ring":
-                check(geo.grid <= sms * ctas, f"{kernel} ring grid "
-                      f"{geo.grid} fits one wave of {sms} x {ctas}")
-            occupancy[f"{kernel}/{inst}"] = {
-                "ctas_per_sm": ctas, "grid": geo.grid, "smem": geo.smem,
-                "threads": geo.threads}
-        for over in overrides:
-            geo = _match_geo(P, ai, bi, rounds, kernel, instance="ring",
-                             **over)
-            if kernel == "index_match_spmm":
-                run = lambda: P.IM.index_match_spmm(
-                    ai, av, bi, bv, rounds=rounds, geometry=geo)
-                same = torch.equal(run(), want)
-            else:
-                run = lambda: P.SK.spgemm_condense(
-                    ai, av, bi, bv, rounds=rounds, geometry=geo)
-                same = torch.equal(P.SK.spgemm_merge(run()), want)
-            check(same, f"{kernel} at {over} bitwise equal to the rule's")
-            sweep.append({"kernel": kernel, "override": over,
-                          "rows_per_warp": geo.rows_per_warp,
-                          "tile_m": geo.tile_m, "stages": geo.stages,
-                          "cap": geo.cap, "grid": geo.grid,
-                          "chunk": geo.chunk,
-                          "ms": _time_ms(torch, run, flush,
-                                         lead=MATCH_LEAD)})
-            torch.cuda.empty_cache()
-    del want
-    stream_sweep = _stream_sweep(torch, P, crs, ai, av, bi, bv, rounds,
-                                 flush, sms, occupancy)
-    prep = list(ai.shape)
-    del ai, av, bi, bv
-    stream_sweep += _merge_sweep_large(torch, P, large, rounds, flush)
-    stream_sweep += _gather_sweep(torch, P, small, "mesh-sch",
-                                  GATHER_SWEEP_SMALL, flush)
-    emit({"phase": "spgemm_geometries", "workload": "mesh-docword4",
-          "rounds": rounds, "prep": prep, "sms": sms,
-          "occupancy": occupancy, "sweep": sweep,
-          "stream_sweep": stream_sweep})
-
-
-# The stream kernels off their rules at mesh-docword4: the gather's tile
-# at 1 to 8 sections an item (the rule takes 2: 154 slots, one batch); the
-# merge ring at chunks of 1,024 to 8,192 floats (the rule takes 3,072,
-# at most three a CTA on 264 CTAs; 5,960 splits the plane evenly over 132
-# SMs off 128-byte lines) and 2 to 8 stages (the rule takes 4).
-GATHER_SWEEP = [{}, {"sections": 1}, {"sections": 3}, {"sections": 4},
-                {"sections": 6}, {"sections": 8}]
-MERGE_SWEEP = [{}, {"stages": 2}, {"stages": 3}, {"stages": 6},
-               {"stages": 8}, {"chunk": 1024}, {"chunk": 2048},
-               {"chunk": 4096}, {"chunk": 5960}, {"chunk": 6144},
-               {"chunk": 8192}, {"chunk": 8192, "stages": 3}]
-
-
-# Merge's ring at mesh-mks4, R = 128 (13.5 GB of stripes; the rule takes
-# 4,096 floats, at most 53 a CTA on 264 CTAs).
-MERGE_SWEEP_LARGE = [{}, {"chunk": 2048}, {"chunk": 3072}, {"chunk": 6144},
-                     {"chunk": 8192, "stages": 3}]
-# The gather's tile at mesh-sch, whose stripes hold 3 slots a section
-# (3600, 15, 3): items of 1 to 15 sections (the whole row).
-GATHER_SWEEP_SMALL = [{}, {"sections": 1}, {"sections": 2}, {"sections": 4},
-                      {"sections": 8}, {"sections": 15},
-                      {"instance": "general"}]
-
-
-def _gather_sweep(torch, P, crs, name, overrides, flush):
-    """The gather at ``overrides`` of its rule on ``crs``'s section
-    stripes, each bitwise equal to the rule's launch."""
-    prep = P.ops.prepare_incrs(P.InCRS.from_crs(crs), pad_rows_to=8,
-                               device="cuda")
-    shape = (*prep.idx.shape, prep.section)
-    want = P.G.incrs_gather(prep.idx, prep.val, section=prep.section)
-    sweep = []
-    for over in overrides:
-        geo = P.G.gather_geometry(*shape, **over)
-        run = lambda: P.G.incrs_gather(prep.idx, prep.val,
-                                       section=prep.section, geometry=geo)
-        check(torch.equal(run(), want),
-              f"incrs_gather at {over} bitwise equal to the rule's")
-        sweep.append({"kernel": "incrs_gather", "workload": name,
-                      "override": over, "geometry": geo._asdict(),
-                      "ms": _time_ms(torch, run, flush)})
-    return sweep
-
-
-def _merge_sweep_large(torch, P, crs, rounds, flush):
-    ai, av = P.ops.prep_rounds(crs, rounds, device="cuda")
-    stripes = P.SK.spgemm_condense(ai, av, ai, av, rounds=rounds)
-    del ai, av
-    n_rounds, sm, sn = stripes.shape
-    want = P.SK.spgemm_merge(stripes)
-    sweep = []
-    for over in MERGE_SWEEP_LARGE:
-        geo = P.SK.merge_geometry(sm * sn, n_rounds, **over)
-        run = lambda: P.SK.spgemm_merge(stripes, geometry=geo)
-        check(torch.equal(run(), want),
-              f"spgemm_merge at {over} bitwise equal to the rule's")
-        sweep.append({"kernel": "spgemm_merge", "workload": "mesh-mks4",
-                      "override": over, "geometry": geo._asdict(),
-                      "ms": _time_ms(torch, run, flush)})
-    del stripes, want
-    torch.cuda.empty_cache()
-    return sweep
-
-
-def _stream_sweep(torch, P, crs, ai, av, bi, bv, rounds, flush, sms,
-                  occupancy):
-    """Each stream kernel's CTAs an SM from the occupancy calculator (the
-    tile's must be what its geometry assumes, and each persistent grid one
-    wave), then the sweeps, each launch bitwise equal to the rule's."""
-    stripes = P.SK.spgemm_condense(ai, av, bi, bv, rounds=rounds)
-    n_rounds, sm, sn = stripes.shape
-    prep = P.ops.prepare_incrs(P.InCRS.from_crs(crs), pad_rows_to=8,
-                               device="cuda")
-    shape = (*prep.idx.shape, prep.section)
-    kernels = {
-        "incrs_gather": (
-            lambda **kw: P.G.gather_geometry(*shape, **kw),
-            lambda geo: P.G.incrs_gather(prep.idx, prep.val,
-                                         section=prep.section, geometry=geo),
-            P.G.ctas_per_sm, GATHER_SWEEP),
-        "spgemm_merge": (
-            lambda **kw: P.SK.merge_geometry(sm * sn, n_rounds, **kw),
-            lambda geo: P.SK.spgemm_merge(stripes, geometry=geo),
-            P.SK.merge_ctas_per_sm, MERGE_SWEEP),
-    }
-    sweep = []
-    for kernel, (geometry, run, ctas_of, overrides) in kernels.items():
-        rule = geometry()
-        want = run(None)
-        for inst in ("general", rule.instance):
-            geo = geometry(instance=inst)
-            ctas = ctas_of(geo)
-            if inst != "general":
-                check(ctas >= 1 and geo.grid <= sms * ctas,
-                      f"{kernel} {inst} grid {geo.grid} fits one wave of "
-                      f"{sms} x {ctas}")
-            if kernel == "incrs_gather" and inst == "tile":
-                check(ctas == geo.ctas_per_sm, f"incrs_gather tile: {ctas} "
-                      f"CTAs an SM, the geometry assumes {geo.ctas_per_sm}")
-            occupancy[f"{kernel}/{inst}"] = {
-                "ctas_per_sm": ctas, "grid": geo.grid, "smem": geo.smem,
-                "threads": geo.threads}
-        for over in overrides:
-            geo = geometry(**over)
-            check(torch.equal(run(geo), want),
-                  f"{kernel} at {over} bitwise equal to the rule's")
-            sweep.append({"kernel": kernel, "override": over,
-                          "geometry": geo._asdict(),
-                          "ctas_per_sm": ctas_of(geo),
-                          "ms": _time_ms(torch, lambda: run(geo), flush)})
-    del stripes, prep
-    torch.cuda.empty_cache()
-    return sweep
-
-
 # ----------------------------------------------------------------------
 # The plan–execute path: bsr and dense operands behind plan_for_operand,
 # on the BSR and the dense kernels (f32 FMA and bf16 wgmma instances of
@@ -2103,15 +1999,221 @@ def plan_path(torch, K, ops, engine_mod, table2):
     errs = phase_plan_kernels(torch, Q, table2, granite)
     launches, by_launcher, kept = phase_plan_serve(torch, Q, table2,
                                                    granite)
-    for (label, fmt), bound in sorted(kept.items()):
-        # the general kernels' symbols, and the GEMM core's by its source
-        phase_profile(torch, engine_mod, bound, bound.shape[1],
-                      workload=label, fmt=fmt,
-                      kernel_keys=(f"{fmt}_kernel", f"{fmt}src"))
-    del kept, bound
+    # the general kernels' symbols, and the GEMM core's by its source
+    phase_profile(torch, [profile_job(bound, bound.shape[1], workload=label,
+                                      fmt=fmt, kernel_keys=(f"{fmt}_kernel",
+                                                            f"{fmt}src"))
+                          for (label, fmt), bound in sorted(kept.items())])
+    del kept
     torch.cuda.empty_cache()
     return phase_plan_times(torch, Q, table2, granite, errs, launches,
                             by_launcher)
+
+
+# ----------------------------------------------------------------------
+# Multi-tenant serving (the eighth path): one TenantPool over the five
+# Table II operands as raw InCRS, docword as a bsr plan (block 50) and as a
+# dense plan, and granite-34b's W_up^T (24576 x 6144, GRANITE's W) as two
+# raw-InCRS checkpoints of one host W pruned by magnitude to density 0.1
+# and 0.05 (section 256, block 32, phase train's incrs spec). The budget is
+# one byte below the two granite tenants together, so the interleaved
+# trace evicts and revives each of them.
+TENANCY_DENSITIES = (0.1, 0.05)
+TENANCY_KERNEL = {"incrs": "incrs_spmm", "bsr": "bsr_spmm",
+                  "dense": "dense_mm"}
+
+
+def _granite_checkpoints(T):
+    """{density: (InCRS, dense f32 A)} of W_up^T pruned by magnitude, and
+    the host seconds that took."""
+    t0 = time.perf_counter()
+    g = GRANITE
+    w = np.random.default_rng(g["seed"]).standard_normal(
+        (g["d_model"], g["d_ff"]), dtype=np.float32)
+    w *= g["scale"]
+    a = np.ascontiguousarray(w.T)
+    del w
+    mag = np.abs(a).ravel()
+    keep = [int(round(d * mag.size)) for d in TENANCY_DENSITIES]
+    part = np.partition(mag, [mag.size - k for k in keep])
+    out = {}
+    for d, k in zip(TENANCY_DENSITIES, keep):
+        mask = np.abs(a) >= part[mag.size - k]
+        out[d] = (T.InCRS.from_crs(T.CRS.from_mask(a, mask), 256, 32),
+                  np.where(mask, a, np.float32(0.0)))
+    return out, time.perf_counter() - t0
+
+
+def _run_module(module, args, timeout=600):
+    """``python -m module args`` from the root, as a check of its exit
+    code; its output's tail is printed."""
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", module, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    emit({"phase": "tenancy", "entry": module, "args": args,
+          "rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+          "stdout": proc.stdout.strip()[-3000:],
+          "stderr": proc.stderr.strip()[-2000:]})
+    check(proc.returncode == 0, f"{module} exited 0")
+    return proc.stdout
+
+
+def _freed_by_evict(torch, pool, name):
+    """(device bytes the pool counts for ``name``, bytes
+    memory_allocated() fell by when it was evicted), after reviving it."""
+    pool.engine(name)
+    counted = pool._tenants[name].resident_bytes
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    pool.evict(name)
+    torch.cuda.synchronize()
+    return counted, before - torch.cuda.memory_allocated()
+
+
+def phase_tenancy(torch, T, table2):
+    """The pool's tenants, the budget, then phase 3's mixed-width trace
+    interleaved across the tenants, each request submitted (a revival
+    timed on the host) and drained before the next, counters zeroed just
+    before the trace; every request within SERVE_TOL * max|C| of float64
+    on the card, one launch a wave of the tenant's kernel. Then evictions
+    with the memory they free, the pool's stats, each tenant's latency and
+    revivals, the shared memory a launch needs, and the serve bench
+    (--smoke) and the spmm_serve example as subprocesses."""
+    granite, build_s = _granite_checkpoints(T)
+    docword = table2["incrs-docword"].crs.to_dense()
+    tenants = {name: ("incrs", table2[name], table2[name].crs.to_dense())
+               for name in TABLE2}
+    for fmt in ("bsr", "dense"):
+        spec = T.api.SparseSpec(fmt, block=50 if fmt == "bsr" else None)
+        tenants[f"docword/{fmt}"] = (
+            fmt, T.api.plan_for_operand(docword, spec, device="cuda"),
+            docword)
+    for d, (inc, a) in granite.items():
+        tenants[f"granite/{d}"] = ("incrs", inc, a)
+    del granite
+    pool = T.TenantPool(hbm_budget_bytes=2 ** 62, max_wave_cols=512)
+    t0 = time.perf_counter()
+    for name, (_, op, _) in tenants.items():
+        pool.add(name, op)
+    add_s = time.perf_counter() - t0
+    nbytes = {n: t.resident_bytes for n, t in pool._tenants.items()}
+    smem = pool.smem_report()
+    check(all(0 < r["smem_bytes"] <= smem["limit_bytes"]
+              for r in smem["tenants"].values()),
+          f"every tenant's launch fits shared memory: {smem}")
+    src = pool.engine("incrs-docword").stats_summary()["cost_model"]
+    if os.path.abspath(os.getcwd()) == ROOT:
+        check(src["source"] == "bench[BENCH_torch_serve.json]",
+              f"a CUDA engine in the root seeds from the record: {src}")
+    g1, g2 = (nbytes[f"granite/{d}"] for d in TENANCY_DENSITIES)
+    pool.hbm_budget_bytes = g1 + g2 - 1
+    emit({"phase": "tenancy", "entry": "TenantPool",
+          "tenants": {n: {"format": f, "shape": list(op.shape),
+                          "device_bytes": nbytes[n]}
+                      for n, (f, op, _) in tenants.items()},
+          "granite_build_host_s": build_s, "add_host_s": add_s,
+          "budget_bytes": pool.hbm_budget_bytes,
+          "all_bytes": sum(nbytes.values()), "smem_report": smem,
+          "cost_model": src})
+
+    names = list(tenants)
+    widths = [(256, 128, 64, 384)[r % 4] for r in range(32)] + [1200]
+    a64 = {}
+    for K in (T.K, T.KB, T.KD):
+        K.reset_launches()
+    revive_ms = {n: [] for n in names}
+    latency = {n: [] for n in names}
+    worst = {n: 0.0 for n in names}
+    waves = {n: 0 for n in names}
+    t_trace = time.perf_counter()
+    for r, width in enumerate(widths):
+        name = names[r % len(names)]
+        fmt, _, a = tenants[name]
+        if name not in a64:
+            a64[name] = torch.from_numpy(a).to("cuda").double()
+        panel = np.random.default_rng(100 + r).normal(
+            size=(a.shape[1], width)).astype(np.float32)
+        req = T.E.SpMMRequest(r, panel)
+        revived = not pool._tenants[name].resident
+        t0 = time.perf_counter()
+        pool.submit(name, req)
+        if revived:
+            revive_ms[name].append((time.perf_counter() - t0) * 1e3)
+        eng = pool.engine(name)
+        before = {**T.K.LAUNCHES, **T.KB.LAUNCHES, **T.KD.LAUNCHES}
+        w0 = eng.stats["waves"]
+        pool.run()
+        moved = {k: v - before[k] for k, v in
+                 {**T.K.LAUNCHES, **T.KB.LAUNCHES, **T.KD.LAUNCHES}.items()
+                 if v != before[k]}
+        waves[name] += eng.stats["waves"] - w0
+        check(req.done and moved == {TENANCY_KERNEL[fmt]:
+                                     eng.stats["waves"] - w0},
+              f"tenancy {name} request {r}: launches {moved} are one "
+              f"{TENANCY_KERNEL[fmt]} a wave")
+        want = a64[name] @ torch.from_numpy(panel).to("cuda").double()
+        got = torch.from_numpy(req.out).to("cuda").double()
+        cmax = max(float(want.abs().max()), 1e-30)
+        err = float((got - want).abs().max())
+        check(tuple(got.shape) == tuple(want.shape) and
+              bool(torch.isfinite(got).all()) and err <= SERVE_TOL * cmax,
+              f"tenancy {name} request {r}: {err} > {SERVE_TOL} * {cmax}")
+        worst[name] = max(worst[name], err / cmax)
+        latency[name].append((req.t_done - req.t_submit) * 1e3)
+    trace_s = time.perf_counter() - t_trace
+    del a64
+    launches = {k: v for k, v in {**T.K.LAUNCHES, **T.KB.LAUNCHES,
+                                  **T.KD.LAUNCHES}.items() if v}
+    stats = pool.summary()["stats"]
+    per = {}
+    for n in names:
+        lat = sorted(latency[n])
+        t = pool._tenants[n]
+        per[n] = {"requests": len(lat), "waves": waves[n],
+                  "latency_ms_p50": lat[len(lat) // 2] if lat else None,
+                  "latency_ms_p99": lat[-1] if lat else None,
+                  "evictions": t.evictions, "revive_host_ms": revive_ms[n],
+                  "max_rel_err": worst[n]}
+    for d in TENANCY_DENSITIES:
+        t = per[f"granite/{d}"]
+        check(t["evictions"] >= 1 and len(t["revive_host_ms"]) >= 1,
+              f"granite/{d} was evicted and revived: {t}")
+    freed = {n: _freed_by_evict(torch, pool, n)
+             for n in ("granite/0.1", "incrs-docword", "docword/bsr",
+                       "docword/dense")}
+    for n in ("granite/0.1", "incrs-docword"):
+        check(freed[n][1] >= freed[n][0], f"evicting {n} freed "
+              f"{freed[n][1]} bytes of its {freed[n][0]}")
+    emit({"phase": "tenancy", "entry": "trace",
+          "requests": len(widths), "trace_host_s": trace_s,
+          "launches": launches, "stats": stats, "tenants": per,
+          "evict_freed_bytes": {n: {"counted": c, "freed": f}
+                                for n, (c, f) in freed.items()},
+          "tolerance": f"max|C - C64| <= {SERVE_TOL} * max|C64|"})
+    del pool, tenants
+    torch.cuda.empty_cache()
+    out = _run_module("repro_torch.benchmarks.serve_bench", ["--smoke"])
+    check("crosscheck,ok" in out, "the serve bench's cross-check passed")
+    out = _run_module("repro_torch.examples.spmm_serve", [])
+    check("max rel err" in out, "the example checked every request")
+    return launches
+
+
+def tenancy_path(torch, K, ops, table2):
+    """Phase tenancy; the launches of its trace by kernel."""
+    from repro_torch.core.crs import CRS
+    from repro_torch.core.incrs import InCRS
+    from repro_torch.kernels import bsr_spmm as KB
+    from repro_torch.kernels import dense_mm as KD
+    from repro_torch.serve import TenantPool
+    from repro_torch.serve import engine as E
+    from repro_torch.sparse import api
+    T = types.SimpleNamespace(K=K, KB=KB, KD=KD, ops=ops, api=api, E=E,
+                              CRS=CRS, InCRS=InCRS, TenantPool=TenantPool)
+    return phase_tenancy(torch, T, table2)
 
 
 # ----------------------------------------------------------------------
@@ -2686,11 +2788,11 @@ def phase_lifecycle(torch, R, fmt, h):
     del flush, panel
     # where a wave's time goes on either side of the swap: the same
     # traffic served by a fresh engine over each side's operand
-    for side, op in (("before", old_op), ("after", eng.prep)):
-        phase_profile(torch, R.engine, op, l1.d_in,
-                      workload=f"lifecycle granite W_up, {side} the swap",
-                      fmt=fmt, kernel_keys=("expand_kernel",)
-                      if fmt == "incrs" else ("bsr_kernel", "bsrsrc"))
+    keys = ("expand_kernel",) if fmt == "incrs" else ("bsr_kernel", "bsrsrc")
+    phase_profile(torch, [
+        profile_job(op, l1.d_in, fmt=fmt, kernel_keys=keys,
+                    workload=f"lifecycle granite W_up, {side} the swap")
+        for side, op in (("before", old_op), ("after", eng.prep))])
     del old_op
 
     t0 = time.perf_counter()
@@ -3431,7 +3533,7 @@ def main() -> int:
     docword = table2["incrs-docword"]
     errs_512 = phase_kernels(torch, K, ops, InCRS, table2)
     launches = phase_serve(K, engine_mod, table2)
-    phase_profile(torch, engine_mod, docword, docword.shape[1])
+    phase_profile(torch, [profile_job(docword, docword.shape[1])])
     rows = phase_times(torch, K, ops, table2, errs_512, launches)
     P = types.SimpleNamespace(K=K, G=G, IM=IM, SK=SK, ops=ops, spgemm=spgemm,
                               CRS=CRS, InCRS=InCRS)
@@ -3448,10 +3550,12 @@ def main() -> int:
     rows += phase_spgemm_times(torch, P, docword4, InCRS.from_crs(docword4),
                                errs_dw, spgemm_launches)
     phase_spgemm_operands(torch, P, table4)
-    phase_spgemm_geometries(torch, P, docword4, table4["mesh-mks4"],
-                            table4["mesh-sch"])
     del table4, P
     rows += plan_path(torch, K, ops, engine_mod, table2)
+    for kname, n in tenancy_path(torch, K, ops, table2).items():
+        r = next(r for r in rows if r["name"] == kname)
+        r["launches_by_path"]["tenancy"] = n
+        r["launches"] += n
     del table2, docword
     torch.cuda.empty_cache()
     for (kname, launches_train, dx), (_, launches_life, operands) in \
@@ -3480,4 +3584,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--profile":
+        sys.exit(profile_child(sys.argv[2]))
     sys.exit(main())

@@ -15,7 +15,10 @@ a re-pruned layer (``sparse.magnitude_repack``), and records its
 pattern's version.
 Requests are packed into waves (``serve.scheduler``), each wave is staged
 on the host, launched, and retired, with the host prep of wave N+1 done
-while wave N computes.
+while wave N computes. On CUDA both copies of a wave run on a copy stream
+of the engine's own: B to the card, and C back into a pinned host panel.
+The host blocks only where a wave retires, and then only until that
+wave's own result has landed.
 """
 from __future__ import annotations
 
@@ -176,19 +179,60 @@ class _SplitPart:
 class _Wave:
     """A packed wave moving through stage -> dispatch -> retire. ``host``
     is the (pinned, on CUDA) staging panel, kept alive until the wave
-    retires; ``c`` is the output tensor once the kernel is launched."""
+    retires; ``ready`` marks B's arrival on the card (CUDA only).
+    ``panel`` is the host panel C is copied into at dispatch, and
+    ``done`` marks the end of that copy (CUDA only)."""
     items: List[Any]
     host: torch.Tensor
     b: torch.Tensor                        # wave RHS on the device
     prep_s: float                          # host prep wall time
     hidden: bool                           # prepped while a wave was in flight
-    c: Optional[torch.Tensor] = None
+    ready: Any = None                      # torch.cuda.Event
+    panel: Optional[torch.Tensor] = None
+    done: Any = None                       # torch.cuda.Event
     t_dispatch: Optional[float] = None
 
 
 # Wave widths are bucketed (zero-padded) up to this quantum before launch,
 # so mixed-width traces launch a handful of shapes.
 WAVE_QUANTUM = 128
+
+# Host panels per dtype in an engine's ring. One wave is in flight at a
+# time and retiring copies its results out, so the panel a wave takes is
+# free again long before the ring comes round to it.
+PANEL_RING = 2
+
+# The bench record a CUDA engine seeds its cost model from, read from the
+# working directory (``python -m repro_torch.benchmarks.serve_bench
+# --json BENCH_torch_serve.json``).
+DEFAULT_BENCH = "BENCH_torch_serve.json"
+
+
+class _PanelRing:
+    """The host panels waves retire into: ``PANEL_RING`` flat buffers per
+    dtype, each of ``rows`` × the wave cap bucketed to ``WAVE_QUANTUM``
+    elements, made on first use and handed out in turn, each as a
+    contiguous (rows, cols) view of its front. Pinned on CUDA, so the copy
+    of C into them runs asynchronously."""
+
+    def __init__(self, rows: int, cap_cols: int, *, pin: bool):
+        self.size = rows * (-(-cap_cols // WAVE_QUANTUM) * WAVE_QUANTUM)
+        self.pin = pin
+        self._bufs: Dict[torch.dtype, List[torch.Tensor]] = {}
+        self._next: Dict[torch.dtype, int] = {}
+
+    def take(self, shape, dtype: torch.dtype) -> torch.Tensor:
+        n = shape[0] * shape[1]
+        if n > self.size:
+            raise ValueError(f"a wave's result {tuple(shape)} exceeds the "
+                             f"host panels of {self.size} elements")
+        bufs = self._bufs.setdefault(dtype, [])
+        i = self._next.get(dtype, 0)
+        if i == len(bufs):
+            bufs.append(torch.empty(self.size, dtype=dtype,
+                                    pin_memory=self.pin))
+        self._next[dtype] = (i + 1) % PANEL_RING
+        return bufs[i][:n].view(tuple(shape))
 
 
 def _percentiles_ms(samples: List[float]) -> Dict[str, float]:
@@ -228,11 +272,12 @@ def _host_tensor(b) -> torch.Tensor:
 
 
 def _in_kind_of(panel: torch.Tensor, b):
-    """A result panel (a CPU tensor) in the request's own dtype and kind:
-    a tensor for a tensor request, a numpy array for an array (numpy has
-    no bfloat16, so a bf16 panel is widened first)."""
+    """A copy of a result panel (a CPU tensor) in the request's own dtype
+    and kind: a tensor for a tensor request, a numpy array for an array
+    (numpy has no bfloat16, so a bf16 panel is widened first). It owns its
+    memory, since later waves reuse the panel."""
     if isinstance(b, torch.Tensor):
-        return panel.to(b.dtype)
+        return torch.empty(tuple(panel.shape), dtype=b.dtype).copy_(panel)
     if panel.dtype == torch.bfloat16:
         panel = panel.float()
     return panel.numpy().astype(b.dtype)
@@ -250,6 +295,16 @@ class SpMMEngine:
     runs wave N; kernel launches return at once and only retiring waits.
     ``continuous=False`` is the strict wave-barrier loop (FIFO, no
     overlap).
+
+    On CUDA the engine owns one copy stream. B's copy to the card runs on
+    it, and the compute stream (the current stream at dispatch) waits for
+    it just before the launch; right after the launch the copy stream
+    waits for the compute stream and copies C into a pinned host panel
+    (``_PanelRing``). Retiring waits for that copy's event alone. On the
+    CPU the same ring holds unpinned panels and the copies are
+    synchronous. A continuous CUDA engine seeds its cost model from a bench
+    record taken on a GPU (``DEFAULT_BENCH`` in the working directory,
+    ``scheduler.seed_cost_model``); elsewhere it starts unseeded.
     """
 
     def __init__(self, a, *, max_wave_cols: int = 512,
@@ -279,9 +334,15 @@ class SpMMEngine:
             if skip_limit is None:
                 skip_limit = _sched.DEFAULT_SKIP_LIMIT if continuous else 0
             scheduler = _sched.WavePacker(
+                cost=self._seed_cost_model() if continuous
+                else _sched.WaveCostModel(),
                 budget_us=latency_budget_us if continuous else None,
                 skip_limit=skip_limit)
         self.scheduler = scheduler
+        cuda = self.device.type == "cuda"
+        self._copy = torch.cuda.Stream(self.device) if cuda else None
+        self._panels = _PanelRing(self.prep.shape[0], max_wave_cols,
+                                  pin=cuda)
         self.queue: Deque[Any] = deque()
         self.finished: List[SpMMRequest] = []
         self.stats: Dict[str, int] = defaultdict(int)
@@ -294,6 +355,28 @@ class SpMMEngine:
         self._prep_s_hidden = 0.0
         self._t_first_submit: Optional[float] = None
         self._t_last_done: Optional[float] = None
+
+    def _seed_cost_model(self) -> _sched.WaveCostModel:
+        """The packer's offline µs/col seed: on CUDA, ``DEFAULT_BENCH`` if
+        it was taken on a GPU; elsewhere unseeded (the first retired wave
+        gives the estimate). JAX's counterpart asks the autotuner first,
+        which the port has not got yet (ROADMAP queue 1 item 9)."""
+        if self.device.type != "cuda":
+            return _sched.WaveCostModel()
+        return _sched.seed_cost_model(bench_path=DEFAULT_BENCH,
+                                      platform="gpu")
+
+    def _operand_geometry(self):
+        """(padded_rows, n_sections, smax, section) of the InCRS stripes
+        served (a raw or prepped InCRS, or an ``incrs`` plan), or None for
+        an operand without them (a ``bsr`` or ``dense`` plan)."""
+        from ..sparse import api
+        prep = self.prep
+        if isinstance(prep, api.BoundPlan):
+            prep = prep._ready
+        if not isinstance(prep, ops.PreparedOperand):
+            return None
+        return (*(int(x) for x in prep.idx.shape), int(prep.section))
 
     def _build_operand(self, a):
         """Resolve ``a`` to ``(operand, prep, pattern_version)`` without
@@ -407,30 +490,50 @@ class SpMMEngine:
         if bucket > cols:
             host[:, cols:].zero_()
             self.stats["pad_cols"] += bucket - cols
-        b = host.to(self.device, non_blocking=True)
+        ready = None
+        if self._copy is None:
+            b = host
+        else:
+            with torch.cuda.stream(self._copy):
+                b = host.to(self.device, non_blocking=True)
+            ready = self._copy.record_event()
         prep_s = time.perf_counter() - t0
         self._prep_s_total += prep_s
         if hidden:
             self._prep_s_hidden += prep_s
-        self._staged = _Wave(wave, host, b, prep_s, hidden)
+        self._staged = _Wave(wave, host, b, prep_s, hidden, ready)
         return True
 
     def _dispatch(self) -> None:
-        """Launch the staged wave; the operand is captured here, so a
-        ``swap_pattern`` after dispatch never touches an in-flight wave."""
+        """Launch the staged wave and queue the copy of its result to a
+        host panel; the operand is captured here, so a ``swap_pattern``
+        after dispatch never touches an in-flight wave."""
         w = self._staged
         if w is None:
             return
         t0 = time.perf_counter()
+        b = w.b
+        if self._copy is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(w.ready)
+            b.record_stream(compute)
         if isinstance(self.prep, ops.PreparedOperand):
-            w.c = ops.spmm(self.prep, w.b, variant=self.variant)
-        else:                                       # a bound plan
-            b = w.b     # the kernels promote it with the plan's values;
+            c = ops.spmm(self.prep, b, variant=self.variant)
+        else:                       # a bound plan: the kernels promote B
             if b.dtype.is_floating_point and \
-                    torch.finfo(b.dtype).bits > 32:    # they sum in f32,
-                b = b.to(torch.float32)     # as JAX without x64 does
-            w.c = self.prep(b)
+                    torch.finfo(b.dtype).bits > 32:    # with the plan's
+                b = b.to(torch.float32)     # values and sum in f32, as
+            c = self.prep(b)                # JAX without x64 does
         self._staged = None         # a launch that raised keeps the wave
+        w.panel = self._panels.take(c.shape, c.dtype)
+        if self._copy is None:
+            w.panel.copy_(c)
+        else:
+            self._copy.wait_stream(compute)
+            with torch.cuda.stream(self._copy):
+                w.panel.copy_(c, non_blocking=True)
+            c.record_stream(self._copy)
+            w.done = self._copy.record_event()
         w.t_dispatch = t0
         for r in w.items:
             if r.t_submit is not None:
@@ -456,14 +559,17 @@ class SpMMEngine:
         self.finished.append(r)
 
     def _retire(self) -> None:
-        """Wait for the in-flight wave (``.cpu()`` blocks) and hand each
-        request its panel in its own dtype. The wall time from dispatch to
-        result on the host feeds the packer's cost model."""
+        """Wait for the in-flight wave's result to land in its host panel
+        (on CUDA, the copy's event) and hand each request a copy of its
+        columns in its own dtype. The wall time from dispatch to result on
+        the host feeds the packer's cost model."""
         w = self._inflight
         if w is None:
             return
         self._inflight = None
-        c = w.c.cpu()
+        if w.done is not None:
+            w.done.synchronize()
+        c = w.panel
         t_done = time.perf_counter()
         wall_s = t_done - w.t_dispatch
         off = 0

@@ -3,9 +3,11 @@
 The port of ``repro.serve.scheduler``, unchanged in logic:
 
 * :class:`WaveCostModel` — an affine per-launch wall-time estimate
-  ``us(cols) = launch_overhead_us + us_per_col * cols``, refined online by
-  an EWMA over every retired wave. It starts unseeded: no record measured
-  on another machine seeds it, and the first retired wave does.
+  ``us(cols) = launch_overhead_us + us_per_col * cols``, seeded from a
+  bench record taken on the card (``seed_from_bench``: the InCRS kernel
+  alone at each wave width, ``benchmarks/serve_bench.py``), then refined
+  online by an EWMA over every retired wave. Without such a record it
+  starts unseeded and the first retired wave seeds it.
 * :class:`WavePacker` — turns a latency budget into a wave width through
   the cost model and packs the queue up to that width with a bounded
   skip-scan (at most ``skip_limit`` non-fitting requests bypassed per
@@ -16,6 +18,7 @@ Both see only objects with a ``b.shape[1]`` column count.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Deque, List, Optional, Sequence, Tuple
 
 # Requests narrower than this never make the target smaller.
@@ -57,8 +60,9 @@ def fit_us_per_col(pairs: Sequence[Tuple[int, float]]
 
 @dataclasses.dataclass
 class WaveCostModel:
-    """Affine launch-cost estimate, refined online. ``us_per_col`` is None
-    until the first observed wave; callers then use the hard cap."""
+    """Affine launch-cost estimate, seeded offline and refined online.
+    ``us_per_col`` is None until a seed or the first observed wave gives
+    one; callers then use the hard cap."""
     us_per_col: Optional[float] = None
     launch_overhead_us: float = 0.0
     ewma: float = DEFAULT_EWMA
@@ -93,6 +97,57 @@ class WaveCostModel:
             self.us_per_col = (1.0 - self.ewma) * self.us_per_col \
                 + self.ewma * obs
         self.n_observed += 1
+
+
+# ----------------------------------------------------------------------
+# Offline seeds: the measurements the repo persists.
+def seed_from_bench(path: str, platform: Optional[str] = None
+                    ) -> WaveCostModel:
+    """Seed a cost model from a bench record (JAX's row contract): rows
+    named ``incrs_spmm*`` carry their measured ``us`` and RHS width
+    (``cols=N`` in ``derived``), and the cheapest µs per column across
+    them is the seed. With ``platform``, only a record whose
+    ``device.platform`` is that one seeds; any other gives an unseeded
+    model, as an unreadable record does."""
+    try:
+        with open(path) as f:
+            record = json.load(f)
+    except (OSError, ValueError):
+        return WaveCostModel()
+    if platform is not None and \
+            (record.get("device") or {}).get("platform") != platform:
+        return WaveCostModel()
+    best: Optional[float] = None
+    for row in record.get("rows", []):
+        name = str(row.get("name", ""))
+        derived = str(row.get("derived", ""))
+        if not name.startswith("incrs_spmm") or "cols=" not in derived:
+            continue
+        try:
+            cols = int(derived.split("cols=")[1].split(";")[0])
+            us = float(row["us"])
+        except (KeyError, IndexError, ValueError):
+            continue
+        if cols > 0 and us > 0:
+            per = us / cols
+            best = per if best is None else min(best, per)
+    if best is None:
+        return WaveCostModel()
+    return WaveCostModel(best, 0.0, source=f"bench[{path}]")
+
+
+def seed_cost_model(bench_path: Optional[str] = None,
+                    platform: Optional[str] = None) -> WaveCostModel:
+    """Best available offline seed, in JAX's order: the bench record
+    (``seed_from_bench``), else unseeded (the first retired wave then
+    provides the estimate). JAX first asks the autotuner's measurements
+    for this operand's exact geometry; the port has no autotuner yet
+    (ROADMAP queue 1 item 9), so that step is not taken."""
+    if bench_path is not None:
+        model = seed_from_bench(bench_path, platform)
+        if model.us_per_col is not None:
+            return model
+    return WaveCostModel()
 
 
 @dataclasses.dataclass
@@ -149,4 +204,5 @@ class WavePacker:
 
 
 __all__ = ["WaveCostModel", "WavePacker", "fit_us_per_col",
-           "MIN_TARGET_COLS", "DEFAULT_SKIP_LIMIT"]
+           "seed_from_bench", "seed_cost_model", "MIN_TARGET_COLS",
+           "DEFAULT_SKIP_LIMIT"]

@@ -33,6 +33,27 @@ Phases, each printing one JSON line:
              the pipelined kernel at other cluster sizes, warp counts and
              block widths (``pipe_geometries``, each bitwise equal to
              expand).
+   autotune — the tuning layer (``kernels.autotune``; the cache a fresh
+             file under build/, so every run tunes from cold): with the
+             cache empty, ``ops.spmm(variant="auto")`` launches the cost
+             model's order; then the InCRS orders swept (every launch knob
+             that passes the launch check) on the five Table II operands at
+             N = 512 and incrs-docword at 64, 128, 384 and 640 columns,
+             each sweep's candidates, skips (with the rule), measured µs
+             beside the prediction, winner, overhead and seconds printed,
+             every measured candidate's C bitwise equal to expand's and
+             within 1e-4 of the plain version; with the cache filled,
+             ``ops.spmm(auto)``, a ``plan(..., tune="cache")`` and an
+             ``SpMMEngine`` each launch the winner at its geometry once a
+             call or wave and no other kernel; index matching swept
+             (R = 32, 64, 128 and its geometries) at mesh-docword4 and its
+             winner launched by ``ops.spmm``; the launch check's occupancy
+             rule against the card for every instance of every wrapper; a
+             swap to an operand the check refuses raises and the old one
+             keeps serving. Training's stripes are swept in phase train.
+   spgemm_auto — after phase spgemm: at each Table IV workload the engine
+             ``auto`` picked, its predicted µs, and its wall against the
+             fastest engine's wall in phase spgemm (a ratio, not gated).
 6. spgemm_kernels — the sparse × sparse kernels against their plain
              versions on the card: the eight Table IV operands as A·Aᵀ at
              R = 128 (mesh-docword4 also at R = 32) and edge operands;
@@ -119,9 +140,13 @@ Phases, each printing one JSON line:
              of a step timed alone (the forwards, dx beside its plain
              version and a library call, each dW beside the dense x^T dy);
              then the steps, each split by CUDA events into forward,
-             backward and optimizer, with peak memory. Counters are zeroed
-             just before the steps and read just after: 3 launches of the
-             format's kernel a step and none of another. The loss falls,
+             backward and optimizer, with peak memory. For incrs, each
+             product's stripes (l1's and l2's forward, l2's transposed for
+             dx) are swept first at T = 512 (phase autotune's protocol),
+             so ``auto`` launches each product's winner. Counters are
+             zeroed just before the steps and read just after: 3 launches a
+             step of the format's kernel (for incrs, of the orders ``auto``
+             picks) and none of another. The loss falls,
              pad slots and zero tiles stay 0.0, the trained l1 is served
              by SpMMEngine within 1e-4 of float64 one launch a wave, and
              the training example runs as a subprocess.
@@ -199,7 +224,7 @@ KERNELS = (  # (entry point, variant, Pallas kernel it replaces)
     ("incrs_spmm_pipelined", "pipelined",
      "src/repro/kernels/incrs_spmm.py:252"),
 )
-RAN_BY = {"auto": "incrs_spmm", **{v: k for k, v, _ in KERNELS}}
+RAN_BY = {v: k for k, v, _ in KERNELS}
 SOURCE = "src/repro_torch/kernels/csrc/incrs_spmm.cu"
 TABLE2 = ("incrs-docword", "incrs-amazon", "incrs-belcastro", "incrs-norris",
           "incrs-mks")
@@ -215,12 +240,12 @@ SPGEMM_KERNELS = (  # (name, source, Pallas kernel it replaces)
     ("spgemm_merge", "src/repro_torch/kernels/csrc/index_match.cu",
      "src/repro/spgemm/kernels.py:97"),
 )
-ENGINE_LAUNCHES = {
+ENGINE_LAUNCHES = {   # densify's InCRS product: the order auto picks
     "reference": {"index_match_spmm": 1},
-    "auto": {"index_match_spmm": 1},
     "condense_merge": {"spgemm_condense": 1, "spgemm_merge": 1},
-    "densify": {"incrs_gather": 1, "incrs_spmm": 1},
+    "densify": {"incrs_gather": 1},
 }
+INCRS_KERNELS = tuple(k for k, _, _ in KERNELS)
 STRIPES_MAX_BYTES = 8e9  # condense_merge at R = 32 only below this
 # H100 SXM: HBM rate, and the f32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -254,6 +279,26 @@ PROFILED = {("incrs-docword", "bsr"), ("incrs-docword", "dense"),
 _T0 = time.perf_counter()
 
 
+def auto_kernel(ops, prep, n):
+    """The InCRS kernel ``ops.spmm(prep, B, variant="auto")`` launches for
+    an n-column B: the tuned entry's order, else the cost model's."""
+    return RAN_BY[ops.resolve_incrs(prep, n)[0]]
+
+
+def wave_widths(width, cap=512, quantum=128):
+    """The bucketed widths of the waves one request of ``width`` columns
+    takes alone in an engine of wave cap ``cap``."""
+    parts = [cap] * (width // cap) + ([width % cap] if width % cap else [])
+    return [-(-w // quantum) * quantum for w in parts]
+
+
+def auto_orders(ops, preps, cap=512, quantum=128):
+    """The InCRS kernels auto may launch for ``preps`` at any wave width
+    up to ``cap``."""
+    return {auto_kernel(ops, p, w) for p in preps
+            for w in range(quantum, cap + 1, quantum)}
+
+
 def emit(obj) -> None:
     """One JSON line; a phase's line also gets the seconds since start."""
     if "phase" in obj:
@@ -276,56 +321,17 @@ def smi_line() -> str:
 
 # ----------------------------------------------------------------------
 def phase_env(torch, build):
+    from repro_torch.analysis import launch_check
     smi = smi_line()
     print(smi, flush=True)
     t0 = time.perf_counter()
     build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = [dict(source=name, **k) for name in build.sources()
-             for k in ptxas_kernels(build.build_log(name))]
+             for k in launch_check.ptxas_kernels(build.build_log(name))]
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_s": build_s, "sources": build.sources(), "ptxas": ptxas})
-
-
-def _short_name(sym: str) -> str:
-    """``reuse_kernel<128>`` from an Itanium-mangled kernel symbol in an
-    (anonymous) namespace."""
-    i = sym.find("_ZN")
-    if i < 0:
-        return sym
-    i += 3
-    names = []
-    while i < len(sym) and sym[i].isdigit():
-        j = i
-        while sym[j].isdigit():
-            j += 1
-        names.append(sym[j:j + int(sym[i:j])])
-        i = j + int(sym[i:j])
-    targs = re.match(r"I((?:L[ib]\d+E)+)E", sym[i:])
-    args = re.findall(r"L[ib](\d+)E", targs.group(1)) if targs else []
-    return names[-1] + (f"<{','.join(args)}>" if args else "")
-
-
-def ptxas_kernels(log: str) -> list:
-    """Registers and spill bytes of each kernel in a ``-Xptxas=-v`` log."""
-    out, cur = [], None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", ln)
-        if m:
-            cur = {"kernel": _short_name(m.group(1)), "registers": None,
-                   "spill_stores": None, "spill_loads": None}
-            out.append(cur)
-        elif cur is not None:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", ln)
-            if m:
-                cur["spill_stores"], cur["spill_loads"] = map(int,
-                                                               m.groups())
-            m = re.search(r"Used (\d+) registers", ln)
-            if m:
-                cur["registers"] = int(m.group(1))
-    return out
 
 
 def _edge_operands():
@@ -431,6 +437,7 @@ def _trace(k, seed):
 
 
 def phase_serve(K, engine_mod, table2):
+    from repro_torch.kernels import ops
     K.reset_launches()
     runs = [(name, "auto") for name in TABLE2] + \
         [("incrs-docword", v) for _, v, _ in KERNELS]
@@ -466,11 +473,12 @@ def phase_serve(K, engine_mod, table2):
                   f"{SERVE_TOL} * {cmax}")
             worst = max(worst, err / cmax)
         delta = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
-        ran = RAN_BY[variant]
-        check(delta[ran] == eng.stats["waves"] and
-              sum(delta.values()) == delta[ran],
-              f"{wl_name}/{variant}: launches {delta} equal the "
-              f"{eng.stats['waves']} waves of {ran}")
+        ran = {RAN_BY[variant]} if variant != "auto" else \
+            auto_orders(ops, [eng.prep])
+        check(sum(delta.values()) == eng.stats["waves"] and
+              all(k in ran for k, v in delta.items() if v),
+              f"{wl_name}/{variant}: launches {delta} are one a wave of "
+              f"{eng.stats['waves']}, each of {sorted(ran)}")
         s = eng.stats_summary()
         emit({"phase": "serve", "workload": wl_name, "variant": variant,
               "a_shape": list(crs.shape), "nnz": crs.nnz,
@@ -500,8 +508,11 @@ def phase_serve(K, engine_mod, table2):
     return launches
 
 
+INCRS_SYMBOLS = ("expand_kernel", "reuse_kernel", "pipelined_kernel")
+
+
 def profile_job(operand, k, *, workload="incrs-docword", fmt="incrs",
-                kernel_keys=("expand_kernel",)):
+                kernel_keys=INCRS_SYMBOLS):
     """One operand for ``phase_profile``: an InCRS or a bound plan, its K
     columns, and the kernel symbols that are its format's."""
     return {"operand": operand, "k": k, "workload": workload, "fmt": fmt,
@@ -756,6 +767,315 @@ def phase_times(torch, K, ops, table2, errs_512, launches):
 
 
 # ----------------------------------------------------------------------
+# The tuning layer: sweeps of the InCRS orders and of index matching, the
+# picks they feed, the launch check's occupancy rule and a refused swap.
+AUTOTUNE_CASES = [(name, 512) for name in TABLE2] + \
+    [("incrs-docword", n) for n in (64, 128, 384, 640)]
+AUTOTUNE_REPS = 10
+AUTOTUNE_TOL = 1e-4      # max|candidate - plain| <= AUTOTUNE_TOL * max|C|
+AUTOTUNE_ENGINE_WAVES = 3
+
+
+class _Recorder:
+    """Every InCRS launch's (kernel, geometry) while active, recorded at
+    the wrapper's one launch site."""
+
+    def __init__(self, K):
+        self.K, self.seen, self._real = K, [], K._launch
+
+    def __enter__(self):
+        real, seen = self._real, self.seen
+
+        def record(name, idx, val, b, section, geometry=None):
+            out = real(name, idx, val, b, section, geometry)
+            seen.append((name, None if geometry is None
+                         else tuple(geometry)))
+            return out
+        self.K._launch = record
+        return self
+
+    def __exit__(self, *exc):
+        self.K._launch = self._real
+
+
+def sweep_incrs(torch, A, idx, val, b, section, label, extra=None):
+    """``autotune.tune`` on stripes (idx, val) times ``b`` (K x N) with
+    every candidate measured: each candidate's C bitwise equal to
+    expand's at its own geometry and within AUTOTUNE_TOL of the plain
+    version; the cost model's cold pick timed at its own geometry by the
+    same protocol; the sweep's record printed. Returns the winner."""
+    n = b.shape[1]
+    bn = A.ops.default_bn(n)
+    kp = idx.shape[1] * section
+    bp = torch.nn.functional.pad(b, (0, -(-n // bn) * bn - n,
+                                     0, kp - b.shape[0])).contiguous()
+    pick = A.autotune.model_pick_variant(
+        A.K._resolve_row_tile(idx.shape[0], 128)[1], bp.shape[1],
+        n_sections=idx.shape[1], smax=idx.shape[2], section=section)
+    pick_us = A.autotune._measure_us(
+        lambda: getattr(A.K, RAN_BY[pick])(idx, val, bp, section=section,
+                                           bn=bn),
+        AUTOTUNE_REPS, idx.device, A.autotune._flush_buffer(idx.device))
+    want = A.K.incrs_spmm(idx, val, bp, section=section, bn=bn)
+    ref = A.K.plain("incrs_spmm", idx, val, bp, section=section, bn=bn)
+    scale = max(float(ref.abs().max()), 1e-30)
+    errs = []
+
+    def verify(variant, geo, out):
+        check(torch.equal(out, want), f"autotune {label}: {variant} at "
+              f"{tuple(geo)} bitwise equal to expand")
+        err = float((out - ref).abs().max())
+        check(err <= AUTOTUNE_TOL * scale, f"autotune {label}: {variant} "
+              f"at {tuple(geo)} off its plain version by {err}")
+        errs.append(err)
+    del b
+    cfg = A.autotune.tune(idx, val, bp[:, :n], section=section,
+                          reps=AUTOTUNE_REPS, top_k=None, verify=verify)
+    rec = A.autotune.LAST_SWEEP
+    if rec.cache_hit:       # stripes of a shape swept before: its winner
+        verify(cfg.variant, cfg.geometry, getattr(  # on these stripes
+            A.K, RAN_BY[cfg.variant])(idx, val, bp, section=section, bn=bn,
+                                      geometry=cfg.launch_geometry))
+    check(rec.cache_hit or (len(rec.measured) >= 3 and
+                            {m["variant"] for m in rec.measured} ==
+                            set(RAN_BY)),
+          f"autotune {label}: every order measured, {rec.measured}")
+    emit({"phase": "autotune", "workload": label, "n": n,
+          "n_padded": bp.shape[1], "stripes": list(idx.shape),
+          "section": section, **(extra or {}), **rec.to_json(),
+          "overhead_factor": cfg.overhead_factor, "model_pick": pick,
+          "model_pick_us": pick_us,
+          "model_pick_over_winner": pick_us / cfg.measured_us,
+          "max_abs_err": max(errs), "tolerance":
+              f"bitwise equal to expand; max|C - plain| <= {AUTOTUNE_TOL}"
+              f" * max|C|"})
+    return cfg
+
+
+def _auto_launch(torch, A, op, b, label, want):
+    """One ``op(b)`` call, counters zeroed just before: exactly one launch
+    of ``want`` = (kernel, geometry) and no other kernel."""
+    A.K.reset_launches()
+    with _Recorder(A.K) as rec:
+        op(b)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in A.K.LAUNCHES.items() if v}
+    check(rec.seen == [want] and launches == {want[0]: 1},
+          f"autotune {label}: launched {rec.seen} ({launches}), want "
+          f"{want}")
+
+
+def _refused_swap(torch, A, inc, prep):
+    """An engine pinned to reuse on incrs-docword; a swap to one-section
+    stripes of the same logical shape whose first row holds 5,000 slots
+    (a reuse CTA would stage past an SM's shared memory) must raise
+    KernelConfigError, and the old operand keeps serving."""
+    m, k = prep.shape
+    section = -(-k // 256) * 256
+    idx = torch.full((prep.padded_rows, 1, 5000), -1, dtype=torch.int32,
+                     device="cuda")
+    idx[0, 0] = torch.arange(5000, dtype=torch.int32, device="cuda")
+    bad = A.ops.PreparedOperand(idx, torch.ones(idx.shape, device="cuda"),
+                                (m, k), section)
+    eng = A.E.SpMMEngine(prep, max_wave_cols=512, variant="reuse",
+                         device="cuda")
+    try:
+        eng.swap_pattern(bad)
+        refused = None
+    except A.L.KernelConfigError as exc:
+        refused = str(exc)
+    check(refused is not None and eng.prep is prep and
+          eng.stats["pattern_swaps"] == 0,
+          f"autotune: a swap the check refuses raised and kept the old "
+          f"operand ({refused})")
+    panel = np.random.default_rng(9).normal(size=(k, 200)).astype(np.float32)
+    req = A.E.SpMMRequest(0, panel)
+    eng.submit(req)
+    eng.run()
+    want = inc.crs.to_dense().astype(np.float64) @ panel.astype(np.float64)
+    err = float(np.abs(req.out - want).max())
+    check(req.done and err <= SERVE_TOL * float(np.abs(want).max()),
+          f"autotune: the old operand served after the refused swap, "
+          f"{err}")
+    return refused
+
+
+def _occupancy_cases(stripes, docword4):
+    """(wrapper, shape) of every instance of every wrapper at the shapes
+    the port runs: ``stripes`` the prepped (M, n_sections, smax) of two
+    Table II operands, ``docword4`` mesh-docword4's section stripes (rows
+    padded to 8) and its round stripes at R = 128."""
+    out = []
+    for name in ("incrs-docword", "incrs-belcastro"):
+        m, n_sec, smax = stripes[name]
+        base = dict(m=m, n=512, n_sections=n_sec, smax=smax, section=256)
+        out += [(k, base) for k in INCRS_KERNELS]
+        out += [("incrs_spmm", dict(base, rows=r)) for r in (1, 2, 4)]
+        out += [("incrs_spmm", dict(base, n=510))]       # the scalar form
+        out += [("incrs_spmm_reuse", dict(base, n=n)) for n in (128, 256)]
+        out += [("incrs_spmm_pipelined", dict(base, cluster=1,
+                                              cols_per_lane=cpl, warps=8))
+                for cpl in (1, 2)]
+    out += [(k, dict(m=24576, n=512, n_sections=24, smax=51, section=256))
+            for k in INCRS_KERNELS]
+    (m8, n_sec, smax), (mp, n_rounds, rmax) = docword4
+    out += [("incrs_gather", dict(m=m8, n_sections=n_sec, smax=smax,
+                                  section=256, instance=i))
+            for i in ("tile", "general")]
+    for k in ("index_match_spmm", "spgemm_condense"):
+        out += [(k, dict(m=mp, n=mp, n_rounds=n_rounds, rmax_a=rmax,
+                         rmax_b=rmax, rounds=128, instance=i))
+                for i in ("ring", "general")]
+    out += [("spgemm_merge", dict(plane=1500 * 1500, n_rounds=n_rounds,
+                                  instance=i)) for i in ("ring", "general")]
+    for dt in ("float32", "bfloat16"):
+        out += [("dense_mm", dict(m=24576, n=512, k=6144, dtype=dt)),
+                ("dense_mm", dict(m=128, n=512, k=6144, dtype=dt)),
+                ("dense_mm", dict(m=700, n=500, k=1203, dtype=dt)),
+                ("bsr_spmm", dict(n_block_rows=192, bm=128, bk=128, n=512,
+                                  nnz=2304, dtype=dt)),
+                ("bsr_spmm", dict(n_block_rows=14, bm=50, bk=50, n=512,
+                                  nnz=300, dtype=dt)),
+                ("flash_attention", dict(batch=2, sq=8192, sk=8192, kv=1,
+                                         g=48, hd=128, dtype=dt))]
+    out += [("flash_attention", dict(batch=1, sq=2048, sk=2048, kv=2, g=4,
+                                     hd=256, dtype="bfloat16"))]
+    return out
+
+
+def phase_autotune(torch, A, table2, crs4):
+    """The tuning layer on the card (see the module docstring)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    winners = {}
+    for wl_name, n in AUTOTUNE_CASES:
+        inc = table2[wl_name]
+        prep = A.ops.prepare_incrs(inc, device="cuda")
+        b = torch.randn(inc.shape[1], n, generator=gen, device="cuda")
+        # cold: auto launches the cost model's order at its own geometry
+        pick = A.autotune.model_pick_variant(
+            prep.padded_rows, -(-n // A.ops.default_bn(n)) *
+            A.ops.default_bn(n), n_sections=prep.n_sections,
+            smax=prep.idx.shape[2], section=prep.section)
+        _auto_launch(torch, A, lambda b: A.ops.spmm(prep, b), b,
+                     f"{wl_name} N={n} cold", (RAN_BY[pick], None))
+        cfg = sweep_incrs(torch, A, prep.idx, prep.val, b, prep.section,
+                          wl_name)
+        winners[(wl_name, n)] = cfg
+        _auto_launch(torch, A, lambda b: A.ops.spmm(prep, b), b,
+                     f"{wl_name} N={n} tuned",
+                     (RAN_BY[cfg.variant], cfg.geometry))
+        del b
+    # a plan of incrs-docword under tune="cache" and engines over it and
+    # over the prepped operand: the N = 512 winner, one launch a wave
+    inc = table2["incrs-docword"]
+    cfg = winners[("incrs-docword", 512)]
+    want = (RAN_BY[cfg.variant], cfg.geometry)
+    a = inc.crs.to_dense()
+    plan = A.api.plan(A.api.SparseSpec("incrs", mask=a.T != 0),
+                      rhs_shape=(a.shape[1], 512), tune="cache",
+                      device="cuda")
+    check(plan.tuned == cfg, f"autotune: plan(tune='cache') attached "
+          f"{plan.tuned}, the sweep's winner is {cfg}")
+    bound = plan.bind(plan.pack(np.ascontiguousarray(a.T)), device="cuda")
+    b = torch.randn(a.shape[1], 512, generator=gen, device="cuda")
+    _auto_launch(torch, A, bound, b, "incrs-docword plan N=512", want)
+    panels = [np.random.default_rng(20 + i).normal(
+        size=(a.shape[1], 512)).astype(np.float32)
+        for i in range(AUTOTUNE_ENGINE_WAVES)]
+    ref = a.astype(np.float64) @ np.concatenate(panels, 1).astype(np.float64)
+    engines = {}
+    for label, op in (("plan", bound),
+                      ("InCRS", A.ops.prepare_incrs(inc, device="cuda"))):
+        eng = A.E.SpMMEngine(op, max_wave_cols=512, device="cuda")
+        A.K.reset_launches()
+        with _Recorder(A.K) as rec:
+            for i, p in enumerate(panels):
+                eng.submit(A.E.SpMMRequest(i, p))
+            done = {r.rid: r for r in eng.run()}
+        launches = {k: v for k, v in A.K.LAUNCHES.items() if v}
+        check(eng.stats["waves"] == len(panels) and
+              rec.seen == [want] * len(panels) and
+              launches == {want[0]: len(panels)},
+              f"autotune engine over the {label}: {rec.seen} in "
+              f"{eng.stats['waves']} waves, want {want} each")
+        for i, p in enumerate(panels):
+            exp = ref[:, i * 512:(i + 1) * 512]
+            err = float(np.abs(done[i].out - exp).max())
+            check(err <= SERVE_TOL * float(np.abs(exp).max()),
+                  f"autotune engine over the {label}: request {i} off "
+                  f"float64 by {err}")
+        engines[label] = {"waves": eng.stats["waves"], "launches": launches,
+                          "cost_model": eng.stats_summary()["cost_model"]}
+    del bound, plan
+    # index matching at mesh-docword4
+    c64 = _oracle(torch, crs4)
+    scale = float(c64.abs().max())
+
+    def verify(rounds, geo, out):
+        err = float((out[:crs4.shape[0], :crs4.shape[0]].double() - c64)
+                    .abs().max())
+        check(err <= SERVE_TOL * scale, f"autotune mesh-docword4 R={rounds}"
+              f" {geo[0]}: off float64 by {err}")
+    mcfg = A.autotune.tune_index_match(crs4, crs4, device="cuda",
+                                       reps=AUTOTUNE_REPS, top_k=None,
+                                       verify=verify)
+    rec = A.autotune.LAST_SWEEP
+    emit({"phase": "autotune", "workload": "mesh-docword4",
+          "kernel": "index_match_spmm", "prep": {
+              r: _prep_shape(A.ops, crs4, r)
+              for r in A.autotune.MATCHED_ROUNDS}, **rec.to_json(),
+          "overhead_factor": mcfg.overhead_factor})
+    A.IM.reset_launches()
+    out = A.ops.spmm(crs4, crs4, variant="reference", device="cuda")
+    torch.cuda.synchronize()
+    inst = mcfg.launch_geometry.instance
+    check(A.IM.LAUNCHES["index_match_spmm"] == 1 and
+          A.IM.INSTANCE_LAUNCHES[f"index_match_spmm/{inst}"] == 1,
+          f"autotune: ops.spmm at mesh-docword4 launched the winner "
+          f"({inst}, R={mcfg.rounds}) once: {A.IM.INSTANCE_LAUNCHES}")
+    err = float((out.double() - c64).abs().max())
+    check(err <= SERVE_TOL * scale, f"autotune: the tuned index matching "
+          f"off float64 by {err}")
+    del out, c64
+    # the occupancy rule on every instance of every wrapper
+    occ = []
+    shapes4 = (tuple(A.ops.prepare_incrs(A.InCRS.from_crs(crs4),
+                                         pad_rows_to=8,
+                                         device="cuda").idx.shape),
+               _prep_shape(A.ops, crs4, 128))
+    stripes2 = {n: tuple(A.ops.prepare_incrs(table2[n], device="cuda")
+                         .idx.shape) for n in ("incrs-docword",
+                                               "incrs-belcastro")}
+    for kernel, shape in _occupancy_cases(stripes2, shapes4):
+        shape = {k: getattr(torch, v) if k == "dtype" else v
+                 for k, v in shape.items()}
+        rep = A.L.launch_report(kernel, on_card=True, **shape)
+        line = {"kernel": kernel, "shape": {k: str(v) for k, v in
+                                            shape.items()},
+                "instance": str(getattr(rep.launch.geometry, "instance",
+                                        getattr(rep.launch.geometry,
+                                                "route", "")))
+                if rep.launch else None,
+                "registers": rep.registers, "spill_bytes": rep.spill_bytes,
+                "assumed_ctas": rep.assumed_ctas,
+                "card_ctas": rep.card_ctas,
+                "violations": [v.format() for v in rep.violations]}
+        occ.append(line)
+        check(not rep.violations and rep.card_ctas is not None and
+              rep.card_ctas >= max(1, rep.assumed_ctas),
+              f"autotune occupancy of {kernel} at {shape}: {line}")
+    refused = _refused_swap(torch, A, table2["incrs-docword"],
+                            A.ops.prepare_incrs(table2["incrs-docword"],
+                                                device="cuda"))
+    emit({"phase": "autotune_checks", "engines": engines,
+          "occupancy": occ, "refused_swap": refused,
+          "cache": A.autotune.cache_path(),
+          "seconds": time.perf_counter() - t_phase})
+    return winners
+
+
+# ----------------------------------------------------------------------
 # The sparse × sparse path: C = A @ Bt.T through index matching,
 # condense + merge, and densify (gather, then the fused InCRS SpMM).
 def _counters(P):
@@ -970,9 +1290,26 @@ def _matched_pairs(crs):
     return int((c * c).sum())
 
 
+def _engine_launches(P, variant, crs, rounds):
+    """The launches ``ops.spmm(crs, crs, variant=...)`` implies: ``auto``
+    those of the engine the cost model picks at ``rounds``; densify's
+    InCRS product one of the order ``auto`` picks for it."""
+    if variant == "auto":
+        variant = P.autotune.pick_spgemm_engine(
+            P.mesh_sim.spgemm_cost_for(crs, crs, rounds=rounds))
+    out = dict(ENGINE_LAUNCHES[variant])
+    if variant == "densify":
+        prep = P.ops.prepare_incrs(P.ops._incrs_of(crs), device="cuda")
+        out[auto_kernel(P.ops, prep, crs.shape[0])] = 1
+    return variant, out
+
+
 def phase_spgemm(torch, P, table4):
-    """The path, driven with every counter at 0 just before it."""
+    """The path, driven with every counter at 0 just before it. Returns
+    the launches and each call's wall by (workload, entry, engine,
+    rounds)."""
     _reset_counters(P)
+    walls = {}
     for wl_name, crs in table4.items():
         ref = _oracle(torch, crs)
         scale = float(ref.abs().max())
@@ -1014,11 +1351,13 @@ def phase_spgemm(torch, P, table4):
             inst = {k: v - before_inst[k]
                     for k, v in _instances(P).items()
                     if v != before_inst[k]}
-            check(moved == ENGINE_LAUNCHES[variant],
+            picked, expect = _engine_launches(P, variant, crs, rounds)
+            check(moved == expect,
                   f"{wl_name} {entry} {variant} R={rounds}: launches {moved}"
-                  f" are {ENGINE_LAUNCHES[variant]}")
+                  f" are {expect}")
+            walls[(wl_name, entry, variant, rounds)] = (wall_ms, picked)
             line = {"phase": "spgemm", "workload": wl_name, "entry": entry,
-                    "engine": variant, "rounds": rounds,
+                    "engine": variant, "picked": picked, "rounds": rounds,
                     "shape": [m, m], "nnz": crs.nnz, "matched_pairs": pairs,
                     "prep": _prep_shape(P.ops, crs, rounds), "launches": moved,
                     "instances": inst, "wall_ms": wall_ms,
@@ -1059,7 +1398,24 @@ def phase_spgemm(torch, P, table4):
     for name in NEW_INSTANCES:
         check(instances[name] > 0, f"{name} ran on the spgemm path")
     emit({"phase": "spgemm_instances", "launches": instances})
-    return launches
+    return launches, walls
+
+
+def phase_spgemm_auto(P, table4, walls):
+    """At each Table IV workload: the engine ``auto`` picked at R = 128,
+    each engine's predicted µs, and auto's wall against the fastest
+    engine's wall in phase spgemm (a ratio, printed, not gated)."""
+    for wl_name, crs in table4.items():
+        cost = P.mesh_sim.spgemm_cost_for(crs, crs, rounds=128)
+        auto_wall, picked = walls[(wl_name, "ops.spmm", "auto", 128)]
+        by_engine = {v: walls[(wl_name, "ops.spmm", v, 128)][0]
+                     for v in ("reference", "condense_merge", "densify")}
+        fastest = min(by_engine, key=by_engine.get)
+        emit({"phase": "spgemm_auto", "workload": wl_name, "picked": picked,
+              "predicted_us": cost.predicted_us(),
+              "auto_wall_ms": auto_wall, "walls_ms": by_engine,
+              "fastest": fastest,
+              "auto_over_fastest": auto_wall / by_engine[fastest]})
 
 
 def phase_spgemm_alloc(torch, P, table4):
@@ -2019,8 +2375,7 @@ def plan_path(torch, K, ops, engine_mod, table2):
 # one byte below the two granite tenants together, so the interleaved
 # trace evicts and revives each of them.
 TENANCY_DENSITIES = (0.1, 0.05)
-TENANCY_KERNEL = {"incrs": "incrs_spmm", "bsr": "bsr_spmm",
-                  "dense": "dense_mm"}
+TENANCY_KERNEL = {"bsr": "bsr_spmm", "dense": "dense_mm"}  # incrs: auto
 
 
 def _granite_checkpoints(T):
@@ -2104,10 +2459,16 @@ def phase_tenancy(torch, T, table2):
     check(all(0 < r["smem_bytes"] <= smem["limit_bytes"]
               for r in smem["tenants"].values()),
           f"every tenant's launch fits shared memory: {smem}")
+    # a CUDA engine's seed: the tuner's points for its stripes first (phase
+    # autotune swept incrs-docword), else the bench record in the root
     src = pool.engine("incrs-docword").stats_summary()["cost_model"]
+    check(src["source"].startswith("autotune["),
+          f"the incrs-docword engine seeds from the tuner's sweeps: {src}")
+    src_plan = pool.engine("docword/bsr").stats_summary()["cost_model"]
     if os.path.abspath(os.getcwd()) == ROOT:
-        check(src["source"] == "bench[BENCH_torch_serve.json]",
-              f"a CUDA engine in the root seeds from the record: {src}")
+        check(src_plan["source"] == "bench[BENCH_torch_serve.json]",
+              f"a CUDA engine without tuned stripes, in the root, seeds "
+              f"from the record: {src_plan}")
     g1, g2 = (nbytes[f"granite/{d}"] for d in TENANCY_DENSITIES)
     pool.hbm_budget_bytes = g1 + g2 - 1
     emit({"phase": "tenancy", "entry": "TenantPool",
@@ -2117,7 +2478,7 @@ def phase_tenancy(torch, T, table2):
           "granite_build_host_s": build_s, "add_host_s": add_s,
           "budget_bytes": pool.hbm_budget_bytes,
           "all_bytes": sum(nbytes.values()), "smem_report": smem,
-          "cost_model": src})
+          "cost_model": src, "cost_model_bsr_plan": src_plan})
 
     names = list(tenants)
     widths = [(256, 128, 64, 384)[r % 4] for r in range(32)] + [1200]
@@ -2150,10 +2511,17 @@ def phase_tenancy(torch, T, table2):
                  {**T.K.LAUNCHES, **T.KB.LAUNCHES, **T.KD.LAUNCHES}.items()
                  if v != before[k]}
         waves[name] += eng.stats["waves"] - w0
-        check(req.done and moved == {TENANCY_KERNEL[fmt]:
-                                     eng.stats["waves"] - w0},
-              f"tenancy {name} request {r}: launches {moved} are one "
-              f"{TENANCY_KERNEL[fmt]} a wave")
+        if fmt == "incrs":              # each wave: the order auto picks
+            want = {}
+            for w in wave_widths(width):
+                k = auto_kernel(T.ops, eng.prep, w)
+                want[k] = want.get(k, 0) + 1
+        else:
+            want = {TENANCY_KERNEL[fmt]: eng.stats["waves"] - w0}
+        check(req.done and moved == want and
+              sum(want.values()) == eng.stats["waves"] - w0,
+              f"tenancy {name} request {r}: launches {moved} are {want}, "
+              f"one a wave")
         want = a64[name] @ torch.from_numpy(panel).to("cuda").double()
         got = torch.from_numpy(req.out).to("cuda").double()
         cmax = max(float(want.abs().max()), 1e-30)
@@ -2242,6 +2610,7 @@ def _train_modules():
     from repro_torch.kernels import dense_mm as KD
     from repro_torch.kernels import flash_attention as F
     from repro_torch.kernels import incrs_gather as G
+    from repro_torch.kernels import autotune
     from repro_torch.kernels import incrs_spmm as K
     from repro_torch.kernels import index_match_spmm as IM
     from repro_torch.kernels import ops
@@ -2255,7 +2624,54 @@ def _train_modules():
     return types.SimpleNamespace(ex=ex, K=K, KB=KB, KD=KD, F=F, G=G, IM=IM,
                                  SK=SK, ops=ops, api=api, lin_mod=lin_mod,
                                  O=O, CRS=CRS, InCRS=InCRS, engine=engine,
-                                 pattern=pattern, trainer=trainer)
+                                 pattern=pattern, trainer=trainer,
+                                 autotune=autotune)
+
+
+def _step_products(torch, R, model):
+    """The three InCRS products of a step, as ``ops.spmm`` gets them:
+    (name, idx, values, section, rows of B) of l1's and l2's forward
+    stripes and l2's transposed stripes (dx)."""
+    l1, l2 = model["l1"], model["l2"]
+    m1, m2 = l1.meta, l2.meta
+    v2 = l2.values.detach()
+    flat = torch.cat([v2.reshape(-1), v2.new_zeros(1)])
+    tvals = flat.index_select(0, m2.t_gather).view(m2.bwd_idx.shape)
+    return [("fwd_l1", m1.fwd_idx, l1.values.detach(), m1.section,
+             m1.d_in),
+            ("fwd_l2", m2.fwd_idx, v2, m2.section, m2.d_in),
+            ("dx_l2", m2.bwd_idx, tvals, m2.section, m2.d_out)]
+
+
+def _step_kernels(torch, R, model, steps):
+    """The InCRS kernel launches ``steps`` steps take: each product's
+    ``auto`` order, once a step."""
+    want = {}
+    for _, idx, val, section, k in _step_products(torch, R, model):
+        kname = auto_kernel(R.ops, R.ops.PreparedOperand(
+            idx, val, (idx.shape[0], k), section), TRAIN["tokens"])
+        want[kname] = want.get(kname, 0) + steps
+    return want
+
+
+def _train_sweeps(torch, R, model):
+    """Phase autotune's sweep on each of a step's InCRS products at
+    T = 512 (B random: the values of B do not change which slots a
+    launch reads)."""
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN["seed"] + 7)
+    out = {}
+    for name, idx, val, section, k in _step_products(torch, R, model):
+        b = torch.randn(k, TRAIN["tokens"], generator=gen, device="cuda")
+        cfg = sweep_incrs(torch, R, idx, val, b, section,
+                          f"granite-34b MLP {name}", {"product": name})
+        out[name] = {"variant": cfg.variant, "geometry": cfg.geometry,
+                     "us": cfg.measured_us, "predicted_us": cfg.predicted_us}
+        del b
+    return out
+
+
+def _incrs_count(R):
+    return sum(R.K.LAUNCHES.values())
 
 
 def _zero_every_count(R):
@@ -2451,6 +2867,7 @@ def phase_train(torch, R, fmt):
     flush = torch.empty(64 * 2 ** 20, device="cuda")     # 256 MB
     x, y = _train_data(torch)
     model, pack_s = _train_student(torch, R, fmt)
+    sweeps = _train_sweeps(torch, R, model) if fmt == "incrs" else None
     shapes = {k: list(lin.values.shape) for k, lin in model.items()}
     if fmt == "incrs":
         shapes.update({f"{k}_bwd_idx": list(lin.meta.bwd_idx.shape)
@@ -2506,19 +2923,25 @@ def phase_train(torch, R, fmt):
                                          g["steps"])
     counts = {k: v for k, v in _every_count(R).items() if v}
     peak = torch.cuda.max_memory_allocated()
-    check(counts == {kname: TRAIN_LAUNCHES * g["steps"]},
-          f"train {fmt}: {TRAIN_LAUNCHES} launches of {kname} a step and "
+    want = _step_kernels(torch, R, model, g["steps"]) if fmt == "incrs" \
+        else {kname: TRAIN_LAUNCHES * g["steps"]}
+    check(counts == want and sum(want.values()) ==
+          TRAIN_LAUNCHES * g["steps"],
+          f"train {fmt}: {TRAIN_LAUNCHES} launches a step, {want}, and "
           f"no other kernel, got {counts} in {g['steps']} steps")
     with torch.no_grad():
         final = float(R.ex.mlp_loss(model, x, y))
     check(final < losses[0], f"train {fmt}: loss {losses[0]} -> {final} "
           f"did not fall")
     frozen = _frozen_slots(torch, R, fmt, model)
-    before = _every_count(R)[kname]
+
+    def fmt_count():
+        return _incrs_count(R) if fmt == "incrs" else _every_count(R)[kname]
+    before = fmt_count()
     eng, served_err = R.ex.serve_check(model["l1"],
                                        np.random.default_rng(g["seed"]),
                                        n=3, cols=192, max_wave_cols=512)
-    served_launches = _every_count(R)[kname] - before
+    served_launches = fmt_count() - before
     check(served_err <= SERVE_TOL, f"train {fmt}: served l1 off float64 by "
           f"{served_err} > {SERVE_TOL} of max|C|")
     check(served_launches == eng.stats["waves"], f"train {fmt}: one "
@@ -2545,7 +2968,8 @@ def phase_train(torch, R, fmt):
               k: statistics.median(v) for k, v in timing.items()},
           "step_times": timing, "peak_memory_bytes": peak,
           "launches": counts, "launches_per_step":
-              counts.get(kname, 0) / g["steps"], "losses": losses,
+              sum(counts.values()) / g["steps"], "sweeps": sweeps,
+          "losses": losses,
           "final_loss": final, "frozen_slots": frozen,
           "served": served,
           "example_rc": proc.returncode,
@@ -2555,7 +2979,9 @@ def phase_train(torch, R, fmt):
                "final_loss": final, "step_median": {
                    k: statistics.median(v) for k, v in timing.items()},
                "peak_memory_bytes": peak}
-    return (kname, counts.get(kname, 0), {
+    dx_kernel = kname if fmt != "incrs" else RAN_BY[sweeps["dx_l2"][
+        "variant"]]
+    return (counts, dx_kernel, {
         k: dx[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                            "library_ms", "max_abs_err")}), handoff
 
@@ -2629,14 +3055,19 @@ def _operand_work(torch, R, fmt, op, n):
                       int(np.unique(np.asarray(meta.col_of)).size))
 
 
-def _served_operands(torch, R, fmt, ops_by_side, panel, flush):
+def _served_operands(torch, R, fmt, ops_by_side, dense_by_side, panel,
+                     flush):
     """The engine's operand before and after the swap (the trained
     pattern, and the repacked stripes or block lists), each launched once
     on ``panel`` and held against its plain version on the same inputs,
-    then timed with the plain version and its bound beside it."""
-    kname = TRAIN_KERNEL[fmt]
+    then timed with the plain version, its bound and one library call
+    beside it: ``torch.sparse.mm`` of the operand's dense A
+    (``dense_by_side``) as CSR (incrs), or A as BSR of its blocks times B
+    (bsr, phase plan_times' yardstick)."""
     out = {}
     for side, op in ops_by_side.items():
+        kname = auto_kernel(R.ops, op._ready, panel.shape[1]) \
+            if fmt == "incrs" else TRAIN_KERNEL[fmt]
         n0 = _every_count(R)[kname]
         got = op(panel)
         torch.cuda.synchronize()
@@ -2655,7 +3086,8 @@ def _served_operands(torch, R, fmt, ops_by_side, panel, flush):
         nbytes, flops = _operand_work(torch, R, fmt, op, panel.shape[1])
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOP_PER_S * 1e3
-        out[side] = {"max_abs_err": err, "bytes": nbytes, "flops": flops,
+        out[side] = {"kernel": kname, "max_abs_err": err, "bytes": nbytes,
+                     "flops": flops,
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations",
@@ -2664,6 +3096,16 @@ def _served_operands(torch, R, fmt, ops_by_side, panel, flush):
                          torch, lambda: _operand_plain(torch, R, fmt, op,
                                                        panel), flush,
                          reps=3)}
+        dense = dense_by_side[side]
+        lib = dense.to_sparse_csr() if fmt == "incrs" else \
+            dense.to_sparse_bsr((op.plan.meta.block, op.plan.meta.block))
+        del dense
+        out[side]["library"] = "torch.sparse.mm (CSR)" if fmt == "incrs" \
+            else "BSR @ B (to_sparse_bsr, as row 5)"
+        out[side]["library_ms"] = _time_ms(
+            torch, (lambda: torch.sparse.mm(lib, panel)) if fmt == "incrs"
+            else (lambda: lib @ panel), flush, reps=10)
+        del lib
     return out
 
 
@@ -2738,9 +3180,13 @@ def phase_lifecycle(torch, R, fmt, h):
     serve_counts = {k: v for k, v in _every_count(R).items() if v}
     check(len(eng.finished) == len(reqs) and all(r.done for r in reqs),
           f"lifecycle {fmt}: every request served")
-    check(serve_counts == {kname: eng.stats["waves"]}, f"lifecycle {fmt}: "
-          f"one launch of {kname} a wave, {serve_counts} for "
-          f"{eng.stats['waves']} waves")
+    ran = auto_orders(R.ops, [old_op._ready, eng.prep._ready]) \
+        if fmt == "incrs" \
+        else {kname}
+    check(sum(serve_counts.values()) == eng.stats["waves"] and
+          set(serve_counts) <= ran, f"lifecycle {fmt}: one launch a wave "
+          f"of {sorted(ran)}, {serve_counts} for {eng.stats['waves']} "
+          f"waves")
     w_new = torch.from_numpy(l1.to_dense()).to("cuda").double()
     mask_new = torch.from_numpy(l1.pattern.mask).to("cuda")
     worst = {"old": 0.0, "new": 0.0}
@@ -2764,6 +3210,8 @@ def phase_lifecycle(torch, R, fmt, h):
           f"lifecycle {fmt}: surviving values carried over, pruned slots "
           f"absent from the new values")
     pruned = int((mask_old & ~mask_new).sum())
+    dense_by_side = {"before": w_old.T.float().contiguous(),
+                     "after": w_new.T.float().contiguous()}
     del w_old, w_new, mask_old, mask_new
     check(eng.stats["waves"] - waves_before - 1 == waves_before,
           f"lifecycle {fmt}: like traffic packs into as many waves on both "
@@ -2784,11 +3232,11 @@ def phase_lifecycle(torch, R, fmt, h):
         "cuda")
     operands = _served_operands(torch, R, fmt,
                                 {"before": old_op, "after": eng.prep},
-                                panel, flush)
-    del flush, panel
+                                dense_by_side, panel, flush)
+    del flush, panel, dense_by_side
     # where a wave's time goes on either side of the swap: the same
     # traffic served by a fresh engine over each side's operand
-    keys = ("expand_kernel",) if fmt == "incrs" else ("bsr_kernel", "bsrsrc")
+    keys = INCRS_SYMBOLS if fmt == "incrs" else ("bsr_kernel", "bsrsrc")
     phase_profile(torch, [
         profile_job(op, l1.d_in, fmt=fmt, kernel_keys=keys,
                     workload=f"lifecycle granite W_up, {side} the swap")
@@ -2805,9 +3253,11 @@ def phase_lifecycle(torch, R, fmt, h):
     losses, timing, state = _timed_steps(torch, R, cfg, model, state, x, y,
                                          LIFECYCLE_STEPS)
     step_counts = {k: v for k, v in _every_count(R).items() if v}
-    check(step_counts == {kname: TRAIN_LAUNCHES * LIFECYCLE_STEPS},
-          f"lifecycle {fmt}: {TRAIN_LAUNCHES} launches of {kname} a step "
-          f"and no other kernel, got {step_counts}")
+    want = _step_kernels(torch, R, model, LIFECYCLE_STEPS) \
+        if fmt == "incrs" else {kname: TRAIN_LAUNCHES * LIFECYCLE_STEPS}
+    check(step_counts == want, f"lifecycle {fmt}: {TRAIN_LAUNCHES} "
+          f"launches a step, {want}, and no other kernel, got "
+          f"{step_counts}")
     with torch.no_grad():
         final = float(R.ex.mlp_loss(model, x, y))
     check(all(np.isfinite(losses)) and np.isfinite(final),
@@ -2824,7 +3274,9 @@ def phase_lifecycle(torch, R, fmt, h):
               f"the new pattern, {losses} -> {final}")
     frozen = _frozen_slots(torch, R, fmt, model)
     peak = torch.cuda.max_memory_allocated()
-    launches = eng.stats["waves"] + step_counts.get(kname, 0)
+    launches = dict(serve_counts)
+    for k, v in step_counts.items():
+        launches[k] = launches.get(k, 0) + v
     emit({"phase": "lifecycle", "format": fmt, "model": "granite-34b MLP",
           "layer": "l1 (W_up)", "density": [nnz_old / (l1.d_in * l1.d_out),
                                             l1.density],
@@ -2849,9 +3301,9 @@ def phase_lifecycle(torch, R, fmt, h):
           "frozen_slots": frozen, "peak_memory_bytes": peak,
           "train_peak_memory_bytes": h["peak_memory_bytes"]})
     del eng
-    return kname, launches, {k: {f: v[f] for f in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
-        for k, v in operands.items()}
+    return launches, {k: {f: v[f] for f in (
+        "kernel", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library", "library_ms")} for k, v in operands.items()}
 
 
 # ----------------------------------------------------------------------
@@ -3509,6 +3961,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    # every run tunes from cold: the tuning cache a fresh file of its own
+    cache = os.path.join(ROOT, "build", f"autotune-{os.getpid()}.json")
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    if os.path.exists(cache):
+        os.remove(cache)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache
     from repro_torch import spgemm
     from repro_torch.configs.paper_spmm import WORKLOADS
     from repro_torch.core.crs import CRS
@@ -3525,6 +3983,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase_env(torch, _build)
+    from repro_torch.analysis import launch_check as L
+    from repro_torch.core import mesh_sim
+    from repro_torch.kernels import autotune
+    from repro_torch.sparse import api
     table2 = {}
     for name in TABLE2:
         wl = WORKLOADS[name]
@@ -3535,12 +3997,17 @@ def main() -> int:
     launches = phase_serve(K, engine_mod, table2)
     phase_profile(torch, [profile_job(docword, docword.shape[1])])
     rows = phase_times(torch, K, ops, table2, errs_512, launches)
-    P = types.SimpleNamespace(K=K, G=G, IM=IM, SK=SK, ops=ops, spgemm=spgemm,
-                              CRS=CRS, InCRS=InCRS)
     table4 = {name: datasets.synthesize(WORKLOADS[name].dataset, seed=0)
               for name in TABLE4}
+    A = types.SimpleNamespace(K=K, IM=IM, ops=ops, api=api, E=engine_mod,
+                              L=L, autotune=autotune, InCRS=InCRS)
+    phase_autotune(torch, A, table2, table4["mesh-docword4"])
+    P = types.SimpleNamespace(K=K, G=G, IM=IM, SK=SK, ops=ops, spgemm=spgemm,
+                              CRS=CRS, InCRS=InCRS, autotune=autotune,
+                              mesh_sim=mesh_sim)
     errs_dw = phase_spgemm_kernels(torch, P, table4)
-    spgemm_launches = phase_spgemm(torch, P, table4)
+    spgemm_launches, spgemm_walls = phase_spgemm(torch, P, table4)
+    phase_spgemm_auto(P, table4, spgemm_walls)
     phase_spgemm_alloc(torch, P, table4)
     for r in rows:              # densify reaches the fused InCRS kernel too
         r["launches_by_path"] = {"serve": r["launches"],
@@ -3558,14 +4025,19 @@ def main() -> int:
         r["launches"] += n
     del table2, docword
     torch.cuda.empty_cache()
-    for (kname, launches_train, dx), (_, launches_life, operands) in \
+    for (train_counts, dx_kernel, dx), (life_counts, operands) in \
             train_path(torch).values():
-        r = next(r for r in rows if r["name"] == kname)
-        r["launches_by_path"]["train"] = launches_train
-        r["launches_by_path"]["lifecycle"] = launches_life
-        r["launches"] += launches_train + launches_life
-        r["train_dx"] = dx
-        r["lifecycle_512"] = operands
+        for path, counts in (("train", train_counts),
+                             ("lifecycle", life_counts)):
+            for kname, n in counts.items():
+                r = next(r for r in rows if r["name"] == kname)
+                r["launches_by_path"][path] = \
+                    r["launches_by_path"].get(path, 0) + n
+                r["launches"] += n
+        next(r for r in rows if r["name"] == dx_kernel)["train_dx"] = dx
+        for side, op in operands.items():
+            next(r for r in rows if r["name"] == op["kernel"]).setdefault(
+                "lifecycle_512", {})[side] = op
     for kname, add in crs_plan_path(torch).items():
         r = next(r for r in rows if r["name"] == kname)
         r.setdefault("launches_by_path", {"spgemm": r["launches"]})[

@@ -111,10 +111,26 @@ def _library() -> ctypes.CDLL:
         lib.bsr_spmm.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i,
                                  i, i, p, p, p, i, p]
         lib.bsr_spmm.restype = i
+        lib.bsr_spmm_ctas_per_sm.argtypes = [i, i, i, i, i, p]
+        lib.bsr_spmm_ctas_per_sm.restype = i
         lib.bsr_spmm_error_string.argtypes = [i]
         lib.bsr_spmm_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
     return lib
+
+
+def ctas_per_sm(geo: GemmGeometry) -> int:
+    """The CTAs of ``geo``'s instance that one SM of the current card
+    holds, from the card's occupancy calculator."""
+    lib = _library()
+    out = ctypes.c_int(0)
+    err = lib.bsr_spmm_ctas_per_sm(
+        INSTANCES.index(geo.instance), geo.tile_n, geo.splits, geo.smem,
+        geo.layout[0] if geo.layout else 0, ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"bsr_spmm_ctas_per_sm: CUDA error {err}: "
+                           f"{lib.bsr_spmm_error_string(err).decode()}")
+    return out.value
 
 
 def _check(row_of: torch.Tensor, col_of: torch.Tensor, values: torch.Tensor,

@@ -184,6 +184,19 @@ int launch_general(const int* row_start, const int* col_of,
   return (int)cudaGetLastError();
 }
 
+// CTAs of the general instance of `tm` rows a thread that one SM holds.
+template <typename T>
+int general_ctas(int tm, int smem, int* ctas) {
+  const void* fn = tm == 1   ? (const void*)bsr_kernel<1, T>
+                   : tm == 2 ? (const void*)bsr_kernel<2, T>
+                   : tm == 4 ? (const void*)bsr_kernel<4, T>
+                   : tm == 8 ? (const void*)bsr_kernel<8, T>
+                             : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fn,
+                                                            kThreads, smem);
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -199,6 +212,26 @@ int launch_general(const int* row_start, const int* col_of,
 extern "C" {
 
 const char* bsr_spmm_error_string(int err) { return hopper_error_string(err); }
+
+// CTAs of one instance that one SM holds at the wrapper's geometry (tile
+// columns, K splits, dynamic shared memory; the general instance's rows a
+// thread `tm`), from the occupancy calculator.
+int bsr_spmm_ctas_per_sm(int instance, int tile_n, int splits, int smem,
+                         int tm, int* ctas) {
+  switch (instance) {
+    case F32_FMA:
+      return gemm_f32_ctas_per_sm<BsrSrc<float, kF32Bk>>(splits, smem, ctas);
+    case BF16_WGMMA:
+      if (tile_n == 256)
+        return gemm_bf16_ctas_per_sm<BsrSrc<__nv_bfloat16, kBf16Bk, 256>>(
+            splits, smem, ctas);
+      return gemm_bf16_ctas_per_sm<BsrSrc<__nv_bfloat16, kBf16Bk, 128>>(
+          splits, smem, ctas);
+    case GENERAL_F32: return general_ctas<float>(tm, smem, ctas);
+    case GENERAL_BF16: return general_ctas<__nv_bfloat16>(tm, smem, ctas);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 int bsr_spmm(const int* row_start, const int* col_of, const void* values,
              const void* b, void* c, int n_block_rows, int bm, int bk, int k,

@@ -139,6 +139,31 @@ extern "C" {
 
 const char* dense_mm_error_string(int err) { return hopper_error_string(err); }
 
+// CTAs of one instance that one SM holds at the wrapper's geometry (its
+// tile columns, K splits and dynamic shared memory), from the occupancy
+// calculator.
+int dense_mm_ctas_per_sm(int instance, int tile_n, int splits, int smem,
+                         int* ctas) {
+  switch (instance) {
+    case F32_FMA:
+      return gemm_f32_ctas_per_sm<DenseSrc<float, kF32Bk>>(splits, smem,
+                                                           ctas);
+    case BF16_WGMMA:
+      if (tile_n == 256)
+        return gemm_bf16_ctas_per_sm<DenseSrc<__nv_bfloat16, kBf16Bk, 256>>(
+            splits, smem, ctas);
+      return gemm_bf16_ctas_per_sm<DenseSrc<__nv_bfloat16, kBf16Bk, 128>>(
+          splits, smem, ctas);
+    case GENERAL_F32:
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          ctas, dense_kernel<float>, kThreads, 0);
+    case GENERAL_BF16:
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          ctas, dense_kernel<__nv_bfloat16>, kThreads, 0);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 int dense_mm(const void* a, const void* b, void* c, int m, int n, int k,
              int instance, int tile_n, int splits, int stages, int smem,
              float* ws, int* tickets, int device, void* stream) {

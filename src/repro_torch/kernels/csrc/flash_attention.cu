@@ -654,6 +654,36 @@ const char* flash_attention_error_string(int err) {
   return hopper_error_string(err);
 }
 
+// CTAs of one kernel that one SM holds at `smem` bytes (dtype 0 = f32,
+// 1 = bf16; the head dim picks the instance), from the occupancy
+// calculator.
+int flash_attention_ctas_per_sm(int dtype, int hd, size_t smem, int* ctas) {
+  const int nj = (hd + 63) / 64;
+  const void* fn = nullptr;
+  int threads = 0;
+  if (dtype == 0) {
+    threads = kF32Threads;
+    fn = nj == 1   ? (const void*)flash_kernel_f32<1>
+         : nj == 2 ? (const void*)flash_kernel_f32<2>
+         : nj == 3 ? (const void*)flash_kernel_f32<3>
+         : nj == 4 ? (const void*)flash_kernel_f32<4>
+                   : nullptr;
+  } else if (dtype == 1) {
+    threads = kBf16Threads;
+    fn = nj == 1   ? (const void*)flash_kernel_bf16<64>
+         : nj == 2 ? (const void*)flash_kernel_bf16<128>
+         : nj == 3 ? (const void*)flash_kernel_bf16<192>
+         : nj == 4 ? (const void*)flash_kernel_bf16<256>
+                   : nullptr;
+  }
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fn,
+                                                            threads, smem);
+}
+
 // strides: q (b, s, kv, g), k (b, s, kv), v (b, s, kv), o (b, s, kv, g),
 // in elements. dtype 0 = f32 (flash_kernel_f32), 1 = bf16
 // (flash_kernel_bf16; every stride but the head dim's a multiple of 8 and

@@ -455,6 +455,24 @@ int launch_gemm_f32(const Src& src, int tiles, int splits, int stages,
                                       stream);
 }
 
+// CTAs of the f32 instance over Src (split or not) that one SM holds at
+// `smem` bytes, from the occupancy calculator.
+template <class Src, bool kSplit>
+int f32_ctas(int smem, int* ctas) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_f32_kernel<Src, kSplit>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, gemm_f32_kernel<Src, kSplit>, kF32Threads, (size_t)smem);
+}
+
+template <class Src>
+int gemm_f32_ctas_per_sm(int splits, int smem, int* ctas) {
+  return splits > 1 ? f32_ctas<Src, true>(smem, ctas)
+                    : f32_ctas<Src, false>(smem, ctas);
+}
+
 // ===========================================================================
 // bf16: wgmma behind a TMA ring.
 constexpr int kBf16Bk = 64;
@@ -694,6 +712,24 @@ int launch_bf16(const CUtensorMap& ta, const CUtensorMap& tb, const Src& src,
                                   kBf16Threads, smem, stream>>>(
       ta, tb, src, sp, stages);
   return (int)cudaGetLastError();
+}
+
+// CTAs of the bf16 instance over Src (split or not) that one SM holds at
+// `smem` bytes, from the occupancy calculator.
+template <class Src, bool kSplit>
+int bf16_ctas(int smem, int* ctas) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_bf16_kernel<Src, kSplit>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, gemm_bf16_kernel<Src, kSplit>, kBf16Threads, (size_t)smem);
+}
+
+template <class Src>
+int gemm_bf16_ctas_per_sm(int splits, int smem, int* ctas) {
+  return splits > 1 ? bf16_ctas<Src, true>(smem, ctas)
+                    : bf16_ctas<Src, false>(smem, ctas);
 }
 
 template <class Src>

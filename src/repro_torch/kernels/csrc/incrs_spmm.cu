@@ -581,6 +581,32 @@ extern "C" {
 
 const char* incrs_error_string(int err) { return hopper_error_string(err); }
 
+// CTAs of one instance that one SM holds at `threads` threads and `smem`
+// bytes of dynamic shared memory, from the occupancy calculator. kernel
+// 0: expand_kernel (instance 1 its float4 form, 0 its scalar one); 1:
+// reuse_kernel<instance> (threads a row); 2: pipelined_kernel<instance>
+// (columns a lane).
+int incrs_ctas_per_sm(int kernel, int instance, int threads, size_t smem,
+                      int* ctas) {
+  const void* fn = nullptr;
+  if (kernel == 0)
+    fn = instance ? (const void*)expand_kernel<true>
+                  : (const void*)expand_kernel<false>;
+  else if (kernel == 1 && instance == 32) fn = (const void*)reuse_kernel<32>;
+  else if (kernel == 1 && instance == 64) fn = (const void*)reuse_kernel<64>;
+  else if (kernel == 1 && instance == 128)
+    fn = (const void*)reuse_kernel<128>;
+  else if (kernel == 2 && instance == 1)
+    fn = (const void*)pipelined_kernel<1>;
+  else if (kernel == 2 && instance == 2)
+    fn = (const void*)pipelined_kernel<2>;
+  if (fn == nullptr || threads < 1) return (int)cudaErrorInvalidValue;
+  int err = set_smem(fn, smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fn,
+                                                            threads, smem);
+}
+
 // `rows`: warps (one row each) per CTA, 1 to 8; `smem`: their stripes,
 // each warp's own.
 int incrs_spmm_expand(const int* idx, const float* val, const float* b,

@@ -70,10 +70,25 @@ def _library() -> ctypes.CDLL:
         lib.dense_mm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p, p, i,
                                  p]
         lib.dense_mm.restype = i
+        lib.dense_mm_ctas_per_sm.argtypes = [i, i, i, i, p]
+        lib.dense_mm_ctas_per_sm.restype = i
         lib.dense_mm_error_string.argtypes = [i]
         lib.dense_mm_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
     return lib
+
+
+def ctas_per_sm(geo: GemmGeometry) -> int:
+    """The CTAs of ``geo``'s instance that one SM of the current card
+    holds, from the card's occupancy calculator."""
+    lib = _library()
+    out = ctypes.c_int(0)
+    err = lib.dense_mm_ctas_per_sm(INSTANCES.index(geo.instance), geo.tile_n,
+                                   geo.splits, geo.smem, ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"dense_mm_ctas_per_sm: CUDA error {err}: "
+                           f"{lib.dense_mm_error_string(err).decode()}")
+    return out.value
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:

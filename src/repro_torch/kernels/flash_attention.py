@@ -73,10 +73,27 @@ def _library() -> ctypes.CDLL:
             p, p, p, p, ctypes.POINTER(ctypes.c_longlong),
             i, i, i, i, i, i, i, i, f, f, i, i, ctypes.c_size_t, i, p]
         lib.flash_attention.restype = i
+        lib.flash_attention_ctas_per_sm.argtypes = [i, i, ctypes.c_size_t,
+                                                    p]
+        lib.flash_attention_ctas_per_sm.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
     return lib
+
+
+def ctas_per_sm(launch: "Launch", hd: int) -> int:
+    """The CTAs of ``launch``'s kernel at head dim ``hd`` that one SM of
+    the current card holds, from the card's occupancy calculator."""
+    lib = _library()
+    out = ctypes.c_int(0)
+    err = lib.flash_attention_ctas_per_sm(
+        list(ROUTES.values()).index(launch.route), hd, launch.smem,
+        ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"flash_attention_ctas_per_sm: error {err}: "
+                           f"{lib.flash_attention_error_string(err).decode()}")
+    return out.value
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

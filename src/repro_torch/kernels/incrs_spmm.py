@@ -41,6 +41,9 @@ SMEM_LIMIT = 232_448
 
 LAUNCHES: Dict[str, int] = {"incrs_spmm": 0, "incrs_spmm_reuse": 0,
                             "incrs_spmm_pipelined": 0}
+# ops.spmm's grid orders and the kernel of each
+ORDERS = {"expand": "incrs_spmm", "reuse": "incrs_spmm_reuse",
+          "pipelined": "incrs_spmm_pipelined"}
 
 _C_FN = {"incrs_spmm": "incrs_spmm_expand",
          "incrs_spmm_reuse": "incrs_spmm_reuse",
@@ -137,6 +140,8 @@ def _library() -> ctypes.CDLL:
             f.argtypes = [p, p, p, p, i, i, i, i, i,
                           *_GEOMETRY_TYPES[name], i, p]
             f.restype = i
+        lib.incrs_ctas_per_sm.argtypes = [i, i, i, ctypes.c_size_t, p]
+        lib.incrs_ctas_per_sm.restype = i
         lib.incrs_error_string.argtypes = [i]
         lib.incrs_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
@@ -191,25 +196,30 @@ def stripe_bytes(rows: int, smax: int) -> int:
     return 16 * rows * (-(-smax // 4) * 4 + 4 + -(-smax // 2) * 2 + 1)
 
 
-def reuse_geometry(n: int) -> Tuple[int, int, int]:
+def reuse_geometry(n: int, tpr: Optional[int] = None
+                   ) -> Tuple[int, int, int]:
     """(threads per row, rows per block, panel columns) of the reuse
     kernel at N columns: 32, 64 or 128 threads a row (the kernel's three
     instances), the fewest whose panel of 128, 256 or 512 columns holds N,
-    else 128; 256 threads a block."""
-    cols = -(-n // REUSE_COLS_PER_THREAD)        # threads a row would use
-    tpr = next((t for t in REUSE_TPR[:-1] if cols <= t), REUSE_TPR[-1])
+    else 128; 256 threads a block. ``tpr`` overrides the rule (sweeps)."""
+    if tpr is None:
+        cols = -(-n // REUSE_COLS_PER_THREAD)    # threads a row would use
+        tpr = next((t for t in REUSE_TPR[:-1] if cols <= t), REUSE_TPR[-1])
     return tpr, REUSE_THREADS // tpr, REUSE_COLS_PER_THREAD * tpr
 
 
-def reuse_smem_bytes(n: int, smax: int) -> int:
+def reuse_smem_bytes(n: int, smax: int, tpr: Optional[int] = None) -> int:
     """Shared memory per block of the reuse kernel: its rows' stripes."""
-    return stripe_bytes(reuse_geometry(n)[1], smax)
+    return stripe_bytes(reuse_geometry(n, tpr)[1], smax)
 
 
-def expand_geometry(smax: int) -> Tuple[int, int]:
+def expand_geometry(smax: int, rows: Optional[int] = None
+                    ) -> Tuple[int, int]:
     """(rows per CTA, shared memory) of the expand kernel: 8 warps of one
     row each, each with its own stripes, fewer only where 8 rows' stripes
-    would not fit."""
+    would not fit. ``rows`` overrides the rule (sweeps)."""
+    if rows is not None:
+        return rows, stripe_bytes(rows, smax)
     for rows in EXPAND_ROWS:
         smem = stripe_bytes(rows, smax)
         if smem <= SMEM_LIMIT:
@@ -217,6 +227,25 @@ def expand_geometry(smax: int) -> Tuple[int, int]:
     raise ValueError(f"incrs_spmm: needs {smem} bytes of shared memory per "
                      f"block for one row's stripes (smax {smax}), over the "
                      f"card's {SMEM_LIMIT}")
+
+
+def pipe_launch(m: int, n: int, smax: int, section: int, cpl: int,
+                warps: int, cluster: int) -> PipeGeometry:
+    """The pipelined launch of ``cpl`` columns a lane, ``warps`` consumer
+    warps and a cluster of ``cluster`` (dividing the section) at M
+    (padded) rows and N columns: each CTA copies section / C rows of each
+    block in boxes of at most 256 rows; row tiles padded to a multiple of
+    the cluster."""
+    q = section // cluster
+    boxes = -(-q // TMA_BOX_MAX)
+    box_rows = -(-q // boxes)
+    ring = PIPE_STAGES * (cluster * boxes * box_rows * PIPE_COLS * cpl * 4 +
+                          16)
+    tiles = -(-m // warps)
+    return PipeGeometry(cpl, warps, cluster, PIPE_STAGES, box_rows, boxes,
+                        -(-tiles // cluster) * cluster,
+                        -(-n // (PIPE_COLS * cpl * PIPE_BLOCKS)),
+                        128 + ring + stripe_bytes(warps, smax))
 
 
 @functools.lru_cache(maxsize=256)
@@ -245,20 +274,10 @@ def pipelined_geometry(m: int, n: int, smax: int, section: int, *,
         cluster //= 2
 
     def launch(cpl: int, w: int, c: int) -> PipeGeometry:
-        q = section // c
-        boxes = -(-q // TMA_BOX_MAX)
-        box_rows = -(-q // boxes)
-        ring = PIPE_STAGES * (c * boxes * box_rows * PIPE_COLS * cpl * 4 +
-                              16)
-        tiles = -(-m // w)
-        return PipeGeometry(cpl, w, c, PIPE_STAGES, box_rows, boxes,
-                            -(-tiles // c) * c,
-                            -(-n // (PIPE_COLS * cpl * PIPE_BLOCKS)),
-                            128 + ring + stripe_bytes(w, smax))
+        return pipe_launch(m, n, smax, section, cpl, w, c)
 
     def cost(g: PipeGeometry) -> tuple:
-        per_sm = min(SM_THREADS // ((g.warps + 1) * 32),
-                     SM_SMEM // (g.smem + CTA_RESERVED))
+        per_sm = assumed_ctas_per_sm("incrs_spmm_pipelined", g)
         return (-(-g.row_tiles * g.col_tiles // (per_sm * sms)), g.warps,
                 g.cluster != cluster)
 
@@ -277,22 +296,131 @@ def pipelined_geometry(m: int, n: int, smax: int, section: int, *,
                      f"{smax}, section {section})")
 
 
+# Each order's launch knobs (``launch_geometry``'s keyword arguments):
+# what the autotuner sweeps.
+KNOBS = {"incrs_spmm": ("rows",), "incrs_spmm_reuse": ("tpr",),
+         "incrs_spmm_pipelined": ("cluster", "cols_per_lane", "warps")}
+
+
 def launch_geometry(name: str, n: int, smax: int, section: int, *,
-                    m: int = 0, sms: int = SMS) -> tuple:
+                    m: int = 0, sms: int = SMS, **knobs) -> tuple:
     """What the C launcher of kernel ``name`` takes after the operand
     sizes: (rows per CTA, shared memory) for expand, (threads per row,
     shared memory) for reuse, a ``PipeGeometry`` for pipelined (at ``m``
-    rows on ``sms`` SMs). Raises if a block would need more shared memory
-    than the card has."""
+    rows on ``sms`` SMs). ``knobs`` (``KNOBS[name]``) override the rule:
+    ``rows`` of expand, ``tpr`` of reuse, ``pipelined_geometry``'s
+    keyword arguments. Raises if a block would need more shared memory
+    than the card has; ``analysis.launch_check`` holds an overridden
+    geometry against the rest of what the kernel takes."""
+    bad = set(knobs) - set(KNOBS[name])
+    if bad:
+        raise ValueError(f"{name}: no launch knob {sorted(bad)}; it has "
+                         f"{list(KNOBS[name])}")
     if name == "incrs_spmm_pipelined":
-        return pipelined_geometry(m, n, smax, section, sms=sms)
+        return pipelined_geometry(m, n, smax, section, sms=sms, **knobs)
     if name == "incrs_spmm":
-        return expand_geometry(smax)
-    smem = reuse_smem_bytes(n, smax)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: needs {smem} bytes of shared memory per "
-                         f"block, over the card's {SMEM_LIMIT}")
-    return reuse_geometry(n)[0], smem
+        geo = expand_geometry(smax, knobs.get("rows"))
+    else:
+        tpr = reuse_geometry(n, knobs.get("tpr"))[0]
+        geo = tpr, reuse_smem_bytes(n, smax, tpr)
+    if geo[1] > SMEM_LIMIT:
+        raise ValueError(f"{name}: needs {geo[1]} bytes of shared memory "
+                         f"per block, over the card's {SMEM_LIMIT}")
+    return geo
+
+
+def rebuild(name: str, geometry: tuple, *, m: int, n: int, smax: int,
+            section: int) -> tuple:
+    """The launch this wrapper builds at M (padded) rows, N columns and
+    (smax, section) stripes from ``geometry``'s own knobs: equal to
+    ``geometry`` exactly where it is this shape's launch (a tuned launch
+    at another shape is not)."""
+    if name == "incrs_spmm":
+        return expand_geometry(smax, geometry[0])
+    if name == "incrs_spmm_reuse":
+        return geometry[0], reuse_smem_bytes(n, smax, geometry[0])
+    return pipe_launch(m, n, smax, section, geometry.cols_per_lane,
+                       geometry.warps, geometry.cluster)
+
+
+def launch_threads(name: str, geometry: tuple) -> int:
+    """Threads of one CTA of kernel ``name`` at ``geometry``."""
+    if name == "incrs_spmm":
+        return geometry[0] * 32
+    if name == "incrs_spmm_reuse":
+        return REUSE_THREADS
+    return (geometry.warps + 1) * 32
+
+
+def launch_grid(name: str, geometry: tuple, m: int, n: int
+                ) -> Tuple[int, int, int]:
+    """The (x, y, cluster) grid the C launcher of ``name`` starts at M
+    (padded) rows and N columns."""
+    if name == "incrs_spmm":
+        return -(-m // geometry[0]), -(-n // EXPAND_COLS), 1
+    if name == "incrs_spmm_reuse":
+        rows = REUSE_THREADS // geometry[0]
+        return (-(-m // rows), -(-n // (REUSE_COLS_PER_THREAD * geometry[0])),
+                1)
+    return geometry.row_tiles, geometry.col_tiles, geometry.cluster
+
+
+# An SM's register file: 4 partitions of 16,384, a warp's registers in
+# units of 256 within one partition.
+SM_PARTITIONS, PARTITION_REGISTERS = 4, 16_384
+
+
+def warps_by_registers(registers: int) -> int:
+    """The warps of ``registers`` registers a thread one SM holds."""
+    per_warp = -(-registers * 32 // 256) * 256
+    return SM_PARTITIONS * (PARTITION_REGISTERS // per_warp)
+
+
+def assumed_ctas_per_sm(name: str, geometry: tuple,
+                        registers: Optional[int] = None) -> int:
+    """The CTAs of ``name`` at ``geometry`` that one SM holds, as the
+    wrapper counts them: by threads and shared memory (1 KB reserved a
+    CTA), and by registers where ``registers`` a thread are known
+    (``warps_by_registers``)."""
+    threads = launch_threads(name, geometry)
+    smem = geometry.smem if name == "incrs_spmm_pipelined" else geometry[1]
+    ctas = min(32, SM_THREADS // threads, SM_SMEM // (smem + CTA_RESERVED))
+    if registers:
+        ctas = min(ctas, warps_by_registers(registers) // -(-threads // 32))
+    return ctas
+
+
+# ids of incrs_ctas_per_sm's `kernel` argument
+_KERNEL_IDS = {"incrs_spmm": 0, "incrs_spmm_reuse": 1,
+               "incrs_spmm_pipelined": 2}
+
+
+def instance_of(name: str, geometry: tuple, n: int = 0) -> int:
+    """The template instance of ``name`` at ``geometry``: expand's float4
+    form (1) where N is a multiple of 4 (the launcher's choice when B is
+    16-byte aligned, as ``ops.spmm`` pads it), else 0; reuse's threads a
+    row; pipelined's columns a lane."""
+    if name == "incrs_spmm":
+        return int(n % 4 == 0)
+    if name == "incrs_spmm_reuse":
+        return geometry[0]
+    return geometry.cols_per_lane
+
+
+def ctas_per_sm(name: str, geometry: tuple, n: int = 0) -> int:
+    """The CTAs of ``name`` at ``geometry`` (N columns) that one SM of the
+    current card holds, from the card's occupancy calculator."""
+    lib = _library()
+    out = ctypes.c_int(0)
+    smem = geometry.smem if name == "incrs_spmm_pipelined" else geometry[1]
+    err = lib.incrs_ctas_per_sm(_KERNEL_IDS[name],
+                                instance_of(name, geometry, n),
+                                launch_threads(name, geometry), smem,
+                                ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"incrs_ctas_per_sm: CUDA error {err}: "
+                           f"{lib.incrs_error_string(err).decode()}")
+    return out.value
 
 
 @functools.lru_cache(maxsize=None)
@@ -350,19 +478,27 @@ def _launch(name: str, idx: torch.Tensor, val: torch.Tensor,
 
 
 def _run(name: str, idx: torch.Tensor, val: torch.Tensor, b: torch.Tensor,
-         section: int, bm: int, bn: int, kernel: bool) -> torch.Tensor:
+         section: int, bm: int, bn: int, kernel: bool,
+         geometry: Optional[tuple] = None) -> torch.Tensor:
     if len({idx.device, val.device, b.device}) != 1:
         raise ValueError(f"{name}: idx, val and B must share one device, "
                          f"got {idx.device}, {val.device}, {b.device}")
-    m, n_sections, _ = idx.shape
+    m, n_sections, smax = idx.shape
     k, n = b.shape
     bm, mp = _resolve_row_tile(m, bm)
     _check_grid(mp, n, bm, bn, k, n_sections, section)
+    if geometry is not None:        # a tuned launch: proven, never replaced
+        from ..analysis import launch_check
+        launch_check.require_launch(
+            name, geometry=geometry, m=mp, n=n, n_sections=n_sections,
+            smax=smax, section=section,
+            on_card=kernel and idx.device.type == "cuda",
+            context=f"{name} at geometry {tuple(geometry)}")
     idx, val = _pad_rows(idx, val, mp)
     if not kernel:
         out = _PLAIN[name](idx, val, b, section=section, bn=bn)
     elif idx.device.type == "cuda":
-        out = _launch(name, idx, val, b, section)
+        out = _launch(name, idx, val, b, section, geometry)
     else:
         raise ValueError(f"{name}: no kernel for device {idx.device}")
     return out[:m] if mp != m else out
@@ -377,34 +513,39 @@ def plain(name: str, idx: torch.Tensor, val: torch.Tensor, b: torch.Tensor,
 
 
 def incrs_spmm(idx: torch.Tensor, val: torch.Tensor, b: torch.Tensor, *,
-               section: int = 256, bm: int = 128,
-               bn: int = 128) -> torch.Tensor:
+               section: int = 256, bm: int = 128, bn: int = 128,
+               geometry: Optional[tuple] = None) -> torch.Tensor:
     """C[M, N] = decompress(idx, val) @ B without a dense A in memory.
 
     idx : (M, n_sections, smax) int32 local column within section, -1 = pad
     val : (M, n_sections, smax) float32 values
     b   : (n_sections * section, N) dense operand (pre-padded to bn)
+
+    ``geometry`` (a tuned launch, ``launch_geometry``'s form) replaces
+    the wrapper's own; ``analysis.launch_check`` must pass it on any
+    device, else ``KernelConfigError`` is raised before the launch.
     """
     return _run("incrs_spmm", idx, val, b, section, bm, bn,
-                kernel=idx.device.type != "cpu")
+                kernel=idx.device.type != "cpu", geometry=geometry)
 
 
 def incrs_spmm_reuse(idx: torch.Tensor, val: torch.Tensor, b: torch.Tensor,
-                     *, section: int = 256, bm: int = 128,
-                     bn: int = 128) -> torch.Tensor:
+                     *, section: int = 256, bm: int = 128, bn: int = 128,
+                     geometry: Optional[tuple] = None) -> torch.Tensor:
     """Same contract as ``incrs_spmm``; each stripe is staged once per
     (row tile, section, 512-column panel), compacted to its live slots,
     and reused over every column of the panel."""
     return _run("incrs_spmm_reuse", idx, val, b, section, bm, bn,
-                kernel=idx.device.type != "cpu")
+                kernel=idx.device.type != "cpu", geometry=geometry)
 
 
 def incrs_spmm_pipelined(idx: torch.Tensor, val: torch.Tensor,
                          b: torch.Tensor, *, section: int = 256,
-                         bm: int = 128, bn: int = 128) -> torch.Tensor:
+                         bm: int = 128, bn: int = 128,
+                         geometry: Optional[tuple] = None) -> torch.Tensor:
     """Same contract as ``incrs_spmm``; B streams by TMA through a ring in
     shared memory, shared by a cluster of CTAs. Bitwise equal to the other
     orders. On the card N must be a multiple of 4 and B 16-byte
     aligned."""
     return _run("incrs_spmm_pipelined", idx, val, b, section, bm, bn,
-                kernel=idx.device.type != "cpu")
+                kernel=idx.device.type != "cpu", geometry=geometry)

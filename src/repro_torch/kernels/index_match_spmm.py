@@ -419,9 +419,19 @@ def index_match_spmm(a_idx: torch.Tensor, a_val: torch.Tensor,
 
     Accumulation is f32 over rounds ascending; the one cast to
     ``out_dtype`` (default: the promoted type of the two value arrays)
-    happens at the end. ``geometry`` overrides ``match_geometry`` on the
-    card (sweeps).
+    happens at the end. ``geometry`` (a tuned launch or a sweep's)
+    overrides ``match_geometry`` on the card; ``analysis.launch_check``
+    must pass it on any device, else ``KernelConfigError`` is raised
+    before the launch.
     """
+    if geometry is not None:
+        from ..analysis import launch_check
+        m, n_rounds, rmax_a = a_idx.shape
+        launch_check.require_launch(
+            "index_match_spmm", geometry=geometry, m=m, n=b_idx.shape[0],
+            n_rounds=n_rounds, rmax_a=rmax_a, rmax_b=b_idx.shape[2],
+            rounds=rounds, on_card=a_idx.device.type == "cuda",
+            context=f"index_match_spmm at geometry {tuple(geometry)}")
     if a_idx.device.type == "cpu":
         return plain(a_idx, a_val, b_idx, b_val, rounds=rounds, bm=bm,
                      bn=bn, out_dtype=out_dtype)

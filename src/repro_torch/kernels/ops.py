@@ -1,13 +1,15 @@
 """Public kernel API: format preparation and ``spmm``.
 
-The port of ``repro.kernels.ops``, all but its row-sharded and tuning
-parts and its deprecated shims. ``prep_sections``
+The port of ``repro.kernels.ops``, all but its row-sharded part and its
+deprecated shims. ``prep_sections``
 turns an InCRS operand into the padded per-(row, section) stripes the
 kernels consume, located through the packed counter words alone;
 ``prepare_incrs`` memoizes that per live operand, or per pattern version
 (``prepare_versioned``: a repack's version bump, or a rebuilt source
 object, misses); ``spmm`` pads B, picks
-the column tile and the grid order, and trims the result.
+the column tile and the grid order (``auto``: the autotuner's entry for
+this exact shape and backend, else its cost model's pick), and trims the
+result.
 ``prep_rounds`` turns a CRS operand into padded per-round rows, and
 ``spmm(CRS, CRS | InCRS)`` runs sparse × sparse C = A @ B.T through one of
 three engines: the fused index-matching kernel (paper Alg. 2),
@@ -317,13 +319,47 @@ def default_bn(n: int) -> int:
     return -(-np128 // (tiles * 128)) * 128
 
 
+def resolve_incrs(prep: PreparedOperand, n: int, *, bm: int = 128,
+                  bn: Optional[int] = None, variant: str = "auto",
+                  tuned=None) -> Tuple[str, int, Optional[tuple]]:
+    """What ``spmm`` launches for ``prep`` times an N-column B: ``(variant,
+    bn, geometry)``. ``auto`` rides ``tuned`` (a plan's
+    ``autotune.TunedConfig``) or else the autotuner's entry for this exact
+    shape and backend, where ``bn`` is not pinned: its order and column
+    tile, and its launch geometry where it was measured at this N. Without
+    either it takes ``autotune.model_pick_variant``'s order at the
+    wrapper's own geometry (None). An explicit variant runs the wrapper's
+    own geometry."""
+    from . import autotune                      # circular at module scope
+    check_variant(variant)
+    geometry = None
+    if variant == "auto" and bn is None:
+        if tuned is None:
+            tuned = autotune.lookup(autotune.cache_key(
+                prep.padded_rows, prep.n_sections, prep.idx.shape[2],
+                prep.section, n, autotune.backend_name(prep.device)))
+        if tuned is not None:
+            variant, bn = tuned.variant, tuned.bn
+            if tuned.n_cols == n:
+                geometry = tuned.launch_geometry
+    if bn is None:
+        bn = default_bn(n)
+    if variant == "auto":
+        variant = autotune.model_pick_variant(
+            _k._resolve_row_tile(prep.padded_rows, bm)[1], -(-n // bn) * bn,
+            n_sections=prep.n_sections, smax=prep.idx.shape[2],
+            section=prep.section)
+    return variant, bn, geometry
+
+
 def _spmm_incrs(a, b, *, bm: int = 128, bn: Optional[int] = None,
-                variant: str = "auto", device=None) -> torch.Tensor:
+                variant: str = "auto", device=None,
+                tuned=None) -> torch.Tensor:
     """C = A @ B through the fused InCRS kernel of the chosen grid order.
     ``a`` is an InCRS (prepped through the memo on ``device``) or a
-    ``PreparedOperand`` (B is moved to its device). ``variant="auto"`` is
-    the expand order until the port has a Hopper autotuner. Returns f32
-    C[:M, :N]."""
+    ``PreparedOperand`` (B is moved to its device). ``variant="auto"``
+    launches what ``resolve_incrs`` picks: the tuned launch, else the
+    cost model's order. Returns f32 C[:M, :N]."""
     check_variant(variant)
     if isinstance(a, PreparedOperand):
         prep = a
@@ -341,16 +377,15 @@ def _spmm_incrs(a, b, *, bm: int = 128, bn: Optional[int] = None,
     if k != k2:
         raise ValueError(f"inner dims disagree: A is {prep.shape}, "
                          f"B is {tuple(b.shape)}")
-    if variant == "auto":
-        variant = "expand"
-    if bn is None:
-        bn = default_bn(n)
+    variant, bn, geometry = resolve_incrs(prep, n, bm=bm, bn=bn,
+                                          variant=variant, tuned=tuned)
     kp = prep.n_sections * prep.section
     np_ = -(-n // bn) * bn
     # pad copies, but leaves a strided B strided when it pads nothing
     b = torch.nn.functional.pad(b, (0, np_ - n, 0, kp - k)).contiguous()
     out = _INCRS_KERNELS[variant](prep.idx, prep.val, b,
-                                  section=prep.section, bm=bm, bn=bn)
+                                  section=prep.section, bm=bm, bn=bn,
+                                  geometry=geometry)
     return out[:m, :n]
 
 
@@ -450,26 +485,41 @@ def pad_common_rmax(ai, av, bi, bv):
 
 def index_match_prepped(ai, av, bi, bv, *, rounds: int = 128,
                         bm: int = 128, bn: int = 128,
-                        out_dtype: Optional[torch.dtype] = None
-                        ) -> torch.Tensor:
+                        out_dtype: Optional[torch.dtype] = None,
+                        geometry=None) -> torch.Tensor:
     """Round-synchronized index-matching SpMM from PRE-PREPPED per-round
     operands (``prep_rounds`` output): pads both sides to a common rmax
-    and runs the kernel. Returns the PADDED output; callers trim to the
-    real (M, N). C takes ``out_dtype``, by default the promoted type of
-    the two value tensors."""
+    and runs the kernel (at ``geometry`` where given: a tuned launch).
+    Returns the PADDED output; callers trim to the real (M, N). C takes
+    ``out_dtype``, by default the promoted type of the two value
+    tensors."""
     if out_dtype is None:
         out_dtype = torch.promote_types(av.dtype, bv.dtype)
     ai, av, bi, bv = pad_common_rmax(ai, av, bi, bv)
     return _index_match_kernel(ai, av, bi, bv, rounds=rounds, bm=bm, bn=bn,
-                               out_dtype=out_dtype)
+                               out_dtype=out_dtype, geometry=geometry)
 
 
-def _resolve_matched_tiles(rounds, bm, bn) -> Tuple[int, int, int]:
-    """Fill ``None`` (rounds, bm, bn) with 128. The port has no tuning
-    cache yet (ROADMAP queue 1 item 9)."""
+def _resolve_matched_tiles(m: int, n: int, k: int, rounds, bm, bn, device
+                           ) -> Tuple[int, int, int, Optional[tuple]]:
+    """Fill ``None`` (rounds, bm, bn) from the autotuner's matched entry
+    for this (m, n, k) and backend (``autotune.tune_index_match``), else
+    with 128. Returns them and the tuned geometry, which index matching
+    launches where every one of the three came from the entry."""
+    from . import autotune                      # circular at module scope
+    geometry = None
+    if rounds is None or bm is None or bn is None:
+        tuned = autotune.lookup(autotune.matched_cache_key(
+            m, n, k, autotune.backend_name(resolve_device(device))))
+        if tuned is not None:
+            if rounds is None and bm is None and bn is None:
+                geometry = tuned.launch_geometry
+            rounds = (tuned.rounds or 128) if rounds is None else rounds
+            bm = tuned.bm if bm is None else bm
+            bn = tuned.bn if bn is None else bn
     return (128 if rounds is None else rounds,
             128 if bm is None else bm,
-            128 if bn is None else bn)
+            128 if bn is None else bn, geometry)
 
 
 def check_inner(a: CRS, bt: CRS) -> None:
@@ -484,10 +534,12 @@ def _spmm_index_match(a: CRS, bt: CRS, *, rounds: Optional[int] = None,
     """C = A @ Bt.T through the fused index-matching kernel (paper Alg. 2).
     Returns C[:M, :N] unpadded."""
     check_inner(a, bt)
-    rounds, bm, bn = _resolve_matched_tiles(rounds, bm, bn)
+    rounds, bm, bn, geometry = _resolve_matched_tiles(
+        a.shape[0], bt.shape[0], a.shape[1], rounds, bm, bn, device)
     ai, av = prep_rounds(a, rounds, pad_rows_to=bm, device=device)
     bi, bv = prep_rounds(bt, rounds, pad_rows_to=bn, device=device)
-    out = index_match_prepped(ai, av, bi, bv, rounds=rounds, bm=bm, bn=bn)
+    out = index_match_prepped(ai, av, bi, bv, rounds=rounds, bm=bm, bn=bn,
+                              geometry=geometry)
     return out[:a.shape[0], :bt.shape[0]]
 
 
@@ -517,9 +569,9 @@ def _spmm_spgemm(a: CRS, b, *, rounds: Optional[int] = None,
         (``spgemm.condense_merge_prepped``), bitwise equal to reference;
       * ``"densify"``        — gather Bt dense on the device, then the
         fused InCRS SpMM;
-      * ``"auto"``           — a fixed rule, ``"reference"``: one launch
-        and no (n_rounds, M, N) stripe array. The JAX cost model is
-        calibrated for a TPU (recalibrating is ROADMAP queue 1 item 9).
+      * ``"auto"``           — the engine of least predicted time on the
+        card: ``core.mesh_sim.spgemm_cost_for`` priced by
+        ``autotune.pick_spgemm_engine``.
     """
     if variant not in _SPGEMM_VARIANTS:
         raise ValueError(f"variant must be one of {_SPGEMM_VARIANTS}, "
@@ -527,10 +579,18 @@ def _spmm_spgemm(a: CRS, b, *, rounds: Optional[int] = None,
     bt = b.crs if isinstance(b, InCRS) else b
     check_inner(a, bt)
     m, n = a.shape[0], bt.shape[0]
-    rounds, bm, bn = _resolve_matched_tiles(rounds, bm, bn)
-    if variant in ("auto", "reference"):
+    if variant == "auto":
+        from ..core import mesh_sim
+        from . import autotune                  # circular at module scope
+        tuned_rounds = _resolve_matched_tiles(m, n, a.shape[1], rounds, bm,
+                                              bn, device)[0]
+        variant = autotune.pick_spgemm_engine(
+            mesh_sim.spgemm_cost_for(a, bt, rounds=tuned_rounds))
+    if variant == "reference":
         return _spmm_index_match(a, bt, rounds=rounds, bm=bm, bn=bn,
                                  device=device)
+    rounds, bm, bn, _ = _resolve_matched_tiles(m, n, a.shape[1], rounds, bm,
+                                               bn, device)
     if variant == "densify":
         dense_b = incrs_to_dense(_incrs_of(bt), device=device).T
         return _spmm_incrs(_incrs_of(a), dense_b, device=device)
@@ -545,14 +605,17 @@ def _spmm_spgemm(a: CRS, b, *, rounds: Optional[int] = None,
 # ----------------------------------------------------------------------
 def spmm(a, b, *, bm: int = 128, bn: Optional[int] = None,
          variant: str = "auto", rounds: Optional[int] = None, device=None,
-         mesh=None) -> torch.Tensor:
+         mesh=None, tuned=None) -> torch.Tensor:
     """C = A @ B, dispatched on the format of A.
 
       * ``PreparedOperand`` / ``InCRS``  -> fused InCRS SpMM (``variant``
-        picks the grid order);
+        picks the grid order; ``auto`` rides ``tuned``, a plan's
+        ``autotune.TunedConfig``, or the tuning cache, else the cost
+        model's order);
       * ``CRS`` x ``CRS``/``InCRS`` (B = the sparse B^T, row-stored) ->
         SpGEMM C = A @ B^T: ``variant`` picks "reference", "condense_merge",
-        "densify" or "auto" (= "reference"); window = ``rounds``;
+        "densify" or "auto" (the cost model's engine); window =
+        ``rounds`` (None: the tuned window, else 128);
       * ``BSR``                          -> block-sparse kernel steered by
         the block-row prefix counters;
       * a dense 2-D array or tensor      -> tiled dense kernel.
@@ -566,7 +629,7 @@ def spmm(a, b, *, bm: int = 128, bn: Optional[int] = None,
             "row-sharded SpMM is not ported yet (ROADMAP queue 1 item 8)")
     if isinstance(a, (PreparedOperand, InCRS)):
         return _spmm_incrs(a, b, bm=bm, bn=bn, variant=variant,
-                           device=device)
+                           device=device, tuned=tuned)
     if isinstance(a, BSR):
         return _spmm_bsr(a, b, device=device)
     if isinstance(a, CRS):

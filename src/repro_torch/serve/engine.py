@@ -302,9 +302,11 @@ class SpMMEngine:
     waits for the compute stream and copies C into a pinned host panel
     (``_PanelRing``). Retiring waits for that copy's event alone. On the
     CPU the same ring holds unpinned panels and the copies are
-    synchronous. A continuous CUDA engine seeds its cost model from a bench
-    record taken on a GPU (``DEFAULT_BENCH`` in the working directory,
-    ``scheduler.seed_cost_model``); elsewhere it starts unseeded.
+    synchronous. A continuous engine seeds its cost model from the
+    autotuner's measurements of its operand's exact stripes on its device
+    (``scheduler.seed_from_autotune``), then, on CUDA, from a bench record
+    taken on a GPU (``DEFAULT_BENCH`` in the working directory); else it
+    starts unseeded.
     """
 
     def __init__(self, a, *, max_wave_cols: int = 512,
@@ -357,14 +359,17 @@ class SpMMEngine:
         self._t_last_done: Optional[float] = None
 
     def _seed_cost_model(self) -> _sched.WaveCostModel:
-        """The packer's offline µs/col seed: on CUDA, ``DEFAULT_BENCH`` if
-        it was taken on a GPU; elsewhere unseeded (the first retired wave
-        gives the estimate). JAX's counterpart asks the autotuner first,
-        which the port has not got yet (ROADMAP queue 1 item 9)."""
-        if self.device.type != "cuda":
-            return _sched.WaveCostModel()
-        return _sched.seed_cost_model(bench_path=DEFAULT_BENCH,
-                                      platform="gpu")
+        """The packer's offline µs/col seed: the autotuner's entries for
+        this operand's stripes (its geometry) on this device's backend;
+        then, on CUDA, ``DEFAULT_BENCH`` if it was taken on a GPU; else
+        unseeded (the first retired wave gives the estimate)."""
+        from ..kernels import autotune
+        geo = self._operand_geometry() or (None,) * 4
+        cuda = self.device.type == "cuda"
+        return _sched.seed_cost_model(
+            *geo, backend=autotune.backend_name(self.device),
+            bench_path=DEFAULT_BENCH if cuda else None,
+            platform="gpu" if cuda else None)
 
     def _operand_geometry(self):
         """(padded_rows, n_sections, smax, section) of the InCRS stripes
@@ -411,6 +416,37 @@ class SpMMEngine:
             f"SpMMEngine serves an InCRS, an ops.PreparedOperand, a "
             f"sparse.BoundPlan or a sparse.Linear, got {type(a).__name__}")
 
+    def _check_feasible(self, prep) -> None:
+        """Prove an incoming operand's launch for this engine's widest
+        wave before it is committed (``analysis.launch_check``): a bound
+        plan's tuned config is re-proven at ``max_wave_cols``; InCRS
+        stripes (raw, or an untuned ``incrs`` plan's) are held at what a
+        wave of ``max_wave_cols`` launches, the pinned variant's own
+        geometry or ``auto``'s pick. Raises ``KernelConfigError`` (a
+        ValueError)."""
+        from ..analysis import launch_check
+        from ..kernels import incrs_spmm
+        from ..sparse import api
+        on_card = self.device.type == "cuda"
+        variant = self.variant
+        if isinstance(prep, api.BoundPlan):
+            prep.plan.check_feasible(self.max_wave_cols, device=self.device)
+            if prep.plan.tuned is not None:
+                return
+            prep, variant = prep._ready, "auto"   # a plan's calls: auto
+        if not isinstance(prep, ops.PreparedOperand):
+            return
+        n = self.max_wave_cols
+        variant, bn, geometry = ops.resolve_incrs(prep, n, variant=variant)
+        launch_check.require_feasible(
+            variant, m=incrs_spmm._resolve_row_tile(prep.padded_rows,
+                                                    128)[1],
+            n=-(-n // bn) * bn, n_sections=prep.n_sections,
+            smax=prep.idx.shape[2], section=prep.section, geometry=geometry,
+            on_card=on_card,
+            context=f"engine variant={self.variant!r} at max_wave_cols="
+                    f"{self.max_wave_cols}")
+
     # ------------------------------------------------------------------
     def swap_pattern(self, a) -> None:
         """Hot-swap the serving operand between waves, across formats
@@ -419,12 +455,13 @@ class SpMMEngine:
         the running engine. ``a`` takes what the constructor takes; a
         layer's or plan's pattern version is recorded in
         ``pattern_version``. The new operand's shape must match the
-        current one; a rejected swap (ValueError) leaves the engine
-        serving the OLD operand. An in-flight wave keeps the operand it
-        was launched with. The launch checks JAX runs here first
-        (``_check_feasible``) are not ported yet (ROADMAP queue 1 item
-        10)."""
+        current one, and its launch must pass the launch check
+        (``_check_feasible``); a rejected swap (ValueError, a
+        ``KernelConfigError`` among them) leaves the engine serving the OLD
+        operand. An in-flight wave keeps the operand it was launched
+        with."""
         new_a, new_prep, new_version = self._build_operand(a)
+        self._check_feasible(new_prep)      # the launch proof, pre-commit
         if tuple(new_prep.shape) != tuple(self.prep.shape):
             raise ValueError(
                 f"swap_pattern: new operand shape {tuple(new_prep.shape)} "

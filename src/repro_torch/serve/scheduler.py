@@ -101,6 +101,30 @@ class WaveCostModel:
 
 # ----------------------------------------------------------------------
 # Offline seeds: the measurements the repo persists.
+def seed_from_autotune(padded_rows: int, n_sections: int, smax: int,
+                       section: int, backend: str) -> WaveCostModel:
+    """Seed a cost model from the autotuner's persisted sweeps for THIS
+    operand geometry on ``backend``: every cache entry whose key matches
+    ``(padded_rows, n_sections, smax, section, backend)`` gives a
+    measured ``(n_cols, µs)`` point. Unseeded where none match."""
+    from ..kernels import autotune
+    pairs = []
+    for key, cfg in autotune.cached_configs().items():
+        parsed = autotune.parse_cache_key(key)
+        if parsed is None:
+            continue
+        if (parsed["padded_rows"], parsed["n_sections"], parsed["smax"],
+                parsed["section"], parsed["backend"]) != \
+                (padded_rows, n_sections, smax, section, backend):
+            continue
+        pairs.append((parsed["n_cols"], cfg.measured_us))
+    slope, overhead = fit_us_per_col(pairs)
+    if slope is None:
+        return WaveCostModel()
+    return WaveCostModel(slope, overhead,
+                         source=f"autotune[{len(pairs)} pts]")
+
+
 def seed_from_bench(path: str, platform: Optional[str] = None
                     ) -> WaveCostModel:
     """Seed a cost model from a bench record (JAX's row contract): rows
@@ -136,13 +160,23 @@ def seed_from_bench(path: str, platform: Optional[str] = None
     return WaveCostModel(best, 0.0, source=f"bench[{path}]")
 
 
-def seed_cost_model(bench_path: Optional[str] = None,
+def seed_cost_model(padded_rows: Optional[int] = None,
+                    n_sections: Optional[int] = None,
+                    smax: Optional[int] = None,
+                    section: Optional[int] = None,
+                    backend: Optional[str] = None,
+                    bench_path: Optional[str] = None,
                     platform: Optional[str] = None) -> WaveCostModel:
-    """Best available offline seed, in JAX's order: the bench record
-    (``seed_from_bench``), else unseeded (the first retired wave then
-    provides the estimate). JAX first asks the autotuner's measurements
-    for this operand's exact geometry; the port has no autotuner yet
-    (ROADMAP queue 1 item 9), so that step is not taken."""
+    """Best available offline seed, in JAX's order: the autotuner's
+    measurements for this operand's exact geometry on ``backend``
+    (``seed_from_autotune``), then the bench record (``seed_from_bench``),
+    else unseeded (the first retired wave then provides the estimate)."""
+    if backend is not None and \
+            None not in (padded_rows, n_sections, smax, section):
+        model = seed_from_autotune(padded_rows, n_sections, smax, section,
+                                   backend)
+        if model.us_per_col is not None:
+            return model
     if bench_path is not None:
         model = seed_from_bench(bench_path, platform)
         if model.us_per_col is not None:
@@ -204,5 +238,5 @@ class WavePacker:
 
 
 __all__ = ["WaveCostModel", "WavePacker", "fit_us_per_col",
-           "seed_from_bench", "seed_cost_model", "MIN_TARGET_COLS",
+           "seed_from_autotune", "seed_from_bench", "seed_cost_model", "MIN_TARGET_COLS",
            "DEFAULT_SKIP_LIMIT"]

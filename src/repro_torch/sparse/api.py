@@ -33,8 +33,14 @@ the fused InCRS kernel, a ``bsr`` plan only the BSR kernel, a ``dense``
 plan only the dense kernel and a ``crs`` plan only index matching or
 condense + merge.
 
-Not ported yet: row-sharding (``mesh``, ROADMAP queue 1 item 8) and the
-TPU tuning members of ``MatmulPlan`` (items 9-10).
+Tuning: ``plan(spec, rhs_shape, tune="cache"|"measure"|"off")`` attaches
+the autotuner's config for the RHS width (``kernels.autotune``) to an
+``incrs`` plan, re-proven against ``analysis.launch_check.LAUNCH_RULES``;
+its calls and its bound plans launch the tuned order and geometry. A
+``Linear``'s forward and backward ride the same cache through
+``ops.spmm``'s ``auto``.
+
+Not ported yet: row-sharding (``mesh``, ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -375,11 +381,15 @@ def _adapter(spec: SparseSpec) -> FormatAdapter:
     return ad
 
 
-def _execute(spec: SparseSpec, meta, ready, b, variant: Optional[str]):
+def _execute(spec: SparseSpec, meta, ready, b, variant: Optional[str],
+             tuned=None):
     """One call of a plan over its device-ready values; only a format
-    whose ``call`` takes a variant accepts one."""
+    whose ``call`` takes a variant accepts one. ``tuned`` (an ``incrs``
+    plan's config) runs where no variant is given."""
     ad = _adapter(spec)
     if variant is None:
+        if tuned is not None:
+            return ad.call(meta, ready, b, tuned=tuned)
         return ad.call(meta, ready, b)
     if not ad.takes_variant:
         raise ValueError(f"a {spec.format!r} plan runs one kernel and "
@@ -444,8 +454,9 @@ def _make_incrs(w, spec: SparseSpec, dtype=torch.float32, device=None):
 
 
 # ---- per-format plan execution ----------------------------------------
-def _incrs_call(meta, prep: ops.PreparedOperand, b) -> torch.Tensor:
-    return ops.spmm(prep, torch.as_tensor(b))
+def _incrs_call(meta, prep: ops.PreparedOperand, b,
+                tuned=None) -> torch.Tensor:
+    return ops.spmm(prep, torch.as_tensor(b), tuned=tuned)
 
 
 def _incrs_ready(meta, values: torch.Tensor) -> ops.PreparedOperand:
@@ -520,15 +531,98 @@ class MatmulPlan:
     """The execute half of plan–execute: static kernel metadata built once
     from a concrete spec; ``plan(values, B)`` runs C = A @ B (A = W^T, the
     kernel orientation). ``pack`` turns a dense W (d_in, d_out) into the
-    plan's packed values; ``bind`` closes over one values tensor."""
+    plan's packed values; ``bind`` closes over one values tensor.
+
+    ``tuned`` is an optional ``kernels.autotune.TunedConfig`` (attached by
+    ``plan(..., tune=...)`` or ``MatmulPlan.tune``): every call then
+    launches the tuned order, and at the width it was measured at its
+    launch geometry, with no cache lookup or model evaluation. An explicit
+    ``variant=`` at call time overrides it."""
     spec: SparseSpec
     meta: Any                 # family meta; CRSPlanMeta; None for dense
+    tuned: Any = None         # kernels.autotune.TunedConfig
 
     def __call__(self, values, b, *, variant: Optional[str] = None):
         """C = A @ B for ``values`` on their device (crs: C = A @ B^T for
         a CRS B^T; ``variant="reference"`` forces index matching)."""
         ready = _adapter(self.spec).ready(self.meta, values)
-        return _execute(self.spec, self.meta, ready, b, variant)
+        return _execute(self.spec, self.meta, ready, b, variant, self.tuned)
+
+    # -- kernel tuning --------------------------------------------------
+    def _tuning_arrays(self) -> Optional[Tuple[torch.Tensor, int]]:
+        """(idx, section) of the InCRS stripes this plan launches with, or
+        None for a format without them."""
+        if self.spec.format != "incrs" or self.meta is None:
+            return None
+        return self.meta.fwd_idx, self.meta.section
+
+    def _key(self, n_cols: int, device) -> Optional[str]:
+        from ..kernels import autotune
+        arrs = self._tuning_arrays()
+        if arrs is None:
+            return None
+        idx, section = arrs
+        backend = autotune.default_backend() if device is None else \
+            autotune.backend_name(ops.resolve_device(device))
+        return autotune.cache_key(idx.shape[0], idx.shape[1], idx.shape[2],
+                                  section, int(n_cols), backend)
+
+    def lookup_tuned(self, n_cols: int, *, device=None):
+        """The tuning cache's config for an ``n_cols``-wide RHS on
+        ``device`` (default: the current CUDA device, else the CPU's
+        entries), if one exists; never measures."""
+        from ..kernels import autotune
+        key = self._key(n_cols, device)
+        return None if key is None else autotune.lookup(key)
+
+    def tune(self, n_cols: int, *, device=None, reps: int = 10,
+             persist: bool = True, top_k=None) -> "MatmulPlan":
+        """Sweep this plan's kernel for an ``n_cols``-wide RHS on
+        ``device`` (default CUDA) and return a plan carrying the winner
+        (persisted unless ``persist=False``). Values do not change which
+        slots a launch reads, so the sweep runs on zeros. ``top_k``
+        measures only the cost model's first candidates."""
+        from ..kernels import autotune
+        arrs = self._tuning_arrays()
+        if arrs is None:
+            raise ValueError(f"format {self.spec.format!r} has no tunable "
+                             f"fused kernel")
+        idx, section = arrs
+        dev = ops.resolve_device(device)
+        idx = idx.to(dev)
+        kw = {} if top_k is None else {"top_k": top_k}
+        cfg = autotune.tune(
+            idx, torch.zeros(idx.shape, dtype=torch.float32, device=dev),
+            torch.zeros((idx.shape[1] * section, int(n_cols)),
+                        dtype=torch.float32, device=dev),
+            section=section, reps=reps, persist=persist, **kw)
+        return dataclasses.replace(self, tuned=cfg)
+
+    def check_feasible(self, n_cols: int, *, device=None) -> None:
+        """Prove this plan's tuned launch against
+        ``analysis.launch_check.LAUNCH_RULES`` for an ``n_cols``-wide RHS
+        (its geometry where it was measured at that width, else its
+        order's own geometry there). Raises ``KernelConfigError`` (a
+        ValueError) naming the rule; a no-op for an untuned plan or a
+        format without stripes."""
+        from ..analysis import launch_check
+        from ..kernels import incrs_spmm
+        cfg, arrs = self.tuned, self._tuning_arrays()
+        if cfg is None or arrs is None:
+            return
+        idx, section = arrs
+        n_cols = int(n_cols)
+        on_card = device is not None and \
+            ops.resolve_device(device).type == "cuda"
+        launch_check.require_feasible(
+            cfg.variant,
+            m=incrs_spmm._resolve_row_tile(idx.shape[0], cfg.bm)[1],
+            n=-(-n_cols // cfg.bn) * cfg.bn, n_sections=idx.shape[1],
+            smax=idx.shape[2], section=section,
+            geometry=cfg.launch_geometry if cfg.n_cols == n_cols else None,
+            on_card=on_card,
+            context=f"plan tuned config ({cfg.variant}, "
+                    f"{cfg.geometry}) at {n_cols} columns")
 
     def pack(self, w) -> np.ndarray:
         """Dense W (d_in, d_out) -> packed plan values (for 'dense' the
@@ -579,7 +673,7 @@ class BoundPlan:
     def __call__(self, b, *, variant: Optional[str] = None
                  ) -> torch.Tensor:
         return _execute(self.plan.spec, self.plan.meta, self._ready, b,
-                        variant)
+                        variant, self.plan.tuned)
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -595,8 +689,8 @@ class BoundPlan:
         return self.values.device
 
 
-def plan(spec: SparseSpec, rhs_shape: Optional[Tuple[int, ...]] = None
-         ) -> MatmulPlan:
+def plan(spec: SparseSpec, rhs_shape: Optional[Tuple[int, ...]] = None,
+         *, tune: str = "cache", device=None) -> MatmulPlan:
     """Build the static half of C = A @ B for ``spec`` — prep once,
     execute many.
 
@@ -605,7 +699,18 @@ def plan(spec: SparseSpec, rhs_shape: Optional[Tuple[int, ...]] = None
     ``Linear.from_dense`` or ``plan_for_operand``), nothing for plain
     ``dense``. ``rhs_shape``, when given, is validated against the
     operand's K.
+
+    ``tune`` decides the launch of an ``incrs`` plan where ``rhs_shape``
+    pins the RHS width: ``"cache"`` (default) attaches the tuning cache's
+    entry for that width on ``device`` if there is one; ``"measure"``
+    sweeps now on ``device`` (default CUDA; a cache hit included) and
+    attaches the winner; ``"off"`` attaches nothing (calls then take
+    ``auto``). An attached config is re-proven against the launch rules
+    here, so a stale entry raises at plan time, not at launch.
     """
+    if tune not in ("cache", "measure", "off"):
+        raise ValueError(f"tune must be 'cache', 'measure' or 'off', "
+                         f"got {tune!r}")
     _adapter(spec)
     if spec.format == "dense" and spec.pattern is None and \
             spec.mask is None:
@@ -628,7 +733,17 @@ def plan(spec: SparseSpec, rhs_shape: Optional[Tuple[int, ...]] = None
                                                rhs_format=spec.rhs_format))
     inner = _adapter(spec).make(np.zeros(pat.shape, np.float32), spec,
                                 device="cpu")
-    return MatmulPlan(spec, inner.meta)
+    built = MatmulPlan(spec, inner.meta)
+    if spec.format == "incrs" and rhs_shape is not None and \
+            len(rhs_shape) >= 2 and tune != "off":
+        n_cols = int(rhs_shape[1])
+        if tune == "measure":
+            built = built.tune(n_cols, device=device)
+        else:
+            built = dataclasses.replace(
+                built, tuned=built.lookup_tuned(n_cols, device=device))
+        built.check_feasible(n_cols, device=device)
+    return built
 
 
 def plan_for_operand(a, spec: SparseSpec, *, device=None) -> BoundPlan:

@@ -88,6 +88,13 @@ def reset_launches() -> None:
         MERGE_INSTANCE_LAUNCHES[name] = 0
 
 
+def merge_ctas(smem: int) -> int:
+    """merge_ring_kernel's CTAs an SM at ``smem`` bytes, as the rule
+    counts them: two, or what the SM's shared memory holds (1 KB reserved
+    a CTA)."""
+    return min(MERGE_CTAS_PER_SM, SM_SMEM // (smem + CTA_RESERVED))
+
+
 def merge_smem(chunk: int, stages: int) -> int:
     """merge_ring_kernel's shared memory: ``stages`` stages of ``chunk``
     f32 and two mbarriers a stage."""
@@ -135,7 +142,7 @@ def merge_geometry(plane: int, n_rounds: int, aligned: bool = True, *,
                              f"floats need {smem} bytes of shared memory, "
                              f"over the card's {_im.SMEM_LIMIT}")
         items = -(-plane // chunk)
-        ctas = min(MERGE_CTAS_PER_SM, SM_SMEM // (smem + CTA_RESERVED))
+        ctas = merge_ctas(smem)
         return MergeGeometry("ring", chunk, depth, items,
                              min(items, _im.SMS * ctas), MERGE_THREADS, smem)
     if instance == "ring":

@@ -208,7 +208,23 @@ def test_reuse_at_the_deepest_stripe_the_wrapper_takes(cuda, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", ["auto", "expand", "reuse", "pipelined"])
-def test_engine_launches_one_kernel_per_wave(cuda, variant):
+def test_engine_launches_one_kernel_per_wave(cuda, variant, monkeypatch,
+                                             tmp_path):
+    """One launch a wave: of the pinned order, or for ``auto`` of the
+    order ``ops.resolve_incrs`` picks for that wave's width (the cost
+    model's, the tuning cache being empty)."""
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "tune.json"))
+    autotune.clear_memory_cache()
+    picks = []
+    resolve = ops.resolve_incrs
+
+    def record(prep, n, **kw):
+        got = resolve(prep, n, **kw)
+        picks.append(dict(zip(("expand", "reuse", "pipelined"),
+                              PORT))[got[0]])
+        return got
+    monkeypatch.setattr(ops, "resolve_incrs", record)
     dense = _dense("docword")
     inc = InCRS.from_dense(dense)
     rng = np.random.default_rng(1)
@@ -217,15 +233,17 @@ def test_engine_launches_one_kernel_per_wave(cuda, variant):
               for w in widths]
     eng = E.SpMMEngine(inc, max_wave_cols=256, variant=variant, device=cuda)
     assert eng.prep.idx.device.type == "cuda"
-    ran = "incrs_spmm" if variant == "auto" else \
-        dict(zip(("expand", "reuse", "pipelined"), PORT))[variant]
     before = dict(K.LAUNCHES)
+    picks.clear()
     for i, p in enumerate(panels):
         eng.submit(E.SpMMRequest(i, p))
     done = {r.rid: r for r in eng.run()}
     delta = {k: K.LAUNCHES[k] - before[k] for k in PORT}
-    assert delta[ran] == eng.stats["waves"] > 0
-    assert sum(delta.values()) == delta[ran]
+    assert len(picks) == eng.stats["waves"] > 0
+    assert delta == {k: picks.count(k) for k in PORT}
+    if variant != "auto":
+        ran = dict(zip(("expand", "reuse", "pipelined"), PORT))[variant]
+        assert delta[ran] == eng.stats["waves"]
     assert eng.stats["split_requests"] == 1
     d64 = dense.astype(np.float64)
     for i, p in enumerate(panels):

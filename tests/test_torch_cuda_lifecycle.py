@@ -20,8 +20,10 @@ from repro_torch.core.incrs import InCRS                  # noqa: E402
 from repro_torch.examples import train_reprune            # noqa: E402
 from repro_torch.examples import train_unstructured as ex  # noqa: E402
 from repro_torch.kernels import bsr_spmm as KB            # noqa: E402
+from repro_torch.kernels import autotune                  # noqa: E402
 from repro_torch.kernels import incrs_spmm as K           # noqa: E402
 from repro_torch.kernels import index_match_spmm as IM    # noqa: E402
+from repro_torch.kernels import ops                       # noqa: E402
 from repro_torch.serve import engine as E                 # noqa: E402
 from repro_torch.sparse import api                        # noqa: E402
 from repro_torch.sparse import pattern as spat            # noqa: E402
@@ -37,6 +39,22 @@ ROUTES = {None: {"index_match_spmm": 1},
 SPECS = {"incrs": dict(density=0.1, section=64, block=8),
          "bsr": dict(density=0.3, block=64)}
 FORMAT_KERNEL = {"incrs": "incrs_spmm", "bsr": "bsr_spmm"}
+ORDER_KERNEL = {"expand": "incrs_spmm", "reuse": "incrs_spmm_reuse",
+                "pipelined": "incrs_spmm_pipelined"}
+
+
+def step_kernels(model, t, steps):
+    """The InCRS kernel launches of ``steps`` steps on t token rows: each
+    product's ``auto`` order (l1's and l2's forward stripes, l2's
+    transposed stripes for dx), once a step."""
+    l1, l2 = model["l1"].meta, model["l2"].meta
+    want = {}
+    for idx, k in ((l1.fwd_idx, l1.d_in), (l2.fwd_idx, l2.d_in),
+                   (l2.bwd_idx, l2.d_out)):
+        prep = ops.PreparedOperand(idx, idx, (idx.shape[0], k), l1.section)
+        name = ORDER_KERNEL[ops.resolve_incrs(prep, t)[0]]
+        want[name] = want.get(name, 0) + steps
+    return want
 
 
 @pytest.fixture
@@ -120,7 +138,12 @@ def _student(fmt, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("fmt", ["incrs", "bsr"])
-def test_repack_swap_and_step_on_the_card(cuda, fmt):
+def test_repack_swap_and_step_on_the_card(cuda, fmt, monkeypatch, tmp_path):
+    """incrs launches the orders ``auto`` picks (the tuning cache
+    empty): the wave after the swap one of the new stripes' at its width,
+    a step one each of its three products'."""
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "tune.json"))
+    autotune.clear_memory_cache()
     model = _student(fmt, cuda)
     l1 = model["l1"]
     cfg = opt.AdamWConfig(lr=1e-2, weight_decay=0.0, warmup_steps=0,
@@ -147,6 +170,8 @@ def test_repack_swap_and_step_on_the_card(cuda, fmt):
     eng.submit(E.SpMMRequest(1, b_new))
     done = {r.rid: r for r in eng.run()}
     kname = FORMAT_KERNEL[fmt]
+    if fmt == "incrs":                   # the wave: 96 columns, in 128
+        kname = ORDER_KERNEL[ops.resolve_incrs(eng.prep._ready, 128)[0]]
     assert _moved(before) == {kname: 1}  # the wave after the swap
     _close(torch.from_numpy(done[0].out), w_old.T @ torch.from_numpy(
         b_old).double(), F64_TOL)
@@ -160,7 +185,8 @@ def test_repack_swap_and_step_on_the_card(cuda, fmt):
     before = _counts()
     loss, state, _ = ex.train_step(cfg, model, state, x, y)
     torch.cuda.synchronize()
-    assert _moved(before) == {kname: 3}
+    assert _moved(before) == (step_kernels(model, 64, 1) if fmt == "incrs"
+                              else {kname: 3})
     assert bool(torch.isfinite(loss))
     assert state["m"]["l1.values"].shape == l1.values.shape
     assert state["m"]["l1.values"].device.type == "cuda"

@@ -481,16 +481,40 @@ ENGINE_LAUNCHES = {
 }
 
 
+def _engine_launches(variant, a, bt, device):
+    """The launches ``variant`` implies: ``auto`` those of the engine the
+    cost model picks; densify's InCRS product those of the order ``auto``
+    picks for it (the tuning cache being empty)."""
+    from repro_torch.core import mesh_sim
+    from repro_torch.kernels import autotune
+    if variant == "auto":
+        variant = autotune.pick_spgemm_engine(
+            mesh_sim.spgemm_cost_for(a, bt, rounds=64))
+    if variant != "densify":
+        return dict(ENGINE_LAUNCHES[variant])
+    prep = ops.prepare_incrs(ops._incrs_of(a), device=device)
+    order = ops.resolve_incrs(prep, bt.shape[0])[0]
+    return {"incrs_gather": 1, {"expand": "incrs_spmm",
+                                "reuse": "incrs_spmm_reuse",
+                                "pipelined": "incrs_spmm_pipelined"}[order]:
+            1}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", sorted(ENGINE_LAUNCHES))
-def test_spmm_engines_launch_their_kernels(cuda, variant):
+def test_spmm_engines_launch_their_kernels(cuda, variant, monkeypatch,
+                                           tmp_path):
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "tune.json"))
+    autotune.clear_memory_cache()
     a, bt = _pair("ragged", 128)
     want = a.astype(np.float64) @ bt.astype(np.float64).T
+    ca, cbt = CRS.from_dense(a), CRS.from_dense(bt)
+    expect = _engine_launches(variant, ca, cbt, cuda)
     before = {**K1.LAUNCHES, **G.LAUNCHES, **IM.LAUNCHES, **SK.LAUNCHES}
-    out = ops.spmm(CRS.from_dense(a), CRS.from_dense(bt), variant=variant,
-                   rounds=64, device=cuda)
+    out = ops.spmm(ca, cbt, variant=variant, rounds=64, device=cuda)
     torch.cuda.synchronize()
-    assert _deltas(before) == ENGINE_LAUNCHES[variant]
+    assert _deltas(before) == expect
     assert out.device.type == "cuda" and out.shape == want.shape
     assert np.abs(out.cpu().numpy() - want).max() <= \
         F64_TOL * np.abs(want).max()

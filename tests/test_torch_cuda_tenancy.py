@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.incrs import InCRS                  # noqa: E402
 from repro_torch.kernels import bsr_spmm as KB            # noqa: E402
 from repro_torch.kernels import dense_mm as KD            # noqa: E402
+from repro_torch.kernels import autotune                  # noqa: E402
 from repro_torch.kernels import incrs_spmm as K           # noqa: E402
 from repro_torch.kernels import ops                       # noqa: E402
 from repro_torch.serve import TenantPool                  # noqa: E402
@@ -61,6 +62,27 @@ def _close(got, want64):
     scale = max(float(np.abs(want64).max()), 1e-30)
     err = float(np.abs(got - want64).max())
     assert err <= F64_TOL * scale, (err, scale)
+
+
+ORDER_KERNEL = {"expand": "incrs_spmm", "reuse": "incrs_spmm_reuse",
+                "pipelined": "incrs_spmm_pipelined"}
+
+
+def _wave_kernels(fmt, eng, widths):
+    """The launches of waves of these bucketed widths: the format's
+    kernel, or for incrs the order ``auto`` picks at each width."""
+    want = {}
+    for w in widths:
+        k = ORDER_KERNEL[ops.resolve_incrs(eng.prep, w)[0]] \
+            if fmt == "incrs" else FORMAT_KERNEL[fmt]
+        want[k] = want.get(k, 0) + 1
+    return want
+
+
+@pytest.fixture(autouse=True)
+def _empty_tuning_cache(monkeypatch, tmp_path):
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "tune.json"))
+    autotune.clear_memory_cache()
 
 
 def _operand(fmt, d, device):
@@ -112,7 +134,7 @@ def test_stream_retire_matches_a_synchronous_copy(cuda, fmt, monkeypatch):
         m.setattr(torch.Tensor, "cpu", no_cpu)
         eng.run()
     assert eng.stats["waves"] == len(reqs)
-    assert _moved(before) == {FORMAT_KERNEL[fmt]: len(reqs)}
+    assert _moved(before) == _wave_kernels(fmt, eng, [128] * len(reqs))
     for r, p in zip(reqs, panels):
         b = p.to(cuda)
         want = (ops.spmm(eng.prep, b) if fmt == "incrs"
@@ -158,8 +180,11 @@ def test_tenant_pool_on_the_card(cuda):
         eng = pool.engine(fmt)
         before, waves = _counts(), eng.stats["waves"]
         pool.run()
-        assert _moved(before) == {FORMAT_KERNEL[fmt]:
-                                  eng.stats["waves"] - waves}
+        width = 40 + 60 * i                   # waves of at most 256
+        parts = [256] * (width // 256) + [width % 256] * bool(width % 256)
+        assert eng.stats["waves"] - waves == len(parts)
+        assert _moved(before) == _wave_kernels(
+            fmt, eng, [-(-w // 128) * 128 for w in parts])
         _close(req.out, d.astype(np.float64) @ req.b)
     stats = pool.summary()["stats"]
     assert stats["revivals"] >= 3 and stats["evictions"] >= 5

@@ -19,7 +19,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.examples import train_unstructured as ex  # noqa: E402
 from repro_torch.kernels import bsr_spmm as KB            # noqa: E402
 from repro_torch.kernels import dense_mm as KD            # noqa: E402
+from repro_torch.kernels import autotune                  # noqa: E402
 from repro_torch.kernels import incrs_spmm as K           # noqa: E402
+from repro_torch.kernels import ops                       # noqa: E402
 from repro_torch.sparse import api                        # noqa: E402
 from repro_torch.sparse import linear as lin_mod          # noqa: E402
 from repro_torch.train import optimizer as opt            # noqa: E402
@@ -29,6 +31,22 @@ F64_TOL = 1e-4
 SPECS = {"incrs": api.SparseSpec("incrs", density=0.1, section=64, block=8),
          "bsr": api.SparseSpec("bsr", density=0.3, block=64)}
 FORMAT_KERNEL = {"incrs": "incrs_spmm", "bsr": "bsr_spmm"}
+ORDER_KERNEL = {"expand": "incrs_spmm", "reuse": "incrs_spmm_reuse",
+                "pipelined": "incrs_spmm_pipelined"}
+
+
+def step_kernels(model, t, steps):
+    """The InCRS kernel launches of ``steps`` steps on t token rows: each
+    product's ``auto`` order (l1's and l2's forward stripes, l2's
+    transposed stripes for dx), once a step."""
+    l1, l2 = model["l1"].meta, model["l2"].meta
+    want = {}
+    for idx, k in ((l1.fwd_idx, l1.d_in), (l2.fwd_idx, l2.d_in),
+                   (l2.bwd_idx, l2.d_out)):
+        prep = ops.PreparedOperand(idx, idx, (idx.shape[0], k), l1.section)
+        name = ORDER_KERNEL[ops.resolve_incrs(prep, t)[0]]
+        want[name] = want.get(name, 0) + steps
+    return want
 
 
 @pytest.fixture
@@ -110,9 +128,13 @@ def test_gradients_match_float64(cuda, fmt):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("fmt", ["incrs", "bsr"])
-def test_a_step_launches_three_kernels_of_its_format(cuda, fmt):
-    """Two forwards and l2's dx (x needs no gradient, so l1 has no dx);
-    no other kernel. Pad slots and zero tiles stay 0.0."""
+def test_a_step_launches_three_kernels_of_its_format(cuda, fmt,
+                                                    monkeypatch, tmp_path):
+    """Two forwards and l2's dx (x needs no gradient, so l1 has no dx), of
+    the format's kernel (incrs: the orders ``auto`` picks, the tuning
+    cache empty); no other kernel. Pad slots and zero tiles stay 0.0."""
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "tune.json"))
+    autotune.clear_memory_cache()
     model = _mlp(fmt, cuda)
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.normal(size=(256, 256)).astype(np.float32)
@@ -130,7 +152,9 @@ def test_a_step_launches_three_kernels_of_its_format(cuda, fmt):
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in _counts().items()
              if v != before[k]}
-    assert moved == {FORMAT_KERNEL[fmt]: 12}, moved
+    want = step_kernels(model, 256, 4) if fmt == "incrs" else \
+        {FORMAT_KERNEL[fmt]: 12}
+    assert moved == want and sum(want.values()) == 12, moved
     assert losses[-1] < losses[0]
     if fmt == "incrs":
         for lin in model.values():

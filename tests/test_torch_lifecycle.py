@@ -648,12 +648,14 @@ def test_crs_plan_matches_jax_at_every_rhs_format(rhs_format, rounds):
     _close(got.numpy(), want)
     _close(got.numpy(), a.astype(np.float64) @ bt.T.astype(np.float64))
     # condense + merge bitwise equal to index matching on the plan's
-    # operands; the reference override; an InCRS right-hand side
+    # operands; the reference override; an InCRS right-hand side; and
+    # ops.spmm through index matching (its "auto" picks by the cost
+    # model, and densify sums in another order)
     ref = tp(tb, variant="reference")
     assert torch.equal(got, ref)
     assert torch.equal(tp(TInCRS.from_crs(tb)), got)
     assert torch.equal(got, tops.spmm(TCRS.from_dense(a), tb, rounds=rounds,
-                                      device=CPU))
+                                      variant="reference", device=CPU))
 
 
 def test_crs_plan_binds_once_and_memoizes_the_rhs():

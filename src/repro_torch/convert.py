@@ -111,10 +111,14 @@ _BSR_META_TUPLES = ("row_of", "col_of", "vpos", "t_perm", "t_row_of",
 
 
 def linear_from_jax(values, meta_fields: Dict[str, Any], fmt: str, *,
-                    device=None):
+                    device=None, mesh=None):
     """The port's ``sparse.Linear`` from a JAX ``InCRSLinearParams``
-    (``fmt="incrs"``), ``SparseLinearParams`` (``fmt="bsr"``) or
-    ``DenseLinearParams`` (``fmt="dense"``).
+    (``fmt="incrs"``), ``ShardedInCRSLinearParams``
+    (``fmt="incrs_sharded"``: the stacked (S, ...) arrays, ``shard_width``
+    and ``axes`` among the fields, placed on ``mesh``, a
+    ``launch.mesh.Mesh`` of as many shards along those axes),
+    ``SparseLinearParams`` (``fmt="bsr"``) or ``DenseLinearParams``
+    (``fmt="dense"``).
 
     ``values`` is ``np.asarray(params.values)``; ``meta_fields`` holds the
     meta's fields (``dataclasses.asdict``-style, tuples as lists, the
@@ -125,9 +129,9 @@ def linear_from_jax(values, meta_fields: Dict[str, Any], fmt: str, *,
     same gradients, and a repack of either gives the same version."""
     from .sparse import api, linear
     from .sparse.pattern import SparsityPattern
-    if fmt not in ("incrs", "bsr", "dense"):
-        raise ValueError(f"fmt must be 'incrs', 'bsr' or 'dense', got "
-                         f"{fmt!r}")
+    if fmt not in ("incrs", "incrs_sharded", "bsr", "dense"):
+        raise ValueError(f"fmt must be 'incrs', 'incrs_sharded', 'bsr' or "
+                         f"'dense', got {fmt!r}")
     meta_fields = dict(meta_fields)
     mask = meta_fields.pop("mask", None)
     version = int(meta_fields.pop("version", 0))
@@ -137,6 +141,8 @@ def linear_from_jax(values, meta_fields: Dict[str, Any], fmt: str, *,
         pattern = SparsityPattern(np.asarray(mask, bool), version)
     elif jax_pattern is not None:
         pattern = pattern_from_jax(jax_pattern)
+    if fmt == "incrs_sharded":
+        return _sharded_linear(values, meta_fields, pattern, mesh)
     dev = resolve_device(device)
     vals = torch.from_numpy(np.array(values)).to(dev)
     if fmt == "incrs":
@@ -174,6 +180,42 @@ def linear_from_jax(values, meta_fields: Dict[str, Any], fmt: str, *,
         raise ValueError(f"values {tuple(vals.shape)} are not "
                          f"({meta.d_in}, {meta.d_out})")
     return api.Linear(api.DenseLinearParams(vals, meta))
+
+
+def _sharded_linear(values, meta_fields: Dict[str, Any], pattern, mesh):
+    """``linear_from_jax``'s row-sharded InCRS case: shard ``s`` of every
+    stacked array goes to ``mesh``'s device of shard ``s``."""
+    from .kernels import ops
+    from .sparse import api, linear
+    if mesh is None:
+        raise ValueError("a sharded JAX layer needs mesh=, the port's "
+                         "launch.mesh.Mesh to place its shards on")
+    axes = tuple(meta_fields["axes"])
+    _, n_shards = ops.shard_axes(mesh, axes)
+    devs = ops.shard_devices(mesh, axes)
+    vals = np.array(values)
+    arrs = {f: np.array(meta_fields[f], np.int32)
+            for f in ("fwd_idx", "bwd_idx", "t_gather")}
+    if vals.shape != arrs["fwd_idx"].shape or vals.dtype != np.float32 \
+            or vals.shape[0] != n_shards or \
+            arrs["t_gather"].shape != (n_shards,
+                                       arrs["bwd_idx"][0].size):
+        raise ValueError(f"values {vals.shape} {vals.dtype} and t_gather "
+                         f"{arrs['t_gather'].shape} do not fit {n_shards} "
+                         f"shards of stripes {arrs['fwd_idx'].shape[1:]} "
+                         f"and {arrs['bwd_idx'].shape[1:]}")
+
+    def put(a):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a[s])).to(d)
+                     for s, d in enumerate(devs))
+    meta = linear.ShardedInCRSLinearMeta(
+        put(arrs["fwd_idx"]), put(arrs["bwd_idx"]), put(arrs["t_gather"]),
+        *(int(meta_fields[f]) for f in ("d_in", "d_out", "section", "nnz")),
+        mesh, axes, int(meta_fields["shard_width"]),
+        block=int(meta_fields["block"]), pattern=pattern)
+    if pattern is not None:
+        pattern.packed["incrs_sharded"] = meta
+    return api.Linear(linear.ShardedInCRSLinearParams(put(vals), meta))
 
 
 def adamw_state_from_jax(state: Dict[str, Any], *, device=None

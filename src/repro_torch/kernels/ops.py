@@ -1,7 +1,7 @@
 """Public kernel API: format preparation and ``spmm``.
 
-The port of ``repro.kernels.ops``, all but its row-sharded part and its
-deprecated shims. ``prep_sections``
+The port of ``repro.kernels.ops``, all but its deprecated shims.
+``prep_sections``
 turns an InCRS operand into the padded per-(row, section) stripes the
 kernels consume, located through the packed counter words alone;
 ``prepare_incrs`` memoizes that per live operand, or per pattern version
@@ -9,7 +9,9 @@ kernels consume, located through the packed counter words alone;
 object, misses); ``spmm`` pads B, picks
 the column tile and the grid order (``auto``: the autotuner's entry for
 this exact shape and backend, else its cost model's pick), and trims the
-result.
+result. ``prepare_incrs_sharded`` splits the stripes into per-device row
+panels over a ``launch.mesh.Mesh`` and ``spmm(..., mesh=)`` runs one
+launch a shard.
 ``prep_rounds`` turns a CRS operand into padded per-round rows, and
 ``spmm(CRS, CRS | InCRS)`` runs sparse × sparse C = A @ B.T through one of
 three engines: the fused index-matching kernel (paper Alg. 2),
@@ -29,7 +31,7 @@ from __future__ import annotations
 import dataclasses
 import warnings
 import weakref
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -389,6 +391,214 @@ def _spmm_incrs(a, b, *, bm: int = 128, bn: Optional[int] = None,
     return out[:m, :n]
 
 
+# ----------------------------------------------------------------------
+# Row-sharded prep: the paper's mesh scales by giving each comparator-mesh
+# row its OWN slice of the sparse operand while the dense operand is shared
+# across the mesh (§IV). Each shard owns one contiguous output-row panel of
+# the section stripes, on its own device of a ``launch.mesh.Mesh``; the
+# dense RHS is copied once to each distinct device, and the per-shard
+# output panels concatenate along rows. One process drives every device.
+def shard_axes(mesh, axis) -> Tuple[Tuple[str, ...], int]:
+    """Normalize the shard-axis spec and count the shards it yields:
+    ``axis=None`` -> every mesh axis (one shard per device), a name or
+    tuple of names otherwise. Returns ``(axes, n_shards)``; the sharded
+    packer in ``sparse.linear`` uses it too, so the two always agree."""
+    if axis is None:
+        axes = tuple(mesh.axis_names)
+    else:
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    sizes = mesh.shape
+    unknown = [a for a in axes if a not in sizes]
+    if unknown:
+        raise ValueError(f"mesh axes {tuple(mesh.axis_names)} have no "
+                         f"{unknown}")
+    n_shards = 1
+    for a in axes:
+        n_shards *= sizes[a]
+    return axes, n_shards
+
+
+def shard_devices(mesh, axes: Tuple[str, ...]) -> Tuple[torch.device, ...]:
+    """The device of each shard: the mesh's devices with ``axes`` first (in
+    that order, shard index row-major over them), at index 0 of every
+    other axis. A shard lives once, not replicated over the axes it is
+    not split over."""
+    order = [mesh.axis_names.index(a) for a in axes]
+    rest = [i for i in range(mesh.devices.ndim) if i not in order]
+    devs = np.transpose(mesh.devices, order + rest)
+    devs = devs[(Ellipsis,) + (0,) * len(rest)] if rest else devs
+    return tuple(resolve_device(d) for d in devs.ravel())
+
+
+# eq=False: identity semantics for a cached device artifact.
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedPreparedOperand:
+    """Row-sharded section-stripe form of one InCRS operand: shard ``s``
+    holds global output rows ``[s * rows_per_shard, (s + 1) *
+    rows_per_shard)`` (the tail shard may be partly empty) as its own
+    stripe panel ``idx[s]``/``val[s]`` on its own device, so no device
+    holds another shard's stripes. Every panel has the same shape (the
+    slot width is the densest shard's)."""
+    idx: Tuple[torch.Tensor, ...]  # per shard (Rp, n_sections, smax) int32
+    val: Tuple[torch.Tensor, ...]  # per shard (Rp, n_sections, smax) f32
+    shape: Tuple[int, int]         # global (M, K) of the sparse operand
+    section: int
+    rows_per_shard: int            # real output rows owned by each shard
+    mesh: Any
+    axes: Tuple[str, ...]          # mesh axes the shard dim is split over
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.idx)
+
+    @property
+    def n_sections(self) -> int:
+        return self.idx[0].shape[1]
+
+    @property
+    def padded_rows(self) -> int:
+        return self.idx[0].shape[0]
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        return tuple(t.device for t in self.idx)
+
+    @property
+    def device(self) -> torch.device:
+        """The first shard's device, where ``spmm`` gathers C."""
+        return self.idx[0].device
+
+    def shard(self, s: int) -> PreparedOperand:
+        """Shard ``s`` as a single-device operand of ``rows_per_shard``
+        rows: what its launch sees."""
+        return PreparedOperand(self.idx[s], self.val[s],
+                               (self.rows_per_shard, self.shape[1]),
+                               self.section)
+
+    def row_range(self, s: int) -> Tuple[int, int]:
+        """The global output rows ``[lo, hi)`` shard ``s`` really holds."""
+        lo = min(self.shape[0], s * self.rows_per_shard)
+        return lo, min(self.shape[0], lo + self.rows_per_shard)
+
+
+def _stack_shards(gi: np.ndarray, gv: np.ndarray, n_shards: int,
+                  pad_rows_to: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Split unpadded (m, Si, smax) stripes into ``n_shards`` contiguous
+    row panels of ``ceil(m / n_shards)`` rows, each padded to a multiple
+    of ``pad_rows_to`` (-1 / 0.0): the (S, Rp, Si, smax) arrays of JAX's
+    sharded prep, and the rows a shard owns."""
+    m, si, smax = gi.shape
+    rows_per_shard = -(-m // n_shards)
+    rp = -(-rows_per_shard // pad_rows_to) * pad_rows_to
+    idx = np.full((n_shards, rp, si, smax), -1, dtype=np.int32)
+    val = np.zeros((n_shards, rp, si, smax), dtype=np.float32)
+    for s in range(n_shards):
+        lo = s * rows_per_shard
+        hi = min(m, lo + rows_per_shard)
+        if hi > lo:
+            idx[s, :hi - lo] = gi[lo:hi]
+            val[s, :hi - lo] = gv[lo:hi]
+    return idx, val, rows_per_shard
+
+
+def prepare_incrs_sharded(incrs: InCRS, mesh, *, axis=None,
+                          pad_rows_to: int = 128,
+                          pattern=None) -> ShardedPreparedOperand:
+    """Partition an InCRS operand into per-device output-row stripe shards.
+
+    The section stripes are built once on the host (``prep_sections``'s
+    arithmetic, so each row's content is the single-device prep's), split
+    into ``n_shards`` contiguous row ranges, and each panel is moved to its
+    own device of ``mesh`` (``shard_devices``). ``axis`` (default: every
+    mesh axis) names the mesh axes the shard dimension is split over.
+    ``pattern`` memoizes the shard prep on the pattern lineage,
+    invalidated by repack version bumps (``prepare_versioned``)."""
+    if pattern is not None:
+        axes_n, _ = shard_axes(mesh, axis)
+        return prepare_versioned(
+            pattern,
+            f"incrs_sharded/{id(mesh)}/{axes_n}/{incrs.section}/"
+            f"{incrs.block}/{pad_rows_to}",
+            lambda: prepare_incrs_sharded(incrs, mesh, axis=axis,
+                                          pad_rows_to=pad_rows_to),
+            token=incrs)
+    axes, n_shards = shard_axes(mesh, axis)
+    devs = shard_devices(mesh, axes)
+    gi, gv = _prep_sections_np(incrs, 1)
+    idx, val, rows_per_shard = _stack_shards(gi, gv, n_shards, pad_rows_to)
+    return ShardedPreparedOperand(
+        tuple(torch.from_numpy(idx[s]).to(d) for s, d in enumerate(devs)),
+        tuple(torch.from_numpy(val[s]).to(d) for s, d in enumerate(devs)),
+        incrs.shape, incrs.section, rows_per_shard, mesh, axes)
+
+
+def _padded_rhs(b: torch.Tensor, kp: int, np_: int) -> torch.Tensor:
+    """B zero-padded to (kp, np_), contiguous."""
+    return torch.nn.functional.pad(
+        b, (0, np_ - b.shape[1], 0, kp - b.shape[0])).contiguous()
+
+
+def sharded_panels(prep: ShardedPreparedOperand, bs, *, bm: int = 128,
+                   bn: Optional[int] = None, variant: str = "auto",
+                   tuned=None) -> list:
+    """Each shard's rows of C = A @ B, on its own device: one launch a
+    shard of the order ``resolve_incrs`` picks for the per-shard panel
+    (every panel has one shape, so one pick serves all). ``bs`` maps each
+    distinct device of the shards to B there (the caller copies B once a
+    device). Shard ``s``'s entry holds global rows ``prep.row_range(s)``
+    and N columns, f32. Launches on different cards go on each device's
+    current stream; nothing here waits for the host. ``bm`` clamps to the
+    shard-local panel inside the wrappers."""
+    check_variant(variant)
+    m, k = prep.shape
+    b0 = next(iter(bs.values()))
+    if b0.ndim != 2 or b0.shape[0] != k:
+        raise ValueError(f"inner dims disagree: A is {prep.shape}, "
+                         f"B is {tuple(b0.shape)}")
+    n = b0.shape[1]
+    variant, bn, geometry = resolve_incrs(prep.shard(0), n, bm=bm, bn=bn,
+                                          variant=variant, tuned=tuned)
+    kp = prep.n_sections * prep.section
+    np_ = -(-n // bn) * bn
+    padded = {d: _padded_rhs(b, kp, np_) for d, b in bs.items()}
+    out = []
+    for s in range(prep.n_shards):
+        lo, hi = prep.row_range(s)
+        c = _INCRS_KERNELS[variant](prep.idx[s], prep.val[s],
+                                    padded[prep.idx[s].device],
+                                    section=prep.section, bm=bm, bn=bn,
+                                    geometry=geometry)
+        out.append(c[:hi - lo, :n])
+    return out
+
+
+def _spmm_incrs_sharded(a, b, *, mesh=None, axis=None, bm: int = 128,
+                        bn: Optional[int] = None, variant: str = "auto",
+                        tuned=None) -> torch.Tensor:
+    """C = A @ B with A row-sharded across the mesh: B is copied once to
+    each distinct device of the shards, each shard's panel runs its own
+    launch (``sharded_panels``), and the panels are concatenated along
+    rows on the first shard's device. A is never gathered onto one device.
+    Per-row arithmetic is the single-device kernel's, so each shard's
+    rows are bitwise equal to the single-device rows at equal order and
+    geometry."""
+    if isinstance(a, ShardedPreparedOperand):
+        prep = a
+    else:
+        if mesh is None:
+            raise ValueError("row-sharded spmm needs mesh= when given a "
+                             "raw InCRS (or pass a ShardedPreparedOperand)")
+        prep = prepare_incrs_sharded(a, mesh, axis=axis)
+    b = torch.as_tensor(b)
+    if b.ndim != 2:
+        raise ValueError(f"B must be 2-D, got shape {tuple(b.shape)}")
+    bs = {d: b.to(d) for d in dict.fromkeys(prep.devices)}
+    panels = sharded_panels(prep, bs, bm=bm, bn=bn, variant=variant,
+                            tuned=tuned)
+    home = prep.device
+    return torch.cat([p.to(home) for p in panels])
+
+
 def incrs_to_dense(incrs: InCRS, *, bm: int = 8,
                    device=None) -> torch.Tensor:
     """Densify an InCRS matrix on ``device`` through the gather kernel: f32
@@ -605,13 +815,17 @@ def _spmm_spgemm(a: CRS, b, *, rounds: Optional[int] = None,
 # ----------------------------------------------------------------------
 def spmm(a, b, *, bm: int = 128, bn: Optional[int] = None,
          variant: str = "auto", rounds: Optional[int] = None, device=None,
-         mesh=None, tuned=None) -> torch.Tensor:
+         mesh=None, axis=None, tuned=None) -> torch.Tensor:
     """C = A @ B, dispatched on the format of A.
 
       * ``PreparedOperand`` / ``InCRS``  -> fused InCRS SpMM (``variant``
         picks the grid order; ``auto`` rides ``tuned``, a plan's
         ``autotune.TunedConfig``, or the tuning cache, else the cost
         model's order);
+      * ``ShardedPreparedOperand`` (or a raw ``InCRS`` with ``mesh=``, a
+        ``launch.mesh.Mesh``, split over ``axis``) -> row-sharded fused
+        SpMM: one launch a shard on its own device, C gathered on the
+        first shard's device;
       * ``CRS`` x ``CRS``/``InCRS`` (B = the sparse B^T, row-stored) ->
         SpGEMM C = A @ B^T: ``variant`` picks "reference", "condense_merge",
         "densify" or "auto" (the cost model's engine); window =
@@ -620,16 +834,32 @@ def spmm(a, b, *, bm: int = 128, bn: Optional[int] = None,
         the block-row prefix counters;
       * a dense 2-D array or tensor      -> tiled dense kernel.
 
-    Row-sharding (``mesh=``) is a later slice and raises. Returns C[:M, :N]
-    unpadded, f32 accumulation everywhere; the BSR product takes
-    ``b.dtype`` and the dense one ``a.dtype``, as in the JAX package.
+    Returns C[:M, :N] unpadded, f32 accumulation everywhere; the BSR
+    product takes ``b.dtype`` and the dense one ``a.dtype``, as in the JAX
+    package. ``mesh`` on any other format raises: sharding is the InCRS
+    data path.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "row-sharded SpMM is not ported yet (ROADMAP queue 1 item 8)")
+    if isinstance(a, ShardedPreparedOperand):
+        if mesh is not None and mesh is not a.mesh:
+            raise ValueError("the ShardedPreparedOperand is bound to its "
+                             "own mesh; drop mesh=, or re-prep the raw "
+                             "InCRS on the new mesh")
+        return _spmm_incrs_sharded(a, b, bm=bm, bn=bn, variant=variant,
+                                   tuned=tuned)
     if isinstance(a, (PreparedOperand, InCRS)):
+        if mesh is not None:
+            if not isinstance(a, InCRS):
+                raise ValueError(
+                    "cannot re-shard an already-built single-device "
+                    "PreparedOperand; pass the raw InCRS with mesh=, or "
+                    "a ShardedPreparedOperand")
+            return _spmm_incrs_sharded(a, b, mesh=mesh, axis=axis, bm=bm,
+                                       bn=bn, variant=variant, tuned=tuned)
         return _spmm_incrs(a, b, bm=bm, bn=bn, variant=variant,
                            device=device, tuned=tuned)
+    if mesh is not None:
+        raise ValueError(f"mesh sharding is the InCRS data path; a "
+                         f"{type(a).__name__} operand does not shard")
     if isinstance(a, BSR):
         return _spmm_bsr(a, b, device=device)
     if isinstance(a, CRS):
@@ -644,8 +874,9 @@ def spmm(a, b, *, bm: int = 128, bn: Optional[int] = None,
     if getattr(a, "ndim", None) == 2:
         return dense_mm(a, b, device=device)
     raise TypeError(f"spmm does not know the operand format "
-                    f"{type(a).__name__}; expected PreparedOperand, InCRS, "
-                    f"BSR, CRS or a dense 2-D array")
+                    f"{type(a).__name__}; expected PreparedOperand, "
+                    f"ShardedPreparedOperand, InCRS, BSR, CRS or a dense "
+                    f"2-D array")
 
 
 # ----------------------------------------------------------------------

@@ -1,6 +1,5 @@
 """Serving launcher: an LM through ``ServeEngine``, or the paper's SpMM
-workload through ``SpMMEngine``, on one device (CUDA unless
-``--device cpu``).
+workload through ``SpMMEngine``, on CUDA unless ``--device cpu``.
 
 LM mode serves ``--n-requests`` random prompts of ``--prompt-len`` tokens
 on ``--arch`` (``--smoke`` for its small config) with weights drawn from
@@ -20,6 +19,13 @@ fused InCRS kernels; ``--format bsr`` (tiles of side ``--spmm-block``) and
       --scale 1.0
   python -m repro_torch.launch.serve --spmm --workload incrs-docword \
       --format bsr --spmm-block 50 --spmm-swap
+
+``--spmm-shards N`` row-shards the InCRS operand across a mesh of N
+shards (``launch.mesh.make_mesh``): the first N visible cards with
+``--device cuda`` (fewer raise, naming the count), one card N times with
+``--device cuda:0``, N logical CPU shards with ``--device cpu``:
+
+  python -m repro_torch.launch.serve --spmm --spmm-shards 4 --device cpu
 
 Without ``--workload`` the operand is a synthetic ``--spmm-rows`` x
 ``--spmm-cols`` matrix of ``--spmm-density``. ``--spmm-swap`` re-prunes the
@@ -87,11 +93,22 @@ def _main_spmm(args) -> int:
         section, block = 256, 32
     a = synthesize(spec, seed=args.seed)
     dense = a.to_dense()
+    mesh = None
+    if args.spmm_shards > 1:
+        from .mesh import make_mesh
+        if args.format != "incrs":
+            raise SystemExit(f"--spmm-shards is the row-sharded InCRS "
+                             f"data path; --format {args.format} does "
+                             f"not shard")
+        try:
+            mesh = make_mesh(args.spmm_shards, args.device)
+        except ValueError as e:
+            raise SystemExit(f"--spmm-shards {args.spmm_shards}: {e}")
     operand, plan_s = _operand(args.format, a, dense, section, block,
                                args.spmm_block, args.device)
     eng = SpMMEngine(operand, max_wave_cols=args.spmm_max_wave_cols,
-                     device=args.device,
-                     continuous=not args.spmm_wave_barrier,
+                     device=None if mesh is not None else args.device,
+                     mesh=mesh, continuous=not args.spmm_wave_barrier,
                      latency_budget_us=args.spmm_latency_budget_us)
     rng = np.random.default_rng(args.seed)
     reqs = [SpMMRequest(i, rng.normal(
@@ -102,8 +119,12 @@ def _main_spmm(args) -> int:
     dt = time.time() - t0
     s = eng.stats_summary()
     block_txt = f" block={args.spmm_block}" if args.format == "bsr" else ""
+    where = f"single-device {eng.device}" if mesh is None else (
+        f"{args.spmm_shards}-way row-sharded over "
+        f"{sorted({str(d) for d in mesh.device_list})}, "
+        f"{eng.prep.rows_per_shard} rows a shard")
     print(f"spmm A={spec.m}x{spec.n} d={spec.density} nnz={a.nnz} "
-          f"format={args.format}{block_txt} (single-device {eng.device}, "
+          f"format={args.format}{block_txt} ({where}, "
           f"{s['mode']}): served {s['requests']} requests / "
           f"{eng.stats['cols']} cols in {dt:.2f}s, "
           f"waves={eng.stats['waves']}")
@@ -123,7 +144,7 @@ def _main_spmm(args) -> int:
         crs2 = CRS.from_dense(pruned) if args.format == "incrs" else None
         swapped, _ = _operand(args.format, crs2, pruned, section, block,
                               args.spmm_block, eng.device, mask=mask_a)
-        eng.swap_pattern(swapped)
+        eng.swap_pattern(swapped, mesh=mesh)
         reqs2 = [SpMMRequest(100 + i, rng.normal(
             size=(spec.n, args.spmm_batch_cols)).astype(np.float32))
             for i in range(args.n_requests)]
@@ -200,6 +221,9 @@ def main(argv=None) -> int:
     ap.add_argument("--spmm-block", type=int, default=64,
                     help="tile side of --format bsr; must divide both "
                          "dimensions of the operand")
+    ap.add_argument("--spmm-shards", type=int, default=1,
+                    help="row-shard the InCRS operand across this many "
+                         "shards (1 = single-device); see --device")
     ap.add_argument("--spmm-swap", action="store_true",
                     help="after the first batch, swap in the operand "
                          "re-pruned to half its density and serve again")
@@ -209,7 +233,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=float, default=1.0,
                     help="shrink --workload's rows and columns by this")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to serve on (cuda or cpu)")
+                    help="torch device to serve on (cuda, cuda:<i> or cpu)")
     ap.add_argument("--n-requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--spmm-max-wave-cols", type=int, default=512,

@@ -10,7 +10,9 @@ or more prefills through the flash kernel.
 operand A and a queue of dense right-hand sides to multiply against it. A
 is an InCRS operand (the fused InCRS kernels) or a bound plan of the
 plan–execute API (``incrs``, ``bsr`` or ``dense``, one kernel launch per
-wave each). ``swap_pattern`` replaces A between waves, for instance with
+wave each), or row-sharded across a ``launch.mesh.Mesh`` (one launch a
+shard a wave, each shard's rows copied straight into its rows of the
+host panel). ``swap_pattern`` replaces A between waves, for instance with
 a re-pruned layer (``sparse.magnitude_repack``), and records its
 pattern's version.
 Requests are packed into waves (``serve.scheduler``), each wave is staged
@@ -35,6 +37,7 @@ import torch
 from ..core.incrs import InCRS
 from ..kernels import ops
 from ..models import model as M
+from ..sparse import linear as _lin
 from . import scheduler as _sched
 
 
@@ -179,17 +182,18 @@ class _SplitPart:
 class _Wave:
     """A packed wave moving through stage -> dispatch -> retire. ``host``
     is the (pinned, on CUDA) staging panel, kept alive until the wave
-    retires; ``ready`` marks B's arrival on the card (CUDA only).
-    ``panel`` is the host panel C is copied into at dispatch, and
-    ``done`` marks the end of that copy (CUDA only)."""
+    retires; ``b`` is B on each device the operand's launches run on,
+    ``ready`` the event of B's arrival there (CUDA only). ``panel`` is the
+    host panel C is copied into at dispatch, and ``done`` the events that
+    end those copies, one a device (CUDA only)."""
     items: List[Any]
     host: torch.Tensor
-    b: torch.Tensor                        # wave RHS on the device
+    b: Dict[torch.device, torch.Tensor]    # wave RHS on each device
     prep_s: float                          # host prep wall time
     hidden: bool                           # prepped while a wave was in flight
-    ready: Any = None                      # torch.cuda.Event
+    ready: Dict[torch.device, Any] = dataclasses.field(default_factory=dict)
     panel: Optional[torch.Tensor] = None
-    done: Any = None                       # torch.cuda.Event
+    done: List[Any] = dataclasses.field(default_factory=list)
     t_dispatch: Optional[float] = None
 
 
@@ -248,14 +252,31 @@ def _percentiles_ms(samples: List[float]) -> Dict[str, float]:
             "mean": sum(srt) / len(srt) * 1e3}
 
 
-def _operand_device(a) -> Optional[torch.device]:
-    """The device an already device-ready operand lives on, else None."""
+def _operand_device(a, mesh=None) -> Optional[torch.device]:
+    """The device an already device-ready operand lives on (a sharded
+    one's first shard's), or the first device of ``mesh``, else None."""
     from ..sparse import api
     if isinstance(a, api.Linear):
-        return a.values.device
-    if isinstance(a, (ops.PreparedOperand, api.BoundPlan)):
+        a = a.inner
+        if not isinstance(a, _lin.ShardedInCRSLinearParams):
+            return a.values.device
+    if isinstance(a, _lin.ShardedInCRSLinearParams):
+        return a.meta.devices[0]
+    if isinstance(a, (ops.PreparedOperand, ops.ShardedPreparedOperand,
+                      api.BoundPlan)):
         return a.device
+    if mesh is not None:
+        return ops.resolve_device(mesh.device_list[0])
     return None
+
+
+def _sharded_of(prep) -> Optional[ops.ShardedPreparedOperand]:
+    """The row-sharded stripes an operand launches (a sharded prep, or a
+    sharded ``incrs`` plan's), else None."""
+    if isinstance(prep, ops.ShardedPreparedOperand):
+        return prep
+    ready = getattr(prep, "_ready", None)
+    return ready if isinstance(ready, ops.ShardedPreparedOperand) else None
 
 
 def _torch_dtype(b) -> torch.dtype:
@@ -296,14 +317,19 @@ class SpMMEngine:
     ``continuous=False`` is the strict wave-barrier loop (FIFO, no
     overlap).
 
-    On CUDA the engine owns one copy stream. B's copy to the card runs on
-    it, and the compute stream (the current stream at dispatch) waits for
-    it just before the launch; right after the launch the copy stream
-    waits for the compute stream and copies C into a pinned host panel
-    (``_PanelRing``). Retiring waits for that copy's event alone. On the
-    CPU the same ring holds unpinned panels and the copies are
-    synchronous. A continuous engine seeds its cost model from the
-    autotuner's measurements of its operand's exact stripes on its device
+    On CUDA the engine owns one copy stream a device. B's copy to the
+    card runs on it, and the compute stream (the current stream at
+    dispatch) waits for it just before the launch; right after the launch
+    the copy stream waits for the compute stream and copies C into a
+    pinned host panel (``_PanelRing``). Retiring waits for those copies'
+    events alone. A row-sharded operand (``mesh=``, a
+    ``ShardedPreparedOperand``, a sharded ``incrs`` plan or layer) gets B
+    once on each distinct device of its shards, one launch a shard, and
+    each shard's rows copied into their rows of the host panel; the
+    engine's ``device`` is its first shard's. On the CPU the same ring
+    holds unpinned panels and the copies are synchronous. A continuous
+    engine seeds its cost model from the autotuner's measurements of its
+    operand's exact stripes on its device
     (``scheduler.seed_from_autotune``), then, on CUDA, from a bench record
     taken on a GPU (``DEFAULT_BENCH`` in the working directory); else it
     starts unseeded.
@@ -311,26 +337,26 @@ class SpMMEngine:
 
     def __init__(self, a, *, max_wave_cols: int = 512,
                  variant: str = "auto", device=None, mesh=None,
-                 continuous: bool = True,
+                 shard_axis=None, continuous: bool = True,
                  latency_budget_us: Optional[float] = None,
                  scheduler: Optional[_sched.WavePacker] = None,
                  skip_limit: Optional[int] = None):
-        """``a``: an ``InCRS`` (prepped here, once, on ``device``), an
-        ``ops.PreparedOperand``, a ``sparse.BoundPlan`` or a
-        ``sparse.Linear`` (served on their own device; a Linear through
-        ``.bound()``). ``variant`` selects the InCRS kernel grid order as in
-        ``ops.spmm``; a bound plan has one kernel."""
+        """``a``: an ``InCRS`` (prepped here, once, on ``device``, or
+        row-sharded across ``mesh`` along ``shard_axis``), an
+        ``ops.PreparedOperand`` or ``ops.ShardedPreparedOperand``, a
+        ``sparse.BoundPlan``, a ``sparse.Linear`` or a sharded InCRS
+        layer's params (served on their own devices; a Linear through
+        ``.bound()``, sharded params through ``.prep``). ``variant``
+        selects the InCRS kernel grid order as in ``ops.spmm``; a bound
+        plan has one kernel."""
         ops.check_variant(variant)
-        if mesh is not None:
-            raise NotImplementedError(
-                "row-sharded serving is not ported yet (ROADMAP queue 1 "
-                "item 8)")
-        on_device = _operand_device(a)
+        on_device = _operand_device(a, mesh)
         self.device = on_device if device is None and on_device is not None \
             else ops.resolve_device(device)
         self.max_wave_cols = max_wave_cols
         self.variant = variant
-        self.a, self.prep, self.pattern_version = self._build_operand(a)
+        self.a, self.prep, self.pattern_version = self._build_operand(
+            a, mesh, shard_axis)
         self.continuous = continuous
         if scheduler is None:
             if skip_limit is None:
@@ -342,7 +368,7 @@ class SpMMEngine:
                 skip_limit=skip_limit)
         self.scheduler = scheduler
         cuda = self.device.type == "cuda"
-        self._copy = torch.cuda.Stream(self.device) if cuda else None
+        self._copy: Dict[torch.device, Any] = {}    # device -> copy stream
         self._panels = _PanelRing(self.prep.shape[0], max_wave_cols,
                                   pin=cuda)
         self.queue: Deque[Any] = deque()
@@ -360,34 +386,56 @@ class SpMMEngine:
 
     def _seed_cost_model(self) -> _sched.WaveCostModel:
         """The packer's offline µs/col seed: the autotuner's entries for
-        this operand's stripes (its geometry) on this device's backend;
-        then, on CUDA, ``DEFAULT_BENCH`` if it was taken on a GPU; else
-        unseeded (the first retired wave gives the estimate)."""
+        this operand's stripes (its geometry, a shard's for a sharded
+        operand, its launches a wave counted on the busiest device) on
+        this device's backend; then, on CUDA, ``DEFAULT_BENCH`` if it was
+        taken on a GPU; else unseeded (the first retired wave gives the
+        estimate)."""
         from ..kernels import autotune
         geo = self._operand_geometry() or (None,) * 4
         cuda = self.device.type == "cuda"
         return _sched.seed_cost_model(
             *geo, backend=autotune.backend_name(self.device),
             bench_path=DEFAULT_BENCH if cuda else None,
-            platform="gpu" if cuda else None)
+            platform="gpu" if cuda else None,
+            launches=self._serial_launches())
+
+    def _serial_launches(self) -> int:
+        """The kernel launches a wave queues on its busiest device: one,
+        or for a sharded operand the most shards one device holds (shards
+        on distinct cards run side by side)."""
+        sh = _sharded_of(self.prep)
+        if sh is None:
+            return 1
+        per: Dict[torch.device, int] = defaultdict(int)
+        for d in sh.devices:
+            per[d] += 1
+        return max(per.values())
 
     def _operand_geometry(self):
         """(padded_rows, n_sections, smax, section) of the InCRS stripes
-        served (a raw or prepped InCRS, or an ``incrs`` plan), or None for
-        an operand without them (a ``bsr`` or ``dense`` plan)."""
+        one launch serves (a raw or prepped InCRS, an ``incrs`` plan, a
+        sharded operand's panel), or None for an operand without them (a
+        ``bsr`` or ``dense`` plan)."""
         from ..sparse import api
         prep = self.prep
         if isinstance(prep, api.BoundPlan):
             prep = prep._ready
+        if isinstance(prep, ops.ShardedPreparedOperand):
+            prep = prep.shard(0)
         if not isinstance(prep, ops.PreparedOperand):
             return None
         return (*(int(x) for x in prep.idx.shape), int(prep.section))
 
-    def _build_operand(self, a):
+    def _build_operand(self, a, mesh=None, shard_axis=None):
         """Resolve ``a`` to ``(operand, prep, pattern_version)`` without
         touching engine state, so a rejected swap leaves the engine as it
         was."""
         from ..sparse import api
+        version = None
+        if isinstance(a, _lin.ShardedInCRSLinearParams):
+            version = getattr(a.pattern, "version", None)
+            a = a.prep                # the layer's stripes, as they are now
         if isinstance(a, api.SparseSpec):
             raise ValueError(
                 "a SparseSpec alone carries no values to serve — build an "
@@ -403,18 +451,41 @@ class SpMMEngine:
             raise ValueError(
                 "a crs plan multiplies by a sparse B^T (CRS); the engine "
                 "streams dense right-hand sides — call the plan directly")
-        if isinstance(a, (ops.PreparedOperand, api.BoundPlan)):
+        if isinstance(a, api.BoundPlan) and mesh is not None:
+            raise ValueError(
+                "a bound plan is already committed to its layout; rebuild "
+                "it with a mesh on the spec instead of mesh=")
+        if isinstance(a, ops.ShardedPreparedOperand) and mesh is not None \
+                and mesh is not a.mesh:
+            raise ValueError(
+                "the ShardedPreparedOperand is already bound to a mesh; "
+                "drop mesh=, or re-prep the raw InCRS on the new mesh")
+        if isinstance(a, ops.PreparedOperand) and mesh is not None:
+            raise ValueError(
+                "cannot re-shard an already-built single-device "
+                "PreparedOperand; pass the raw InCRS with mesh=, or an "
+                "ops.ShardedPreparedOperand")
+        if isinstance(a, InCRS) and mesh is not None:
+            a = ops.prepare_incrs_sharded(a, mesh, axis=shard_axis)
+        if isinstance(a, (ops.PreparedOperand, ops.ShardedPreparedOperand,
+                          api.BoundPlan)):
             if a.device != self.device:
                 raise ValueError(f"operand lives on {a.device}, the engine "
                                  f"serves on {self.device}")
-            version = getattr(a.pattern, "version", None) \
-                if isinstance(a, api.BoundPlan) else None
+            if isinstance(a, api.BoundPlan):
+                version = getattr(a.pattern, "version", None)
             return a, a, version
         if isinstance(a, InCRS):
             return a, ops.prepare_incrs(a, device=self.device), None
         raise TypeError(
-            f"SpMMEngine serves an InCRS, an ops.PreparedOperand, a "
-            f"sparse.BoundPlan or a sparse.Linear, got {type(a).__name__}")
+            f"SpMMEngine serves an InCRS, an ops.PreparedOperand or "
+            f"ShardedPreparedOperand, a sparse.BoundPlan or a sparse.Linear, "
+            f"got {type(a).__name__}")
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the operand served now is row-sharded."""
+        return _sharded_of(self.prep) is not None
 
     def _check_feasible(self, prep) -> None:
         """Prove an incoming operand's launch for this engine's widest
@@ -434,6 +505,8 @@ class SpMMEngine:
             if prep.plan.tuned is not None:
                 return
             prep, variant = prep._ready, "auto"   # a plan's calls: auto
+        if isinstance(prep, ops.ShardedPreparedOperand):
+            prep = prep.shard(0)                # each shard launches this
         if not isinstance(prep, ops.PreparedOperand):
             return
         n = self.max_wave_cols
@@ -448,19 +521,21 @@ class SpMMEngine:
                     f"{self.max_wave_cols}")
 
     # ------------------------------------------------------------------
-    def swap_pattern(self, a) -> None:
+    def swap_pattern(self, a, *, mesh=None, shard_axis=None) -> None:
         """Hot-swap the serving operand between waves, across formats
         (InCRS, ``incrs``, ``bsr`` and ``dense`` plans replace each other
-        freely): deploy a re-pruned layer (``sparse.magnitude_repack``) into
-        the running engine. ``a`` takes what the constructor takes; a
-        layer's or plan's pattern version is recorded in
-        ``pattern_version``. The new operand's shape must match the
+        freely, and single-device and sharded operands too): deploy a
+        re-pruned layer (``sparse.magnitude_repack``) into the running
+        engine. ``a``, ``mesh`` and ``shard_axis`` take what the
+        constructor takes; a layer's or plan's pattern version is recorded
+        in ``pattern_version``. The new operand's shape must match the
         current one, and its launch must pass the launch check
         (``_check_feasible``); a rejected swap (ValueError, a
         ``KernelConfigError`` among them) leaves the engine serving the OLD
         operand. An in-flight wave keeps the operand it was launched
         with."""
-        new_a, new_prep, new_version = self._build_operand(a)
+        new_a, new_prep, new_version = self._build_operand(a, mesh,
+                                                           shard_axis)
         self._check_feasible(new_prep)      # the launch proof, pre-commit
         if tuple(new_prep.shape) != tuple(self.prep.shape):
             raise ValueError(
@@ -527,19 +602,44 @@ class SpMMEngine:
         if bucket > cols:
             host[:, cols:].zero_()
             self.stats["pad_cols"] += bucket - cols
-        ready = None
-        if self._copy is None:
-            b = host
-        else:
-            with torch.cuda.stream(self._copy):
-                b = host.to(self.device, non_blocking=True)
-            ready = self._copy.record_event()
-        prep_s = time.perf_counter() - t0
-        self._prep_s_total += prep_s
+        w = _Wave(wave, host, {}, 0.0, hidden)
+        for dev in self._launch_devices():
+            self._put_rhs(w, dev)
+        w.prep_s = time.perf_counter() - t0
+        self._prep_s_total += w.prep_s
         if hidden:
-            self._prep_s_hidden += prep_s
-        self._staged = _Wave(wave, host, b, prep_s, hidden, ready)
+            self._prep_s_hidden += w.prep_s
+        self._staged = w
         return True
+
+    def _launch_devices(self) -> List[torch.device]:
+        """The distinct devices the operand's launches run on."""
+        sh = _sharded_of(self.prep)
+        return [self.device] if sh is None else \
+            list(dict.fromkeys(sh.devices))
+
+    def _copy_stream(self, dev: torch.device):
+        """The engine's copy stream on ``dev`` (CUDA), made on first use."""
+        st = self._copy.get(dev)
+        if st is None:
+            st = self._copy[dev] = torch.cuda.Stream(dev)
+        return st
+
+    def _put_rhs(self, w: _Wave, dev: torch.device) -> torch.Tensor:
+        """The wave's B on ``dev``: the host panel itself on the CPU, else
+        an async copy on ``dev``'s copy stream whose event marks it
+        landed."""
+        b = w.b.get(dev)
+        if b is None:
+            if dev.type != "cuda":
+                b = w.host
+            else:
+                copy = self._copy_stream(dev)
+                with torch.cuda.stream(copy):
+                    b = w.host.to(dev, non_blocking=True)
+                w.ready[dev] = copy.record_event()
+            w.b[dev] = b
+        return b
 
     def _dispatch(self) -> None:
         """Launch the staged wave and queue the copy of its result to a
@@ -549,28 +649,50 @@ class SpMMEngine:
         if w is None:
             return
         t0 = time.perf_counter()
-        b = w.b
-        if self._copy is not None:
-            compute = torch.cuda.current_stream(self.device)
-            compute.wait_event(w.ready)
-            b.record_stream(compute)
-        if isinstance(self.prep, ops.PreparedOperand):
-            c = ops.spmm(self.prep, b, variant=self.variant)
+        # B where each launch runs (a swap since staging may have moved
+        # the operand), the compute streams waiting for its copies
+        bs = {}
+        for dev in self._launch_devices():
+            bs[dev] = self._put_rhs(w, dev)
+            if dev in w.ready:
+                compute = torch.cuda.current_stream(dev)
+                compute.wait_event(w.ready[dev])
+                bs[dev].record_stream(compute)
+        sh = _sharded_of(self.prep)
+        if sh is not None:
+            tuned = self.prep.plan.tuned if sh is not self.prep else None
+            parts = ops.sharded_panels(sh, bs, variant=self.variant,
+                                       tuned=tuned)
+            rows = [sh.row_range(s) for s in range(sh.n_shards)]
+        elif isinstance(self.prep, ops.PreparedOperand):
+            parts = [ops.spmm(self.prep, bs[self.device],
+                              variant=self.variant)]
+            rows = [(0, self.prep.shape[0])]
         else:                       # a bound plan: the kernels promote B
+            b = bs[self.device]     # with the plan's values and sum in
             if b.dtype.is_floating_point and \
-                    torch.finfo(b.dtype).bits > 32:    # with the plan's
-                b = b.to(torch.float32)     # values and sum in f32, as
-            c = self.prep(b)                # JAX without x64 does
+                    torch.finfo(b.dtype).bits > 32:    # f32, as JAX
+                b = b.to(torch.float32)             # without x64 does
+            parts = [self.prep(b)]
+            rows = [(0, self.prep.shape[0])]
         self._staged = None         # a launch that raised keeps the wave
-        w.panel = self._panels.take(c.shape, c.dtype)
-        if self._copy is None:
-            w.panel.copy_(c)
-        else:
-            self._copy.wait_stream(compute)
-            with torch.cuda.stream(self._copy):
-                w.panel.copy_(c, non_blocking=True)
-            c.record_stream(self._copy)
-            w.done = self._copy.record_event()
+        w.panel = self._panels.take((self.prep.shape[0], parts[0].shape[1]),
+                                    parts[0].dtype)
+        by_dev: Dict[torch.device, list] = defaultdict(list)
+        for c, (lo, hi) in zip(parts, rows):
+            by_dev[c.device].append((c, lo, hi))
+        for dev, pieces in by_dev.items():
+            if dev.type != "cuda":
+                for c, lo, hi in pieces:
+                    w.panel[lo:hi].copy_(c)
+                continue
+            copy = self._copy_stream(dev)
+            copy.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(copy):
+                for c, lo, hi in pieces:    # each shard straight into its
+                    w.panel[lo:hi].copy_(c, non_blocking=True)   # rows
+                    c.record_stream(copy)
+            w.done.append(copy.record_event())
         w.t_dispatch = t0
         for r in w.items:
             if r.t_submit is not None:
@@ -604,8 +726,8 @@ class SpMMEngine:
         if w is None:
             return
         self._inflight = None
-        if w.done is not None:
-            w.done.synchronize()
+        for ev in w.done:
+            ev.synchronize()
         c = w.panel
         t_done = time.perf_counter()
         wall_s = t_done - w.t_dispatch

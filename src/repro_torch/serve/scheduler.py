@@ -102,11 +102,15 @@ class WaveCostModel:
 # ----------------------------------------------------------------------
 # Offline seeds: the measurements the repo persists.
 def seed_from_autotune(padded_rows: int, n_sections: int, smax: int,
-                       section: int, backend: str) -> WaveCostModel:
+                       section: int, backend: str,
+                       launches: int = 1) -> WaveCostModel:
     """Seed a cost model from the autotuner's persisted sweeps for THIS
     operand geometry on ``backend``: every cache entry whose key matches
     ``(padded_rows, n_sections, smax, section, backend)`` gives a
-    measured ``(n_cols, µs)`` point. Unseeded where none match."""
+    measured ``(n_cols, µs)`` point of one launch. A wave that queues
+    ``launches`` such launches on one device (a sharded operand's shards
+    there) costs that many times each point. Unseeded where none
+    match."""
     from ..kernels import autotune
     pairs = []
     for key, cfg in autotune.cached_configs().items():
@@ -117,12 +121,13 @@ def seed_from_autotune(padded_rows: int, n_sections: int, smax: int,
                 parsed["section"], parsed["backend"]) != \
                 (padded_rows, n_sections, smax, section, backend):
             continue
-        pairs.append((parsed["n_cols"], cfg.measured_us))
+        pairs.append((parsed["n_cols"], cfg.measured_us * launches))
     slope, overhead = fit_us_per_col(pairs)
     if slope is None:
         return WaveCostModel()
+    times = f" x {launches} launches" if launches != 1 else ""
     return WaveCostModel(slope, overhead,
-                         source=f"autotune[{len(pairs)} pts]")
+                         source=f"autotune[{len(pairs)} pts{times}]")
 
 
 def seed_from_bench(path: str, platform: Optional[str] = None
@@ -166,15 +171,17 @@ def seed_cost_model(padded_rows: Optional[int] = None,
                     section: Optional[int] = None,
                     backend: Optional[str] = None,
                     bench_path: Optional[str] = None,
-                    platform: Optional[str] = None) -> WaveCostModel:
+                    platform: Optional[str] = None,
+                    launches: int = 1) -> WaveCostModel:
     """Best available offline seed, in JAX's order: the autotuner's
     measurements for this operand's exact geometry on ``backend``
-    (``seed_from_autotune``), then the bench record (``seed_from_bench``),
-    else unseeded (the first retired wave then provides the estimate)."""
+    (``seed_from_autotune``, ``launches`` of them a wave on one device),
+    then the bench record (``seed_from_bench``), else unseeded (the first
+    retired wave then provides the estimate)."""
     if backend is not None and \
             None not in (padded_rows, n_sections, smax, section):
         model = seed_from_autotune(padded_rows, n_sections, smax, section,
-                                   backend)
+                                   backend, launches)
         if model.us_per_col is not None:
             return model
     if bench_path is not None:

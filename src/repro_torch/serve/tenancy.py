@@ -46,9 +46,12 @@ def _plan_tensors(bound) -> List[torch.Tensor]:
     device-ready form its bind built (stripes with their indices, padded
     slots, a contiguous A) and, for ``bsr``, the block lists."""
     ready = bound._ready
-    out = [bound.values]
+    out = [bound.values] if isinstance(bound.values, torch.Tensor) \
+        else list(bound.values)
     if isinstance(ready, ops.PreparedOperand):
         out += [ready.idx, ready.val]
+    elif isinstance(ready, ops.ShardedPreparedOperand):
+        out += [*ready.idx, *ready.val]
     elif isinstance(ready, torch.Tensor):
         out.append(ready)
     else:
@@ -60,11 +63,14 @@ def _plan_tensors(bound) -> List[torch.Tensor]:
 
 def operand_bytes(prep) -> int:
     """Device-resident bytes of one serving operand: the stripes (idx +
-    val) of a prepped InCRS; for a bound plan, every storage
-    ``_plan_tensors`` names, each counted once. Host-side originals do not
-    count: they are what eviction falls back to."""
+    val) of a prepped InCRS, every shard's for a sharded one (summed over
+    its devices); for a bound plan, every storage ``_plan_tensors`` names,
+    each counted once. Host-side originals do not count: they are what
+    eviction falls back to."""
     if isinstance(prep, ops.PreparedOperand):
         return int(prep.idx.nbytes) + int(prep.val.nbytes)
+    if isinstance(prep, ops.ShardedPreparedOperand):
+        return sum(int(t.nbytes) for t in (*prep.idx, *prep.val))
     seen: Dict[int, int] = {}
     for t in _plan_tensors(prep):
         st = t.untyped_storage()

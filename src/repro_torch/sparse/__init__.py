@@ -1,5 +1,6 @@
 """Sparse layers and plans behind one front door (``incrs``, ``bsr``,
-``dense`` and the plan–execute ``crs``).
+``dense`` and the plan–execute ``crs``; ``incrs`` also row-sharded over a
+``launch.mesh.Mesh``).
 
 ``SparseSpec`` (what the operand looks like), ``plan``/``MatmulPlan``
 (prep once, execute many), ``BoundPlan`` (a plan over values: the serving
@@ -14,8 +15,10 @@ from .api import (FORMATS, BoundPlan, CRSPlanMeta,  # noqa: F401
                   SparseSpec, adapter_of, apply, plan, plan_for_operand,
                   register_format)
 from .linear import (InCRSLinearMeta, InCRSLinearParams,  # noqa: F401
+                     ShardedInCRSLinearMeta, ShardedInCRSLinearParams,
                      SparseLinearMeta, SparseLinearParams,
-                     incrs_to_dense_weight, real_blocks, to_dense)
+                     incrs_sharded_to_dense_weight, incrs_to_dense_weight,
+                     real_blocks, to_dense)
 from .pattern import (FamilyOps, PruneSchedule,  # noqa: F401
                       SparsityPattern, expand_block_mask, get_pattern,
                       is_lifecycle_node, is_stacked_node, magnitude_mask,

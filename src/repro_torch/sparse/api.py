@@ -1,8 +1,8 @@
 """One front door: ``SparseSpec`` -> ``plan`` -> execute, for ``incrs``,
 ``bsr``, ``dense`` and ``crs``.
 
-The port of ``repro.sparse.api``, single-device. A ``SparseSpec`` names
-WHAT the sparse operand looks like (format x selection x geometry);
+The port of ``repro.sparse.api``. A ``SparseSpec`` names WHAT the sparse
+operand looks like (format x selection x geometry x layout);
 ``plan`` turns a concrete spec into a ``MatmulPlan`` whose static
 metadata is built once; ``MatmulPlan.bind(values)`` gives a ``BoundPlan``,
 the self-contained serving operand ``serve.SpMMEngine`` runs wave after
@@ -40,7 +40,11 @@ its calls and its bound plans launch the tuned order and geometry. A
 ``Linear``'s forward and backward ride the same cache through
 ``ops.spmm``'s ``auto``.
 
-Not ported yet: row-sharding (``mesh``, ROADMAP queue 1 item 8).
+Row-sharding: ``SparseSpec("incrs", mesh=, shard_axis=)`` (or
+``plan(spec, mesh=)``, or ``Linear.shard(mesh=)`` of a trained layer)
+splits W^T's output rows into one stripe panel a shard of a
+``launch.mesh.Mesh``; its plans and layers run one fused-kernel launch a
+shard, and its backward pass sums dx over the shards.
 """
 from __future__ import annotations
 
@@ -82,7 +86,10 @@ class SparseSpec:
                   the streamed right-hand side sparse too (``"crs"`` or
                   ``"incrs"``): a call then runs condense + merge instead
                   of index matching.
-    ``mesh``      row-sharding is not ported: setting it raises.
+    layout        ``mesh`` (a ``launch.mesh.Mesh``, with an optional
+                  ``shard_axis``) row-shards an ``incrs`` operand across
+                  that mesh: one contiguous output-row panel a shard. Any
+                  other format with a mesh raises.
 
     ``eq=False`` -> identity hash/eq. Derive variants with
     ``dataclasses.replace``.
@@ -96,6 +103,7 @@ class SparseSpec:
     block: Optional[int] = None
     rounds: int = 128
     mesh: Any = None
+    shard_axis: Any = None
     rhs_format: Optional[str] = None
 
     def __post_init__(self):
@@ -120,10 +128,13 @@ class SparseSpec:
             if n_sel:
                 raise ValueError(f"policy {self.policy!r} IS the "
                                  f"selection; drop density/mask/pattern")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "row-sharded operands (mesh=) are not ported yet (ROADMAP "
-                "queue 1 item 8)")
+        if self.mesh is not None and self.format != "incrs":
+            raise ValueError(f"mesh sharding is the InCRS data path; "
+                             f"format {self.format!r} does not shard")
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
 
     def resolve_pattern(self, w: np.ndarray) -> Optional[SparsityPattern]:
         """The concrete ``SparsityPattern`` this spec selects on weight
@@ -359,25 +370,31 @@ class FormatAdapter:
     ready: Callable = lambda meta, values: values
     # whether ``call`` takes a ``variant=`` (crs: "auto" or "reference")
     takes_variant: bool = False
+    # (meta, host array, device) -> plan values where ``bind`` puts them
+    put: Callable = lambda meta, values, device: torch.from_numpy(
+        np.ascontiguousarray(values)).to(ops.resolve_device(device))
 
 
-_ADAPTERS: Dict[str, FormatAdapter] = {}
+_ADAPTERS: Dict[Tuple[str, bool], FormatAdapter] = {}
 _BY_CLS: Dict[type, FormatAdapter] = {}
 
 
 def register_format(fmt: str, params_cls: Optional[type],
-                    adapter: FormatAdapter) -> None:
+                    adapter: FormatAdapter, *, sharded: bool = False
+                    ) -> None:
     """The spec registry: consumers (Linear, plans, engines) discover
-    formats here instead of per-family isinstance chains."""
-    _ADAPTERS[fmt] = adapter
+    each (format, sharded?) family here instead of per-family isinstance
+    chains."""
+    _ADAPTERS[(fmt, sharded)] = adapter
     if params_cls is not None:
         _BY_CLS[params_cls] = adapter
 
 
 def _adapter(spec: SparseSpec) -> FormatAdapter:
-    ad = _ADAPTERS.get(spec.format)
+    ad = _ADAPTERS.get((spec.format, spec.sharded))
     if ad is None:
-        raise ValueError(f"no kernel family serves format {spec.format!r}")
+        raise ValueError(f"no kernel family serves format {spec.format!r} "
+                         f"(sharded={spec.sharded})")
     return ad
 
 
@@ -453,6 +470,23 @@ def _make_incrs(w, spec: SparseSpec, dtype=torch.float32, device=None):
                                   _pattern=spec.pattern, **kw)
 
 
+def _make_incrs_sharded(w, spec: SparseSpec, dtype=torch.float32,
+                        device=None):
+    """The row-sharded InCRS family: each shard's values go to its device
+    of the spec's mesh, so ``device`` is not used."""
+    if dtype != torch.float32:
+        raise ValueError(f"format 'incrs' stores f32 stripe values (the "
+                         f"fused kernel's accumulation dtype); "
+                         f"dtype={dtype} is not supported")
+    kw = dict(mesh=spec.mesh, axis=spec.shard_axis, section=spec.section,
+              block=spec.block)
+    if spec.policy != "magnitude":
+        return _lin._incrs_sharded_from_dense(
+            w, mask=magnitude_mask(w, None, policy=spec.policy), **kw)
+    return _lin._incrs_sharded_from_dense(
+        w, density=spec.density, mask=spec.mask, _pattern=spec.pattern, **kw)
+
+
 # ---- per-format plan execution ----------------------------------------
 def _incrs_call(meta, prep: ops.PreparedOperand, b,
                 tuned=None) -> torch.Tensor:
@@ -464,6 +498,25 @@ def _incrs_ready(meta, values: torch.Tensor) -> ops.PreparedOperand:
     return ops.PreparedOperand(meta.fwd_idx.to(values.device),
                                values.detach().contiguous(),
                                (meta.d_out, meta.d_in), meta.section)
+
+
+def _incrs_sharded_call(meta, prep: ops.ShardedPreparedOperand, b,
+                        tuned=None) -> torch.Tensor:
+    """C = A @ B, one launch a shard; a tuned config's order and geometry
+    apply to every shard's panel (they share one shape)."""
+    return ops.spmm(prep, torch.as_tensor(b), tuned=tuned)
+
+
+def _incrs_sharded_ready(meta, values) -> ops.ShardedPreparedOperand:
+    """The sharded stripe operand over ``values``, one tensor a shard on
+    its shard's device."""
+    if len(values) != meta.n_shards:
+        raise ValueError(f"a sharded plan binds one values tensor a "
+                         f"shard, {meta.n_shards}; got {len(values)}")
+    return ops.ShardedPreparedOperand(
+        meta.fwd_idx, tuple(v.detach().contiguous() for v in values),
+        (meta.d_out, meta.d_in), meta.section, meta.shard_width, meta.mesh,
+        meta.axes)
 
 
 def _dense_call(meta, a: torch.Tensor, b) -> torch.Tensor:
@@ -508,6 +561,19 @@ register_format("incrs", _lin.InCRSLinearParams, FormatAdapter(
                                     block=meta.block, pattern=meta.pattern),
     ready=_incrs_ready))
 
+register_format("incrs", _lin.ShardedInCRSLinearParams, FormatAdapter(
+    "incrs_sharded",
+    make=_make_incrs_sharded, apply=_lin._incrs_sharded_apply,
+    call=_incrs_sharded_call,
+    pack=lambda meta, w: _lin._sharded_pack_values(meta, w),
+    spec_of=lambda meta: SparseSpec("incrs", section=meta.section,
+                                    block=meta.block, pattern=meta.pattern,
+                                    mesh=meta.mesh, shard_axis=meta.axes),
+    plan_values=lambda inner: tuple(inner.values),
+    ready=_incrs_sharded_ready,
+    put=lambda meta, values, device: _lin._sharded_put(values, meta)),
+    sharded=True)
+
 register_format("bsr", _lin.SparseLinearParams, FormatAdapter(
     "bsr",
     make=_make_bsr, apply=_lin._bsr_apply, call=_bsr_call,
@@ -550,11 +616,14 @@ class MatmulPlan:
 
     # -- kernel tuning --------------------------------------------------
     def _tuning_arrays(self) -> Optional[Tuple[torch.Tensor, int]]:
-        """(idx, section) of the InCRS stripes this plan launches with, or
-        None for a format without them."""
+        """(idx, section) of the InCRS stripes this plan launches with (a
+        sharded plan's: one shard's panel, the shape every shard
+        launches), or None for a format without them."""
         if self.spec.format != "incrs" or self.meta is None:
             return None
-        return self.meta.fwd_idx, self.meta.section
+        idx = self.meta.fwd_idx
+        return (idx if isinstance(idx, torch.Tensor) else idx[0]), \
+            self.meta.section
 
     def _key(self, n_cols: int, device) -> Optional[str]:
         from ..kernels import autotune
@@ -630,11 +699,14 @@ class MatmulPlan:
         return _adapter(self.spec).pack(self.meta, w)
 
     def bind(self, values, *, device=None) -> "BoundPlan":
-        """A ``BoundPlan`` over ``values`` (a tensor, kept on its device,
-        or an array, moved to ``device``, default CUDA)."""
-        if not isinstance(values, torch.Tensor):
-            values = torch.from_numpy(np.ascontiguousarray(values)).to(
-                ops.resolve_device(device))
+        """A ``BoundPlan`` over ``values``: a tensor (a sharded plan: one a
+        shard), kept where it is, or an array, moved to ``device``
+        (default CUDA; a sharded plan's shards go to their mesh
+        devices)."""
+        if isinstance(values, (list, tuple)):
+            values = tuple(values)
+        elif not isinstance(values, torch.Tensor):
+            values = _adapter(self.spec).put(self.meta, values, device)
         return BoundPlan(self, values)
 
     @property
@@ -686,11 +758,14 @@ class BoundPlan:
 
     @property
     def device(self) -> torch.device:
-        return self.values.device
+        """Where a call's C lands: the values' device (a sharded plan's:
+        its first shard's)."""
+        v = self.values
+        return (v if isinstance(v, torch.Tensor) else v[0]).device
 
 
 def plan(spec: SparseSpec, rhs_shape: Optional[Tuple[int, ...]] = None,
-         *, tune: str = "cache", device=None) -> MatmulPlan:
+         *, mesh=None, tune: str = "cache", device=None) -> MatmulPlan:
     """Build the static half of C = A @ B for ``spec`` — prep once,
     execute many.
 
@@ -698,7 +773,8 @@ def plan(spec: SparseSpec, rhs_shape: Optional[Tuple[int, ...]] = None,
     for ``bsr`` (a density-only spec needs values to select on — use
     ``Linear.from_dense`` or ``plan_for_operand``), nothing for plain
     ``dense``. ``rhs_shape``, when given, is validated against the
-    operand's K.
+    operand's K. ``mesh`` sets (or replaces) the spec's mesh: a row-sharded
+    ``incrs`` plan.
 
     ``tune`` decides the launch of an ``incrs`` plan where ``rhs_shape``
     pins the RHS width: ``"cache"`` (default) attaches the tuning cache's
@@ -711,6 +787,8 @@ def plan(spec: SparseSpec, rhs_shape: Optional[Tuple[int, ...]] = None,
     if tune not in ("cache", "measure", "off"):
         raise ValueError(f"tune must be 'cache', 'measure' or 'off', "
                          f"got {tune!r}")
+    if mesh is not None:
+        spec = dataclasses.replace(spec, mesh=mesh)
     _adapter(spec)
     if spec.format == "dense" and spec.pattern is None and \
             spec.mask is None:
@@ -778,25 +856,26 @@ def plan_for_operand(a, spec: SparseSpec, *, device=None) -> BoundPlan:
         return p.bind(p.pack(w), device=device)
     lin = Linear.from_dense(w, spec, device=device)
     # the layer is dropped here, so its values need no copy (``bound()``)
-    return BoundPlan(lin.plan, adapter_of(lin.inner).plan_values(
-        lin.inner).detach())
+    return BoundPlan(lin.plan, _detached(adapter_of(lin.inner).plan_values(
+        lin.inner)))
 
 
 # ----------------------------------------------------------------------
 class Linear(torch.nn.Module):
     """ONE sparse/dense linear layer: y = x @ W behind a spec.
 
-    ``values`` is the only ``Parameter``; ``meta`` is the format's static
-    metadata (the pattern rides on it). ``inner`` is the format's params
-    node over the same tensor, what the registry dispatches on.
+    ``values`` is the only ``Parameter`` (a row-sharded layer's: a
+    ``ParameterList``, one a shard, on its shard's device); ``meta`` is
+    the format's static metadata (the pattern rides on it). ``inner`` is
+    the format's params node over the same tensors, what the registry
+    dispatches on.
     """
 
     def __init__(self, inner):
         super().__init__()
         self._cls = type(inner)
         adapter_of(inner)                       # a registered format
-        self.values = torch.nn.Parameter(inner.values.detach(),
-                                         requires_grad=True)
+        self.values = _as_parameters(inner.values)
         self.meta = inner.meta
 
     # -- one constructor family ---------------------------------------
@@ -827,9 +906,18 @@ class Linear(torch.nn.Module):
         if type(inner) is not self._cls:
             raise TypeError(f"a {self._cls.__name__} layer cannot take a "
                             f"{type(inner).__name__}")
-        self.values = torch.nn.Parameter(inner.values.detach(),
-                                         requires_grad=True)
+        self.values = _as_parameters(inner.values)
         self.meta = inner.meta
+
+    def shard(self, mesh=None, axis=None) -> "Linear":
+        """Re-shard this trained single-device ``incrs`` layer across a
+        mesh, values and pattern lineage kept (train on one device, serve
+        or train on); ``mesh``/``axis`` default as the sharded packer's
+        (``sparse.linear._resolve_shard_axes``)."""
+        if not isinstance(self.inner, _lin.InCRSLinearParams):
+            raise ValueError(f"shard() re-shards the single-device InCRS "
+                             f"family; this layer is {self.format!r}")
+        return Linear(_lin._incrs_shard(self.inner, mesh=mesh, axis=axis))
 
     # -- one apply ------------------------------------------------------
     def forward(self, x):
@@ -838,7 +926,9 @@ class Linear(torch.nn.Module):
     # -- views ----------------------------------------------------------
     @property
     def inner(self):
-        return self._cls(self.values, self.meta)
+        v = self.values
+        return self._cls(v if isinstance(v, torch.Tensor) else tuple(v),
+                         self.meta)
 
     @property
     def pattern(self) -> Optional[SparsityPattern]:
@@ -878,17 +968,39 @@ class Linear(torch.nn.Module):
         detached from autograd: an optimizer step on the layer does not
         change what the bound plan serves (swap a new ``bound()`` into an
         engine to deploy it)."""
-        ad = adapter_of(self.inner)
-        return BoundPlan(self.plan,
-                         ad.plan_values(self.inner).detach().clone())
+        return BoundPlan(self.plan, _detached(
+            adapter_of(self.inner).plan_values(self.inner), clone=True))
 
     def to_dense(self, values: Optional[torch.Tensor] = None
                  ) -> np.ndarray:
         """Densify W (d_in, d_out) from the current values, or from
-        ``values`` laid out like them (their gradient, say)."""
+        ``values`` laid out like them (their gradient, say; one a shard
+        for a row-sharded layer)."""
+        if isinstance(values, list):
+            values = tuple(values)
         node = self.inner if values is None else self._cls(values,
                                                            self.meta)
         return _FAMILIES[self._cls].to_dense(node)
+
+
+def _detached(values, clone: bool = False):
+    """Plan values out of autograd (copied with ``clone``): one tensor, or
+    a tuple of one a shard."""
+    def one(v):
+        v = v.detach()
+        return v.clone() if clone else v
+    if isinstance(values, torch.Tensor):
+        return one(values)
+    return tuple(one(v) for v in values)
+
+
+def _as_parameters(values):
+    """A family's values as the layer's trainable leaf: one ``Parameter``,
+    or a ``ParameterList`` of one a shard."""
+    if isinstance(values, torch.Tensor):
+        return torch.nn.Parameter(values.detach(), requires_grad=True)
+    return torch.nn.ParameterList(
+        torch.nn.Parameter(v.detach(), requires_grad=True) for v in values)
 
 
 def apply(p, x):

@@ -1,6 +1,6 @@
 """Sparse linear layers, trainable: the BSR and InCRS families.
 
-The port of ``repro.sparse.linear``, single-device. Both families are
+The port of ``repro.sparse.linear``. Its families are
 ``torch.autograd.Function``s whose forward and dx run the port's CUDA
 kernels (on CPU tensors, their plain versions):
 
@@ -19,7 +19,10 @@ kernels (on CPU tensors, their plain versions):
                         multiply-adds a slot; pad slots get exactly 0.0
 
 dx runs only when the input needs a gradient. dW is torch ops, as it is
-jnp (no Pallas kernel) in the JAX package.
+jnp (no Pallas kernel) in the JAX package. The row-sharded InCRS family
+(``ShardedInCRSLinearParams``) splits W^T's output rows into one panel a
+shard of a ``launch.mesh.Mesh`` and runs the InCRS products shard by shard,
+dx summed over the shards in shard order.
 
 ``SparseLinearMeta`` is static host data (tuples); the device index
 tensors a launch or a backward pass needs are made once per meta and
@@ -542,6 +545,372 @@ def _incrs_pack_values(meta: InCRSLinearMeta, w: np.ndarray) -> np.ndarray:
     return vals
 
 
+# ----------------------------------------------------------------------
+# Row-sharded InCRS: W^T (d_out, d_in) is split into n_shards contiguous
+# OUTPUT-row panels, one per shard device of a ``launch.mesh.Mesh``, all
+# driven by this process:
+#
+#   y  = x @ W      each shard's fused SpMM over its own stripe panel, on
+#                   its device; the (T, shard_width) panels concatenate
+#                   along d_out on x's device
+#   dx = dy @ W^T   each shard's fused SpMM over its TRANSPOSED stripes
+#                   with its dy panel, then summed on x's device in shard
+#                   order (JAX's psum; d_out, the contraction of dx, is
+#                   what the sharding split)
+#   dW^T            shard-local: a shard's weight rows only meet its own
+#                   dy panel
+#
+# Each row's arithmetic is the single-device path's (same stripe content,
+# same product shapes), so forward and dW equal it bitwise; dx sums the
+# shards' partials, exact to reassociation of the f32 sums (bitwise where
+# a shard is whole sections and the product forms each section's partial
+# before adding it, as the plain versions do).
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedInCRSLinearMeta:
+    """Static metadata of one row-sharded trainable InCRS weight: per-shard
+    stripe indices, each on its shard's device (one shape for all shards:
+    the slot widths are the densest shard's). ``eq=False``: identity
+    hash/eq."""
+    fwd_idx: Tuple[torch.Tensor, ...]   # per shard (Op_s, Si, smax) int32
+    bwd_idx: Tuple[torch.Tensor, ...]   # per shard (Ip, So_s, smax_t) int32
+    t_gather: Tuple[torch.Tensor, ...]  # per shard (Ip*So_s*smax_t,) int32:
+    #                                     bwd slot -> shard-local flat fwd
+    #                                     slot (one past the end reads 0.0)
+    d_in: int
+    d_out: int
+    section: int
+    nnz: int
+    mesh: Any
+    axes: Tuple[str, ...]     # mesh axes the shard dim is split over
+    shard_width: int          # d_out // n_shards output rows per shard
+    block: int = B_DEFAULT    # InCRS counter block
+    pattern: Any = None       # the SparsityPattern of this meta
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.fwd_idx)
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        return tuple(t.device for t in self.fwd_idx)
+
+
+@dataclasses.dataclass
+class ShardedInCRSLinearParams:
+    values: Tuple[torch.Tensor, ...]    # per shard (Op_s, Si, smax) f32, on
+    #                                     its shard's device: trainable
+    meta: ShardedInCRSLinearMeta
+
+    @property
+    def pattern(self) -> "SparsityPattern | None":
+        return self.meta.pattern
+
+    @property
+    def d_in(self) -> int:
+        return self.meta.d_in
+
+    @property
+    def d_out(self) -> int:
+        return self.meta.d_out
+
+    @property
+    def nnz(self) -> int:
+        return self.meta.nnz
+
+    @property
+    def density(self) -> float:
+        return self.meta.nnz / float(self.meta.d_in * self.meta.d_out)
+
+    @property
+    def prep(self) -> ops.ShardedPreparedOperand:
+        """The row-sharded W^T operand over the CURRENT values (a view:
+        an optimizer step changes what it serves); what a sharded
+        ``serve.SpMMEngine`` takes as it is."""
+        m = self.meta
+        return ops.ShardedPreparedOperand(
+            m.fwd_idx, tuple(v.detach() for v in self.values),
+            (m.d_out, m.d_in), m.section, m.shard_width, m.mesh, m.axes)
+
+
+def _resolve_shard_axes(mesh, axis):
+    """The mesh and shard-axis spec (for ``ops.shard_axes``): explicit
+    arguments win; otherwise the active ``models.sharding`` context gives
+    the mesh, and its ``incrs_shard`` rule the axes (else every mesh
+    axis)."""
+    from ..models import sharding as sh
+    if mesh is None:
+        mesh = sh.current_mesh()
+        if mesh is None:
+            raise ValueError(
+                "row-sharded InCRSLinear needs a mesh: pass mesh= or "
+                "construct inside models.sharding.axis_rules(...)")
+    if axis is None and sh.current_mesh() is mesh:
+        rule = sh.resolve(sh.INCRS_STRIPE_AXES)[0]
+        if rule is not None:
+            axis = rule
+    return mesh, axis
+
+
+def _pad_slots_to(a: np.ndarray, width: int, fill) -> np.ndarray:
+    return np.pad(a, ((0, 0), (0, 0), (0, width - a.shape[2])),
+                  constant_values=fill)
+
+
+def _sharded_meta(fis, fvs, bis, nnz: int, pat, *, d_in, d_out, section,
+                  block, mesh, axes, shard_width
+                  ) -> ShardedInCRSLinearParams:
+    """Per-shard host stripes -> the params on the shards' devices, the
+    meta registered as the pattern's ``incrs_sharded`` packed form."""
+    devs = ops.shard_devices(mesh, axes)
+    tgs = [_transpose_gather(fis[s], bis[s], section, d_in)
+           for s in range(len(devs))]
+
+    def put(arrs):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(d)
+                     for a, d in zip(arrs, devs))
+    meta = ShardedInCRSLinearMeta(
+        put(fis), put(bis), put(tgs), d_in, d_out, section, nnz, mesh, axes,
+        shard_width, block=block, pattern=pat)
+    pat.packed["incrs_sharded"] = meta
+    return ShardedInCRSLinearParams(put(fvs), meta)
+
+
+def _incrs_sharded_from_dense(
+        w: np.ndarray, density: Optional[float] = None, *,
+        mask: Optional[np.ndarray] = None, mesh=None, axis=None,
+        section: Optional[int] = None, block: Optional[int] = None,
+        _pattern: Optional[SparsityPattern] = None
+        ) -> ShardedInCRSLinearParams:
+    """Pack a dense W (d_in, d_out), optionally magnitude-pruned with the
+    same global threshold as the single-device packer, into the
+    row-sharded trainable form: one contiguous d_out panel per shard of
+    ``mesh`` along ``axis`` (default: the ``incrs_shard`` rule of the
+    active sharding context, else every mesh axis). ``mask`` (exclusive
+    with ``density``) fixes the pattern explicitly: slots it keeps stay
+    live even at value 0.0. ``_pattern`` rides in an evolved pattern."""
+    section = S_DEFAULT if section is None else section
+    block = B_DEFAULT if block is None else block
+    mesh, axis = _resolve_shard_axes(mesh, axis)
+    axes, n_shards = ops.shard_axes(mesh, axis)
+    w = np.asarray(w, np.float32)
+    d_in, d_out = w.shape
+    if d_out % n_shards:
+        raise ValueError(f"d_out={d_out} must divide into {n_shards} "
+                         f"row shards (mesh axes {axes})")
+    sw = d_out // n_shards
+    pat = _resolve_pattern(w, density, mask, _pattern)
+    if pat.shape != (d_in, d_out):
+        raise ValueError(f"pattern mask shape {pat.shape} != weight shape "
+                         f"{(d_in, d_out)}")
+    wt = np.ascontiguousarray(w.T)
+    maskt = np.ascontiguousarray(pat.mask.T)
+    per = []
+    for s in range(n_shards):
+        wts = np.ascontiguousarray(wt[s * sw:(s + 1) * sw])
+        ms = np.ascontiguousarray(maskt[s * sw:(s + 1) * sw])
+        inc = InCRS.from_crs(CRS.from_mask(wts, ms), section=section,
+                             block=block)
+        inc_t = InCRS.from_crs(
+            CRS.from_mask(np.ascontiguousarray(wts.T),
+                          np.ascontiguousarray(ms.T)),
+            section=section, block=block)
+        fi, fv = ops._prep_sections_np(inc, 128)
+        bi, _ = ops._prep_sections_np(inc_t, 128)
+        per.append((fi, fv, bi, inc.crs.nnz))
+    # Stack on a common slot width: the extra slots are -1 / 0.0 pads,
+    # which add exactly nothing, so each row's result is the unsharded
+    # prep's bit for bit.
+    smax = max(p[0].shape[2] for p in per)
+    smax_t = max(p[2].shape[2] for p in per)
+    return _sharded_meta(
+        [_pad_slots_to(p[0], smax, -1) for p in per],
+        [_pad_slots_to(p[1], smax, 0.0) for p in per],
+        [_pad_slots_to(p[2], smax_t, -1) for p in per],
+        sum(p[3] for p in per), pat, d_in=d_in, d_out=d_out,
+        section=section, block=block, mesh=mesh, axes=axes, shard_width=sw)
+
+
+def _incrs_sharded_init(generator: torch.Generator, d_in: int, d_out: int,
+                        density: float, scale: float = 0.02,
+                        **kw) -> ShardedInCRSLinearParams:
+    """Random-normal W (std ``scale``, drawn on the CPU from
+    ``generator``), magnitude-pruned to ``density`` and packed
+    row-sharded."""
+    w = torch.randn((d_in, d_out), generator=generator) * scale
+    return _incrs_sharded_from_dense(w.numpy(), density, **kw)
+
+
+def _incrs_shard(p: InCRSLinearParams, *, mesh=None,
+                 axis=None) -> ShardedInCRSLinearParams:
+    """Re-shard a trained single-device ``InCRSLinearParams`` across a mesh
+    with its values and pattern: the pattern rides along unchanged (same
+    lineage uid and version; the sharded pack registers as a second packed
+    form of the same snapshot), so a trained value of exactly 0.0 stays a
+    trainable slot.
+
+    Where a shard is whole sections (``shard_width % section == 0``) the
+    shards are cut from the packed stripes themselves, with no pack from
+    the dense weight: a shard's forward rows, its transposed stripes'
+    sections and its gather are those of the single-device pack, on the
+    same slot widths, so the result is the from-dense pack's bit for
+    bit. Otherwise the shard's transposed sections differ, and it packs
+    from the dense weight."""
+    mesh, axis = _resolve_shard_axes(mesh, axis)
+    axes, n_shards = ops.shard_axes(mesh, axis)
+    m = p.meta
+    sw = m.d_out // n_shards if m.d_out % n_shards == 0 else 0
+    if not sw or sw % m.section:
+        return _incrs_sharded_from_dense(
+            incrs_to_dense_weight(p), mesh=mesh, axis=axis,
+            section=m.section, block=m.block, _pattern=p.pattern)
+    fwd, vals, bwd = m.fwd_idx, p.values.detach(), m.bwd_idx
+    op, si, smax = fwd.shape
+    ip, so, smax_t = bwd.shape
+    rp = -(-sw // 128) * 128
+    so_s = sw // m.section
+    fis, fvs, bis, tgs = [], [], [], []
+    tg3 = m.t_gather.view(ip, so, smax_t).long()
+    for s in range(n_shards):
+        lo = s * sw
+        fi = fwd.new_full((rp, si, smax), -1)
+        fv = vals.new_zeros((rp, si, smax))
+        fi[:sw], fv[:sw] = fwd[lo:lo + sw], vals[lo:lo + sw]
+        t = tg3[:, s * so_s:(s + 1) * so_s].reshape(-1)
+        # a global flat fwd slot -> the shard's: rows shift by lo; the pad
+        # slot (fwd.numel()) -> the shard's pad slot
+        t = torch.where(t == fwd.numel(), rp * si * smax,
+                        t - lo * si * smax)
+        fis.append(fi)
+        fvs.append(fv)
+        bis.append(bwd[:, s * so_s:(s + 1) * so_s].contiguous())
+        tgs.append(t.to(torch.int32))
+    devs = ops.shard_devices(mesh, axes)
+
+    def put(ts):
+        return tuple(t.to(d) for t, d in zip(ts, devs))
+    meta = ShardedInCRSLinearMeta(
+        put(fis), put(bis), put(tgs), m.d_in, m.d_out, m.section, m.nnz,
+        mesh, axes, sw, block=m.block, pattern=p.pattern)
+    if p.pattern is not None:
+        p.pattern.packed["incrs_sharded"] = meta
+    return ShardedInCRSLinearParams(put(fvs), meta)
+
+
+def _split_rows(t: torch.Tensor, meta: ShardedInCRSLinearMeta):
+    """dy^T's or y's shard panels: rows ``[s * sw, (s + 1) * sw)`` of a
+    (d_out, T) tensor, each on its shard's device."""
+    sw = meta.shard_width
+    return [t[s * sw:(s + 1) * sw].to(d) for s, d in
+            enumerate(meta.devices)]
+
+
+def _on_devices(t: torch.Tensor, devices) -> Dict[torch.device, torch.Tensor]:
+    """``t`` on each distinct device, copied once a device."""
+    return {d: t.to(d) for d in dict.fromkeys(devices)}
+
+
+class _ShardedInCRSMM(torch.autograd.Function):
+    """y[T, d_out] = x[T, d_in] @ W with W^T row-sharded: each shard's
+    fused SpMM over its own panel, panels concatenated on d_out."""
+
+    @staticmethod
+    def forward(ctx, x, meta, *values):
+        ctx.save_for_backward(x, *values)
+        ctx.meta = meta
+        prep = ops.ShardedPreparedOperand(
+            meta.fwd_idx, values, (meta.d_out, meta.d_in), meta.section,
+            meta.shard_width, meta.mesh, meta.axes)
+        yt = ops.sharded_panels(prep, _on_devices(x.T, meta.devices))
+        return torch.cat([t.to(x.device) for t in yt]).T
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *values = ctx.saved_tensors
+        meta = ctx.meta
+        dyt = _split_rows(dy.T, meta)                     # (sw, T) a shard
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = _sharded_dx(meta, values, dyt,
+                             x.device).T.to(x.dtype)
+        dvals = [None] * len(values)
+        if any(ctx.needs_input_grad[2:]):
+            xs = _on_devices(x, meta.devices)
+            dvals = [_stripe_dw(meta.fwd_idx[s], meta.section, xs[d],
+                                dyt[s].T).to(values[s].dtype)
+                     for s, d in enumerate(meta.devices)]
+        return (dx, None, *dvals)
+
+
+def _sharded_dx(meta: ShardedInCRSLinearMeta, values, dyt,
+                home: torch.device) -> torch.Tensor:
+    """dx^T[d_in, T] = sum over shards of W_s @ dy_s^T: each shard's fused
+    kernel over its transposed stripes (their values gathered by its
+    ``t_gather``) and its dy panel ``dyt[s]``, the partials summed on
+    ``home`` in shard order, so the sum is the same on every run."""
+    dx = None
+    for s in range(meta.n_shards):
+        flat = torch.cat([values[s].reshape(-1), values[s].new_zeros(1)])
+        tvals = flat.index_select(0, meta.t_gather[s]).view(
+            meta.bwd_idx[s].shape)
+        part = _incrs_product(meta.bwd_idx[s], tvals,
+                              (meta.d_in, meta.shard_width), meta.section,
+                              dyt[s]).to(home)
+        dx = part if dx is None else dx + part
+    return dx
+
+
+def _incrs_sharded_apply(p: ShardedInCRSLinearParams,
+                         x: torch.Tensor) -> torch.Tensor:
+    """x: (..., d_in) -> (..., d_out) through the per-shard fused kernels;
+    differentiable wrt ``p.values`` and ``x``."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, p.meta.d_in)
+    y = _ShardedInCRSMM.apply(x2, p.meta, *p.values)
+    return y.reshape(*lead, p.meta.d_out)
+
+
+def incrs_sharded_to_dense_weight(p: ShardedInCRSLinearParams
+                                  ) -> np.ndarray:
+    """Densify W (d_in, d_out) from the CURRENT sharded values (gathered
+    to the host)."""
+    sw, section = p.meta.shard_width, p.meta.section
+    si = p.meta.fwd_idx[0].shape[1]
+    wt = np.zeros((p.meta.d_out, si * section), np.float32)
+    for s, (idx, vals) in enumerate(zip(p.meta.fwd_idx, p.values)):
+        idx, vals = idx.cpu().numpy(), vals.detach().cpu().numpy()
+        r, ss, k = np.nonzero(idx >= 0)
+        wt[s * sw + r, idx[r, ss, k] + ss * section] = vals[r, ss, k]
+    return wt[:, :p.meta.d_in].T
+
+
+def _sharded_pack_values(meta: ShardedInCRSLinearMeta,
+                         w: np.ndarray) -> np.ndarray:
+    """Dense W -> (S, Rp, Si, smax) per-shard stripe values of meta's live
+    slots (host numpy; ``_sharded_put`` places them)."""
+    wt = np.asarray(w, np.float32).T
+    sw, section = meta.shard_width, meta.section
+    rp, si, smax = meta.fwd_idx[0].shape
+    kp = si * section
+    vals = np.zeros((meta.n_shards, rp, si, smax), np.float32)
+    for s, idx in enumerate(meta.fwd_idx):
+        idx = idx.cpu().numpy()
+        panel = np.zeros((rp, kp), np.float32)
+        rows = wt[s * sw:(s + 1) * sw]
+        panel[:rows.shape[0], :rows.shape[1]] = rows
+        r, ss, k = np.nonzero(idx >= 0)
+        vals[s][r, ss, k] = panel[r, idx[r, ss, k] + ss * section]
+    return vals
+
+
+def _sharded_put(vals: np.ndarray, meta: ShardedInCRSLinearMeta,
+                 dtype: Optional[torch.dtype] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """(S, ...) host values -> one tensor a shard on ``meta``'s shard
+    devices (in ``dtype``, else their own)."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(v)).to(
+        device=d, dtype=dtype) for v, d in zip(vals, meta.devices))
+
+
 # A repack packs on the device of the old node's values.
 register_family(SparseLinearParams, FamilyOps(
     "bsr",
@@ -561,3 +930,14 @@ register_family(InCRSLinearParams, FamilyOps(
         device=like.values.device),
     pack_values=_incrs_pack_values,
     default_mask=lambda w, d, n: magnitude_mask(w, d)))
+
+register_family(ShardedInCRSLinearParams, FamilyOps(
+    "incrs_sharded",
+    to_dense=incrs_sharded_to_dense_weight,
+    pack=lambda w, pat, like: _incrs_sharded_from_dense(
+        w, mesh=like.meta.mesh, axis=like.meta.axes,
+        section=like.meta.section, block=like.meta.block, _pattern=pat),
+    pack_values=_sharded_pack_values,
+    default_mask=lambda w, d, n: magnitude_mask(w, d),
+    put_values=lambda vals, like, dtype: _sharded_put(vals, like.meta,
+                                                      dtype)))

@@ -268,6 +268,9 @@ class FamilyOps:
     default_mask: Callable[[np.ndarray, float, Any], np.ndarray]
     # "element" families accept n:m; "block" families prune whole tiles
     granularity: str = "element"
+    # (values numpy, like_node, dtype) -> values placed as like_node's are;
+    # None: one tensor on the device of like_node's values
+    put_values: Optional[Callable[[np.ndarray, Any, Any], Any]] = None
 
 
 _FAMILIES: Dict[type, FamilyOps] = {}
@@ -293,7 +296,9 @@ def is_stacked_node(x: Any) -> bool:
     if type(x) not in _FAMILIES or get_pattern(x) is None:
         return False
     idx = getattr(x.meta, "fwd_idx", None)
-    return idx is not None and x.values.ndim != idx.ndim
+    if not isinstance(idx, torch.Tensor):       # none, or one a shard
+        return False
+    return x.values.ndim != idx.ndim
 
 
 def get_pattern(node: Any) -> Optional[SparsityPattern]:
@@ -372,9 +377,19 @@ def repack_onto(node: Any, like: Any) -> Any:
         raise TypeError(f"repack_onto: {type(node).__name__} vs "
                         f"{type(like).__name__}")
     vals = fam.pack_values(like.meta, fam.to_dense(node))
+    dtype = _values_dtype(node)
+    if fam.put_values is not None:
+        return dataclasses.replace(like,
+                                   values=fam.put_values(vals, like, dtype))
     return dataclasses.replace(like, values=torch.from_numpy(
         np.ascontiguousarray(vals)).to(device=like.values.device,
-                                        dtype=node.values.dtype))
+                                        dtype=dtype))
+
+
+def _values_dtype(node: Any) -> torch.dtype:
+    """The dtype of a node's values: one tensor, or one a shard."""
+    v = node.values
+    return (v if isinstance(v, torch.Tensor) else v[0]).dtype
 
 
 __all__ = [

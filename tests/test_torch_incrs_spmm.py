@@ -165,8 +165,12 @@ def test_ops_spmm_other_formats_name_their_roadmap_item():
         tops.spmm(CRS.from_dense(dense), dense.T)     # ported: item 5
     out = tops.spmm(dense, dense.T, device="cpu")       # ported: item 7
     np.testing.assert_allclose(out.numpy(), dense @ dense.T, **TOL)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tops.spmm(TInCRS.from_dense(dense), dense.T, mesh=object())
+    from repro_torch.launch.mesh import make_mesh      # ported: item 8
+    inc = TInCRS.from_dense(dense)
+    sharded = tops.spmm(inc, dense.T, mesh=make_mesh(4, "cpu"))
+    assert torch.equal(sharded, tops.spmm(inc, dense.T, device="cpu"))
+    with pytest.raises(ValueError, match="InCRS data path"):
+        tops.spmm(dense, dense.T, mesh=make_mesh(4, "cpu"), device="cpu")
     with pytest.raises(TypeError, match="BSR"):
         tops.spmm(object(), dense.T)
 

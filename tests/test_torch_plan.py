@@ -190,8 +190,13 @@ def test_unported_formats_name_their_roadmap_items():
     _close(lin.bound()(b).numpy(), w.T @ b)
     with pytest.raises(ValueError, match="f32 stripe values"):
         tapi.Linear.from_dense(w, spec, dtype=torch.bfloat16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tapi.SparseSpec("bsr", block=16, mesh=object())
+    from repro_torch.launch.mesh import make_mesh      # ported: item 8
+    with pytest.raises(ValueError, match="mesh sharding is the InCRS"):
+        tapi.SparseSpec("bsr", block=16, mesh=make_mesh(2, "cpu"))
+    sharded = tapi.Linear.from_dense(
+        w, dataclasses.replace(spec, mesh=make_mesh(2, "cpu")))
+    assert sharded.format == "incrs_sharded" and sharded.spec.sharded
+    _close(sharded.bound()(b).numpy(), w.T @ b)
     with pytest.raises(ValueError, match="format must be"):
         tapi.SparseSpec("coo")
     with pytest.raises(ValueError, match="at most one"):

@@ -154,8 +154,14 @@ def test_engine_validates_and_keeps_request_dtypes():
     eng.submit(teng.SpMMRequest(2, b32.astype(np.float64)))
     with pytest.warns(UserWarning, match="f32 accumulation"):
         eng.run()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        teng.SpMMEngine(t, device="cpu", mesh=object())
+    from repro_torch.launch.mesh import make_mesh      # ported: item 8
+    sharded = teng.SpMMEngine(t, device="cpu", mesh=make_mesh(4, "cpu"))
+    assert sharded.sharded
+    sharded.submit(teng.SpMMRequest(3, b32))
+    np.testing.assert_array_equal(sharded.run()[0].out, done[1].out)
+    with pytest.raises(ValueError, match="re-shard"):
+        teng.SpMMEngine(tops.prepare_incrs(t, device="cpu"), device="cpu",
+                        mesh=make_mesh(4, "cpu"))
     with pytest.raises(TypeError, match="BoundPlan"):
         teng.SpMMEngine(object(), device="cpu")
     with pytest.raises(ValueError, match="variant"):

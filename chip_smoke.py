@@ -222,6 +222,28 @@ Phases, each printing one JSON line:
 17. lm_times — the bf16 kernel at granite's wave: median time, TFLOP/s
              and share of the bound, beside the f32 kernel on the same
              values, the plain version and scaled_dot_product_attention.
+18. lm_train — the LM's training path: one granite-34b layer at full
+             width, step 0's f32 loss and grads (TF32 off) against float64
+             on the card (1e-4 of each tensor's max) and the bf16 loss
+             against the f32 one (2e-2); granite-34b at full width cut to
+             4 layers (bf16 compute, f32 params, remat "dots"), 8 AdamW
+             steps on 4 x 2,048-token batches, each step's forward +
+             backward and optimizer ms, tokens/s, loss, grad norm and peak
+             memory, the loss falling, every parameter with a finite
+             nonzero step-0 grad and no flash launch; one narrow layer at
+             S = 8,192 in train mode with wq/wk/wv grads nonzero and equal
+             to the CPU's (the chunked torch attention, never the flash
+             kernel, which refuses inputs that require grad); GPipe over 4
+             stages of 6,144 x 6,144 InCRS (density 0.1, ``stack_init``)
+             on cuda:0 named 4 times, 8 microbatches of 512 rows: the
+             forward bitwise equal to the stages in turn, step 0's value
+             grads within 1e-4 of a float64 dense oracle, pad slots 0.0,
+             32 forward and 32 dx launches a step, 2 steps timed beside
+             the stages run in turn on the whole batch; then the training
+             launcher as subprocesses, a run resumed from its step-4
+             checkpoint giving steps 5-8's losses bitwise. Counters are
+             zeroed just before the pipeline's runs and read just after.
+             ``python3 chip_smoke.py --lm-train`` runs this phase alone.
 
 Then the card's line, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises. Without a CUDA
@@ -4141,8 +4163,8 @@ def phase_lm_serve(torch, F, L):
     del cache
     fed = torch.cat([torch.from_numpy(prompts).to("cuda").long()] + toks, 1)
     F.reset_launches()
-    with torch.no_grad():
-        tf = model32(fed, mode="train")[:, 8191:].float()
+    with torch.no_grad():   # a prefill: train mode never runs the kernel
+        tf = model32(fed, mode="prefill")[0][:, 8191:].float()
     tf_launches = F.LAUNCHES["flash_attention"]
     dec = torch.stack(steps, 1)
     scale = float(tf.abs().max())
@@ -4406,6 +4428,478 @@ def lm_path(torch):
     return phase_lm_times(torch, F, errs, launches, by_launcher)
 
 
+# ----------------------------------------------------------------------
+# LM training: granite-34b at full width, depth cut to LM_DEPTH, trained
+# by the port's trainer (remat "dots", bf16 compute, f32 params, AdamW);
+# a one-layer f32 step held against float64; the train-mode attention
+# repair at S = 8192; GPipe stages over InCRS; the training launcher.
+LM_TRAIN = {"batch": 4, "seq": 2048, "steps": 8, "lr": 1e-4, "seed": 21}
+LM_TRAIN_GRAD_TOL = 1e-4   # f32 step 0: max|g - g64| <= tol * max|g64|
+LM_TRAIN_LOSS_RTOL = 2e-2  # bf16 step-0 loss against the f32 one
+# bf16 step 0, per tensor r = max|g16 - g64| / max|g64|: the worst tensor
+# must read at least the floor (a run that silently stays in f32 reads
+# as the f32 run does) and at most the limit (a planted fault, the
+# attention cut to a window of LM_TRAIN_FAULT_WINDOW keys, must read
+# above it). Both lie between those readings and the sound bf16 one.
+LM_TRAIN_BF16_BAND = (1e-4, 1e-1)
+LM_TRAIN_FAULT_WINDOW = 16
+LM_CHECK = {"batch": 2, "seq": 1024}  # the one-layer float64 check's batch
+REPAIR = {"seq": 8192, "d_model": 64, "n_heads": 4, "d_ff": 128,
+          "vocab": 512, "seed": 22}
+REPAIR_TOL = 1e-4          # card grads: max|g - g_cpu| <= tol * max|g_cpu|
+PIPE = {"stages": 4, "d": 6144, "density": 0.1, "section": 256,
+        "block": 32, "n_micro": 8, "rows": 512, "steps": 2, "seed": 23}
+PIPE_TOL = 1e-4            # step 0: max|g - g64| <= tol * max|g64|, live
+
+
+def _lm_train_modules():
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import incrs_spmm as K
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sparse import api
+    from repro_torch.sparse import linear as lin
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import pipeline as P
+    from repro_torch.train import trainer
+    return types.SimpleNamespace(configs=configs, Tokens=SyntheticTokens,
+                                 F=F, K=K, ops=ops, make_mesh=make_mesh,
+                                 M=M, api=api, lin=lin, O=O, P=P,
+                                 trainer=trainer)
+
+
+def _rel_errs(got, want):
+    """{name: max|got - want| / max|want|} over two name -> tensor maps."""
+    out = {}
+    for k, w in want.items():
+        w = w.double()
+        scale = max(float(w.abs().max()), 1e-300)
+        out[k] = float((got[k].double() - w).abs().max()) / scale
+    return out
+
+
+def phase_lm_train_check(torch, T):
+    """One granite-34b layer at full width on one batch, against a
+    float64 run on the card: step 0's f32 grads (TF32 off), and the bf16
+    run's grads per tensor inside LM_TRAIN_BF16_BAND with its loss near
+    the f32 one; a planted fault (a bf16 run whose attention sees only
+    LM_TRAIN_FAULT_WINDOW keys) and the f32 run itself must fall outside
+    the band, so the band can tell a wrong or a non-bf16 run."""
+    import dataclasses
+    base = dataclasses.replace(T.configs.get("granite-34b"), n_layers=1,
+                               dtype="float32")
+    batch = T.Tokens(base.vocab_size, LM_CHECK["batch"], LM_CHECK["seq"],
+                     seed=LM_TRAIN["seed"]).batch_at(0)
+    m32 = T.M.init(base, seed=LM_TRAIN["seed"], device="cuda")
+    l32, g32 = T.trainer.loss_and_grads(m32, batch)
+    m64 = T.M.Model(dataclasses.replace(base, dtype="float64",
+                                        param_dtype="float64"),
+                    device="cuda")
+    m64.load_state_dict(m32.state_dict())
+    l64, g64 = T.trainer.loss_and_grads(m64, batch)
+    del m64
+    errs = _rel_errs(g32, g64)
+    del g32
+    runs = {}
+    for name, cfg in (
+            ("bf16", dataclasses.replace(base, dtype="bfloat16")),
+            ("fault", dataclasses.replace(
+                base, dtype="bfloat16",
+                sliding_window=LM_TRAIN_FAULT_WINDOW))):
+        m = T.M.Model(cfg, device="cuda")
+        m.load_state_dict(m32.state_dict())
+        loss, g = T.trainer.loss_and_grads(m, batch)
+        runs[name] = (float(loss), _rel_errs(g, g64))
+        del m, g
+    del g64, m32
+    torch.cuda.empty_cache()
+    worst = max(errs, key=errs.get)
+    l16, e16 = runs["bf16"]
+    lf, ef = runs["fault"]
+    w16, wf = max(e16, key=e16.get), max(ef, key=ef.get)
+    lo, hi = LM_TRAIN_BF16_BAND
+    loss_rel = abs(l16 - float(l32)) / abs(float(l32))
+    fault_loss_rel = abs(lf - float(l32)) / abs(float(l32))
+    emit({"phase": "lm_train_check", "layers": 1, "batch": LM_CHECK,
+          "loss_f32": float(l32), "loss_f64": float(l64),
+          "loss_bf16": l16, "bf16_loss_rel": loss_rel,
+          "grad_rel_err_f32_vs_f64": errs, "worst": [worst, errs[worst]],
+          "grad_rel_err_bf16_vs_f64": e16, "worst_bf16": [w16, e16[w16]],
+          "fault": {"sliding_window": LM_TRAIN_FAULT_WINDOW,
+                    "loss": lf, "loss_rel": fault_loss_rel,
+                    "grad_rel_err_vs_f64": ef, "worst": [wf, ef[wf]]},
+          "tolerance": f"per tensor max|g32 - g64| <= {LM_TRAIN_GRAD_TOL} "
+                       f"* max|g64|; bf16 worst tensor's max|g16 - g64| / "
+                       f"max|g64| in [{lo}, {hi}], the f32 run below and "
+                       f"the fault above; |loss16 - loss32| <= "
+                       f"{LM_TRAIN_LOSS_RTOL} * |loss32|"})
+    check(errs[worst] <= LM_TRAIN_GRAD_TOL, f"lm_train: f32 grad {worst} "
+          f"off float64 by {errs[worst]} of its max")
+    check(lo <= e16[w16] <= hi, f"lm_train: bf16 grads' worst tensor {w16} "
+          f"off float64 by {e16[w16]} of its max, outside [{lo}, {hi}]")
+    check(errs[worst] < lo and ef[wf] > hi, f"lm_train: the band [{lo}, "
+          f"{hi}] does not part the f32 run ({errs[worst]}) and the planted "
+          f"fault ({ef[wf]}) from the bf16 run")
+    check(loss_rel <= LM_TRAIN_LOSS_RTOL, f"lm_train: bf16 loss {l16}"
+          f" off the f32 loss {float(l32)} by {loss_rel}")
+
+
+def phase_lm_train_full(torch, T):
+    """granite-34b, LM_DEPTH layers at full width, bf16 compute, f32
+    params, remat "dots": LM_TRAIN["steps"] AdamW steps on SyntheticTokens
+    batches, each split by CUDA events into forward + backward and the
+    optimizer; tokens/s, loss, grad norm and peak memory a step."""
+    import dataclasses
+    cfg = dataclasses.replace(T.configs.get("granite-34b"),
+                              n_layers=LM_DEPTH)
+    g = LM_TRAIN
+    t0 = time.perf_counter()
+    model = T.M.init(cfg, seed=g["seed"], device="cuda")
+    opt = T.O.AdamWConfig(lr=g["lr"], warmup_steps=2,
+                          total_steps=g["steps"])
+    state = T.O.adamw_init(opt, dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    src = T.Tokens(cfg.vocab_size, g["batch"], g["seq"], seed=g["seed"])
+    tokens = g["batch"] * g["seq"]
+    torch.cuda.reset_peak_memory_stats()
+    T.F.reset_launches()
+    steps, missing = [], None
+    for step in range(g["steps"]):
+        batch = src.batch_at(step)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        w0 = time.perf_counter()
+        ev[0].record()
+        loss, grads = T.trainer.loss_and_grads(model, batch)
+        ev[1].record()
+        if step == 0:
+            missing = [n for n, gr in grads.items()
+                       if not bool(torch.isfinite(gr).all())
+                       or not bool((gr != 0).any())]
+        params = dict(model.named_parameters())
+        _, state, m = T.O.adamw_update(opt, grads, state, params)
+        ev[2].record()
+        del grads, params
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        fb, om = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        row = {"step": step + 1, "step_ms": fb + om, "fwd_bwd_ms": fb,
+               "opt_ms": om, "wall_ms": wall * 1e3,
+               "tokens_per_s": tokens / ((fb + om) / 1e3),
+               "loss": float(loss), "grad_norm": float(m["grad_norm"]),
+               "lr": float(m["lr"]),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        steps.append(row)
+        print(f"lm_train step {row['step']}: {row['step_ms']:.1f} ms "
+              f"(fwd+bwd {fb:.1f}, opt {om:.1f}), {row['tokens_per_s']:,.0f}"
+              f" tok/s, loss {row['loss']:.4f}, gnorm "
+              f"{row['grad_norm']:.4f}, peak {row['peak_gb']:.2f} GB",
+              flush=True)
+    flash = T.F.LAUNCHES["flash_attention"]
+    del model, state
+    torch.cuda.empty_cache()
+    warm = steps[1:]
+    emit({"phase": "lm_train", "model": f"granite-34b, {LM_DEPTH} of 88 "
+          f"layers, full width", "params": n_params, "dtype": cfg.dtype,
+          "param_dtype": cfg.param_dtype, "remat": cfg.remat_policy,
+          "batch": [g["batch"], g["seq"]], "init_s": init_s,
+          "steps": steps, "median_warm": {
+              k: statistics.median(r[k] for r in warm)
+              for k in ("step_ms", "fwd_bwd_ms", "opt_ms",
+                        "tokens_per_s")},
+          "peak_gb": max(r["peak_gb"] for r in steps),
+          "flash_launches": flash, "params_without_grad": missing})
+    check(missing == [], f"lm_train: parameters without a finite nonzero "
+          f"grad at step 0: {missing}")
+    check(all(np.isfinite(r["grad_norm"]) for r in steps),
+          "lm_train: every grad norm finite")
+    check(steps[-1]["loss"] < steps[0]["loss"], f"lm_train: the loss "
+          f"{steps[0]['loss']} -> {steps[-1]['loss']} did not fall")
+    check(flash == 0, f"lm_train: train mode launched the flash kernel "
+          f"{flash} times")
+
+
+def phase_lm_train_repair(torch, T):
+    """One narrow layer at S = 8192 (FLASH_THRESHOLD) in train mode, f32:
+    no flash launch, wq/wk/wv gradients nonzero and equal to the same
+    model's CPU gradients; ``ops.flash_mha`` refuses inputs that require
+    grad."""
+    import dataclasses
+    r = REPAIR
+    cfg = dataclasses.replace(
+        T.configs.get_smoke("granite-34b"), n_layers=1, d_model=r["d_model"],
+        n_heads=r["n_heads"], n_kv_heads=1, d_ff=r["d_ff"],
+        vocab_size=r["vocab"])
+    batch = T.Tokens(cfg.vocab_size, 1, r["seq"], seed=r["seed"]).batch_at(0)
+    cpu = T.M.init(cfg, seed=r["seed"], device="cpu")
+    card = T.M.init(cfg, seed=r["seed"], device="cpu").to("cuda")
+    T.F.reset_launches()
+    t0 = time.perf_counter()
+    _, gd = T.trainer.loss_and_grads(card, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = T.F.LAUNCHES["flash_attention"]
+    t0 = time.perf_counter()
+    _, gc = T.trainer.loss_and_grads(cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    errs = _rel_errs({k: v.cpu() for k, v in gd.items()}, gc)
+    qkv = {n: float(gd[f"blocks.0.mixer.{n}"].abs().max())
+           for n in ("wq", "wk", "wv")}
+    q = torch.randn(1, 256, 1, 4, 64, device="cuda", requires_grad=True)
+    k, v = (torch.randn(1, 256, 1, 64, device="cuda") for _ in range(2))
+    try:
+        T.ops.flash_mha(q, k, v)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    emit({"phase": "lm_train_repair", "seq": r["seq"], "cfg": {
+        "d_model": cfg.d_model, "heads": cfg.n_heads, "head_dim":
+        cfg.head_dim, "flash_chunk": cfg.flash_chunk}, "card_s": card_s,
+        "cpu_s": cpu_s, "flash_launches": launches,
+        "qkv_grad_max": qkv, "grad_rel_err_card_vs_cpu": errs,
+        "flash_mha_on_grad_inputs": refused})
+    check(launches == 0, f"lm_train_repair: {launches} flash launches")
+    check(all(x > 0 for x in qkv.values()), f"lm_train_repair: a zero "
+          f"wq/wk/wv gradient: {qkv}")
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= REPAIR_TOL, f"lm_train_repair: {worst} off the "
+          f"CPU by {errs[worst]} of its max")
+    check(refused is not None and "P5" in refused,
+          "lm_train_repair: flash_mha refused inputs that require grad")
+
+
+def _dense_stage_weights(torch, stack):
+    """Each stage's dense W (d_in, d_out) in float64 on the card, and the
+    (rows, cols) of W^T every live slot holds."""
+    meta = stack.meta
+    idx = meta.fwd_idx.long()
+    live = idx >= 0
+    r, s, _ = torch.nonzero(live, as_tuple=True)
+    cols = idx[live] + s * meta.section
+    ws = []
+    for i in range(stack.values.shape[0]):
+        wt = torch.zeros(idx.shape[0], idx.shape[1] * meta.section,
+                         dtype=torch.float64, device=idx.device)
+        wt[r, cols] = stack.values.detach()[i][live].double()
+        ws.append(wt[:meta.d_out, :meta.d_in].T.contiguous())
+    return ws, live, r, cols
+
+
+def phase_lm_train_pipeline(torch, T):
+    """GPipe over PIPE["stages"] stages of 6144 x 6144 InCRS (density 0.1,
+    one shared pattern, ``stack_init``) on cuda:0 named as many times:
+    the forward bitwise equal to the stages applied one microbatch at a
+    time; step 0's value gradients within PIPE_TOL of a float64 dense
+    oracle on the live slots, pad slots 0.0; n_stages * n_micro forward
+    and as many dx launches a step; then PIPE["steps"] AdamW steps timed
+    beside the stages run one after another on the whole batch."""
+    p = PIPE
+    spec = T.api.SparseSpec("incrs", density=p["density"],
+                            section=p["section"], block=p["block"])
+    t0 = time.perf_counter()
+    stack = T.api.stack_init(p["stages"], p["d"], p["d"], spec,
+                             generator=torch.Generator().manual_seed(
+                                 p["seed"]), device="cuda")
+    pack_s = time.perf_counter() - t0
+    mesh = T.make_mesh(p["stages"], "cuda:0", axis="pipe")
+    gen = torch.Generator(device="cuda").manual_seed(p["seed"])
+    x = torch.randn(p["n_micro"], p["rows"], p["d"], generator=gen,
+                    device="cuda")
+    y = torch.randn(x.shape, generator=gen, device="cuda") * 0.5
+    stage = T.P.incrs_stage_fn()
+    run = (lambda xx: T.P.pipeline_apply(
+        stage, stack, xx, n_stages=p["stages"], n_micro=p["n_micro"],
+        mesh=mesh))
+    per = p["stages"] * p["n_micro"]
+
+    def one(i):
+        return T.lin.InCRSLinearParams(stack.values[i], stack.meta)
+    with torch.no_grad():
+        out = run(x)
+        bitwise = True
+        for m in range(p["n_micro"]):
+            h = x[m]
+            for i in range(p["stages"]):
+                h = stage(one(i), h)
+            bitwise &= bool(torch.equal(out[m], h))
+    check(bitwise, "pipeline: the forward differs from the stages applied "
+          "one microbatch at a time")
+    # step 0's gradient against float64
+    ws, live, rows_, cols = _dense_stage_weights(torch, stack)
+    xg = x.clone().requires_grad_()
+    T.K.reset_launches()
+    out = run(xg)
+    fwd = dict(T.K.LAUNCHES)
+    loss = (out - y).square().mean()
+    grad, = torch.autograd.grad(loss, [stack.values])
+    launches = dict(T.K.LAUNCHES)
+    ws = [w.requires_grad_() for w in ws]
+    h64 = x.double()
+    for w in ws:
+        h64 = torch.tanh(h64 @ w)
+    loss64 = (h64 - y.double()).square().mean()
+    g64 = torch.autograd.grad(loss64, ws)
+    errs, pad_max = [], float(grad[:, ~live].abs().max())
+    for i in range(p["stages"]):
+        want = g64[i][cols, rows_]          # dW[c, r] of W^T[r, c]
+        got = grad[i][live].double()
+        errs.append(float((got - want).abs().max()) /
+                    max(float(want.abs().max()), 1e-300))
+    del ws, h64, g64, grad, out, xg
+    kernel_fwd = {k: v for k, v in fwd.items() if v}
+    kernel_all = {k: v for k, v in launches.items() if v}
+    check(sum(fwd.values()) == per and sum(launches.values()) == 2 * per,
+          f"pipeline: {per} forward and {per} dx launches, got {kernel_fwd}"
+          f" then {kernel_all}")
+    check(max(errs) <= PIPE_TOL, f"pipeline: stage grads off float64 by "
+          f"{errs}")
+    check(pad_max == 0.0, f"pipeline: pad-slot grads {pad_max}")
+    # the timed steps: the schedule, then the stages one after another
+    opt = T.O.AdamWConfig(lr=1e-3, weight_decay=0.0, warmup_steps=1,
+                          total_steps=p["steps"])
+    state = T.O.adamw_init(opt, {"values": stack.values})
+    steps, T_counts = [], {}
+    T.K.reset_launches()
+    for _ in range(p["steps"]):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        xg = x.clone().requires_grad_()
+        loss = (run(xg) - y).square().mean()
+        grad, = torch.autograd.grad(loss, [stack.values])
+        ev[1].record()
+        _, state, _ = T.O.adamw_update(opt, {"values": grad}, state,
+                                       {"values": stack.values})
+        ev[2].record()
+        torch.cuda.synchronize()
+        steps.append({"loss": float(loss.detach()),
+                      "fwd_bwd_ms": ev[0].elapsed_time(ev[1]),
+                      "opt_ms": ev[1].elapsed_time(ev[2])})
+        del grad, xg, loss
+    T_counts = {k: v for k, v in T.K.LAUNCHES.items() if v}
+    check(sum(T_counts.values()) == 2 * per * p["steps"], f"pipeline: "
+          f"{2 * per} launches a step, got {T_counts}")
+    flat = x.reshape(-1, p["d"])
+    yf = y.reshape(-1, p["d"])
+    seq_ms = []
+    for _ in range(p["steps"]):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        h = flat.clone().requires_grad_()
+        for i in range(p["stages"]):
+            h = stage(one(i), h)
+        loss = (h - yf).square().mean()
+        torch.autograd.grad(loss, [stack.values])
+        ev[1].record()
+        torch.cuda.synchronize()
+        seq_ms.append(ev[0].elapsed_time(ev[1]))
+    emit({"phase": "lm_train_pipeline", "stages": p["stages"],
+          "shape": [p["d"], p["d"]], "density": p["density"],
+          "values_shape": list(stack.values.shape), "pack_s": pack_s,
+          "n_micro": p["n_micro"], "rows": p["rows"],
+          "mesh": repr(mesh), "forward_bitwise": bitwise,
+          "grad_rel_err_f64": errs, "pad_grad_max": pad_max,
+          "launches_step0": {"forward": kernel_fwd, "all": kernel_all},
+          "steps": steps, "launches_steps": T_counts,
+          "pipeline_fwd_bwd_ms": [s["fwd_bwd_ms"] for s in steps],
+          "stages_in_turn_fwd_bwd_ms": seq_ms})
+    total = dict(launches)
+    for k, v in T_counts.items():
+        total[k] = total.get(k, 0) + v
+    return {k: v for k, v in total.items() if v}
+
+
+def phase_lm_train_launcher(torch):
+    """The training launcher as subprocesses: 8 smoke steps on the card
+    checkpointing every 4, then a second run resumed from the step-4
+    checkpoint alone, whose steps 5-8 losses must equal the first's."""
+    import shutil
+    import tempfile
+    base = os.path.join(ROOT, "build")
+    os.makedirs(base, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="lm_train_", dir=base)
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "granite-34b", "--smoke", "--steps", "8", "--log-every", "1"]
+    full_ck, part_ck = os.path.join(tmp, "full"), os.path.join(tmp, "part")
+    runs = []
+    for args in (["--ckpt-dir", full_ck, "--ckpt-every", "4",
+                  "--losses-out", os.path.join(tmp, "full.json")],
+                 ["--ckpt-dir", part_ck, "--resume", "--losses-out",
+                  os.path.join(tmp, "resumed.json")]):
+        if "--resume" in args:
+            os.makedirs(part_ck)
+            shutil.copy(os.path.join(full_ck, "step_00000004.npz"), part_ck)
+            with open(os.path.join(part_ck, "manifest.json"), "w") as f:
+                json.dump({"steps": [4]}, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + args, cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        runs.append({"cmd": " ".join(cmd[3:] + args).replace(tmp, "<tmp>"),
+                     "rc": proc.returncode,
+                     "wall_s": time.perf_counter() - t0,
+                     "tail": proc.stdout.strip().splitlines()[-3:]})
+        if proc.returncode != 0:
+            emit({"phase": "lm_train_launcher", "runs": runs,
+                  "stderr": proc.stderr[-2000:]})
+        check(proc.returncode == 0, "the training launcher exited 0")
+    with open(os.path.join(tmp, "full.json")) as f:
+        full = {int(k): v for k, v in json.load(f).items()}
+    with open(os.path.join(tmp, "resumed.json")) as f:
+        resumed = {int(k): v for k, v in json.load(f).items()}
+    shutil.rmtree(tmp, ignore_errors=True)
+    diff = {s: resumed[s] - full[s] for s in resumed}
+    emit({"phase": "lm_train_launcher", "runs": runs, "losses": full,
+          "resumed_losses": resumed, "resumed_minus_full": diff,
+          "bitwise": all(d == 0.0 for d in diff.values())})
+    check(sorted(resumed) == [5, 6, 7, 8], f"the resumed run ran steps "
+          f"{sorted(resumed)}")
+    check(full[8] < full[1], f"launcher: the loss {full[1]} -> {full[8]} "
+          f"did not fall")
+    check(all(d == 0.0 for d in diff.values()), f"launcher: the resumed "
+          f"steps' losses differ from the uninterrupted run's: {diff}")
+
+
+def lm_train_path(torch):
+    """Phase lm_train: the check at one layer, the full-width steps, the
+    repaired attention, the pipeline and the launcher. Returns the
+    pipeline's InCRS launches by kernel."""
+    T = _lm_train_modules()
+    phase_lm_train_check(torch, T)
+    torch.cuda.empty_cache()
+    phase_lm_train_full(torch, T)
+    torch.cuda.empty_cache()
+    phase_lm_train_repair(torch, T)
+    torch.cuda.empty_cache()
+    counts = phase_lm_train_pipeline(torch, T)
+    torch.cuda.empty_cache()
+    phase_lm_train_launcher(torch)
+    return counts
+
+
+def lm_train_only() -> int:
+    """``python3 chip_smoke.py --lm-train``: the build and phase lm_train
+    alone (a quick loop on the training path; not the smoke run)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    phase_env(torch, _build)
+    counts = lm_train_path(torch)
+    emit({"phase": "done", "seconds": time.perf_counter() - t0,
+          "pipeline_launches": counts})
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4503,6 +4997,11 @@ def main() -> int:
         r["crs_plan"] = {k: v for k, v in add.items() if k != "launches"}
     torch.cuda.empty_cache()
     rows += lm_path(torch)
+    torch.cuda.empty_cache()
+    for kname, n in lm_train_path(torch).items():
+        r = next(r for r in rows if r["name"] == kname)
+        r["launches_by_path"]["lm_train"] = n
+        r["launches"] += n
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)
     emit({"kernels": rows})
@@ -4517,4 +5016,6 @@ if __name__ == "__main__":
         sys.exit(profile_child(sys.argv[2]))
     if len(sys.argv) == 2 and sys.argv[1] == "--lm-profile":
         sys.exit(lm_profile_child())
+    if len(sys.argv) == 2 and sys.argv[1] == "--lm-train":
+        sys.exit(lm_train_only())
     sys.exit(main())

@@ -113,7 +113,8 @@ _BSR_META_TUPLES = ("row_of", "col_of", "vpos", "t_perm", "t_row_of",
 def linear_from_jax(values, meta_fields: Dict[str, Any], fmt: str, *,
                     device=None, mesh=None):
     """The port's ``sparse.Linear`` from a JAX ``InCRSLinearParams``
-    (``fmt="incrs"``), ``ShardedInCRSLinearParams``
+    (``fmt="incrs"``; a ``stack_init`` stack too, its values with a
+    leading stage axis), ``ShardedInCRSLinearParams``
     (``fmt="incrs_sharded"``: the stacked (S, ...) arrays, ``shard_width``
     and ``axes`` among the fields, placed on ``mesh``, a
     ``launch.mesh.Mesh`` of as many shards along those axes),
@@ -153,8 +154,10 @@ def linear_from_jax(values, meta_fields: Dict[str, Any], fmt: str, *,
             *(int(meta_fields[f]) for f in ("d_in", "d_out", "section",
                                              "nnz", "block")),
             pattern=pattern)
-        if vals.shape != meta.fwd_idx.shape or vals.dtype != torch.float32 \
-                or idx["t_gather"].shape != (meta.bwd_idx.numel(),):
+        if vals.ndim not in (3, 4) or \
+                vals.shape[-3:] != meta.fwd_idx.shape or \
+                vals.dtype != torch.float32 or \
+                idx["t_gather"].shape != (meta.bwd_idx.numel(),):
             raise ValueError(f"values {tuple(vals.shape)} {vals.dtype} and "
                              f"t_gather {tuple(idx['t_gather'].shape)} do "
                              f"not fit stripes {tuple(meta.fwd_idx.shape)} "

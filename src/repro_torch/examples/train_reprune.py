@@ -1,21 +1,21 @@
 """End-to-end sparsity LIFECYCLE on the fused InCRS kernel:
 
-  schedule -> repack -> hot-swap deploy.
+  schedule -> repack -> checkpoint -> resume -> hot-swap deploy.
 
 The port of ``examples/train_reprune.py``. A 2-layer MLP student starts
 DENSE (every slot of an all-True ``SparsityPattern`` is trainable),
 regresses a dense teacher on the fused InCRS forward and backward, and is
 magnitude-re-pruned down the cubic ``PruneSchedule`` by the prune
 callback (``train.trainer.make_prune_callback``): values surviving each
-pattern change carry over, and the AdamW moments ride the same repack. A
-``serve.SpMMEngine`` starts serving the layer's INITIAL pattern; after
-training, the final re-pruned pattern is hot-swapped into the RUNNING
-engine with ``swap_pattern`` (no restart) and the served results are
-checked against the trained dense weight.
-
-The JAX example also checkpoints mid-schedule and resumes into a fresh
-template; that part waits for the port's checkpoint manager (ROADMAP
-queue 1, item 12) and is left out here.
+pattern change carry over, and the AdamW moments ride the same repack.
+Every step is checkpointed through ``checkpoint.CheckpointManager``
+(patterns ride along); halfway, the run is resumed into a FRESH dense
+model, which the restore repacks to the saved pattern, so training goes
+on mid-schedule with the exact pruned shapes. A ``serve.SpMMEngine``
+starts serving the layer's INITIAL pattern; after training, the final
+re-pruned pattern is hot-swapped into the RUNNING engine with
+``swap_pattern`` (no restart) and the served results are checked against
+the trained dense weight.
 
 Run: PYTHONPATH=src python -m repro_torch.examples.train_reprune --steps 24
      PYTHONPATH=src python -m repro_torch.examples.train_reprune \\
@@ -24,12 +24,15 @@ Run: PYTHONPATH=src python -m repro_torch.examples.train_reprune --steps 24
 from __future__ import annotations
 
 import argparse
+import shutil
+import tempfile
 import time
 from typing import Dict
 
 import numpy as np
 import torch
 
+from ..checkpoint import CheckpointManager
 from ..serve.engine import SpMMEngine, SpMMRequest
 from ..sparse import Linear, SparseSpec
 from ..sparse.pattern import PruneSchedule
@@ -54,7 +57,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--block", type=int, default=8)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (default: a temp dir)")
     return ap.parse_args(argv)
+
+
+def build_student(args, spec: SparseSpec, device) -> torch.nn.ModuleDict:
+    """The dense 2-layer student, weights from fixed seeds."""
+    return torch.nn.ModuleDict({
+        "l1": Linear.init(args.d_in, args.d_hidden, spec, scale=0.2,
+                          generator=torch.Generator().manual_seed(1),
+                          device=device),
+        "l2": Linear.init(args.d_hidden, args.d_out, spec, scale=0.2,
+                          generator=torch.Generator().manual_seed(2),
+                          device=device)})
 
 
 def main(argv=None) -> Dict:
@@ -72,13 +88,7 @@ def main(argv=None) -> Dict:
     # schedule prunes them down.
     spec = SparseSpec("incrs", density=1.0, section=args.section,
                       block=args.block)
-    model = torch.nn.ModuleDict({
-        "l1": Linear.init(args.d_in, args.d_hidden, spec, scale=0.2,
-                          generator=torch.Generator().manual_seed(1),
-                          device=device),
-        "l2": Linear.init(args.d_hidden, args.d_out, spec, scale=0.2,
-                          generator=torch.Generator().manual_seed(2),
-                          device=device)})
+    model = build_student(args, spec, device)
     print(f"student starts dense: l1 density {model['l1'].density:.2f}, "
           f"target {args.density}")
 
@@ -98,17 +108,43 @@ def main(argv=None) -> Dict:
                            .astype(np.float32)))
     eng.run()
 
-    t0 = time.perf_counter()
+    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="reprune_ck_")
+    ck = CheckpointManager(ckpt_dir, keep=2, async_write=False)
+    resume_at = args.steps // 2
     losses, repacks = [], 0
-    for step in range(args.steps):
-        info = prune_cb(step, model, state)
-        if info:
-            repacks += 1
-            print(f"  step {step:3d}: re-pruned {info['layers']} layers to "
-                  f"density {info['density']:.3f} (pattern "
-                  f"v{model['l1'].pattern.version})")
-        loss, state, _ = train_step(opt, model, state, x, y)
-        losses.append(float(loss))
+
+    def run_steps(model, state, lo, hi):
+        nonlocal repacks
+        for step in range(lo, hi):
+            info = prune_cb(step, model, state)
+            if info:
+                repacks += 1
+                print(f"  step {step:3d}: re-pruned {info['layers']} layers "
+                      f"to density {info['density']:.3f} (pattern "
+                      f"v{model['l1'].pattern.version})")
+            loss, state, _ = train_step(opt, model, state, x, y)
+            losses.append(float(loss))
+            ck.save(step + 1, {"params": model, "opt": state})
+        return state
+
+    t0 = time.perf_counter()
+    state = run_steps(model, state, 0, resume_at)
+    mid_version = model["l1"].pattern.version
+    if mid_version == 0:
+        raise RuntimeError("the schedule should have re-pruned by mid-run")
+
+    # simulated preemption: a fresh DENSE model, restored and continued
+    print(f"resuming at step {ck.latest_step()} from {ckpt_dir} (pattern "
+          f"v{mid_version}, mid-schedule)")
+    model = build_student(args, spec, device)
+    template = {"params": model,
+                "opt": adamw_init(opt, dict(model.named_parameters()))}
+    state = ck.restore(ck.latest_step(), template)["opt"]
+    if model["l1"].pattern.version != mid_version:
+        raise RuntimeError(f"restore landed at pattern "
+                           f"v{model['l1'].pattern.version}, not the saved "
+                           f"v{mid_version}")
+    state = run_steps(model, state, resume_at, args.steps)
     # final schedule tick: the cubic curve reaches final_density exactly
     # AT total_steps.
     info = prune_cb(args.steps, model, state)
@@ -153,10 +189,14 @@ def main(argv=None) -> Dict:
     print(f"hot-swapped pattern v{eng.pattern_version} into the running "
           f"engine (swaps={eng.stats['pattern_swaps']}); served "
           f"{len(done)} requests on the final pattern (max |err| "
-          f"{worst:.1e}) — schedule -> repack -> deploy OK")
+          f"{worst:.1e}) — schedule -> repack -> checkpoint -> resume -> "
+          f"deploy OK")
+    if args.ckpt_dir is None:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     return {"losses": losses, "density": dens, "version": version,
-            "repacks": repacks, "swaps": eng.stats["pattern_swaps"],
-            "served_err": worst, "train_s": train_s}
+            "mid_version": mid_version, "repacks": repacks,
+            "swaps": eng.stats["pattern_swaps"], "served_err": worst,
+            "train_s": train_s}
 
 
 if __name__ == "__main__":

@@ -256,7 +256,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     chunk: int = 1024) -> torch.Tensor:
     """Causal GQA attention, q (B, Sq, KV, G, hd), k/v (B, Sk, KV, hd) ->
     (B, Sq, KV, G, hd) in ``q.dtype``. ``chunk`` is the plain version's
-    key chunk (CPU tensors only); the kernels' tiles are fixed."""
+    key chunk (CPU tensors only); the kernels' tiles are fixed.
+
+    The kernels have no backward, so with grad mode on, inputs that
+    require grad raise on every device rather than get an output cut off
+    from autograd (ROADMAP queue 3, P5): train through
+    ``models.layers._flash_attention``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(
+            "flash_attention: q, k or v requires grad, and the flash "
+            "kernels have no backward, so the output would be cut off from "
+            "autograd (ROADMAP queue 3, P5); train through "
+            "models.layers._flash_attention, or call under torch.no_grad()")
     if q.device.type == "cpu":
         return plain(q, k, v, window=window, soft_cap=soft_cap, chunk=chunk)
     _check(q, k, v)

@@ -59,8 +59,9 @@ class Mesh:
                 f"{[str(d) for d in self.device_list]})")
 
 
-def make_mesh(n: int, device=None) -> Mesh:
-    """A one-axis (``"data"``) mesh of ``n`` shards. ``device`` None or
+def make_mesh(n: int, device=None, *, axis: str = "data") -> Mesh:
+    """A one-axis mesh of ``n`` shards (the axis ``"data"``, or
+    ``"pipe"`` for pipeline stages). ``device`` None or
     ``"cuda"``: the first ``n`` visible cards, raising if fewer are
     visible; a device with an index (``"cuda:0"``) or ``"cpu"``: that
     device ``n`` times."""
@@ -80,8 +81,8 @@ def make_mesh(n: int, device=None) -> Mesh:
                     f"CUDA devices, have {have} (name one card, e.g. "
                     f"'cuda:0', to hold every shard on it)")
             return Mesh([torch.device("cuda", i) for i in range(n)],
-                        ("data",))
-    return Mesh([dev] * n, ("data",))
+                        (axis,))
+    return Mesh([dev] * n, (axis,))
 
 
 __all__ = ["Mesh", "make_mesh"]

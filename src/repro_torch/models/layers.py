@@ -10,6 +10,10 @@ cache) and ``decode`` (one token against the cache, a ring buffer when the
 window is shorter than the allocation). A prefill of ``FLASH_THRESHOLD``
 tokens or more runs ``ops.flash_mha``, the flash kernel; below it the
 scores are formed in torch, as JAX forms them outside any Pallas kernel.
+Train mode at ``FLASH_THRESHOLD`` tokens or more runs ``_flash_attention``,
+the JAX layer's chunked online-softmax attention in torch ops, on every
+device: it is differentiable, and the flash kernel has no backward (JAX
+never trains through its Pallas kernel either; ROADMAP queue 3, P5).
 
 The decode cache is a dict ``{"k", "v": (B, alloc, KV, hd), "end": int}``
 updated in place (JAX returns a new one), which saves a copy of every
@@ -28,9 +32,10 @@ from torch import nn
 from ..kernels import ops
 from .config import ModelConfig
 
-# Prefills of at least this many tokens take the flash kernel (the JAX
-# layer's chunked-attention switch); FLASH_CHUNK is the plain version's key
-# chunk on the CPU (``cfg.flash_chunk`` in the model).
+# Sequences of at least this many tokens take the chunked attention (the
+# JAX layer's switch): a prefill the flash kernel, train mode
+# ``_flash_attention``; FLASH_CHUNK is the key chunk (``cfg.flash_chunk``
+# in the model).
 FLASH_THRESHOLD = 8192
 FLASH_CHUNK = 1024
 NEG_INF = -1e30
@@ -67,6 +72,52 @@ def _rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 
 def _soft_cap(logits: torch.Tensor, cap) -> torch.Tensor:
     return cap * torch.tanh(logits / cap) if cap else logits
+
+
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     qpos: torch.Tensor, kpos: torch.Tensor, *, window,
+                     soft_cap, chunk: int = FLASH_CHUNK) -> torch.Tensor:
+    """Grouped-query attention by an online softmax over key chunks, in
+    torch ops, so autograd differentiates it (JAX
+    ``layers._flash_attention``). q: (B, Sq, KV, G, hd); k/v: (B, Sk, KV,
+    hd), KV heads never repeated; qpos (B, Sq), kpos (B, Sk) absolute
+    positions (negative = invalid). Returns (B, Sq, KV, G, hd) in
+    ``q.dtype``. The (Sq, Sk) scores are never formed whole in the forward
+    pass; autograd keeps each chunk's for the backward."""
+    bsz, sq, kvh, g, hd = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    nchunks = -(-sk // chunk)
+    pad = nchunks * chunk - sk
+    k = F.pad(k, (0, 0, 0, 0, 0, pad))
+    v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    kpos = F.pad(kpos, (0, pad), value=-1)
+    qf = q.to(torch.float32)
+    qp = qpos[:, None, None, :, None]
+    m = torch.full((bsz, kvh, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((bsz, kvh, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((bsz, kvh, g, sq, hd), dtype=torch.float32,
+                      device=q.device)
+    for c in range(nchunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        kb, vb, pb = k[:, sl], v[:, sl], kpos[:, None, None, None, sl]
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qf,
+                              kb.to(torch.float32)) * scale
+        logits = _soft_cap(logits, soft_cap)
+        valid = (pb <= qp) & (pb >= 0)
+        if window is not None:
+            valid = valid & (pb > qp - window)
+        logits = torch.where(valid, logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(logits - m_new[..., None]), 0.0)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p, vb.to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
 def _param(shape, cfg: ModelConfig, device) -> nn.Parameter:
@@ -145,7 +196,13 @@ class Attention(nn.Module):
                     new_cache = cache
                 else:
                     new_cache = {"k": k, "v": v, "end": s}
-            if s >= FLASH_THRESHOLD:
+            if s >= FLASH_THRESHOLD and mode == "train":
+                # differentiable chunked attention: the kernel has no
+                # backward
+                yg = _flash_attention(qg, k, v, pos, pos, window=window,
+                                      soft_cap=cfg.logits_soft_cap,
+                                      chunk=cfg.flash_chunk)
+            elif s >= FLASH_THRESHOLD:
                 # the flash kernel: no (S x S) scores in memory
                 yg = ops.flash_mha(qg, k, v, window=window,
                                    soft_cap=cfg.logits_soft_cap,

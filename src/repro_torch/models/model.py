@@ -9,24 +9,34 @@ x += ffn(norm(x)), and the blocks are an ``nn.ModuleList``, one per layer
 
 Entry points:
   init(cfg, seed=, device=)               -> Model, weights from a seed
-  Model(tokens, mode=, cache=, pos_offset=) -> logits [, cache]
+  Model(tokens, mode=, cache=, pos_offset=, remat=) -> logits [, cache]
+  loss_fn(model, batch, remat=)           -> scalar loss (train objective)
   init_cache(cfg, batch, alloc_seq, dtype, device) -> per-layer caches
   prefill_step(model, tokens, alloc_seq=) -> last logits, cache
   decode_step(model, token, cache, pos=)  -> logits, cache
 
-``train`` mode is the forward pass only; the loss and its gradients come
-with the training slice (ROADMAP queue 1 item 12). The activations run in
-``cfg.dtype``, the embedding scaled by sqrt(d_model) in that dtype (the
-JAX model scales by a numpy float64, which promotes a bfloat16 model's
-activations to float32: ROADMAP fault C3).
+In ``train`` mode with grad on and ``remat``, each group of blocks (one
+repetition of ``cfg.block_pattern``, JAX's scan body) runs under
+``torch.utils.checkpoint`` by ``cfg.remat_policy``: ``"nothing"`` keeps
+only the group's input and recomputes the rest in the backward pass;
+``"dots"`` also keeps the weight products (``aten.mm``/``addmm``, JAX's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest, the
+attention's batched einsums included. Remat changes no value.
+
+The activations run in ``cfg.dtype``, the embedding scaled by
+sqrt(d_model) in that dtype (the JAX model scales by a numpy float64,
+which promotes a bfloat16 model's activations to float32: ROADMAP fault
+C3).
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from ..kernels.ops import resolve_device
 from . import layers
@@ -110,9 +120,11 @@ class Model(nn.Module):
         return self.embed.device
 
     def forward(self, tokens, *, mode: str = "train",
-                cache: Optional[Caches] = None, pos_offset: int = 0):
+                cache: Optional[Caches] = None, pos_offset: int = 0,
+                remat: bool = True):
         """tokens: (B, S) ints. Returns the logits (B, S, V) in ``train``
-        mode, else (logits, per-layer caches)."""
+        mode, else (logits, per-layer caches). ``remat`` applies in
+        ``train`` mode with grad on (module docstring)."""
         cfg = self.cfg
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"mode must be train, prefill or decode, got "
@@ -124,10 +136,17 @@ class Model(nn.Module):
         pos = (pos_offset + torch.arange(s, device=self.device)
                ).expand(bsz, s)
         new_caches: Caches = []
-        for i, blk in enumerate(self.blocks):
-            x, nc = blk(x, pos, mode=mode,
-                        cache=None if cache is None else cache[i])
-            new_caches.append(nc)
+        if remat and mode == "train" and torch.is_grad_enabled():
+            period = len(cfg.block_pattern)
+            for g0 in range(0, len(self.blocks), period):
+                x = _ckpt.checkpoint(
+                    self._group, x, pos, g0, use_reentrant=False,
+                    context_fn=_remat_context(cfg.remat_policy))
+        else:
+            for i, blk in enumerate(self.blocks):
+                x, nc = blk(x, pos, mode=mode,
+                            cache=None if cache is None else cache[i])
+                new_caches.append(nc)
         x = layers.rms_norm(x, self.norm_final, cfg.norm_eps)
         if cfg.tie_embeddings:
             logits = x @ self.embed.to(cdt).T
@@ -139,6 +158,58 @@ class Model(nn.Module):
         if mode == "train":
             return logits
         return logits, new_caches
+
+    def _group(self, x: torch.Tensor, pos: torch.Tensor,
+               g0: int) -> torch.Tensor:
+        """One repetition of the block pattern in ``train`` mode, from
+        block ``g0``: the unit remat checkpoints."""
+        for blk in self.blocks[g0:g0 + len(self.cfg.block_pattern)]:
+            x, _ = blk(x, pos, mode="train", cache=None)
+        return x
+
+
+# The weight products "dots" keeps; every other op is recomputed.
+_SAVED_PRODUCTS = frozenset({torch.ops.aten.mm.default,
+                             torch.ops.aten.addmm.default})
+
+
+def _keep_products(ctx, op, *args, **kwargs):
+    policy = _ckpt.CheckpointPolicy
+    return (policy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else policy.PREFER_RECOMPUTE)
+
+
+def _remat_context(policy: str):
+    """``checkpoint``'s ``context_fn`` for ``cfg.remat_policy``."""
+    if policy == "nothing":
+        return _ckpt.noop_context_fn
+    if policy == "dots":
+        return functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                 _keep_products)
+    raise ValueError(f"remat_policy must be 'nothing' or 'dots', got "
+                     f"{policy!r}")
+
+
+def loss_fn(model: Model, batch: Dict[str, object], *,
+            remat: bool = True) -> torch.Tensor:
+    """Next-token cross entropy, the mean over labels >= 0 (JAX
+    ``model.loss_fn``). batch: {"tokens": (B, S), "labels": (B, S)}, numpy
+    or tensors; labels < 0 carry no loss. The logits are taken in f32 for
+    the log-sum-exp. A batch with ``prefix_embeds`` needs the embeds front
+    end, not ported yet (ROADMAP queue 1 item 12)."""
+    if batch.get("prefix_embeds") is not None:
+        raise NotImplementedError(
+            "prefix_embeds need the embeds front end, not ported yet "
+            "(ROADMAP queue 1 item 12)")
+    logits = model(batch["tokens"], mode="train", remat=remat)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    npfx = logits.shape[1] - labels.shape[1]
+    logits = logits[:, npfx:, :].to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = labels >= 0
+    nll = torch.where(mask, logz - gold, 0.0)
+    return nll.sum() / torch.clamp_min(mask.sum(), 1)
 
 
 @torch.no_grad()

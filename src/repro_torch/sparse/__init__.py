@@ -13,7 +13,7 @@ from .api import (FORMATS, BoundPlan, CRSPlanMeta,  # noqa: F401
                   DenseLinearMeta, DenseLinearParams, FormatAdapter,
                   Linear, MatmulPlan,
                   SparseSpec, adapter_of, apply, plan, plan_for_operand,
-                  register_format)
+                  register_format, stack_init)
 from .linear import (InCRSLinearMeta, InCRSLinearParams,  # noqa: F401
                      ShardedInCRSLinearMeta, ShardedInCRSLinearParams,
                      SparseLinearMeta, SparseLinearParams,

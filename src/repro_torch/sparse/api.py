@@ -1005,9 +1005,30 @@ def _as_parameters(values):
 
 def apply(p, x):
     """THE layer apply: dispatches any ``Linear`` (or raw family params
-    node) through its family's forward."""
+    node — pipeline stages slice those out of stacks) through its
+    family's forward."""
     node = p.inner if isinstance(p, Linear) else p
     return adapter_of(node).apply(node, x)
+
+
+def stack_init(n_stages: int, d_in: int, d_out: int, spec: SparseSpec, *,
+               generator: torch.Generator, scale: float = 0.02,
+               device=None) -> Linear:
+    """Shared-pattern parameter stack for pipeline stages: ONE sparsity
+    pattern (a single meta serves every stage), per-stage values stacked
+    along a leading stage axis, on ``device`` (default CUDA). InCRS
+    format only — see ``train.pipeline``. The stacked node is not
+    repackable (``pattern.is_stacked_node``); the prune callback warns
+    and skips it. Apply a stage through ``train.pipeline``, which slices
+    it out."""
+    if spec.format != "incrs" or spec.sharded:
+        raise ValueError("stack_init stacks the single-device InCRS "
+                         "family (pipeline stages)")
+    if spec.density is None:
+        raise ValueError("stack_init needs density= on the spec")
+    return Linear(_lin._incrs_stack_init(
+        generator, n_stages, d_in, d_out, spec.density, scale,
+        section=spec.section, block=spec.block, device=device))
 
 
 __all__ = [
@@ -1015,4 +1036,5 @@ __all__ = [
     "CRSPlanMeta",
     "DenseLinearParams", "DenseLinearMeta", "FormatAdapter",
     "register_format", "adapter_of", "plan", "plan_for_operand", "apply",
+    "stack_init",
 ]

@@ -343,6 +343,18 @@ class InCRSLinearParams:
         return self.meta.pattern
 
 
+def meta_to(meta: Any, device: torch.device) -> Any:
+    """A single-device meta with its device tensors on ``device``: ``meta``
+    itself when they are there already, else a copy sharing its pattern
+    (the copy is not registered as the pattern's packed meta)."""
+    moved = {f.name: getattr(meta, f.name) for f in dataclasses.fields(meta)
+             if isinstance(getattr(meta, f.name), torch.Tensor)}
+    if all(t.device == device for t in moved.values()):
+        return meta
+    return dataclasses.replace(
+        meta, **{k: t.to(device) for k, t in moved.items()})
+
+
 def _transpose_gather(fwd_idx: np.ndarray, bwd_idx: np.ndarray,
                       section: int, d_in: int) -> np.ndarray:
     """Map every bwd stripe slot to the flat fwd slot holding the same
@@ -443,6 +455,22 @@ def _incrs_init(generator: torch.Generator, d_in: int, d_out: int,
     ``generator``), magnitude-pruned to ``density`` and packed."""
     w = torch.randn((d_in, d_out), generator=generator) * scale
     return _incrs_from_dense(w.numpy(), density, **kw)
+
+
+def _incrs_stack_init(generator: torch.Generator, n_stages: int, d_in: int,
+                      d_out: int, density: float, scale: float = 0.02,
+                      **kw) -> InCRSLinearParams:
+    """Shared-pattern parameter stack for pipeline stages: ONE InCRS
+    pattern (stage 0's draw, magnitude-pruned to ``density``), so one meta
+    serves every stage and the values stack along a leading stage axis;
+    stages 1.. take independent normal values (std ``scale``, drawn on the
+    CPU from ``generator``) on that pattern's live slots, pad slots 0.0."""
+    p0 = _incrs_init(generator, d_in, d_out, density, scale, **kw)
+    live = (p0.meta.fwd_idx >= 0).cpu()
+    noise = torch.randn((n_stages - 1,) + tuple(p0.values.shape),
+                        generator=generator) * scale
+    rest = (noise * live[None]).to(p0.values.device)
+    return InCRSLinearParams(torch.cat([p0.values[None], rest]), p0.meta)
 
 
 def _incrs_product(idx: torch.Tensor, values: torch.Tensor,

@@ -290,9 +290,10 @@ def is_lifecycle_node(x: Any) -> bool:
 
 def is_stacked_node(x: Any) -> bool:
     """True for a registered params object whose values carry a leading
-    per-stage axis over one shared pattern (the stages disagree on what
-    to prune, so it cannot be repacked). The port builds no such node
-    yet (ROADMAP queue 1 item 12): this answers False for all it makes."""
+    per-stage axis over one shared pattern (``api.stack_init``, the
+    pipeline's stacks): the stages disagree on what to prune, and the
+    shared meta cannot hold per-stage patterns, so it cannot be
+    repacked."""
     if type(x) not in _FAMILIES or get_pattern(x) is None:
         return False
     idx = getattr(x.meta, "fwd_idx", None)

@@ -9,8 +9,9 @@ and writes each parameter in place. The state is
 
 with f32 moments, or with ``quantize=True`` blockwise-int8 moments
 ``{"q": int8 payload of the parameter's shape, "s": f32 scales}`` (v is
-stored in the square-root domain). Names with a part (between dots)
-starting ``mask_`` or ``norm`` take no weight decay. The arithmetic is
+stored in the square-root domain), which ``adamw_update`` updates in
+place. Names with a part (between dots) starting ``mask_`` or ``norm``
+take no weight decay. The arithmetic is
 the JAX package's, in f32, step for step.
 """
 from __future__ import annotations
@@ -111,9 +112,11 @@ def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
 def adamw_update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
                  state: Dict[str, Any],
                  params: Mapping[str, torch.Tensor]):
-    """One AdamW step: writes each parameter in place and returns
-    ``(params, new_state, metrics)`` with metrics ``grad_norm`` and
-    ``lr``."""
+    """One AdamW step, in place: writes each parameter and updates
+    ``state`` (f32 moments in their tensors, int8 ones replaced entry by
+    entry, the count), so the old and the new moments never exist whole
+    at once. Returns ``(params, state, metrics)`` with metrics
+    ``grad_norm`` and ``lr``."""
     count = state["count"] + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -121,7 +124,6 @@ def adamw_update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - torch.pow(b1, count.to(torch.float32))
     bc2 = 1 - torch.pow(b2, count.to(torch.float32))
-    new_m, new_v = {}, {}
     for name, p in params.items():
         g = grads[name].to(torch.float32) * clip
         m, v = state["m"][name], state["v"][name]
@@ -132,8 +134,8 @@ def adamw_update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
             vf = torch.square(_dequant(v["q"], v["s"], g.shape))
         else:
             mf, vf = m, v
-        mf = b1 * mf + (1 - b1) * g
-        vf = b2 * vf + (1 - b2) * g * g
+        mf.mul_(b1).add_((1 - b1) * g)
+        vf.mul_(b2).add_((1 - b2) * g * g)
         mhat = mf / bc1
         vhat = vf / bc2
         upd = mhat / (torch.sqrt(vhat) + cfg.eps)
@@ -147,8 +149,9 @@ def adamw_update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
         if cfg.quantize:
             mq, ms = _quant(mf)
             vq, vs = _quant(torch.sqrt(vf))
-            new_m[name], new_v[name] = {"q": mq, "s": ms}, {"q": vq, "s": vs}
-        else:
-            new_m[name], new_v[name] = mf, vf
-    metrics = {"grad_norm": gnorm, "lr": lr}
-    return params, {"m": new_m, "v": new_v, "count": count}, metrics
+            state["m"][name] = {"q": mq, "s": ms}
+            state["v"][name] = {"q": vq, "s": vs}
+        # this parameter's temporaries go before the next one's are made
+        del g, mf, vf, mhat, vhat, upd, step
+    state["count"] = count
+    return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -24,6 +24,7 @@ def _port_files():
            os.path.join(ROOT, "tests", "test_torch_cuda_tenancy.py"),
            os.path.join(ROOT, "tests", "test_torch_cuda_autotune.py"),
            os.path.join(ROOT, "tests", "test_torch_cuda_sharded.py"),
+           os.path.join(ROOT, "tests", "test_torch_cuda_lm_train.py"),
            os.path.join(ROOT, "tests", "test_torch_launch_check.py")]
     for base, _, files in os.walk(PORT):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]

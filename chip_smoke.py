@@ -203,7 +203,10 @@ Phases, each printing one JSON line:
              granite-34b's prefill wave (B = 2,
              S = 8192, one KV head, 48 query heads, hd 128), a mixtral
              shape (window 4096, KV 8, G 4), a recurrentgemma shape (soft
-             cap 30, window 2048, hd 256) and edge shapes. bf16 is held
+             cap 30, window 2048, hd 256), phase 19's qwen2-moe (KV 16,
+             G 1, hd 128), musicgen (KV 24, G 1, hd 64) and internvl2
+             (KV 2, G 7, hd 64) prefill shapes at S = 8192, and edge
+             shapes. bf16 is held
              on every query row; at granite's wave the same check must
              reject a planted fault (key tile 0 dropped past row 4096).
 16. lm_serve — the fourth path: granite-34b at full width, depth cut to
@@ -244,6 +247,36 @@ Phases, each printing one JSON line:
              checkpoint giving steps 5-8's losses bitwise. Counters are
              zeroed just before the pipeline's runs and read just after.
              ``python3 chip_smoke.py --lm-train`` runs this phase alone.
+19. lm_families — the MoE FFN and the embeds front end: mixtral-8x7b
+             (served at 4 of 32 layers, trained at 2), qwen2-moe-a2.7b (4
+             of 24, both), musicgen-medium and internvl2-1b (full depth)
+             at full width. Each: ``ServeEngine`` serves 2 requests of
+             8,192 positions (prefix embeds included: one wave, one flash
+             launch a layer) and 4 of 512 (none), counters zeroed just
+             before each, the long wave's dropped (token, expert)
+             assignments counted at capacity 1.25; the f32 decode logits
+             against a teacher-forced prefill (MoE at capacity_factor
+             E / k, so nothing drops); one layer's step-0 f32 grads
+             against float64 (1e-4 of each tensor's max; an MoE's float64
+             run takes the checked run's routing and counts the routes
+             its own router would flip) and its bf16 grads inside
+             lm_train's band; for an MoE the bf16 loss and grads again,
+             bitwise, and a zeroed router routing every token to experts
+             0..k-1; 8 AdamW steps on one batch (bf16 compute, f32
+             params, remat "dots", 4 x 2,048 tokens), each step's ms,
+             tokens/s and peak
+             memory, the loss falling, every step-0 grad finite, experts
+             no token reached counted. Then the serving launcher as a
+             subprocess for qwen2-moe and internvl2 smoke configs at
+             8,192 positions, and the training launcher on qwen2-moe's
+             resumed from its step-4 checkpoint, steps 5-8 bitwise.
+             ``python3 chip_smoke.py --lm-families`` runs this phase alone.
+20. profile_in_process — last, so that it perturbs no later profile:
+             phase 4's plan-path operands (docword bsr and dense, granite
+             bsr) planned again and each served once under torch.profiler
+             in this process, its kernel records against its 16 launches
+             (ROADMAP P4: the profiler losing records late in the smoke).
+             A loss is printed, not failed.
 
 Then the card's line, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises. Without a CUDA
@@ -625,6 +658,71 @@ def phase_profile(torch, jobs):
 PROFILE_TRIES = 3
 
 
+def _profiled_serve(torch, serve, keys, kernel_kind):
+    """One ``serve()`` under torch.profiler: the device ms by kind (the
+    format's kernel by its symbols ``keys``, the copies, the rest), the
+    count of the format's kernel records, and the serve's summary."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s_prof = serve()
+    by_kind = {kernel_kind: 0.0, "memcpy_h2d": 0.0, "memcpy_d2h": 0.0,
+               "other": 0.0}
+    n_kernels = 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue    # host ops: their device time is counted on the
+        us = getattr(ev, "self_device_time_total",  # device
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        key = ev.key.lower()
+        kind = (kernel_kind if any(k in key for k in keys) else
+                "memcpy_h2d" if "htod" in key else
+                "memcpy_d2h" if "dtoh" in key else "other")
+        by_kind[kind] += us / 1e3
+        n_kernels += ev.count if kind == kernel_kind else 0
+    return n_kernels, by_kind, s_prof
+
+
+def _plan_serve_fn(torch, engine_mod, operand, k):
+    """``serve()``: phase 3's trace of ``k``-row panels through a fresh
+    SpMMEngine over ``operand``, synchronized; returns its summary."""
+    panels = _trace(k, seed=1)
+
+    def serve():
+        eng = engine_mod.SpMMEngine(operand, max_wave_cols=512,
+                                    device="cuda")
+        for i, p in enumerate(panels):
+            eng.submit(engine_mod.SpMMRequest(i, p))
+        eng.run()
+        torch.cuda.synchronize()
+        return eng.stats_summary()
+    return serve
+
+
+def phase_profile_in_process(torch, engine_mod, api, operands):
+    """ROADMAP P4: each plan-path operand (label, format, dense A, block)
+    planned on the card and its serve profiled once in this process, as
+    the profile phase did before it moved to a fresh process; the kernel
+    records it keeps against the waves' launches (16 each). A loss is
+    printed, not failed: phase 4's fresh process's profile is the one
+    read."""
+    out = []
+    for label, fmt, a, block in operands:
+        bound = api.plan_for_operand(a, api.SparseSpec(fmt, block=block),
+                                     device="cuda")
+        serve = _plan_serve_fn(torch, engine_mod, bound, bound.shape[1])
+        serve()                                     # warm
+        n, by_kind, s = _profiled_serve(torch, serve, (
+            f"{fmt}_kernel", f"{fmt}src"), f"kernel_{fmt}")
+        out.append({"workload": label, "format": fmt,
+                    "kernel_records": n, "waves": s["waves"],
+                    "lost": s["waves"] - n, "device_ms_by_kind": by_kind})
+        del bound, serve
+    emit({"phase": "profile_in_process", "runs": out,
+          "records": sum(r["kernel_records"] for r in out),
+          "expected": sum(r["waves"] for r in out)})
+
+
 def profile_child(path) -> int:
     """The fresh process of ``phase_profile``: for each job saved at
     ``path``, serve its operand with phase 3's trace (warm, plain, then
@@ -632,44 +730,17 @@ def profile_child(path) -> int:
     summaries, the device ms by kind of the fullest profiled run and each
     run's count of the format's kernel records."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     sys.path.insert(0, SRC)
     from repro_torch.serve import engine as engine_mod
     for job in torch.load(path, weights_only=False):
-        operand, keys = job["operand"], tuple(job["kernel_keys"])
-        panels = _trace(job["k"], seed=1)
-
-        def serve():
-            eng = engine_mod.SpMMEngine(operand, max_wave_cols=512,
-                                        device="cuda")
-            for i, p in enumerate(panels):
-                eng.submit(engine_mod.SpMMRequest(i, p))
-            eng.run()
-            torch.cuda.synchronize()
-            return eng.stats_summary()
-
+        keys = tuple(job["kernel_keys"])
+        serve = _plan_serve_fn(torch, engine_mod, job["operand"], job["k"])
         serve()                 # the operand's first launches in a process
         s = serve()
-        kernel_kind = f"kernel_{job['fmt']}"
         seen, best = [], None
         for _ in range(PROFILE_TRIES):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                s_prof = serve()
-            by_kind = {kernel_kind: 0.0, "memcpy_h2d": 0.0,
-                       "memcpy_d2h": 0.0, "other": 0.0}
-            n_kernels = 0
-            for ev in prof.key_averages():
-                if ev.device_type != torch.autograd.DeviceType.CUDA:
-                    continue    # host ops: their device time is counted
-                us = getattr(ev, "self_device_time_total",  # on the device
-                             getattr(ev, "self_cuda_time_total", 0.0))
-                key = ev.key.lower()
-                kind = (kernel_kind if any(k in key for k in keys) else
-                        "memcpy_h2d" if "htod" in key else
-                        "memcpy_d2h" if "dtoh" in key else "other")
-                by_kind[kind] += us / 1e3
-                n_kernels += ev.count if kind == kernel_kind else 0
+            n_kernels, by_kind, s_prof = _profiled_serve(
+                torch, serve, keys, f"kernel_{job['fmt']}")
             seen.append(n_kernels)
             if best is None or n_kernels > best[0]:
                 best = (n_kernels, by_kind, s_prof)
@@ -2384,7 +2455,8 @@ def _gemm_sweep(torch, Q, operands, flush, n):
 
 
 def plan_path(torch, K, ops, engine_mod, table2):
-    """Phases 9-11 and the profiles of the plan path; the kernels' rows."""
+    """Phases 9-11 and the profiles of the plan path; the kernels' rows,
+    and the operands phase profile_in_process plans again."""
     from repro_torch.core.bsr import BSR
     from repro_torch.kernels import bsr_spmm as KB
     from repro_torch.kernels import dense_mm as KD
@@ -2402,14 +2474,22 @@ def plan_path(torch, K, ops, engine_mod, table2):
     launches, by_launcher, kept = phase_plan_serve(torch, Q, table2,
                                                    granite)
     # the general kernels' symbols, and the GEMM core's by its source
-    phase_profile(torch, [profile_job(bound, bound.shape[1], workload=label,
-                                      fmt=fmt, kernel_keys=(f"{fmt}_kernel",
-                                                            f"{fmt}src"))
-                          for (label, fmt), bound in sorted(kept.items())])
+    jobs = [profile_job(bound, bound.shape[1], workload=label, fmt=fmt,
+                        kernel_keys=(f"{fmt}_kernel", f"{fmt}src"))
+            for (label, fmt), bound in sorted(kept.items())]
+    phase_profile(torch, jobs)
+    del jobs
     del kept
     torch.cuda.empty_cache()
+    # phase profile_in_process's operands, planned again last
+    dense = {"incrs-docword": (table2["incrs-docword"].crs.to_dense(),
+                               TABLE2_BLOCK["incrs-docword"]),
+             GRANITE_NAME: (granite[1], GRANITE["block"])}
+    late = [(label, fmt, dense[label][0],
+             dense[label][1] if fmt == "bsr" else None)
+            for label, fmt in sorted(PROFILED)]
     return phase_plan_times(torch, Q, table2, granite, errs, launches,
-                            by_launcher)
+                            by_launcher), late
 
 
 # ----------------------------------------------------------------------
@@ -3960,6 +4040,10 @@ LM_KERNEL_CASES = [
     ("granite", 2, 8192, 1, 48, 128, None, None),
     ("mixtral", 1, 8192, 8, 4, 128, 4096, None),
     ("recurrentgemma", 1, 4096, 1, 10, 256, 2048, 30.0),
+    # phase lm_families' prefill shapes (mixtral's is the one above)
+    ("qwen2-moe", 1, 8192, 16, 1, 128, None, None),
+    ("musicgen", 1, 8192, 24, 1, 64, None, None),
+    ("internvl2", 1, 8192, 2, 7, 64, None, None),
 ] + [(f"edge_s{s}_hd{hd}", 2, s, 2, 3, hd, None, None)
      for s in (1, 63, 65, 200, 1000) for hd in (16, 64)] + [
     ("edge_window_cap", 2, 200, 2, 3, 64, 37, 6.0),
@@ -4286,11 +4370,15 @@ def lm_profile_fresh(torch):
     return out
 
 
-def lm_profile_child() -> int:
+def lm_profile_child(sessions=None) -> int:
     """The fresh process of ``lm_profile_fresh``: granite-34b cut to
     LM_DEPTH layers, seeded as phase lm_serve seeds it, serves the long
     wave twice warm, then under torch.profiler until a run records every
-    flash launch (at most ``PROFILE_TRIES``); prints one JSON line."""
+    flash launch (at most ``PROFILE_TRIES``); prints one JSON line. With
+    ``sessions`` (``chip_smoke.py --lm-profile SESSIONS``) it profiles
+    that many runs one after another, none skipped, and first prints the
+    card's line and a line a run (ROADMAP P4: whether a loss follows the
+    sessions before it in the process)."""
     import dataclasses
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4304,8 +4392,10 @@ def lm_profile_child() -> int:
     reqs = lambda: _lm_requests(E, cfg.vocab_size, 2, 8192, 16, 0, seed=1)
     for _ in range(2):
         _serve_lm(torch, E, model, reqs())
+    if sessions:
+        print(smi_line(), flush=True)
     runs, best = [], None
-    for _ in range(PROFILE_TRIES):
+    for _ in range(sessions or PROFILE_TRIES):
         F.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -4313,10 +4403,14 @@ def lm_profile_child() -> int:
         by_kind, by_route, rec = lm_profile_tally(torch, F, prof)
         rec["flash_launches"] = F.LAUNCHES["flash_attention"]
         rec["wall_ms_profiled"] = wall * 1e3
+        rec["lost_kernel_records"] = rec["launch_calls"] - \
+            rec["kernel_records"]
         runs.append(rec)
+        if sessions:
+            print(json.dumps({"session": len(runs), **rec}), flush=True)
         if best is None or rec["kernel_records"] > best[2]["kernel_records"]:
             best = (by_kind, by_route, rec)
-        if rec["flash_records"] == rec["flash_launches"]:
+        if not sessions and rec["flash_records"] == rec["flash_launches"]:
             break
     print(json.dumps({"records_by_run": runs, "device_ms_by_kind": best[0],
                       "flash_ms_by_kernel": best[1],
@@ -4547,14 +4641,17 @@ def phase_lm_train_check(torch, T):
           f" off the f32 loss {float(l32)} by {loss_rel}")
 
 
-def phase_lm_train_full(torch, T):
-    """granite-34b, LM_DEPTH layers at full width, bf16 compute, f32
-    params, remat "dots": LM_TRAIN["steps"] AdamW steps on SyntheticTokens
-    batches, each split by CUDA events into forward + backward and the
-    optimizer; tokens/s, loss, grad norm and peak memory a step."""
-    import dataclasses
-    cfg = dataclasses.replace(T.configs.get("granite-34b"),
-                              n_layers=LM_DEPTH)
+def _lm_train_steps(torch, T, cfg, label, one_batch=False):
+    """LM_TRAIN["steps"] AdamW steps of a model of ``cfg`` seeded on the
+    card, on SyntheticTokens batches (with their prefix embeds for an
+    embeds config; with ``one_batch`` every step on step 0's batch), each
+    split by CUDA events into forward + backward and
+    the optimizer; tokens/s, loss, grad norm and peak memory a step. With
+    ``one_batch`` also the loss of the step-0 weights on each of the
+    batches that fresh-batch steps would take: their spread. Also step
+    0's grads: the parameters whose grad is not finite or all zero, and
+    the experts whose grad is zero (no token reached them), counted by
+    layer, where an MoE layer's expert tensors must agree on which."""
     g = LM_TRAIN
     t0 = time.perf_counter()
     model = T.M.init(cfg, seed=g["seed"], device="cuda")
@@ -4564,22 +4661,41 @@ def phase_lm_train_full(torch, T):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    src = T.Tokens(cfg.vocab_size, g["batch"], g["seq"], seed=g["seed"])
+    npfx = cfg.n_prefix_embeds if cfg.input_mode == "embeds" else 0
+    src = T.Tokens(cfg.vocab_size, g["batch"], g["seq"], seed=g["seed"],
+                   n_prefix=npfx, d_model=cfg.d_model)
     tokens = g["batch"] * g["seq"]
+    spread = None
+    if one_batch:
+        with torch.no_grad():
+            spread = [float(T.M.loss_fn(model, {
+                k: torch.as_tensor(v, device="cuda")
+                for k, v in src.batch_at(step).items()}))
+                for step in range(g["steps"])]
     torch.cuda.reset_peak_memory_stats()
     T.F.reset_launches()
-    steps, missing = [], None
+    steps, missing, idle = [], [], {}
     for step in range(g["steps"]):
-        batch = src.batch_at(step)
+        batch = src.batch_at(0 if one_batch else step)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         w0 = time.perf_counter()
         ev[0].record()
         loss, grads = T.trainer.loss_and_grads(model, batch)
         ev[1].record()
         if step == 0:
-            missing = [n for n, gr in grads.items()
-                       if not bool(torch.isfinite(gr).all())
-                       or not bool((gr != 0).any())]
+            for n, gr in grads.items():
+                if not bool(torch.isfinite(gr).all()) or \
+                        not bool((gr != 0).any()):
+                    missing.append(n)
+                if gr.ndim == 3:            # (E, ., .): one slice a expert
+                    idle.setdefault(n.rsplit(".ffn.", 1)[0], {})[n] = \
+                        (gr.flatten(1) == 0).all(1).cpu()
+            for layer, by_name in idle.items():
+                first = next(iter(by_name.values()))
+                if any(not torch.equal(z, first) for z in by_name.values()):
+                    missing.append(f"{layer}: idle experts by tensor " + str(
+                        {n: z.nonzero().flatten().tolist()
+                         for n, z in by_name.items()}))
         params = dict(model.named_parameters())
         _, state, m = T.O.adamw_update(opt, grads, state, params)
         ev[2].record()
@@ -4594,7 +4710,7 @@ def phase_lm_train_full(torch, T):
                "lr": float(m["lr"]),
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         steps.append(row)
-        print(f"lm_train step {row['step']}: {row['step_ms']:.1f} ms "
+        print(f"{label} step {row['step']}: {row['step_ms']:.1f} ms "
               f"(fwd+bwd {fb:.1f}, opt {om:.1f}), {row['tokens_per_s']:,.0f}"
               f" tok/s, loss {row['loss']:.4f}, gnorm "
               f"{row['grad_norm']:.4f}, peak {row['peak_gb']:.2f} GB",
@@ -4603,24 +4719,45 @@ def phase_lm_train_full(torch, T):
     del model, state
     torch.cuda.empty_cache()
     warm = steps[1:]
+    return {"params": n_params, "dtype": cfg.dtype,
+            "param_dtype": cfg.param_dtype, "remat": cfg.remat_policy,
+            "batch": [g["batch"], g["seq"]], "prefix_embeds": npfx,
+            "one_batch": one_batch, "step0_loss_on_each_batch": spread,
+            "init_s": init_s, "steps": steps, "median_warm": {
+                k: statistics.median(r[k] for r in warm)
+                for k in ("step_ms", "fwd_bwd_ms", "opt_ms",
+                          "tokens_per_s")},
+            "peak_gb": max(r["peak_gb"] for r in steps),
+            "flash_launches": flash, "params_without_grad": missing,
+            "idle_experts": {k: int(next(iter(v.values())).sum())
+                             for k, v in idle.items()}}
+
+
+def _check_lm_train(run, label):
+    check(run["params_without_grad"] == [], f"{label}: parameters without "
+          f"a finite nonzero grad at step 0, or expert tensors disagreeing "
+          f"on the idle experts: {run['params_without_grad']}")
+    check(all(np.isfinite(r["grad_norm"]) for r in run["steps"]),
+          f"{label}: every grad norm finite")
+    first, last = run["steps"][0]["loss"], run["steps"][-1]["loss"]
+    check(last < first, f"{label}: the loss {first} -> {last} did not fall")
+    check(run["flash_launches"] == 0, f"{label}: train mode launched the "
+          f"flash kernel {run['flash_launches']} times")
+
+
+def phase_lm_train_full(torch, T):
+    """granite-34b, LM_DEPTH layers at full width, bf16 compute, f32
+    params, remat "dots": ``_lm_train_steps``."""
+    import dataclasses
+    cfg = dataclasses.replace(T.configs.get("granite-34b"),
+                              n_layers=LM_DEPTH)
+    run = _lm_train_steps(torch, T, cfg, "lm_train")
+    for k in ("idle_experts", "prefix_embeds", "one_batch",
+              "step0_loss_on_each_batch"):
+        run.pop(k)
     emit({"phase": "lm_train", "model": f"granite-34b, {LM_DEPTH} of 88 "
-          f"layers, full width", "params": n_params, "dtype": cfg.dtype,
-          "param_dtype": cfg.param_dtype, "remat": cfg.remat_policy,
-          "batch": [g["batch"], g["seq"]], "init_s": init_s,
-          "steps": steps, "median_warm": {
-              k: statistics.median(r[k] for r in warm)
-              for k in ("step_ms", "fwd_bwd_ms", "opt_ms",
-                        "tokens_per_s")},
-          "peak_gb": max(r["peak_gb"] for r in steps),
-          "flash_launches": flash, "params_without_grad": missing})
-    check(missing == [], f"lm_train: parameters without a finite nonzero "
-          f"grad at step 0: {missing}")
-    check(all(np.isfinite(r["grad_norm"]) for r in steps),
-          "lm_train: every grad norm finite")
-    check(steps[-1]["loss"] < steps[0]["loss"], f"lm_train: the loss "
-          f"{steps[0]['loss']} -> {steps[-1]['loss']} did not fall")
-    check(flash == 0, f"lm_train: train mode launched the flash kernel "
-          f"{flash} times")
+          f"layers, full width", **run})
+    _check_lm_train(run, "lm_train")
 
 
 def phase_lm_train_repair(torch, T):
@@ -4881,6 +5018,405 @@ def lm_train_path(torch):
     return counts
 
 
+# ----------------------------------------------------------------------
+# The MoE and embeds families (slice 11): mixtral-8x7b and qwen2-moe-a2.7b
+# (the MoE FFN), musicgen-medium and internvl2-1b (the embeds front end)
+# at full width, each served, checked against float64 and trained.
+LM_FAMILIES = (  # (arch, layers served, layers trained; None = all)
+    ("mixtral-8x7b", 4, 2),
+    ("qwen2-moe-a2.7b", 4, 4),
+    ("musicgen-medium", None, None),
+    ("internvl2-1b", None, None),
+)
+FAM = {"positions": 8192, "short": 512, "max_new": 8, "seed": 31,
+       "tie_rows": 512}
+# the serving launcher's runs: (smoke arch, flash launches = its layers)
+FAM_LAUNCHERS = (("qwen2-moe-a2.7b", 2), ("internvl2-1b", 2))
+FAM_RESUME_ARCH = "qwen2-moe-a2.7b"    # the training launcher's resume
+
+
+def _fam_cfg(T, arch, n_layers, **over):
+    import dataclasses
+    full = T.configs.get(arch)
+    return dataclasses.replace(full, n_layers=n_layers or full.n_layers,
+                               **over)
+
+
+def _npfx(cfg):
+    return cfg.n_prefix_embeds if cfg.input_mode == "embeds" else 0
+
+
+def _moes(T, model):
+    return [b.ffn for b in model.blocks if isinstance(b.ffn, T.layers.MoE)]
+
+
+def _fam_serve(torch, T, E, cfg):
+    """ServeEngine on ``cfg`` seeded on the card: 2 requests of
+    FAM["positions"] positions (prefix included: one wave, one flash launch
+    a layer), then 4 of FAM["short"] (no launch); the counters zeroed just
+    before each. The long wave's capacity routes are logged: its dropped
+    (token, expert) assignments. Then, in f32 on the same weights (an MoE
+    at capacity_factor E / k, so that no token drops and the capacity
+    path computes what decode's all-experts path does), the first long
+    prompt's decode logits against a teacher-forced prefill."""
+    import dataclasses
+    t0 = time.perf_counter()
+    model = T.M.init(cfg, seed=FAM["seed"], device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    npfx, n = _npfx(cfg), FAM["positions"]
+    v, max_new = cfg.vocab_size, FAM["max_new"]
+    long_reqs = _lm_requests(E, v, 2, n - npfx, max_new, 0, seed=1)
+    short_reqs = _lm_requests(E, v, 4, FAM["short"] - npfx, max_new, 10,
+                              seed=2)
+    moes = _moes(T, model)
+    for m in moes:
+        m.route_log = []
+    T.F.reset_launches()
+    eng_l, wall_l = _serve_lm(torch, E, model, long_reqs)
+    launches_long = T.F.LAUNCHES["flash_attention"]
+    bf16_long = T.F.ROUTE_LAUNCHES["bf16_wgmma"]
+    routes = [r for m in moes for r in m.route_log if r.rows is not None]
+    for m in moes:
+        m.route_log = None
+    dropped = sum(r.dropped() for r in routes)
+    assigned = sum(r.topi.numel() for r in routes)
+    T.F.reset_launches()
+    eng_s, wall_s = _serve_lm(torch, E, model, short_reqs)
+    launches_short = T.F.LAUNCHES["flash_attention"]
+    # both again, warm (the counted run holds the shapes' first calls)
+    warm = [(_lm_requests(E, v, 2, n - npfx, max_new, 0, seed=1)),
+            _lm_requests(E, v, 4, FAM["short"] - npfx, max_new, 10, seed=2)]
+    warm = [(reqs,) + _serve_lm(torch, E, model, reqs) for reqs in warm]
+    for r in long_reqs + short_reqs:
+        check(r.done and len(r.out) == max_new and
+              all(0 <= t < cfg.padded_vocab() for t in r.out),
+              f"{cfg.name}: request {r.rid} returned {max_new} tokens")
+    check(launches_long == cfg.n_layers and bf16_long == launches_long,
+          f"{cfg.name}: the long wave launched the flash kernel "
+          f"{launches_long} times (bf16 {bf16_long}), not {cfg.n_layers}")
+    check(launches_short == 0, f"{cfg.name}: the {FAM['short']}-position "
+          f"wave launched the flash kernel {launches_short} times")
+    check(len(routes) == len(moes), f"{cfg.name}: {len(routes)} capacity "
+          f"routes in the long wave's prefill, {len(moes)} MoE layers")
+
+    over = {"dtype": "float32"}
+    if cfg.is_moe:
+        over["capacity_factor"] = cfg.n_experts / cfg.n_experts_per_tok
+    cfg32 = dataclasses.replace(cfg, **over)
+    model32 = T.M.Model(cfg32, device="meta")
+    model32.load_state_dict(model.state_dict(), assign=True)
+    del model
+    prompt = torch.from_numpy(long_reqs[0].prompt[None]).to("cuda").long()
+    pfx = (torch.zeros(1, npfx, cfg.d_model, device="cuda") if npfx
+           else None)
+    logits, cache = T.M.prefill_step(model32, prompt, prefix_embeds=pfx,
+                                     alloc_seq=n + max_new,
+                                     cache_dtype=torch.float32)
+    steps, toks = [logits.float()], []
+    for step in range(max_new - 1):
+        tok = steps[-1].argmax(-1, keepdim=True)
+        toks.append(tok)
+        logits, cache = T.M.decode_step(model32, tok, cache, pos=n + step)
+        steps.append(logits.float())
+    del cache
+    fed = torch.cat([prompt] + toks, 1)
+    with torch.no_grad():
+        tf = model32(fed, prefix_embeds=pfx, mode="prefill")[0][
+            :, n - 1:].float()
+    dec = torch.stack(steps, 1)
+    scale = float(tf.abs().max())
+    err = float((dec - tf).abs().max())
+    check(tuple(dec.shape) == tuple(tf.shape) and
+          bool(torch.isfinite(dec).all()),
+          f"{cfg.name}: f32 logits finite, right shape")
+    check(err <= LM_LOGIT_TOL * scale, f"{cfg.name}: f32 decode logits vs "
+          f"teacher-forced prefill: {err} > {LM_LOGIT_TOL} * {scale}")
+    del tf, dec, steps, model32
+    torch.cuda.empty_cache()
+
+    def wave(eng, reqs, wall):
+        return {"requests": len(reqs), "positions": npfx + len(
+            reqs[0].prompt), "prefill_ms": eng.prefill_ms,
+            "decode_ms_median": statistics.median(eng.decode_ms),
+            "wall_s": wall}
+    new_tokens = sum(len(r.out) for r in long_reqs + short_reqs)
+    return {"init_s": init_s, "long": wave(eng_l, long_reqs, wall_l),
+            "short": wave(eng_s, short_reqs, wall_s),
+            "new_tokens_per_s": new_tokens / (wall_l + wall_s),
+            "warm": {"long": wave(warm[0][1], warm[0][0], warm[0][2]),
+                     "short": wave(warm[1][1], warm[1][0], warm[1][2]),
+                     "new_tokens_per_s": new_tokens / (
+                         warm[0][2] + warm[1][2])},
+            "flash_launches": {"long_wave": launches_long,
+                               "short_wave": launches_short},
+            "dropped_at_capacity": None if not cfg.is_moe else {
+                "capacity_factor": cfg.capacity_factor,
+                "capacity": routes[0].capacity, "dropped": dropped,
+                "assigned": assigned},
+            "f32_check": {"capacity_factor": cfg32.capacity_factor,
+                          "max_abs_err": err, "max_abs_logit": scale,
+                          "tolerance": f"{LM_LOGIT_TOL} * max|logit|"}}
+
+
+def _hold_routes(T, model, held):
+    """Give ``model``'s MoE layers the routes of ``held`` (one a layer);
+    returns a list that a hook fills with, per layer, the tokens whose
+    experts ``model``'s own router would choose otherwise."""
+    flips = []
+    for m, route in zip(_moes(T, model), held):
+        m.held_route = route
+
+        def own(mod, args, route=route):
+            x = args[0]
+            logits = x.detach() @ mod.router.detach().to(x.dtype)
+            mine = T.layers.moe_route(logits, mod.cfg, dense=False)
+            a = mine.topi.sort(-1).values
+            b = route.topi.sort(-1).values
+            flips.append(int((a != b).any(-1).sum()))
+        m.register_forward_pre_hook(own)
+    return flips
+
+
+def _logged_grads(T, model, batch):
+    """Loss and grads of one run (no remat), with each MoE layer's
+    route."""
+    moes = _moes(T, model)
+    for m in moes:
+        m.route_log = []
+    loss, grads = T.trainer.loss_and_grads(model, batch, remat=False)
+    routes = [m.route_log[0] for m in moes]
+    for m in moes:
+        m.route_log = None
+    return loss, grads, routes
+
+
+def _fam_grads(torch, T, arch):
+    """One layer of ``arch`` at full width on 2 x 1,024 tokens: step 0's
+    f32 loss and grads (TF32 off) against float64, and the bf16 run's
+    grads inside LM_TRAIN_BF16_BAND against float64. For an MoE the
+    float64 run takes the routing of the run it checks (a near-tie that
+    flips is no numeric error) and counts the tokens whose experts its own
+    router would choose otherwise. An MoE layer's bf16 loss and grads are
+    then run again, and again under remat "dots": both bitwise equal to
+    the first run's; and its router zeroed, every token takes experts
+    0..k-1 on the card (ties to the lower index)."""
+    import dataclasses
+    base = _fam_cfg(T, arch, 1, dtype="float32")
+    c64 = dataclasses.replace(base, dtype="float64", param_dtype="float64")
+    batch = T.Tokens(base.vocab_size, LM_CHECK["batch"], LM_CHECK["seq"],
+                     seed=LM_TRAIN["seed"], n_prefix=_npfx(base),
+                     d_model=base.d_model).batch_at(0)
+    m32 = T.M.init(base, seed=LM_TRAIN["seed"], device="cuda")
+    l32, g, routes32 = _logged_grads(T, m32, batch)
+    m64 = T.M.Model(c64, device="cuda")
+    m64.load_state_dict(m32.state_dict())
+    flips32 = _hold_routes(T, m64, routes32)
+    l64, g64, _ = _logged_grads(T, m64, batch)
+    errs = _rel_errs(g, g64)
+    del g
+    m16 = T.M.Model(dataclasses.replace(base, dtype="bfloat16",
+                                        remat_policy="dots"), device="cuda")
+    m16.load_state_dict(m32.state_dict())
+    del m32
+    l16, g16, routes16 = _logged_grads(T, m16, batch)
+    flips16 = []
+    if base.is_moe:     # float64 again, on the bf16 run's routing
+        del g64, m64
+        m64 = T.M.Model(c64, device="cuda")
+        m64.load_state_dict(m16.state_dict())
+        flips16 = _hold_routes(T, m64, routes16)
+        _, g64, _ = _logged_grads(T, m64, batch)
+    e16 = _rel_errs(g16, g64)
+    del m64, g64
+    torch.cuda.empty_cache()
+    worst, w16 = max(errs, key=errs.get), max(e16, key=e16.get)
+    lo, hi = LM_TRAIN_BF16_BAND
+    loss_rel = abs(float(l16) - float(l32)) / abs(float(l32))
+    out = {"layers": 1, "batch": LM_CHECK, "loss_f32": float(l32),
+           "loss_f64": float(l64), "loss_bf16": float(l16),
+           "bf16_loss_rel": loss_rel, "worst_f32": [worst, errs[worst]],
+           "worst_bf16": [w16, e16[w16]],
+           "grad_rel_err_f32_vs_f64": errs,
+           "grad_rel_err_bf16_vs_f64": e16}
+    check(errs[worst] <= LM_TRAIN_GRAD_TOL, f"{arch}: f32 grad {worst} off "
+          f"float64 by {errs[worst]} of its max")
+    check(lo <= e16[w16] <= hi, f"{arch}: bf16 grads' worst tensor {w16} "
+          f"off float64 by {e16[w16]} of its max, outside [{lo}, {hi}]")
+    check(loss_rel <= LM_TRAIN_LOSS_RTOL, f"{arch}: bf16 loss {float(l16)} "
+          f"off the f32 loss {float(l32)} by {loss_rel}")
+    if base.is_moe:
+        # the bf16 layer's loss and grads again: the same bits
+        l16b, g16b = T.trainer.loss_and_grads(m16, batch, remat=False)
+        bitwise = torch.equal(l16b, l16) and all(
+            torch.equal(g16b[k], g16[k]) for k in g16)
+        del g16b
+        # under remat "dots": the recomputed forward routes as the first
+        l16r, g16r = T.trainer.loss_and_grads(m16, batch, remat=True)
+        remat_bitwise = torch.equal(l16r, l16) and all(
+            torch.equal(g16r[k], g16[k]) for k in g16)
+        del g16r
+        moe = _moes(T, m16)[0]
+        saved = moe.router.detach().clone()
+        with torch.no_grad():
+            moe.router.zero_()
+            moe.route_log = []
+            x = torch.randn(1, FAM["tie_rows"], base.d_model, device="cuda",
+                            dtype=torch.bfloat16)
+            moe(x, mode="prefill")
+            moe.router.copy_(saved)
+        k = base.n_experts_per_tok
+        topi = moe.route_log[0].topi
+        ties_low = bool((topi == torch.arange(k, device="cuda")).all())
+        moe.route_log = None
+        out.update(repeat_bitwise=bitwise, remat_dots_bitwise=remat_bitwise,
+                   ties_to_lower_index=ties_low,
+                   route_flips_f64_vs_f32=flips32,
+                   route_flips_f64_vs_bf16=flips16,
+                   tokens_routed=LM_CHECK["batch"] * (
+                       LM_CHECK["seq"] + _npfx(base)))
+        check(bitwise, f"{arch}: a repeated MoE layer's bf16 loss and grads "
+              f"differ")
+        check(remat_bitwise, f"{arch}: an MoE layer's bf16 loss and grads "
+              f"under remat \"dots\" differ from those without remat")
+        check(ties_low, f"{arch}: a zero router did not route every token "
+              f"to experts 0..{k - 1}")
+    del m16, g16
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_family(torch, T, E, arch, serve_layers, train_layers):
+    """Phase lm_families for one architecture: ``_fam_serve`` at
+    ``serve_layers``, ``_fam_grads`` at one layer, then
+    ``_lm_train_steps`` at ``train_layers`` (bf16 compute, f32 params,
+    remat "dots") on one batch: on fresh random tokens at LM_TRAIN's lr
+    a fall in 8 steps can be smaller than the batches' spread (the step-0
+    weights' loss on each batch is printed beside the steps), while on
+    one batch a right gradient must lower the loss. Returns the long
+    wave's flash launches."""
+    t0 = time.perf_counter()
+    cfg = _fam_cfg(T, arch, serve_layers)
+    served = _fam_serve(torch, T, E, cfg)
+    t_serve = time.perf_counter() - t0
+    grads = _fam_grads(torch, T, arch)
+    t_grads = time.perf_counter() - t0 - t_serve
+    tcfg = _fam_cfg(T, arch, train_layers, remat_policy="dots")
+    run = _lm_train_steps(torch, T, tcfg, f"lm_families {arch}",
+                          one_batch=True)
+    full = T.configs.get(arch)
+    emit({"phase": "lm_families", "arch": arch,
+          "cut": {"served_layers": cfg.n_layers, "trained_layers":
+                  tcfg.n_layers, "of": full.n_layers,
+                  "widths": "as published"},
+          "params_served": sum(p.numel() for p in T.M.Model(
+              cfg, device="meta").parameters()),
+          "serve": served, "grads": grads, "train": run,
+          "seconds": {"serve": t_serve, "grads": t_grads,
+                      "train": time.perf_counter() - t0 - t_serve
+                      - t_grads}})
+    _check_lm_train(run, f"lm_families {arch}")
+    return served["flash_launches"]["long_wave"]
+
+
+def phase_lm_family_launchers(torch):
+    """The serving launcher as a subprocess for an MoE and an embeds smoke
+    config (8,192 positions: one flash launch a layer); the training
+    launcher on FAM_RESUME_ARCH's smoke config, in this process, 8 steps
+    checkpointing every 4, then resumed from the step-4 checkpoint alone:
+    steps 5-8's losses equal the first run's, bit for bit."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.launch import train
+    lines = []
+    for arch, launches in FAM_LAUNCHERS:
+        npfx = _npfx(configs.get_smoke(arch))
+        lines.append(_run_lm_launcher(
+            ["--arch", arch, "--smoke", "--prompt-len",
+             str(FAM["positions"] - npfx), "--n-requests", "2",
+             "--max-new", "4"], expect_launches=launches))
+    base = os.path.join(ROOT, "build")
+    os.makedirs(base, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="lm_families_", dir=base)
+    full_ck, part_ck = os.path.join(tmp, "full"), os.path.join(tmp, "part")
+    argv = ["--arch", FAM_RESUME_ARCH, "--smoke", "--steps", "8",
+            "--log-every", "1"]
+    logs = []
+    for args in (["--ckpt-dir", full_ck, "--ckpt-every", "4",
+                  "--losses-out", os.path.join(tmp, "full.json")],
+                 ["--ckpt-dir", part_ck, "--resume", "--losses-out",
+                  os.path.join(tmp, "resumed.json")]):
+        if "--resume" in args:
+            os.makedirs(part_ck)
+            shutil.copy(os.path.join(full_ck, "step_00000004.npz"), part_ck)
+            with open(os.path.join(part_ck, "manifest.json"), "w") as f:
+                json.dump({"steps": [4]}, f)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            train.main(argv + args)
+        logs.append({"args": " ".join(argv + args).replace(tmp, "<tmp>"),
+                     "wall_s": time.perf_counter() - t0,
+                     "tail": out.getvalue().strip().splitlines()[-2:]})
+    with open(os.path.join(tmp, "full.json")) as f:
+        full = {int(k): v for k, v in json.load(f).items()}
+    with open(os.path.join(tmp, "resumed.json")) as f:
+        resumed = {int(k): v for k, v in json.load(f).items()}
+    shutil.rmtree(tmp, ignore_errors=True)
+    diff = {s: resumed[s] - full[s] for s in resumed}
+    emit({"phase": "lm_families_launchers", "serve": lines,
+          "train_runs": logs, "losses": full, "resumed_losses": resumed,
+          "bitwise": all(d == 0.0 for d in diff.values())})
+    check(sorted(resumed) == [5, 6, 7, 8], f"lm_families: the resumed run "
+          f"ran steps {sorted(resumed)}")
+    check(all(d == 0.0 for d in diff.values()), f"lm_families: the resumed "
+          f"steps' losses differ from the uninterrupted run's: {diff}")
+    return sum(line["launches"] for line in lines)
+
+
+def lm_families_path(torch):
+    """Phase lm_families: each architecture of LM_FAMILIES, then the
+    launchers. Returns the served long waves' flash launches by arch and
+    the launchers' total."""
+    from repro_torch.models import layers
+    from repro_torch.serve import engine as E
+    T = _lm_train_modules()
+    T.layers = layers
+    t0 = time.perf_counter()
+    launches = {}
+    for arch, serve_layers, train_layers in LM_FAMILIES:
+        launches[arch] = phase_lm_family(torch, T, E, arch, serve_layers,
+                                         train_layers)
+        torch.cuda.empty_cache()
+    by_launcher = phase_lm_family_launchers(torch)
+    emit({"phase": "lm_families_done", "seconds":
+          time.perf_counter() - t0, "flash_launches": launches,
+          "launcher_flash_launches": by_launcher})
+    return launches, by_launcher
+
+
+def lm_families_only() -> int:
+    """``python3 chip_smoke.py --lm-families``: the build and phase
+    lm_families alone (a quick loop on that path; not the smoke run)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    phase_env(torch, _build)
+    launches, by_launcher = lm_families_path(torch)
+    emit({"phase": "done", "seconds": time.perf_counter() - t0,
+          "flash_launches": launches, "launcher": by_launcher})
+    return 0
+
+
 def lm_train_only() -> int:
     """``python3 chip_smoke.py --lm-train``: the build and phase lm_train
     alone (a quick loop on the training path; not the smoke run)."""
@@ -4964,7 +5500,8 @@ def main() -> int:
                                errs_dw, spgemm_launches)
     phase_spgemm_operands(torch, P, table4)
     del table4, P
-    rows += plan_path(torch, K, ops, engine_mod, table2)
+    plan_rows, late_profile = plan_path(torch, K, ops, engine_mod, table2)
+    rows += plan_rows
     for kname, n in tenancy_path(torch, K, ops, table2).items():
         r = next(r for r in rows if r["name"] == kname)
         r["launches_by_path"]["tenancy"] = n
@@ -5002,6 +5539,15 @@ def main() -> int:
         r = next(r for r in rows if r["name"] == kname)
         r["launches_by_path"]["lm_train"] = n
         r["launches"] += n
+    torch.cuda.empty_cache()
+    fam, fam_launcher = lm_families_path(torch)
+    r = next(r for r in rows if r["name"] == "flash_attention")
+    r["launches_by_path"]["lm_families"] = fam
+    r["launches_by_path"]["lm_families_launchers"] = fam_launcher
+    r["launches"] += sum(fam.values())
+    torch.cuda.empty_cache()
+    phase_profile_in_process(torch, engine_mod, api, late_profile)
+    del late_profile
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)
     emit({"kernels": rows})
@@ -5014,8 +5560,10 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--profile":
         sys.exit(profile_child(sys.argv[2]))
-    if len(sys.argv) == 2 and sys.argv[1] == "--lm-profile":
-        sys.exit(lm_profile_child())
+    if len(sys.argv) in (2, 3) and sys.argv[1] == "--lm-profile":
+        sys.exit(lm_profile_child(*(int(a) for a in sys.argv[2:])))
     if len(sys.argv) == 2 and sys.argv[1] == "--lm-train":
         sys.exit(lm_train_only())
+    if len(sys.argv) == 2 and sys.argv[1] == "--lm-families":
+        sys.exit(lm_families_only())
     sys.exit(main())

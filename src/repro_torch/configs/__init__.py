@@ -1,10 +1,10 @@
 """Workload configs: the paper's SpMM workloads (``paper_spmm``) and the
 architecture registry, ``get(name)`` -> full config, ``get_smoke(name)``.
 
-The registry holds the architectures whose every module is ported: dense
-attention, a dense MLP and token input. The other names of the JAX
-registry raise ``NotImplementedError`` naming the ROADMAP item that ports
-what they need.
+The registry holds the architectures whose every module is ported:
+attention, the dense MLP or the MoE FFN, token or embeds input. The other
+names of the JAX registry raise ``NotImplementedError`` naming the
+ROADMAP item that ports what they need.
 """
 from __future__ import annotations
 
@@ -12,24 +12,26 @@ from types import ModuleType
 from typing import Dict
 
 from ..models.config import ModelConfig
-from . import granite_34b, llama3_405b, mistral_large_123b, phi3_medium_14b
+from . import (granite_34b, internvl2_1b, llama3_405b, mistral_large_123b,
+               mixtral_8x7b, musicgen_medium, phi3_medium_14b,
+               qwen2_moe_a27b)
 
 _MODULES: Dict[str, ModuleType] = {
     "granite-34b": granite_34b,
     "phi3-medium-14b": phi3_medium_14b,
     "mistral-large-123b": mistral_large_123b,
     "llama3-405b": llama3_405b,
+    "mixtral-8x7b": mixtral_8x7b,
+    "qwen2-moe-a2.7b": qwen2_moe_a27b,
+    "musicgen-medium": musicgen_medium,
+    "internvl2-1b": internvl2_1b,
 }
 
 # What each architecture of the JAX registry still needs (ROADMAP queue 1
-# item 12).
+# item 12b).
 UNPORTED: Dict[str, str] = {
-    "mixtral-8x7b": "the MoE FFN (layers.moe)",
-    "qwen2-moe-a2.7b": "the MoE FFN (layers.moe)",
     "mamba2-370m": "the SSD mixer (layers.ssd)",
     "recurrentgemma-2b": "the RG-LRU mixer (layers.rglru)",
-    "musicgen-medium": "the embeds front end (input_mode='embeds')",
-    "internvl2-1b": "the embeds front end (input_mode='embeds')",
 }
 
 ARCH_NAMES = tuple(_MODULES)
@@ -39,7 +41,7 @@ def _module(name: str) -> ModuleType:
     if name in UNPORTED:
         raise NotImplementedError(
             f"{name} needs {UNPORTED[name]}, not ported yet (ROADMAP queue 1 "
-            f"item 12)")
+            f"item 12b)")
     return _MODULES[name]
 
 

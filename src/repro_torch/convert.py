@@ -258,9 +258,12 @@ def model_from_jax(cfg, params: Dict[str, Any], *, device=None):
     ``params`` is the JAX params tree with numpy leaves: ``embed``,
     ``unembed`` (unless tied), ``norm_final`` and ``groups/block{i}_{kind}``
     holding ``norm_mixer``, ``mixer/{wq, wk, wv, wo}``, ``norm_mlp`` and
-    ``ffn/{w_gate, w_up, w_down, mask_w_*}`` with a leading ``n_groups``
-    axis. Group ``g``, block ``i`` becomes layer
-    ``g * len(cfg.block_pattern) + i``."""
+    ``ffn``, each with a leading ``n_groups`` axis. ``ffn`` is the dense
+    MLP's ``{w_gate, w_up, w_down, mask_w_*}`` or the MoE's ``router``
+    (d, E), ``w_gate``/``w_up`` (E, d, f), ``w_down`` (E, f, d) and, with
+    shared experts, ``ws_gate``/``ws_up``/``ws_down``. Group ``g``, block
+    ``i`` becomes layer ``g * len(cfg.block_pattern) + i``; a leaf keeps
+    its name (``ffn/router`` -> ``blocks.<layer>.ffn.router``)."""
     from .models.model import Model
     model = Model(cfg, device=resolve_device(device))
     state = {"embed": params["embed"], "norm_final": params["norm_final"]}

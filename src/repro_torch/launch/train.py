@@ -8,9 +8,11 @@ line; ``--losses-out`` also writes every step's loss, exactly, as JSON.
   python -m repro_torch.launch.train --arch granite-34b --smoke --resume \\
       --ckpt-dir /tmp/ck --device cpu
 
-Architectures whose modules are not ported yet (the MoE, SSD and RG-LRU
-mixers, the embeds front end) raise ``NotImplementedError`` naming
-ROADMAP queue 1 item 12.
+Every architecture of the port's registry trains: the dense ones, the
+MoE ones (mixtral-8x7b, qwen2-moe-a2.7b) and the embeds ones
+(musicgen-medium, internvl2-1b, whose batches carry ``prefix_embeds``).
+mamba2-370m and recurrentgemma-2b (the SSD and RG-LRU mixers) raise
+``NotImplementedError`` naming ROADMAP queue 1 item 12b.
 """
 from __future__ import annotations
 

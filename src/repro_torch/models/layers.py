@@ -1,8 +1,8 @@
-"""Layers of the LM stack: RMS norm, rotary embedding, GQA attention and
-the dense MLP.
+"""Layers of the LM stack: RMS norm, rotary embedding, GQA attention, the
+dense MLP and the MoE FFN.
 
-The port of ``repro.models.layers`` for dense-attention, dense-MLP models
-(the MoE, SSD and RG-LRU layers are ROADMAP queue 1 item 12). Parameters
+The port of ``repro.models.layers`` for attention models (the SSD and
+RG-LRU mixers are ROADMAP queue 1 item 12b). Parameters
 live in ``cfg.param_dtype`` and are cast to the activations' dtype at use,
 as in JAX. ``Attention`` has the JAX layer's three modes: ``train`` (the
 full sequence, no cache), ``prefill`` (the full sequence, filling the decode
@@ -15,6 +15,15 @@ the JAX layer's chunked online-softmax attention in torch ops, on every
 device: it is differentiable, and the flash kernel has no backward (JAX
 never trains through its Pallas kernel either; ROADMAP queue 3, P5).
 
+``MoE`` is JAX's ``layers.moe`` branch for branch: top-k routing (ties to
+the lower expert index, as ``jax.lax.top_k``), a capacity-limited gather
+dispatch per sequence in ``train`` and ``prefill``, all experts densely in
+``decode`` or when S <= k, and qwen2's shared experts. Its expert products
+are batched over the expert axis (``torch.bmm``; JAX computes them with
+jnp outside any Pallas kernel). The gather and the combine add in
+ascending expert order, one add a row an expert, so forward and backward
+are the same bits on every run.
+
 The decode cache is a dict ``{"k", "v": (B, alloc, KV, hd), "end": int}``
 updated in place (JAX returns a new one), which saves a copy of every
 layer's K and V per token. One device: the JAX layer's sharding
@@ -22,8 +31,9 @@ annotations have no counterpart here.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -280,3 +290,186 @@ class MLP(nn.Module):
             hdn = F.gelu(u, approximate="tanh")     # jax.nn.gelu's default
         return _maybe_sparse_mm(hdn, self.w_down.to(dt), self.mask_w_down,
                                 self.block)
+
+
+# ======================================================================
+# MoE FFN. Routing metadata is prefix-counter style: an expert's slots are
+# its assigned tokens in sequence order ("how many assigned tokens precede
+# me", the InCRS counter question at token scale), then the unassigned
+# ones, which carry weight 0.
+@dataclasses.dataclass
+class Route:
+    """The routing of one ``MoE`` call. ``topi`` (B, S, k): each token's
+    experts, best first. The capacity path adds ``rows`` (E, B*C): the
+    flat token row (``b * S + s``) of each of an expert's C slots per
+    sequence, and ``valid`` (E, B*C): whether the slot holds a token routed
+    there (else its weight is 0). The dense path has neither."""
+    topi: torch.Tensor
+    rows: Optional[torch.Tensor] = None
+    valid: Optional[torch.Tensor] = None
+
+    @property
+    def capacity(self) -> int:
+        """Slots an expert has per sequence (0 on the dense path)."""
+        if self.rows is None:
+            return 0
+        return self.rows.shape[1] // self.topi.shape[0]
+
+    def dropped(self) -> int:
+        """(token, expert) assignments that found no slot."""
+        if self.valid is None:
+            return 0
+        return int(self.topi.numel() - int(self.valid.sum()))
+
+
+def top_k_lower(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """The k largest of the last dim, largest first, ties to the lower
+    index (``jax.lax.top_k``'s order; ``torch.topk`` breaks ties
+    otherwise): a stable descending sort, kept to its first k."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_capacity(s: int, cfg: ModelConfig) -> int:
+    """Slots per expert and sequence: ceil(s * k * capacity_factor / E),
+    at least 1 and at most s (JAX's rule; s counts any prefix)."""
+    e, k = cfg.n_experts, cfg.n_experts_per_tok
+    return min(s, max(1, math.ceil(s * k * cfg.capacity_factor / e)))
+
+
+def moe_route(logits: torch.Tensor, cfg: ModelConfig, *,
+              dense: bool) -> Route:
+    """The routing of router ``logits`` (B, S, E): the top k experts
+    of each token and, unless ``dense``, each expert's capacity slots
+    (assigned tokens first, in sequence order, as JAX ranks them)."""
+    bsz, s, e = logits.shape
+    _, topi = top_k_lower(logits, cfg.n_experts_per_tok)
+    if dense:
+        return Route(topi)
+    cap = moe_capacity(s, cfg)
+    mask = torch.zeros((bsz, s, e), dtype=torch.bool, device=logits.device)
+    mask.scatter_(-1, topi, True)
+    iota = torch.arange(s, device=logits.device)[None, :, None]
+    prio = torch.where(mask, iota, s + iota).transpose(1, 2)   # (B, E, S)
+    # priorities are distinct: the cap smallest, ascending
+    prio, idx = torch.sort(prio, dim=-1)
+    prio, idx = prio[..., :cap], idx[..., :cap]                # (B, E, C)
+    base = (torch.arange(bsz, device=logits.device) * s)[:, None, None]
+    rows = (idx + base).permute(1, 0, 2).reshape(e, bsz * cap)
+    valid = (prio < s).permute(1, 0, 2).reshape(e, bsz * cap)
+    return Route(topi, rows, valid)
+
+
+class _Dispatch(torch.autograd.Function):
+    """xg[e] = x[rows[e]]: each expert's slot rows. The backward adds the
+    slots' grads into their tokens one expert at a time, in ascending
+    order (an expert's rows are distinct, so one add a row an expert):
+    the same bits on every run, where a scatter over colliding rows
+    would add in whatever order the device's atomics land."""
+
+    @staticmethod
+    def forward(ctx, x, rows):
+        ctx.save_for_backward(rows)
+        ctx.n = x.shape[0]
+        return x[rows]
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, = ctx.saved_tensors
+        dx = g.new_zeros((ctx.n, g.shape[-1]))
+        for e in range(rows.shape[0]):
+            dx.index_add_(0, rows[e], g[e])
+        return dx, None
+
+
+class _Combine(torch.autograd.Function):
+    """out = zeros (N, d) f32, then out[rows[e]] += y[e] for e ascending
+    (JAX's ``out.at[bidx, idx].add(y)`` in its update order): a token
+    routed to several experts sums their outputs in expert order, the
+    same bits on every run. The backward gathers."""
+
+    @staticmethod
+    def forward(ctx, y, rows, n):
+        ctx.save_for_backward(rows)
+        out = y.new_zeros((n, y.shape[-1]))
+        for e in range(rows.shape[0]):
+            out.index_add_(0, rows[e], y[e])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, = ctx.saved_tensors
+        return g[rows], None, None
+
+
+class MoE(nn.Module):
+    """Top-k routed FFN (JAX ``layers.moe``): ``router`` (d, E),
+    ``w_gate``/``w_up`` (E, d, f), ``w_down`` (E, f, d); with
+    ``cfg.n_shared_experts`` also the always-on ``ws_gate``/``ws_up``
+    (d, fs) and ``ws_down`` (fs, d), fs = n_shared_experts * f.
+
+    ``route_log``, when a list, gets each call's ``Route``;
+    ``held_route``, when set, replaces the router's choice (a float64
+    oracle takes the routing of the run it checks, so that a near-tie
+    that flips is not read as a numeric error). The expert weights are
+    still applied by the router's softmax over the held experts."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+        self.router = _param((d, e), cfg, device)
+        self.w_gate = _param((e, d, f), cfg, device)
+        self.w_up = _param((e, d, f), cfg, device)
+        self.w_down = _param((e, f, d), cfg, device)
+        if cfg.n_shared_experts:
+            fs = cfg.n_shared_experts * f
+            self.ws_gate = _param((d, fs), cfg, device)
+            self.ws_up = _param((d, fs), cfg, device)
+            self.ws_down = _param((fs, d), cfg, device)
+        self.route_log: Optional[List[Route]] = None
+        self.held_route: Optional[Route] = None
+
+    def forward(self, x: torch.Tensor, *, mode: str) -> torch.Tensor:
+        """x: (B, S, d) in the compute dtype; S counts any prefix. The
+        router's logits, the combine and the dense path's weighting run
+        in f32 (in f64 for an f64 model, an oracle's)."""
+        cfg = self.cfg
+        bsz, s, d = x.shape
+        dt = x.dtype
+        acc = torch.promote_types(dt, torch.float32)
+        logits = (x @ self.router.to(dt)).to(acc)               # (B, S, E)
+        dense = mode == "decode" or s <= cfg.n_experts_per_tok
+        route = self.held_route
+        if route is None:
+            route = moe_route(logits.detach(), cfg, dense=dense)
+        if self.route_log is not None:
+            self.route_log.append(route)
+        topw = torch.softmax(torch.gather(logits, -1, route.topi), dim=-1)
+        wse = torch.zeros_like(logits).scatter(-1, route.topi, topw)
+        if dense:
+            # all experts on every token, weighted by the routed ones
+            xe = x.reshape(1, bsz * s, d)
+            g = torch.matmul(xe, self.w_gate.to(dt))           # (E, BS, f)
+            u = torch.matmul(xe, self.w_up.to(dt))
+            y = torch.bmm(F.silu(g) * u, self.w_down.to(dt))  # (E, BS, d)
+            out = torch.einsum("end,ne->nd", y.to(acc),
+                               wse.reshape(bsz * s, -1))
+        else:
+            xg = _Dispatch.apply(x.reshape(bsz * s, d), route.rows)
+            g = torch.bmm(xg, self.w_gate.to(dt))              # (E, BC, f)
+            u = torch.bmm(xg, self.w_up.to(dt))
+            y = torch.bmm(F.silu(g) * u, self.w_down.to(dt))   # (E, BC, d)
+            wg = torch.gather(wse.reshape(bsz * s, -1).t(), 1, route.rows)
+            y = y * (wg * route.valid)[..., None].to(dt)
+            out = _Combine.apply(y.to(acc), route.rows, bsz * s)
+        return self._shared(x, out.to(dt).reshape(bsz, s, d))
+
+    def _shared(self, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        if not self.cfg.n_shared_experts:
+            return out
+        dt = x.dtype
+        gs = x @ self.ws_gate.to(dt)
+        us = x @ self.ws_up.to(dt)
+        return out + (F.silu(gs) * us) @ self.ws_down.to(dt)

@@ -1,7 +1,9 @@
 """Model assembly: embedding -> blocks -> norm -> logits.
 
-The port of ``repro.models.model`` for dense-attention, dense-MLP,
-token-input models. Each block is pre-norm residual, x += mixer(norm(x));
+The port of ``repro.models.model`` for attention models with a dense MLP
+or the MoE FFN, on token input or on ``prefix_embeds`` prepended to it
+(the embeds front end: the modality stub's frame or patch embeddings).
+Each block is pre-norm residual, x += mixer(norm(x));
 x += ffn(norm(x)), and the blocks are an ``nn.ModuleList``, one per layer
 (JAX stacks them per group of ``cfg.block_pattern`` and scans). Layer
 ``i`` is block ``i % len(cfg.block_pattern)`` of group
@@ -9,10 +11,12 @@ x += ffn(norm(x)), and the blocks are an ``nn.ModuleList``, one per layer
 
 Entry points:
   init(cfg, seed=, device=)               -> Model, weights from a seed
-  Model(tokens, mode=, cache=, pos_offset=, remat=) -> logits [, cache]
+  Model(tokens, prefix_embeds=, mode=, cache=, pos_offset=, remat=)
+                                          -> logits [, cache]
   loss_fn(model, batch, remat=)           -> scalar loss (train objective)
   init_cache(cfg, batch, alloc_seq, dtype, device) -> per-layer caches
-  prefill_step(model, tokens, alloc_seq=) -> last logits, cache
+  prefill_step(model, tokens, prefix_embeds=, alloc_seq=)
+                                          -> last logits, cache
   decode_step(model, token, cache, pos=)  -> logits, cache
 
 In ``train`` mode with grad on and ``remat``, each group of blocks (one
@@ -21,7 +25,12 @@ repetition of ``cfg.block_pattern``, JAX's scan body) runs under
 only the group's input and recomputes the rest in the backward pass;
 ``"dots"`` also keeps the weight products (``aten.mm``/``addmm``, JAX's
 ``dots_with_no_batch_dims_saveable``) and recomputes the rest, the
-attention's batched einsums included. Remat changes no value.
+attention's batched einsums included. In an MoE block the router and the
+shared experts are unbatched products (``mm``) and are kept; the routed
+experts' products are batched over the expert axis (``bmm``, JAX's
+``einsum("becd,edf->becf")`` with its batch dim) and are recomputed, as
+JAX's policy recomputes them. Remat changes no value: the recomputed
+forward routes as the first one did, bit for bit.
 
 The activations run in ``cfg.dtype``, the embedding scaled by
 sqrt(d_model) in that dtype (the JAX model scales by a numpy float64,
@@ -46,19 +55,11 @@ Caches = List[Optional[layers.Cache]]
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: input_mode={cfg.input_mode!r} needs the embeds "
-            f"front end, not ported yet (ROADMAP queue 1 item 12)")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported yet (ROADMAP queue 1 "
-            f"item 12)")
     bad = sorted(set(cfg.block_pattern) - {"attn", "local_attn"})
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: blocks {bad} (the SSD / RG-LRU mixers) are not "
-            f"ported yet (ROADMAP queue 1 item 12)")
+            f"ported yet (ROADMAP queue 1 item 12b)")
 
 
 class Block(nn.Module):
@@ -73,7 +74,8 @@ class Block(nn.Module):
         if cfg.mlp_type != "none":
             self.norm_mlp = nn.Parameter(torch.empty(
                 cfg.d_model, dtype=pdt, device=device))
-            self.ffn = layers.MLP(cfg, device=device)
+            self.ffn = (layers.MoE(cfg, device=device) if cfg.is_moe
+                        else layers.MLP(cfg, device=device))
 
     @property
     def window(self) -> Optional[int]:
@@ -88,7 +90,8 @@ class Block(nn.Module):
                                   cache=cache)
         x = x + y
         if self.ffn is not None:
-            x = x + self.ffn(layers.rms_norm(x, self.norm_mlp, cfg.norm_eps))
+            h = layers.rms_norm(x, self.norm_mlp, cfg.norm_eps)
+            x = x + (self.ffn(h, mode=mode) if cfg.is_moe else self.ffn(h))
         return x, new_cache
 
 
@@ -119,12 +122,14 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def forward(self, tokens, *, mode: str = "train",
+    def forward(self, tokens, *, prefix_embeds=None, mode: str = "train",
                 cache: Optional[Caches] = None, pos_offset: int = 0,
                 remat: bool = True):
-        """tokens: (B, S) ints. Returns the logits (B, S, V) in ``train``
-        mode, else (logits, per-layer caches). ``remat`` applies in
-        ``train`` mode with grad on (module docstring)."""
+        """tokens: (B, S) ints; prefix_embeds (B, P, d), optional: front-end
+        embeddings prepended to the token embeddings, cast to the compute
+        dtype (they take positions 0..P-1). Returns the logits (B, P + S, V) in
+        ``train`` mode, else (logits, per-layer caches). ``remat`` applies
+        in ``train`` mode with grad on (module docstring)."""
         cfg = self.cfg
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"mode must be train, prefill or decode, got "
@@ -132,6 +137,9 @@ class Model(nn.Module):
         cdt = layers.torch_dtype(cfg.dtype)
         tokens = torch.as_tensor(tokens, device=self.device).long()
         x = self.embed[tokens].to(cdt) * math.sqrt(cfg.d_model)
+        if prefix_embeds is not None:
+            pfx = torch.as_tensor(prefix_embeds, device=self.device)
+            x = torch.cat([pfx.to(cdt), x], dim=1)
         bsz, s, _ = x.shape
         pos = (pos_offset + torch.arange(s, device=self.device)
                ).expand(bsz, s)
@@ -192,16 +200,13 @@ def _remat_context(policy: str):
 
 def loss_fn(model: Model, batch: Dict[str, object], *,
             remat: bool = True) -> torch.Tensor:
-    """Next-token cross entropy, the mean over labels >= 0 (JAX
-    ``model.loss_fn``). batch: {"tokens": (B, S), "labels": (B, S)}, numpy
-    or tensors; labels < 0 carry no loss. The logits are taken in f32 for
-    the log-sum-exp. A batch with ``prefix_embeds`` needs the embeds front
-    end, not ported yet (ROADMAP queue 1 item 12)."""
-    if batch.get("prefix_embeds") is not None:
-        raise NotImplementedError(
-            "prefix_embeds need the embeds front end, not ported yet "
-            "(ROADMAP queue 1 item 12)")
-    logits = model(batch["tokens"], mode="train", remat=remat)
+    """Next-token cross entropy over the token segment, the mean over
+    labels >= 0 (JAX ``model.loss_fn``). batch: {"tokens": (B, S),
+    "labels": (B, S), optional "prefix_embeds": (B, P, d)}, numpy or
+    tensors; the prefix positions and labels < 0 carry no loss. The logits
+    are taken in f32 for the log-sum-exp."""
+    logits = model(batch["tokens"], prefix_embeds=batch.get("prefix_embeds"),
+                   mode="train", remat=remat)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     npfx = logits.shape[1] - labels.shape[1]
     logits = logits[:, npfx:, :].to(torch.float32)
@@ -215,8 +220,8 @@ def loss_fn(model: Model, batch: Dict[str, object], *,
 @torch.no_grad()
 def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Model:
     """A model with weights drawn from ``seed`` on ``device`` (default
-    CUDA): matrices normal(0, 0.02), norms zeros, as the JAX init draws
-    them."""
+    CUDA): matrices and the MoE's 3-D expert tensors normal(0, 0.02), the
+    1-D norms zeros, as the JAX init draws them."""
     dev = resolve_device(device)
     model = Model(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -245,13 +250,16 @@ def init_cache(cfg: ModelConfig, batch: int, alloc_seq: int,
 
 
 @torch.no_grad()
-def prefill_step(model: Model, tokens, *, alloc_seq: int,
-                 cache_dtype=torch.bfloat16
+def prefill_step(model: Model, tokens, *, prefix_embeds=None,
+                 alloc_seq: int, cache_dtype=torch.bfloat16
                  ) -> Tuple[torch.Tensor, Caches]:
-    """Run the full prompt, build the decode cache, return last logits."""
+    """Run the full prompt (after ``prefix_embeds``, if given), build the
+    decode cache, return last logits. ``alloc_seq`` must count the
+    prefix."""
     cache = init_cache(model.cfg, tokens.shape[0], alloc_seq, cache_dtype,
                        model.device)
-    logits, cache = model(tokens, mode="prefill", cache=cache)
+    logits, cache = model(tokens, prefix_embeds=prefix_embeds,
+                          mode="prefill", cache=cache)
     return logits[:, -1, :], cache
 
 

@@ -4,7 +4,9 @@
 requests are grouped into waves of equal prompt length (up to ``n_slots``
 per wave); each wave is prefilled as one batch and decoded in lockstep,
 one token per step for every lane. A prompt of ``FLASH_THRESHOLD`` tokens
-or more prefills through the flash kernel.
+or more prefills through the flash kernel. An embeds model (``cfg.input_mode
+== "embeds"``) prefills each prompt after ``n_prefix_embeds`` zero
+front-end embeddings, the modality stub, as the JAX engine does.
 
 ``SpMMEngine`` is the paper's own workload as a service, one fixed sparse
 operand A and a queue of dense right-hand sides to multiply against it. A
@@ -36,6 +38,7 @@ import torch
 
 from ..core.incrs import InCRS
 from ..kernels import ops
+from ..models import layers
 from ..models import model as M
 from ..sparse import linear as _lin
 from . import scheduler as _sched
@@ -113,9 +116,19 @@ class ServeEngine:
         dev = self.model.device
         prompts = torch.as_tensor(np.stack([r.prompt for r in wave]),
                                   device=dev)
+        cfg = self.cfg
+        pfx = None
+        npfx = cfg.n_prefix_embeds if cfg.input_mode == "embeds" else 0
+        if npfx:
+            # the modality stub: zero front-end embeddings
+            pfx = torch.zeros((bsz, npfx, cfg.d_model), device=dev,
+                              dtype=layers.torch_dtype(cfg.dtype))
         t0 = time.perf_counter()
+        # the prefix takes cache positions too: decode reaches position
+        # s + npfx + max_new - 1, so the allocation counts it
         logits, cache = M.prefill_step(
-            self.model, prompts, alloc_seq=s + max_new + self.alloc_extra,
+            self.model, prompts, prefix_embeds=pfx,
+            alloc_seq=s + npfx + max_new + self.alloc_extra,
             cache_dtype=self.cache_dtype)
         lg = logits.to(torch.float32).cpu().numpy()
         self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
@@ -131,7 +144,7 @@ class ServeEngine:
             t0 = time.perf_counter()
             logits, cache = M.decode_step(
                 self.model, torch.as_tensor(last[:, None], device=dev),
-                cache, pos=s + step - 1)
+                cache, pos=s + npfx + step - 1)
             lg = logits.to(torch.float32).cpu().numpy()
             self.decode_ms.append((time.perf_counter() - t0) * 1e3)
             self.stats["decode_tokens"] += bsz

@@ -308,6 +308,41 @@ def test_lm_state_roundtrip(tmp_path, quantize):
     assert torch.equal(m1["loss"], m2["loss"])
 
 
+def test_moe_lm_state_roundtrip(tmp_path):
+    """A mixtral smoke model (the MoE FFN's router and 3-D expert tensors)
+    and its AdamW state after one step restore bit for bit into a fresh
+    model, under the same key paths as the dense LM's (``params/blocks/
+    <layer>/ffn/<name>``, ``opt/m/blocks.<layer>.ffn.<name>``); the next
+    step's loss is equal."""
+    cfg = configs.get_smoke("mixtral-8x7b")
+    opt = topt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=5)
+    model, state = trainer.init_train_state(cfg, opt, seed=1, device="cpu")
+    toks = np.arange(48).reshape(2, 24) % cfg.vocab_size
+    batch = {"tokens": toks, "labels": (toks + 1) % cfg.vocab_size}
+    step = trainer.make_step_fn(cfg, opt)
+    model, state, _ = step(model, state, batch)
+    ck = CheckpointManager(str(tmp_path), async_write=False)
+    ck.save(1, {"params": model, "opt": state})
+    with np.load(tmp_path / "step_00000001.npz") as z:
+        keys = set(z.files)
+        assert z["params/blocks/1/ffn/w_gate"].shape == (
+            cfg.n_experts, cfg.d_model, cfg.moe_d_ff)
+    for name in ("router", "w_gate", "w_up", "w_down"):
+        assert f"params/blocks/0/ffn/{name}" in keys
+        assert f"opt/m/blocks.0.ffn.{name}" in keys
+        assert f"opt/v/blocks.1.ffn.{name}" in keys
+    fresh, fstate = trainer.init_train_state(cfg, opt, seed=2, device="cpu")
+    got = ck.restore(1, {"params": fresh, "opt": fstate}, device="cpu")
+    for (k, a), (_, b) in zip(model.state_dict().items(),
+                              fresh.state_dict().items()):
+        assert torch.equal(a, b), k
+    for a, b in zip(_leaves(state), _leaves(got["opt"])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    _, _, m1 = step(model, state, batch)
+    _, _, m2 = step(fresh, got["opt"], batch)
+    assert torch.equal(m1["loss"], m2["loss"])
+
+
 def test_elastic_restore_new_sharding(tmp_path):
     """Arrays restore onto an explicitly given device, and a row-sharded
     layer's shards onto another mesh (the counterpart of placing on new

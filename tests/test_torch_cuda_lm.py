@@ -2,7 +2,8 @@
 against its plain torch version over types, head dims, group sizes,
 windows, soft caps and ragged lengths; the wrapper's refusals; one launch
 per ``ops.flash_mha``; a smoke-width model and ``ServeEngine`` prefilling
-through the kernel.
+through the kernel; the MoE FFN against the CPU and run to run, its ties,
+and an embeds prefill through the kernel.
 
 This file imports nothing of JAX, so it runs on a machine that has the card
 and no JAX: ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
@@ -15,7 +16,9 @@ plain version run in f32 on the same bf16 inputs ``1e-2`` of each query
 row's own max|out| (``F.worst_row_error``: bf16 rounding of P and of the
 output is 2^-8; a bound on the whole output's max would let an error of
 the long rows, whose outputs are small, through); model logits on the
-card against the same model on the CPU ``1e-4`` (f32 throughout).
+card against the same model on the CPU ``1e-4`` (f32 throughout); an
+MoE layer's output and grads ``1e-4`` of each tensor's max against the
+CPU, bitwise against its repeat.
 """
 import dataclasses
 
@@ -294,3 +297,95 @@ def test_full_width_granite_layer_on_the_card(cuda):
     assert logits.shape == (1, cfg.padded_vocab())
     assert bool(torch.isfinite(logits).all())
     assert cache[0]["k"].dtype == torch.bfloat16 and cache[0]["end"] == 8192
+
+
+# ----------------------------------------------------------------------
+# The MoE FFN and the embeds front end on the card.
+def _moe_pair(cuda, name="qwen2-moe-a2.7b", seed=0):
+    """One MoE layer of ``name``'s smoke config (f32), on the card and on
+    the CPU with the same weights."""
+    cfg = configs.get_smoke(name)
+    gen = torch.Generator().manual_seed(seed)
+    cpu = layers.MoE(cfg, device="cpu")
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+    card = layers.MoE(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+def _moe_run(layer, x, mode="train"):
+    """Output, input grad and parameter grads of one call."""
+    layer.zero_grad(set_to_none=True)
+    x = x.clone().requires_grad_()
+    out = layer(x, mode=mode)
+    (out * torch.linspace(-1, 1, out.shape[-1], device=out.device)).sum() \
+        .backward()
+    return [out.detach(), x.grad] + [p.grad for p in layer.parameters()]
+
+
+@pytest.mark.parametrize("name,mode,s", [
+    ("qwen2-moe-a2.7b", "train", 40), ("mixtral-8x7b", "train", 40),
+    ("mixtral-8x7b", "decode", 1)])
+def test_moe_layer_on_the_card_matches_the_cpu_and_repeats(cuda, name, mode,
+                                                           s):
+    """Forward and grads within 1e-4 of each tensor's max of the same
+    layer on the CPU (the same routing), and bitwise equal run to run."""
+    cfg, cpu, card = _moe_pair(cuda, name)
+    x = torch.randn(2, s, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    cpu.route_log, card.route_log = [], []
+    want = _moe_run(cpu, x, mode)
+    got = _moe_run(card, x.to(cuda), mode)
+    assert torch.equal(card.route_log[0].topi.cpu(), cpu.route_log[0].topi)
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= \
+            LOGIT_TOL * float(w.abs().max())
+    again = _moe_run(card, x.to(cuda), mode)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_moe_ties_go_to_the_lower_expert_on_the_card(cuda):
+    """A zero router ties every expert: each token takes experts 0..k-1
+    (``jax.lax.top_k``'s order), bf16 logits tied in blocks likewise."""
+    cfg, _, card = _moe_pair(cuda)
+    k = cfg.n_experts_per_tok
+    with torch.no_grad():
+        card.router.zero_()
+    card.route_log = []
+    x = torch.randn(2, 30, cfg.d_model, device=cuda)
+    with torch.no_grad():
+        card(x, mode="train")
+        card(x.bfloat16(), mode="train")
+    for r in card.route_log:
+        assert r.topi.unique().tolist() == list(range(k))
+    gen = torch.Generator().manual_seed(3)
+    base = torch.randn(2, 16, 2, generator=gen)
+    pick = torch.randint(0, 2, (cfg.n_experts,), generator=gen)
+    logits = base[..., pick].bfloat16().float()
+    _, got = layers.top_k_lower(logits.to(cuda), k)
+    order = torch.sort(-logits, dim=-1, stable=True).indices[..., :k]
+    assert torch.equal(got.cpu(), order)
+
+
+def test_embeds_prefill_launches_flash_once_a_layer(cuda):
+    """internvl2-1b's smoke model: 8,192 positions, prefix included, take
+    the flash kernel once a layer, within 1e-4 of the CPU."""
+    cfg = configs.get_smoke("internvl2-1b")
+    model = M.init(cfg, seed=0, device=cuda)
+    cpu = M.Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    s = 8192 - cfg.n_prefix_embeds
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (1, s))
+    pfx = torch.randn(1, cfg.n_prefix_embeds, cfg.d_model,
+                      generator=torch.Generator().manual_seed(5))
+    F.reset_launches()
+    logits, cache = M.prefill_step(model, toks, prefix_embeds=pfx.to(cuda),
+                                   alloc_seq=8200, cache_dtype=torch.float32)
+    assert F.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert cache[0]["end"] == 8192
+    want, _ = M.prefill_step(cpu, toks, prefix_embeds=pfx, alloc_seq=8200,
+                             cache_dtype=torch.float32)
+    np.testing.assert_allclose(logits.cpu().numpy(), want.numpy(),
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)

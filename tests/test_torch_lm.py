@@ -1,5 +1,7 @@
 """The port's LM stack (configs, flash attention, layers, model, serving
-engine, launcher) against the JAX package on the CPU.
+engine, launcher) against the JAX package on the CPU, the MoE and embeds
+architectures included (their prefix embeds in the logits, the engines'
+tokens, the cache that counts the prefix).
 
 Inputs are made with numpy from a seed and handed to both packages. The
 port's flash attention on the CPU is its plain version; the JAX side runs
@@ -38,7 +40,11 @@ from repro_torch.serve import engine as teng              # noqa: E402
 ATTN_TOL = 2e-5
 LOGIT_TOL = 1e-4
 PORTED = ("granite-34b", "phi3-medium-14b", "mistral-large-123b",
-          "llama3-405b")
+          "llama3-405b", "mixtral-8x7b", "qwen2-moe-a2.7b", "musicgen-medium",
+          "internvl2-1b")
+# the MoE and embeds architectures (ROADMAP queue 1 item 12a)
+FAMILIES = ("mixtral-8x7b", "qwen2-moe-a2.7b", "musicgen-medium",
+            "internvl2-1b")
 
 
 def _as_dict(cfg):
@@ -76,11 +82,13 @@ def test_ported_configs_equal_jax(name):
 
 
 def test_unported_architectures_name_their_roadmap_item():
+    """Only the SSD and RG-LRU architectures are refused now (item 12b);
+    the MoE and embeds ones build (``test_item_12a_archs_build_and_run``)."""
     assert set(tconfigs.ARCH_NAMES) | set(tconfigs.UNPORTED) == \
         set(jconfigs.ARCH_NAMES)
-    for name, what in (("mixtral-8x7b", "MoE"), ("mamba2-370m", "SSD"),
-                       ("recurrentgemma-2b", "RG-LRU"),
-                       ("internvl2-1b", "embeds")):
+    assert set(tconfigs.UNPORTED) == {"mamba2-370m", "recurrentgemma-2b"}
+    for name, what in (("mamba2-370m", "SSD"),
+                       ("recurrentgemma-2b", "RG-LRU")):
         for get in (tconfigs.get, tconfigs.get_smoke):
             with pytest.raises(NotImplementedError,
                                match=f"{what}.*item 12"):
@@ -89,6 +97,28 @@ def test_unported_architectures_name_their_roadmap_item():
         with pytest.raises(NotImplementedError, match="item 12"):
             tmodel.Model(tconfig.ModelConfig(**_as_dict(
                 jconfigs.get_smoke(name))), device="cpu")
+    for name in FAMILIES:
+        assert tconfigs.get(name) == tconfig.ModelConfig(**_as_dict(
+            jconfigs.get(name)))
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_item_12a_archs_build_and_run(name):
+    """The four architectures item 12 refused build, run a forward pass
+    (with their prefix embeds where they take them) and give finite
+    logits of the padded vocabulary."""
+    cfg = tconfigs.get_smoke(name)
+    model = tmodel.init(cfg, seed=0, device="cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 10))
+    npfx = cfg.n_prefix_embeds if cfg.input_mode == "embeds" else 0
+    pfx = (np.random.default_rng(1).normal(
+        size=(2, npfx, cfg.d_model)).astype(np.float32) if npfx else None)
+    with torch.no_grad():
+        logits = model(torch.from_numpy(toks), prefix_embeds=pfx)
+    assert logits.shape == (2, npfx + 10, cfg.padded_vocab())
+    assert bool(torch.isfinite(logits).all())
+    assert isinstance(model.blocks[0].ffn,
+                      tlayers.MoE if cfg.is_moe else tlayers.MLP)
 
 
 # ----------------------------------------------------------------------
@@ -178,7 +208,12 @@ MODEL_CASES = {
     "granite_window_cap": ("granite-34b",
                            dict(sliding_window=16, logits_soft_cap=30.0)),
     "granite_block_sparse": ("granite-34b", {}),
+    "mixtral": ("mixtral-8x7b", {}),
+    "qwen2": ("qwen2-moe-a2.7b", {}),
+    "musicgen": ("musicgen-medium", {}),
+    "internvl2": ("internvl2-1b", {}),
 }
+EMBEDS = ("musicgen", "internvl2")
 
 
 @pytest.fixture(scope="module")
@@ -243,6 +278,10 @@ def test_forward_matches_jax(models, flash_threshold, case, threshold):
     ("granite", 12, 8192),
     ("phi3", 12, 8),
     ("granite_window_cap", 20, 8),     # the ring wraps in prefill and decode
+    ("mixtral", 20, 8),                # MoE, the window ring wraps
+    ("qwen2", 12, 8192),               # MoE with shared experts
+    ("musicgen", 12, 8192),            # embeds: the prefix takes positions
+    ("internvl2", 12, 16),
 ])
 def test_prefill_then_decode_match_jax_step_for_step(
         models, flash_threshold, case, prompt, threshold):
@@ -251,22 +290,53 @@ def test_prefill_then_decode_match_jax_step_for_step(
     rng = np.random.default_rng(4)
     toks = rng.integers(0, jcfg.vocab_size, (2, prompt)).astype(np.int32)
     feed = rng.integers(0, jcfg.vocab_size, (8, 2, 1)).astype(np.int32)
-    alloc = prompt + 8 + 4
+    npfx = jcfg.n_prefix_embeds if jcfg.input_mode == "embeds" else 0
+    pfx = rng.normal(size=(2, npfx, jcfg.d_model)).astype(np.float32)
+    jpfx, tpfx = ((jnp.asarray(pfx), torch.from_numpy(pfx)) if npfx
+                  else (None, None))
+    alloc = npfx + prompt + 8 + 4
     jl, jc = jmodel.prefill_step(jcfg, params, jnp.asarray(toks),
-                                 alloc_seq=alloc, cache_dtype=jnp.float32)
+                                 prefix_embeds=jpfx, alloc_seq=alloc,
+                                 cache_dtype=jnp.float32)
     tl, tc = tmodel.prefill_step(model, torch.from_numpy(toks),
-                                 alloc_seq=alloc, cache_dtype=torch.float32)
+                                 prefix_embeds=tpfx, alloc_seq=alloc,
+                                 cache_dtype=torch.float32)
     _close(tl, jl)
     if jcfg.sliding_window:
         assert tc[0]["k"].shape[1] == jcfg.sliding_window < alloc
     for step in range(8):
-        pos = prompt + step
+        pos = npfx + prompt + step
         jl, jc = jmodel.decode_step(jcfg, params, jnp.asarray(feed[step]),
                                     jc, pos=pos)
         tl, tc = tmodel.decode_step(model, torch.from_numpy(feed[step]), tc,
                                     pos=pos)
         _close(tl, jl)
-    assert tc[0]["end"] == prompt + 8
+    assert tc[0]["end"] == npfx + prompt + 8
+
+
+@pytest.mark.parametrize("threshold", [8192, 32], ids=["dense", "flash"])
+@pytest.mark.parametrize("case", EMBEDS)
+def test_prefix_embeds_logits_match_jax(models, flash_threshold, case,
+                                        threshold):
+    """Train and prefill logits with the front end's embeddings
+    prepended, over the prefix and the token segment."""
+    jcfg, params, model = models[case]
+    flash_threshold(threshold)
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, jcfg.vocab_size, (2, 40)).astype(np.int32)
+    pfx = rng.normal(size=(2, jcfg.n_prefix_embeds, jcfg.d_model)).astype(
+        np.float32)
+    with torch.no_grad():
+        got = model(torch.from_numpy(toks), prefix_embeds=torch.from_numpy(
+            pfx), mode="train")
+        got_p, cache = model(torch.from_numpy(toks), prefix_embeds=pfx,
+                             mode="prefill")
+    assert got.shape[1] == jcfg.n_prefix_embeds + 40
+    for mode, g in (("train", got), ("prefill", got_p)):
+        want = jmodel.forward(jcfg, params, jnp.asarray(toks),
+                              prefix_embeds=jnp.asarray(pfx), mode=mode)
+        _close(g, want if mode == "train" else want[0])
+    assert cache[0]["end"] == jcfg.n_prefix_embeds + 40
 
 
 def _requests(mod, vocab, temperature):
@@ -296,6 +366,53 @@ def test_serve_engine_matches_jax_engine(models, temperature):
     assert len(tdone.prefill_ms) == tdone.stats["waves"]
 
 
+@pytest.mark.parametrize("case", ["mixtral", "qwen2", "musicgen",
+                                  "internvl2"])
+def test_serve_engine_matches_jax_engine_moe_and_embeds(models, case):
+    """Both engines' tokens on the MoE and embeds smoke configs (the
+    embeds engines prefill zero front-end embeddings first)."""
+    jcfg, params, model = models[case]
+    out = []
+    for eng in (jeng.ServeEngine(jcfg, params, n_slots=2,
+                                 cache_dtype=jnp.float32, seed=7),
+                teng.ServeEngine(model, n_slots=2, cache_dtype=torch.float32,
+                                 seed=7)):
+        mod = jeng if isinstance(eng, jeng.ServeEngine) else teng
+        for r in _requests(mod, jcfg.vocab_size, 0.8):
+            eng.submit(r)
+        out.append({r.rid: r.out for r in eng.run()})
+    assert out[1] == out[0]
+    assert [len(out[1][i]) for i in range(6)] == [5, 3, 0, 4, 6, 2]
+
+
+def test_embeds_mode_alloc_includes_prefix(models, monkeypatch):
+    """JAX's regression (``tests/test_serve.py``): the allocation counts
+    the prefix, so at ``alloc_extra=0`` decode still has a slot for every
+    position up to s + npfx + max_new - 1, and the greedy tokens equal a
+    generous allocation's and JAX's."""
+    jcfg, params, model = models["internvl2"]
+    seen = []
+    real = tmodel.prefill_step
+
+    def spy(model_, prompts, **kw):
+        seen.append(kw["alloc_seq"])
+        return real(model_, prompts, **kw)
+    monkeypatch.setattr(tmodel, "prefill_step", spy)
+    prompt = np.arange(4, 12, dtype=np.int32)
+    outs = []
+    for extra in (64, 0):
+        eng = teng.ServeEngine(model, n_slots=1, cache_dtype=torch.float32,
+                               alloc_extra=extra)
+        eng.submit(teng.Request(0, prompt, max_new=6))
+        outs.append(eng.run()[0].out)
+    assert seen[1] == 8 + jcfg.n_prefix_embeds + 6
+    assert outs[0] == outs[1] and len(outs[1]) == 6
+    jeng_ = jeng.ServeEngine(jcfg, params, n_slots=1,
+                             cache_dtype=jnp.float32, alloc_extra=0)
+    jeng_.submit(jeng.Request(0, prompt, max_new=6))
+    assert jeng_.run()[0].out == outs[1]
+
+
 def test_launcher_serves_an_lm_on_cpu(capsys):
     from repro_torch.launch import serve
     rc = serve.main(["--arch", "granite-34b", "--smoke", "--device", "cpu",
@@ -304,5 +421,10 @@ def test_launcher_serves_an_lm_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "arch=granite-34b-smoke served 3 requests, 12 tokens" in out
     assert '"flash_attention": 0' in out
-    with pytest.raises(NotImplementedError, match="MoE"):
-        serve.main(["--arch", "mixtral-8x7b", "--smoke", "--device", "cpu"])
+    for arch in ("mixtral-8x7b", "musicgen-medium"):
+        assert serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                           "--n-requests", "2", "--max-new", "3"]) == 0
+        assert f"arch={arch}-smoke served 2 requests, 6 tokens" in \
+            capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="SSD"):
+        serve.main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu"])

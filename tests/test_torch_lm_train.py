@@ -1,6 +1,7 @@
 """The port's LM training path (train-mode chunked attention, loss_fn with
 remat, loss_and_grads with microbatches, the AdamW step, the launcher and
-the sparse-FFN example) against the JAX package on the CPU.
+the sparse-FFN example) against the JAX package on the CPU, for the
+dense, MoE and embeds smoke configs.
 
 Inputs come from numpy seeds and ``repro.data.pipeline.SyntheticTokens``
 and go to both packages; the weights are JAX's, carried over by
@@ -45,7 +46,10 @@ GRAD_TOL = 1e-5
 STEP_TOL = 1e-4
 ATTN_TOL = 3e-5
 ARCHS = ("granite-34b", "phi3-medium-14b", "mistral-large-123b",
-         "llama3-405b")
+         "llama3-405b", "mixtral-8x7b", "qwen2-moe-a2.7b", "musicgen-medium",
+         "internvl2-1b")
+# the MoE and embeds architectures (ROADMAP queue 1 item 12a)
+FAMILIES = ARCHS[4:]
 
 
 def _cfgs(name, **over):
@@ -96,8 +100,13 @@ def _by_name(cfg, tree):
     return {k: np.asarray(v) for k, v in out.items()}
 
 
-def _batch(cfg, batch=4, seq=24, seed=1):
-    return SyntheticTokens(cfg.vocab_size, batch, seq, seed=seed).batch_at(0)
+def _batch(cfg, batch=4, seq=24, seed=1, step=0):
+    """A SyntheticTokens batch; an embeds config's carries its
+    ``prefix_embeds``."""
+    npfx = cfg.n_prefix_embeds if cfg.input_mode == "embeds" else 0
+    return SyntheticTokens(cfg.vocab_size, batch, seq, seed=seed,
+                           n_prefix=npfx,
+                           d_model=cfg.d_model).batch_at(step)
 
 
 def _close_by_tensor(got, want, tol):
@@ -133,8 +142,19 @@ def test_loss_masks_negative_labels_as_jax():
     batch["labels"][:] = -1                       # nothing counts: loss 0
     with torch.no_grad():
         assert float(tmodel.loss_fn(model, batch)) == 0.0
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tmodel.loss_fn(model, dict(batch, prefix_embeds=np.zeros((1,))))
+    # prefix embeds (the embeds front end): the prefix positions carry no
+    # loss, and masked labels still count for nothing
+    jcfg, params, model = _pair("internvl2-1b")
+    batch = _batch(jcfg)
+    assert batch["prefix_embeds"].shape == (4, jcfg.n_prefix_embeds,
+                                            jcfg.d_model)
+    batch["labels"] = batch["labels"].copy()
+    batch["labels"][:, ::3] = -1
+    jl = jmodel.loss_fn(jcfg, params,
+                        {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        np.testing.assert_allclose(float(tmodel.loss_fn(model, batch)),
+                                   float(jl), rtol=1e-5)
 
 
 @pytest.mark.parametrize("policy", ["nothing", "dots"])
@@ -217,6 +237,28 @@ def test_grad_accumulation_equivalence(n_micro):
         ttrainer.loss_and_grads(model, batch, n_micro=3)
 
 
+@pytest.mark.parametrize("name", FAMILIES)
+def test_grad_accumulation_equivalence_moe_and_embeds(name):
+    """Two microbatches against one batch and against JAX's accumulation
+    (MoE routing and capacity are per sequence, so a split changes no
+    route; the prefix embeds split with their tokens)."""
+    jcfg, params, model = _pair(name)
+    batch = _batch(jcfg, batch=4)
+    l1, g1 = ttrainer.loss_and_grads(model, batch, n_micro=1, remat=False)
+    ln, gn = ttrainer.loss_and_grads(model, batch, n_micro=2, remat=False)
+    np.testing.assert_allclose(float(l1), float(ln), rtol=1e-5)
+    for k in g1:
+        np.testing.assert_allclose(gn[k].numpy(), g1[k].numpy(), rtol=5e-4,
+                                   atol=1e-5)
+    jl, jg = jtrainer.loss_and_grads(
+        jcfg, params, {k: jnp.asarray(v) for k, v in batch.items()},
+        n_micro=2, remat=False)
+    np.testing.assert_allclose(float(ln), float(jl), rtol=1e-5)
+    want = _by_name(jcfg, jg)
+    for k in gn:
+        _close_by_tensor(gn[k].numpy(), want[k], GRAD_TOL)
+
+
 def _jax_steps(jcfg, params, opt, batches, n_micro=1):
     step = jax.jit(jtrainer.make_step_fn(jcfg, opt, n_micro=n_micro))
     state = jopt.adamw_init(opt, params)
@@ -228,18 +270,23 @@ def _jax_steps(jcfg, params, opt, batches, n_micro=1):
     return params, out
 
 
-@pytest.mark.parametrize("case", ["granite", "phi3", "sparse_micro"])
+ADAMW_ARCH = {"granite": "granite-34b", "phi3": "phi3-medium-14b",
+              "sparse_micro": "granite-34b", "mixtral": "mixtral-8x7b",
+              "qwen2_micro": "qwen2-moe-a2.7b",
+              "musicgen": "musicgen-medium", "internvl2": "internvl2-1b"}
+
+
+@pytest.mark.parametrize("case", list(ADAMW_ARCH))
 def test_adamw_steps_match_jax(case):
     """Three steps of ``make_step_fn`` against JAX's, from one init, f32
     moments (int8 moments round to a grid, where one ulp of difference
     can move a slot by a quantum; ``tests/test_torch_train.py`` holds the
     int8 update against JAX's on one shared state)."""
-    name = "phi3-medium-14b" if case == "phi3" else "granite-34b"
-    jcfg, params, model = _pair(name, sparse=case == "sparse_micro")
+    jcfg, params, model = _pair(ADAMW_ARCH[case],
+                                sparse=case == "sparse_micro")
     opt = dict(lr=1e-3, warmup_steps=1, total_steps=10)
-    n_micro = 2 if case == "sparse_micro" else 1
-    src = SyntheticTokens(jcfg.vocab_size, 4, 24, seed=3)
-    batches = [src.batch_at(i) for i in range(3)]
+    n_micro = 2 if case.endswith("_micro") else 1
+    batches = [_batch(jcfg, seed=3, step=i) for i in range(3)]
     jparams, jm = _jax_steps(jcfg, params, jopt.AdamWConfig(**opt), batches,
                              n_micro)
     topt_cfg = topt.AdamWConfig(**opt)
@@ -457,12 +504,24 @@ def test_launcher_flag_conflicts(flags, match):
 
 
 def test_launcher_int8_microbatches_and_unported(capsys):
+    """int8 moments and microbatches; the MoE and embeds architectures
+    train through the launcher (a finite loss every step); the SSD one is
+    still refused, naming item 12."""
     loss = _launch(["--arch", "phi3-medium-14b", "--smoke", "--device",
                     "cpu", "--steps", "2", "--seq", "16", "--batch", "4",
                     "--n-micro", "2", "--int8-opt"])
     assert np.isfinite(loss)
+    for arch in ("qwen2-moe-a2.7b", "musicgen-medium"):
+        capsys.readouterr()
+        last = _launch(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--steps", "6", "--seq", "16", "--batch", "4",
+                        "--n-micro", "2", "--lr", "3e-3", "--log-every",
+                        "1"])
+        out = capsys.readouterr().out
+        assert f"arch={arch}-smoke" in out and np.isfinite(last)
+        assert out.count("  loss ") == 6
     with pytest.raises(NotImplementedError, match="item 12"):
-        _launch(["--arch", "mixtral-8x7b", "--smoke", "--device", "cpu"])
+        _launch(["--arch", "mamba2-370m", "--smoke", "--device", "cpu"])
 
 
 def test_sparse_lm_example_on_cpu(capsys):

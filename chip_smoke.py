@@ -103,9 +103,9 @@ Phases, each printing one JSON line:
              just after; every wave launches one kernel of its format and
              no other. Then the serving launcher as a subprocess with
              --format bsr and --format dense on the five Table II
-             workloads and once with --spmm-swap, checked for its exit
-             code, error and launches (two waves each: its printed rate
-             measures nothing).
+             workloads and once with --spmm-swap, 8 at a time, checked
+             for its exit code, error and launches (two waves each: its
+             printed rate measures nothing).
              Then bf16 bsr and dense plans of docword served with bf16
              requests, one launch of the bf16 instance per wave.
 11. plan_times — both kernels at the granite operand and at docword,
@@ -129,14 +129,16 @@ Phases, each printing one JSON line:
              its counted bytes; a plan tenant's printed), the pool's
              stats, each tenant's latency, revivals and shared memory a
              launch, a CUDA engine's cost-model seed, and the serve bench
-             (--smoke) and the spmm_serve example as subprocesses.
+             (--smoke) and the spmm_serve example as two subprocesses at
+             once.
 12. train — the fifth path: granite-34b's MLP (W_up 6144 -> 24576, tanh,
              W_down back) trained at full width for 8 AdamW steps on 512
              token rows, once as incrs (density 0.1, section 256) and once
              as bsr (block 128, density 0.25): the packing timed; step 0's
              gradients (live slots) and dL/dh within 1e-4 of a float64
-             host oracle; l2's dx kernel on the transposed stripes or
-             block lists within 1e-5 of its plain version; each product
+             dense oracle (on the card); l2's dx kernel on the transposed
+             stripes or block lists within 1e-5 of its plain version;
+             each product
              of a step timed alone (the forwards, dx beside its plain
              version and a library call, each dW beside the dense x^T dy);
              then the steps, each split by CUDA events into forward,
@@ -148,8 +150,8 @@ Phases, each printing one JSON line:
              step of the format's kernel (for incrs, of the orders ``auto``
              picks) and none of another. The loss falls,
              pad slots and zero tiles stay 0.0, the trained l1 is served
-             by SpMMEngine within 1e-4 of float64 one launch a wave, and
-             the training example runs as a subprocess.
+             by SpMMEngine within 1e-4 of float64 one launch a wave (the
+             training example runs at the end of phase lifecycle).
    sharded — between incrs's phases train and lifecycle, the ninth
              path: train's incrs l1 (granite-34b's W_up^T at density 0.1)
              cut by ``Linear.shard`` into 8 row panels of 3072 rows on
@@ -184,7 +186,8 @@ Phases, each printing one JSON line:
              and pruned slots gone, pad slots and zero tiles 0.0, latency
              before and after the swap (and the served operand's kernel
              alone on a 512-column panel, before and after), peak memory;
-             after both formats, the reprune example as a subprocess.
+             after both formats, the reprune example and the training
+             example (incrs and bsr) as three subprocesses at once.
 14. crs_plan — the seventh path: granite-34b's W_up^T (24576 x 6144,
              density 0.1) planned once by ``plan_for_operand`` as ``crs``
              (R = 128), times B^T = top-5 % activations (307 of 6,144 per
@@ -268,10 +271,35 @@ Phases, each printing one JSON line:
              memory, the loss falling, every step-0 grad finite, experts
              no token reached counted. Then the serving launcher as a
              subprocess for qwen2-moe and internvl2 smoke configs at
-             8,192 positions, and the training launcher on qwen2-moe's
-             resumed from its step-4 checkpoint, steps 5-8 bitwise.
+             8,192 positions, while the training launcher on qwen2-moe's
+             is resumed from its step-4 checkpoint, steps 5-8 bitwise.
              ``python3 chip_smoke.py --lm-families`` runs this phase alone.
-20. profile_in_process — last, so that it perturbs no later profile:
+20. lm_recurrent — the SSD and RG-LRU mixers: mamba2-370m (all 48
+             layers, served and trained) and recurrentgemma-2b (served at
+             all 26 layers, trained at 13, one repetition of its
+             pattern: 9 RG-LRU, 4 local attention) at full width. Each:
+             ``ServeEngine`` serves 2 requests of 8,192 positions (one
+             wave: one flash launch a
+             local-attention layer, 8 for recurrentgemma, none for
+             mamba2) and 4 of 512 (none), counters zeroed just before
+             each; the f32 decode logits against a teacher-forced
+             prefill, the mixers' leaves redrawn so that the state
+             carries the output; the served decode
+             cache's bytes a sequence (the SSD state and conv tail; the
+             RG-LRU state, conv tail and the 2,048-slot ring) equal at
+             8,200 and 524,288 positions; one layer's step-0 f32 grads
+             against float64 and its bf16 grads inside lm_train's band,
+             every grad finite at mamba2's chunk of 256; 8 AdamW steps on
+             one batch of 4 x 2,048 tokens (bf16 compute, f32 params,
+             remat "dots"; recurrentgemma's in 4 microbatches), the loss
+             falling. Then the serving launcher as a subprocess on
+             recurrentgemma's smoke config at 8,192
+             positions (1 flash launch), while the training launcher on
+             mamba2's is resumed from its step-4 checkpoint, steps 5-8
+             bitwise. ``python3 chip_smoke.py --lm-recurrent`` runs this
+             phase alone; ``--lm-recurrent-profile`` profiles both archs'
+             long prefill and training step in a process of its own.
+21. profile_in_process — last, so that it perturbs no later profile:
              phase 4's plan-path operands (docword bsr and dense, granite
              bsr) planned again and each served once under torch.profiler
              in this process, its kernel records against its 16 launches
@@ -279,8 +307,10 @@ Phases, each printing one JSON line:
              A loss is printed, not failed.
 
 Then the card's line, the ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``. Any failed check raises. Without a CUDA
-device, or without the rest of the repository, it exits non-zero and
+``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --serial`` runs
+the same smoke with the subprocesses that it otherwise runs at once
+(``_concurrently``) one after another. Any failed check raises. Without a
+CUDA device, or without the rest of the repository, it exits non-zero and
 prints no result.
 """
 import json
@@ -379,10 +409,12 @@ def auto_orders(ops, preps, cap=512, quantum=128):
 
 
 def emit(obj) -> None:
-    """One JSON line; a phase's line also gets the seconds since start."""
+    """One JSON line, in one write (threads that wait on subprocesses may
+    emit too); a phase's line also gets the seconds since start."""
     if "phase" in obj:
         obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
-    print(json.dumps(obj), flush=True)
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
 
 
 def check(cond: bool, what: str) -> None:
@@ -2037,11 +2069,34 @@ _LAUNCHER_NUMBERS = {   # the rates of two waves: printed, not a cell
 }
 
 
+SERIAL = False      # ``chip_smoke.py --serial``: _concurrently in turn
+
+
+def _concurrently(fn, arg_lists, workers=4, beside=None):
+    """``fn(*args)`` for each of ``arg_lists`` on ``workers`` threads (each
+    call runs a subprocess and waits on it), results in the given order,
+    while ``beside()``, if given, runs in this thread (it may redirect
+    stdout: the threads' calls print nothing); a call's exception is
+    raised when its result is read. Returns the results, then
+    ``beside()``'s when given. Under ``--serial`` every call runs in this
+    thread in turn, ``beside`` last: the smoke without its concurrency."""
+    if SERIAL:
+        results = [fn(*args) for args in arg_lists]
+        return results if beside is None else (results, beside())
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        futures = [pool.submit(fn, *args) for args in arg_lists]
+        extra = None if beside is None else beside()
+        results = [f.result() for f in futures]
+    return results if beside is None else (results, extra)
+
+
 def _run_launcher(args):
     """The launcher as a subprocess: a check of its exit code, its error
     against float64 and its launches. Its rate and latency are printed
-    as it reports them, but two waves of requests measure no rate: the
-    engine runs of phase plan_serve do."""
+    as it reports them, but two waves of requests measure no rate (and
+    phase plan_serve runs its launchers 8 at a time): the engine runs of
+    phase plan_serve do."""
     import re
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
                os.environ.get("PYTHONPATH", ""))
@@ -2165,8 +2220,9 @@ def phase_plan_serve(torch, Q, table2, granite):
             for fmt in ("bsr", "dense")]
     runs.append(["--workload", "incrs-docword", "--format", "bsr",
                   "--spmm-block", "50", "--spmm-swap"])
-    for args in runs:
-        line = _run_launcher(args)
+    for args, line in zip(runs, _concurrently(_run_launcher,
+                                              [(a,) for a in runs],
+                                              workers=8)):
         kname = "bsr_spmm" if "bsr" in args else "dense_mm"
         moved = {k: v for k, v in line["launches"].items() if v}
         check(moved == {kname: int(line["waves"])},
@@ -2562,7 +2618,8 @@ def phase_tenancy(torch, T, table2):
     on the card, one launch a wave of the tenant's kernel. Then evictions
     with the memory they free, the pool's stats, each tenant's latency and
     revivals, the shared memory a launch needs, and the serve bench
-    (--smoke) and the spmm_serve example as subprocesses."""
+    (--smoke) and the spmm_serve example as two subprocesses at once
+    (exit-code checks: the bench's printed rates are not kept)."""
     granite, build_s = _granite_checkpoints(T)
     docword = table2["incrs-docword"].crs.to_dense()
     tenants = {name: ("incrs", table2[name], table2[name].crs.to_dense())
@@ -2689,10 +2746,11 @@ def phase_tenancy(torch, T, table2):
           "tolerance": f"max|C - C64| <= {SERVE_TOL} * max|C64|"})
     del pool, tenants
     torch.cuda.empty_cache()
-    out = _run_module("repro_torch.benchmarks.serve_bench", ["--smoke"])
-    check("crosscheck,ok" in out, "the serve bench's cross-check passed")
-    out = _run_module("repro_torch.examples.spmm_serve", [])
-    check("max rel err" in out, "the example checked every request")
+    bench, example = _concurrently(_run_module, [
+        ("repro_torch.benchmarks.serve_bench", ["--smoke"]),
+        ("repro_torch.examples.spmm_serve", [])])
+    check("crosscheck,ok" in bench, "the serve bench's cross-check passed")
+    check("max rel err" in example, "the example checked every request")
     return launches
 
 
@@ -2985,7 +3043,7 @@ def phase_train(torch, R, fmt):
     """One format: pack, hold step 0's gradients against float64 and l2's
     dx kernel against its plain version, time each product, take the
     counted steps, check the loss and the frozen slots, serve the trained
-    l1, run the example as a subprocess. Returns the kernel's row
+    l1 (``train_path`` runs the example). Returns the kernel's row
     additions and the trained student, its AdamW state and data (phase
     lifecycle takes them over)."""
     g = TRAIN
@@ -2999,7 +3057,7 @@ def phase_train(torch, R, fmt):
         shapes.update({f"{k}_bwd_idx": list(lin.meta.bwd_idx.shape)
                        for k, lin in model.items()})
     t0 = time.perf_counter()
-    grad_err = R.ex.grad_errors(model, x, y)        # float64 on the host
+    grad_err = R.ex.grad_errors(model, x, y)        # float64, dense
     oracle_s = time.perf_counter() - t0
     for k, err in grad_err.items():
         check(err <= GRAD_TOL, f"train {fmt}: {k} off float64 by {err} > "
@@ -3076,16 +3134,6 @@ def phase_train(torch, R, fmt):
               "launches": served_launches, "max_rel_err": served_err}
     del eng, flush
     torch.cuda.empty_cache()
-    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
-               os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.examples.train_unstructured",
-         "--format", fmt], cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=600)
-    if proc.returncode != 0:
-        emit({"phase": "train_example", "format": fmt, "rc": proc.returncode,
-              "stdout": proc.stdout[-2000:], "stderr": proc.stderr[-2000:]})
-    check(proc.returncode == 0, f"train {fmt}: the example exited 0")
     emit({"phase": "train", "format": fmt, "model": "granite-34b MLP",
           "tokens": g["tokens"], "steps": g["steps"],
           "spec": TRAIN_SPECS[fmt], "values_shapes": shapes,
@@ -3097,9 +3145,7 @@ def phase_train(torch, R, fmt):
               sum(counts.values()) / g["steps"], "sweeps": sweeps,
           "losses": losses,
           "final_loss": final, "frozen_slots": frozen,
-          "served": served,
-          "example_rc": proc.returncode,
-          "example_tail": proc.stdout.strip().splitlines()[-3:]})
+          "served": served})
     dx = parts["dx_l2"]
     handoff = {"model": model, "state": state, "cfg": cfg, "x": x, "y": y,
                "final_loss": final, "step_median": {
@@ -3128,17 +3174,31 @@ def train_path(torch):
         out[fmt] = row, phase_lifecycle(torch, R, fmt, handoff)
         del handoff
         torch.cuda.empty_cache()
+    # the examples, as subprocesses at once: exit-code checks
+    examples = [("repro_torch.examples.train_unstructured", "--format", fmt)
+                for fmt in ("incrs", "bsr")]
+    examples.append(("repro_torch.examples.train_reprune", "--device",
+                     "cuda"))
+    for args, (rc, wall, stdout, stderr) in zip(
+            examples, _concurrently(_run_example, examples)):
+        emit({"phase": "lifecycle_example" if "train_reprune" in args[0]
+              else "train_example", "cmd": " ".join(args), "rc": rc,
+              "wall_s": wall, "stdout": stdout.strip()[-1500:],
+              "stderr": stderr.strip()[-1500:]})
+        check(rc == 0, f"{' '.join(args)} exited 0")
+    return out
+
+
+def _run_example(*args):
+    """``python -m`` ``args`` from the root: (exit code, wall s, stdout,
+    stderr)."""
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
                os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.examples.train_reprune",
-         "--device", "cuda"], cwd=ROOT, env=env, capture_output=True,
-        text=True, timeout=600)
-    emit({"phase": "lifecycle_example", "rc": proc.returncode,
-          "stdout": proc.stdout.strip()[-1500:],
-          "stderr": proc.stderr.strip()[-1500:]})
-    check(proc.returncode == 0, "the reprune example exited 0")
-    return out
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    return (proc.returncode, time.perf_counter() - t0, proc.stdout,
+            proc.stderr)
 
 
 # ----------------------------------------------------------------------
@@ -4429,10 +4489,11 @@ def _run_lm_launcher(args, expect_launches):
                           text=True, timeout=600)
     line = {"cmd": " ".join(cmd[3:]), "rc": proc.returncode,
             "wall_s": time.perf_counter() - t0}
-    if proc.returncode != 0:
-        emit({"phase": "lm_serve", "launcher": line,
-              "stdout": proc.stdout[-2000:], "stderr": proc.stderr[-2000:]})
-    check(proc.returncode == 0, f"launcher {' '.join(args)} exited 0")
+    # the output's tails go into the failure itself: this may run on a
+    # thread while another redirects stdout
+    check(proc.returncode == 0, f"launcher {' '.join(args)} exited 0, not "
+          f"{proc.returncode}; stdout {proc.stdout[-2000:]!r}, stderr "
+          f"{proc.stderr[-2000:]!r}")
     m = re.search(r"kernel launches (\{.*\})", proc.stdout)
     check(m is not None, "launcher printed its kernel launches")
     line["launches"] = json.loads(m.group(1))["flash_attention"]
@@ -4641,10 +4702,11 @@ def phase_lm_train_check(torch, T):
           f" off the f32 loss {float(l32)} by {loss_rel}")
 
 
-def _lm_train_steps(torch, T, cfg, label, one_batch=False):
+def _lm_train_steps(torch, T, cfg, label, one_batch=False, n_micro=1):
     """LM_TRAIN["steps"] AdamW steps of a model of ``cfg`` seeded on the
     card, on SyntheticTokens batches (with their prefix embeds for an
     embeds config; with ``one_batch`` every step on step 0's batch), each
+    batch in ``n_micro`` microbatches, each step
     split by CUDA events into forward + backward and
     the optimizer; tokens/s, loss, grad norm and peak memory a step. With
     ``one_batch`` also the loss of the step-0 weights on each of the
@@ -4680,7 +4742,8 @@ def _lm_train_steps(torch, T, cfg, label, one_batch=False):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         w0 = time.perf_counter()
         ev[0].record()
-        loss, grads = T.trainer.loss_and_grads(model, batch)
+        loss, grads = T.trainer.loss_and_grads(model, batch,
+                                               n_micro=n_micro)
         ev[1].record()
         if step == 0:
             for n, gr in grads.items():
@@ -4721,7 +4784,8 @@ def _lm_train_steps(torch, T, cfg, label, one_batch=False):
     warm = steps[1:]
     return {"params": n_params, "dtype": cfg.dtype,
             "param_dtype": cfg.param_dtype, "remat": cfg.remat_policy,
-            "batch": [g["batch"], g["seq"]], "prefix_embeds": npfx,
+            "batch": [g["batch"], g["seq"]], "n_micro": n_micro,
+            "prefix_embeds": npfx,
             "one_batch": one_batch, "step0_loss_on_each_batch": spread,
             "init_s": init_s, "steps": steps, "median_warm": {
                 k: statistics.median(r[k] for r in warm)
@@ -5036,10 +5100,18 @@ FAM_RESUME_ARCH = "qwen2-moe-a2.7b"    # the training launcher's resume
 
 
 def _fam_cfg(T, arch, n_layers, **over):
+    """``arch``'s full config cut to its first ``n_layers`` layers (None:
+    all), widths kept. A cut that does not tile the block pattern takes
+    the first ``n_layers`` kinds as its pattern, so each layer keeps the
+    kind it has in the full model."""
     import dataclasses
     full = T.configs.get(arch)
-    return dataclasses.replace(full, n_layers=n_layers or full.n_layers,
-                               **over)
+    n = n_layers or full.n_layers
+    pattern = full.block_pattern
+    if n % len(pattern):
+        over = {"block_pattern": tuple(pattern[i % len(pattern)]
+                                       for i in range(n)), **over}
+    return dataclasses.replace(full, n_layers=n, **over)
 
 
 def _npfx(cfg):
@@ -5050,15 +5122,17 @@ def _moes(T, model):
     return [b.ffn for b in model.blocks if isinstance(b.ffn, T.layers.MoE)]
 
 
-def _fam_serve(torch, T, E, cfg):
+def _fam_serve(torch, T, E, cfg, want_long=None):
     """ServeEngine on ``cfg`` seeded on the card: 2 requests of
     FAM["positions"] positions (prefix included: one wave, one flash launch
-    a layer), then 4 of FAM["short"] (no launch); the counters zeroed just
-    before each. The long wave's capacity routes are logged: its dropped
-    (token, expert) assignments. Then, in f32 on the same weights (an MoE
+    an attention layer, ``want_long`` in all, default every layer), then 4
+    of FAM["short"] (no launch); the counters zeroed just before each.
+    The long wave's capacity routes are logged: its dropped (token,
+    expert) assignments. Then, in f32 on the same weights (an MoE
     at capacity_factor E / k, so that no token drops and the capacity
-    path computes what decode's all-experts path does), the first long
-    prompt's decode logits against a teacher-forced prefill."""
+    path computes what decode's all-experts path does; the SSD and RG-LRU
+    leaves redrawn by ``_carry_recurrence``), the first long prompt's
+    decode logits against a teacher-forced prefill."""
     import dataclasses
     t0 = time.perf_counter()
     model = T.M.init(cfg, seed=FAM["seed"], device="cuda")
@@ -5092,9 +5166,10 @@ def _fam_serve(torch, T, E, cfg):
         check(r.done and len(r.out) == max_new and
               all(0 <= t < cfg.padded_vocab() for t in r.out),
               f"{cfg.name}: request {r.rid} returned {max_new} tokens")
-    check(launches_long == cfg.n_layers and bf16_long == launches_long,
+    want_long = cfg.n_layers if want_long is None else want_long
+    check(launches_long == want_long and bf16_long == launches_long,
           f"{cfg.name}: the long wave launched the flash kernel "
-          f"{launches_long} times (bf16 {bf16_long}), not {cfg.n_layers}")
+          f"{launches_long} times (bf16 {bf16_long}), not {want_long}")
     check(launches_short == 0, f"{cfg.name}: the {FAM['short']}-position "
           f"wave launched the flash kernel {launches_short} times")
     check(len(routes) == len(moes), f"{cfg.name}: {len(routes)} capacity "
@@ -5107,6 +5182,7 @@ def _fam_serve(torch, T, E, cfg):
     model32 = T.M.Model(cfg32, device="meta")
     model32.load_state_dict(model.state_dict(), assign=True)
     del model
+    carried = _carry_recurrence(torch, model32, FAM["seed"])
     prompt = torch.from_numpy(long_reqs[0].prompt[None]).to("cuda").long()
     pfx = (torch.zeros(1, npfx, cfg.d_model, device="cuda") if npfx
            else None)
@@ -5155,8 +5231,41 @@ def _fam_serve(torch, T, E, cfg):
                 "capacity": routes[0].capacity, "dropped": dropped,
                 "assigned": assigned},
             "f32_check": {"capacity_factor": cfg32.capacity_factor,
+                          "recurrent_leaves_redrawn": carried,
                           "max_abs_err": err, "max_abs_logit": scale,
                           "tolerance": f"{LM_LOGIT_TOL} * max|logit|"}}
+
+
+# a recurrent mixer's decay parameters: uniform ranges that keep about
+# 0.9-0.99 of the state a step (tests/_recurrent_draw.py gives the sums)
+CARRY_RANGES = {"dt_bias": (-3.0, -1.0), "a_log": (-3.0, -1.5),
+                "a_param": (-6.0, -3.5)}
+
+
+def _carry_recurrence(torch, model, seed):
+    """Redraw ``model``'s SSD and RG-LRU leaves so that the state carries
+    the output, as the CPU tests draw them: matrices (``conv_w`` included)
+    normal(0, 1/sqrt(fan_in)), the decay parameters in CARRY_RANGES,
+    ``d_skip`` 0. At the init (matrices at 0.02, a_log = a_param = 0) the
+    SSD's state term is about 1e-3 of its skip term and the RG-LRU keeps
+    about 0.02 of its state a step, so a decode that dropped its state's
+    input term would pass a check of 1e-3 * max|logit|. Returns the count
+    of leaves redrawn (0 for a model with no recurrent block)."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    n = 0
+    with torch.no_grad():
+        for blk in model.blocks:
+            if blk.kind not in ("ssd", "rglru"):
+                continue
+            for leaf, p in blk.mixer.named_parameters():
+                if leaf in CARRY_RANGES:
+                    p.uniform_(*CARRY_RANGES[leaf], generator=gen)
+                elif leaf == "d_skip":
+                    p.zero_()
+                else:
+                    p.normal_(0.0, p.shape[-2] ** -0.5, generator=gen)
+                n += 1
+    return n
 
 
 def _hold_routes(T, model, held):
@@ -5319,31 +5428,21 @@ def phase_lm_family(torch, T, E, arch, serve_layers, train_layers):
     return served["flash_launches"]["long_wave"]
 
 
-def phase_lm_family_launchers(torch):
-    """The serving launcher as a subprocess for an MoE and an embeds smoke
-    config (8,192 positions: one flash launch a layer); the training
-    launcher on FAM_RESUME_ARCH's smoke config, in this process, 8 steps
-    checkpointing every 4, then resumed from the step-4 checkpoint alone:
-    steps 5-8's losses equal the first run's, bit for bit."""
+def _train_launcher_resumed(arch, label):
+    """The training launcher on ``arch``'s smoke config, in this process,
+    8 steps checkpointing every 4, then resumed from the step-4 checkpoint
+    alone: steps 5-8's losses must equal the first run's, bit for bit.
+    Returns the runs' logs and both runs' losses."""
     import contextlib
     import io
     import shutil
     import tempfile
-    from repro_torch import configs
     from repro_torch.launch import train
-    lines = []
-    for arch, launches in FAM_LAUNCHERS:
-        npfx = _npfx(configs.get_smoke(arch))
-        lines.append(_run_lm_launcher(
-            ["--arch", arch, "--smoke", "--prompt-len",
-             str(FAM["positions"] - npfx), "--n-requests", "2",
-             "--max-new", "4"], expect_launches=launches))
     base = os.path.join(ROOT, "build")
     os.makedirs(base, exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="lm_families_", dir=base)
+    tmp = tempfile.mkdtemp(prefix=f"{label}_", dir=base)
     full_ck, part_ck = os.path.join(tmp, "full"), os.path.join(tmp, "part")
-    argv = ["--arch", FAM_RESUME_ARCH, "--smoke", "--steps", "8",
-            "--log-every", "1"]
+    argv = ["--arch", arch, "--smoke", "--steps", "8", "--log-every", "1"]
     logs = []
     for args in (["--ckpt-dir", full_ck, "--ckpt-every", "4",
                   "--losses-out", os.path.join(tmp, "full.json")],
@@ -5367,13 +5466,30 @@ def phase_lm_family_launchers(torch):
         resumed = {int(k): v for k, v in json.load(f).items()}
     shutil.rmtree(tmp, ignore_errors=True)
     diff = {s: resumed[s] - full[s] for s in resumed}
+    check(sorted(resumed) == [5, 6, 7, 8], f"{label}: the resumed run "
+          f"ran steps {sorted(resumed)}")
+    check(all(d == 0.0 for d in diff.values()), f"{label}: the resumed "
+          f"steps' losses differ from the uninterrupted run's: {diff}")
+    return logs, full, resumed
+
+
+def phase_lm_family_launchers(torch):
+    """The serving launcher as a subprocess for an MoE and an embeds smoke
+    config (8,192 positions: one flash launch a layer), both while the
+    training launcher runs on FAM_RESUME_ARCH's smoke config, resumed
+    from its step-4 checkpoint (``_train_launcher_resumed``)."""
+    from repro_torch import configs
+    lines, (logs, full, resumed) = _concurrently(
+        _run_lm_launcher, [(["--arch", arch, "--smoke", "--prompt-len",
+                             str(FAM["positions"]
+                                 - _npfx(configs.get_smoke(arch))),
+                             "--n-requests", "2", "--max-new", "4"],
+                            launches) for arch, launches in FAM_LAUNCHERS],
+        workers=len(FAM_LAUNCHERS), beside=lambda: _train_launcher_resumed(
+            FAM_RESUME_ARCH, "lm_families"))
     emit({"phase": "lm_families_launchers", "serve": lines,
           "train_runs": logs, "losses": full, "resumed_losses": resumed,
-          "bitwise": all(d == 0.0 for d in diff.values())})
-    check(sorted(resumed) == [5, 6, 7, 8], f"lm_families: the resumed run "
-          f"ran steps {sorted(resumed)}")
-    check(all(d == 0.0 for d in diff.values()), f"lm_families: the resumed "
-          f"steps' losses differ from the uninterrupted run's: {diff}")
+          "bitwise": True})
     return sum(line["launches"] for line in lines)
 
 
@@ -5396,6 +5512,231 @@ def lm_families_path(torch):
           time.perf_counter() - t0, "flash_launches": launches,
           "launcher_flash_launches": by_launcher})
     return launches, by_launcher
+
+
+# ----------------------------------------------------------------------
+# The recurrent mixers (slice 12): mamba2-370m (the SSD) and
+# recurrentgemma-2b (the RG-LRU beside local attention) at full width, each
+# served, held against float64 and trained.
+LM_RECURRENT = (  # (arch, layers served, layers trained (None = all),
+    #                microbatches a training step)
+    ("mamba2-370m", None, None, 1),
+    # trained at 13 layers, one repetition of its pattern, in 4
+    # microbatches of 1 x 2,048: 2.43 G parameters' f32 AdamW state is
+    # 39 GB, and one batch of 4 x 2,048 tokens' 256,000-word f32 logits
+    # 8.4 GB, their gradient as much again. In 2 microbatches the phase
+    # alone peaked at 67.11 GB, and after the smoke's earlier phases step
+    # 2 found no 3.91 GiB block free
+    ("recurrentgemma-2b", None, 13, 4),
+)
+# the serving launcher's run: (smoke arch, flash launches = its local
+# attention layers) at FAM["positions"]; the training launcher's resume
+REC_LAUNCHER = ("recurrentgemma-2b", 1)
+REC_RESUME_ARCH = "mamba2-370m"
+REC_LONG = 524_288                 # long_500k's positions
+
+
+def _attention_layers(cfg):
+    pattern = cfg.block_pattern
+    return sum(pattern[i % len(pattern)] in ("attn", "local_attn")
+               for i in range(cfg.n_layers))
+
+
+def _cache_bytes(torch, T, cfg, alloc):
+    """The served (bf16) decode cache's bytes a sequence at ``alloc``
+    positions, by leaf: allocated on the meta device, so nothing is
+    held. After prefill the recurrent state and conv tail are in the
+    compute dtype (bf16), as allocated here."""
+    out = {}
+    pattern = cfg.block_pattern
+    for i, c in enumerate(T.M.init_cache(cfg, 1, alloc, torch.bfloat16,
+                                         "meta")):
+        kind = pattern[i % len(pattern)]
+        for k, v in c.items():
+            if isinstance(v, torch.Tensor):
+                key = f"{kind}.{k}"
+                out[key] = out.get(key, 0) + v.numel() * v.element_size()
+    return out
+
+
+def phase_lm_recurrent(torch, T, E, arch, serve_layers, train_layers,
+                       n_micro):
+    """Phase lm_recurrent for one architecture: ``_fam_serve`` (the long
+    wave launches flash once a local-attention layer, none for mamba2;
+    the short wave none; the f32 decode logits against a teacher-forced
+    prefill), the decode cache's bytes a sequence at 8,192 and at
+    long_500k's 524,288 positions (equal: nothing grows with the
+    position), ``_fam_grads`` at one layer (step 0's f32 grads against
+    float64, the bf16 grads in lm_train's band, every grad finite at the
+    published chunk), then ``_lm_train_steps`` at ``train_layers`` (bf16
+    compute, f32 params, remat "dots") on one batch in ``n_micro``
+    microbatches. Returns the long wave's flash launches."""
+    t0 = time.perf_counter()
+    cfg = _fam_cfg(T, arch, serve_layers)
+    served = _fam_serve(torch, T, E, cfg, want_long=_attention_layers(cfg))
+    t_serve = time.perf_counter() - t0
+    alloc = FAM["positions"] + FAM["max_new"]
+    cache = {n: _cache_bytes(torch, T, cfg, n) for n in (alloc, REC_LONG)}
+    check(cache[alloc] == cache[REC_LONG], f"{arch}: the decode cache "
+          f"grows with the position: {cache}")
+    grads = _fam_grads(torch, T, arch)
+    t_grads = time.perf_counter() - t0 - t_serve
+    errs = [*grads["grad_rel_err_f32_vs_f64"].values(),
+            *grads["grad_rel_err_bf16_vs_f64"].values()]
+    check(all(np.isfinite(e) for e in errs), f"{arch}: a step-0 grad is "
+          f"not finite at chunk {cfg.ssm_chunk}")
+    tcfg = _fam_cfg(T, arch, train_layers, remat_policy="dots")
+    run = _lm_train_steps(torch, T, tcfg, f"lm_recurrent {arch}",
+                          one_batch=True, n_micro=n_micro)
+    full = T.configs.get(arch)
+    emit({"phase": "lm_recurrent", "arch": arch, "card": smi_line(),
+          "cut": {"served_layers": cfg.n_layers, "trained_layers":
+                  tcfg.n_layers, "of": full.n_layers,
+                  "widths": "as published"},
+          "params_served": sum(p.numel() for p in T.M.Model(
+              cfg, device="meta").parameters()),
+          "serve": served,
+          "cache_bytes_per_seq": {"total": sum(cache[alloc].values()),
+                                  "by_leaf": cache[alloc],
+                                  "at_positions": [alloc, REC_LONG]},
+          "grads": grads, "train": run,
+          "seconds": {"serve": t_serve, "grads": t_grads,
+                      "train": time.perf_counter() - t0 - t_serve
+                      - t_grads}})
+    _check_lm_train(run, f"lm_recurrent {arch}")
+    return served["flash_launches"]["long_wave"]
+
+
+def phase_lm_recurrent_launchers(torch):
+    """The serving launcher as a subprocess on REC_LAUNCHER's smoke config
+    at FAM["positions"] (one flash launch a local-attention layer), while
+    the training launcher runs on REC_RESUME_ARCH's smoke config, resumed
+    from its step-4 checkpoint, steps 5-8 bitwise."""
+    arch, launches = REC_LAUNCHER
+    [line], (logs, full, resumed) = _concurrently(
+        _run_lm_launcher, [(["--arch", arch, "--smoke", "--prompt-len",
+                             str(FAM["positions"]), "--n-requests", "2",
+                             "--max-new", "4"], launches)],
+        workers=1, beside=lambda: _train_launcher_resumed(
+            REC_RESUME_ARCH, "lm_recurrent"))
+    emit({"phase": "lm_recurrent_launchers", "serve": [line],
+          "train_runs": logs, "losses": full, "resumed_losses": resumed,
+          "bitwise": True})
+    return line["launches"]
+
+
+def lm_recurrent_path(torch):
+    """Phase lm_recurrent: each architecture of LM_RECURRENT, then the
+    launchers. Returns the served long waves' flash launches by arch and
+    the launcher's."""
+    from repro_torch.models import layers
+    from repro_torch.serve import engine as E
+    T = _lm_train_modules()
+    T.layers = layers
+    t0 = time.perf_counter()
+    launches = {}
+    for arch, serve_layers, train_layers, n_micro in LM_RECURRENT:
+        launches[arch] = phase_lm_recurrent(torch, T, E, arch, serve_layers,
+                                            train_layers, n_micro)
+        torch.cuda.empty_cache()
+    by_launcher = phase_lm_recurrent_launchers(torch)
+    emit({"phase": "lm_recurrent_done", "seconds":
+          time.perf_counter() - t0, "flash_launches": launches,
+          "launcher_flash_launches": by_launcher})
+    return launches, by_launcher
+
+
+def lm_recurrent_only() -> int:
+    """``python3 chip_smoke.py --lm-recurrent``: the build and phase
+    lm_recurrent alone (a quick loop on that path; not the smoke run)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    phase_env(torch, _build)
+    launches, by_launcher = lm_recurrent_path(torch)
+    emit({"phase": "done", "seconds": time.perf_counter() - t0,
+          "flash_launches": launches, "launcher": by_launcher})
+    print(smi_line(), flush=True)
+    return 0
+
+
+def _profiled_run(torch, F, fn):
+    """``fn()`` once for its shapes' first calls, then once under
+    torch.profiler: the host wall, the device ms by kind and the record
+    counts (``lm_profile_tally``), and the ten costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    F.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kind, _, rec = lm_profile_tally(torch, F, prof)
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + getattr(
+                ev, "self_device_time_total",
+                getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall * 1e3, "busy_ms": sum(by_kind.values()),
+            "device_ms_by_kind": by_kind, "records": rec,
+            "flash_launches": F.LAUNCHES["flash_attention"],
+            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
+
+
+def lm_recurrent_profile() -> int:
+    """``python3 chip_smoke.py --lm-recurrent-profile``: where the
+    recurrent models' card time goes, in a process of its own. Each arch
+    of LM_RECURRENT at its served and its trained cut (``_fam_cfg``),
+    seeded: one long prefill (2 x FAM["positions"] tokens, bf16) and one
+    training step's forward and backward (LM_TRAIN's 4 x 2,048 tokens in
+    the phase's microbatches, bf16 compute, f32 parameters, remat
+    "dots"), each profiled by ``_profiled_run``; one JSON line a run after
+    the card's line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    T = _lm_train_modules()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(smi_line(), flush=True)
+    g = LM_TRAIN
+    for arch, serve_layers, train_layers, n_micro in LM_RECURRENT:
+        cfg = _fam_cfg(T, arch, serve_layers)
+        model = T.M.init(cfg, seed=FAM["seed"], device="cuda")
+        prompt = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, FAM["positions"])), device="cuda")
+        res = _profiled_run(torch, T.F, lambda: T.M.prefill_step(
+            model, prompt, alloc_seq=FAM["positions"] + FAM["max_new"]))
+        print(json.dumps({"arch": arch, "layers": cfg.n_layers,
+                          "run": f"prefill 2 x {FAM['positions']}", **res}),
+              flush=True)
+        del model
+        torch.cuda.empty_cache()
+        cfg = _fam_cfg(T, arch, train_layers, remat_policy="dots")
+        model = T.M.init(cfg, seed=g["seed"], device="cuda")
+        batch = T.Tokens(cfg.vocab_size, g["batch"], g["seq"],
+                         seed=g["seed"]).batch_at(0)
+        res = _profiled_run(torch, T.F, lambda: T.trainer.loss_and_grads(
+            model, batch, n_micro=n_micro))
+        print(json.dumps({"arch": arch, "layers": cfg.n_layers,
+                          "run": f"train step forward + backward, "
+                          f"{g['batch']} x {g['seq']} in {n_micro}", **res}),
+              flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return 0
 
 
 def lm_families_only() -> int:
@@ -5546,6 +5887,11 @@ def main() -> int:
     r["launches_by_path"]["lm_families_launchers"] = fam_launcher
     r["launches"] += sum(fam.values())
     torch.cuda.empty_cache()
+    rec, rec_launcher = lm_recurrent_path(torch)
+    r["launches_by_path"]["lm_recurrent"] = rec
+    r["launches_by_path"]["lm_recurrent_launchers"] = rec_launcher
+    r["launches"] += sum(rec.values())
+    torch.cuda.empty_cache()
     phase_profile_in_process(torch, engine_mod, api, late_profile)
     del late_profile
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -5566,4 +5912,10 @@ if __name__ == "__main__":
         sys.exit(lm_train_only())
     if len(sys.argv) == 2 and sys.argv[1] == "--lm-families":
         sys.exit(lm_families_only())
+    if len(sys.argv) == 2 and sys.argv[1] == "--lm-recurrent":
+        sys.exit(lm_recurrent_only())
+    if len(sys.argv) == 2 and sys.argv[1] == "--lm-recurrent-profile":
+        sys.exit(lm_recurrent_profile())
+    if len(sys.argv) == 2 and sys.argv[1] == "--serial":
+        SERIAL = True
     sys.exit(main())

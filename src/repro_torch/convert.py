@@ -257,13 +257,17 @@ def model_from_jax(cfg, params: Dict[str, Any], *, device=None):
 
     ``params`` is the JAX params tree with numpy leaves: ``embed``,
     ``unembed`` (unless tied), ``norm_final`` and ``groups/block{i}_{kind}``
-    holding ``norm_mixer``, ``mixer/{wq, wk, wv, wo}``, ``norm_mlp`` and
-    ``ffn``, each with a leading ``n_groups`` axis. ``ffn`` is the dense
-    MLP's ``{w_gate, w_up, w_down, mask_w_*}`` or the MoE's ``router``
-    (d, E), ``w_gate``/``w_up`` (E, d, f), ``w_down`` (E, f, d) and, with
-    shared experts, ``ws_gate``/``ws_up``/``ws_down``. Group ``g``, block
-    ``i`` becomes layer ``g * len(cfg.block_pattern) + i``; a leaf keeps
-    its name (``ffn/router`` -> ``blocks.<layer>.ffn.router``)."""
+    holding ``norm_mixer``, ``mixer``, ``norm_mlp`` and ``ffn`` (the last
+    two absent where ``mlp_type`` is ``"none"``), each with a leading
+    ``n_groups`` axis. ``mixer`` is attention's ``{wq, wk, wv, wo}``, the
+    SSD's ``{w_x, w_z, w_bc, w_dt, dt_bias, a_log, d_skip, conv_w, w_out}``
+    or the RG-LRU's ``{w_in, w_gate_branch, conv_w, w_rg, w_ig, a_param,
+    w_out}``. ``ffn`` is the dense MLP's ``{w_gate, w_up, w_down,
+    mask_w_*}`` or the MoE's ``router`` (d, E), ``w_gate``/``w_up`` (E, d,
+    f), ``w_down`` (E, f, d) and, with shared experts,
+    ``ws_gate``/``ws_up``/``ws_down``. Group ``g``, block ``i`` becomes
+    layer ``g * len(cfg.block_pattern) + i``; a leaf keeps its name
+    (``mixer/a_log`` -> ``blocks.<layer>.mixer.a_log``)."""
     from .models.model import Model
     model = Model(cfg, device=resolve_device(device))
     state = {"embed": params["embed"], "norm_final": params["norm_final"]}

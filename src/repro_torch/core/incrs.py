@@ -10,15 +10,21 @@ CRS plus one 64-bit counter word per (row, section):
 Paper defaults: section S=256 columns, block b=32, prefix 16 bits, 6 bits
 per block count, so 16 + 8*6 = 64 bits. The word is stored as two uint32
 halves, bit for bit the layout of ``repro.core.incrs``.
+
+The host-side access model is the JAX module's too: ``locate`` (paper
+section III-A: the counter word, row_ptr, then a scan inside one block),
+its binary-search variant, column and row gathers with memory-access
+counts and address traces, and the analytical models of section III-C
+behind Table II.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
-from .crs import CRS
+from .crs import CRS, CTR_BASE, IDX_BASE, PTR_BASE, VAL_BASE
 
 S_DEFAULT = 256
 B_DEFAULT = 32
@@ -78,6 +84,15 @@ class InCRS:
     def n_blocks(self) -> int:
         return self.section // self.block
 
+    def storage_words(self) -> int:
+        """InCRS storage = CRS words + one 64-bit word a (row, section)."""
+        return self.crs.storage_words() + self.shape[0] * self.n_sections
+
+    def storage_ratio(self) -> float:
+        """Table II's storage ratio, CRS words / InCRS words (~ 2DS /
+        (2DS + 1))."""
+        return self.crs.storage_words() / float(self.storage_words())
+
     @staticmethod
     def from_crs(crs: CRS, section: int = S_DEFAULT, block: int = B_DEFAULT,
                  prefix_bits: int = PREFIX_BITS,
@@ -120,3 +135,104 @@ class InCRS:
         blocks (M, n_sections, n_blocks))."""
         return _unpack64(self.counters[..., 0], self.counters[..., 1],
                          self.n_blocks)
+
+    def counter(self, i: int, sec: int) -> Tuple[int, np.ndarray]:
+        """Row ``i``'s counter word of section ``sec``, unpacked: (prefix,
+        per-block counts)."""
+        lo, hi = self.counters[i, sec, 0], self.counters[i, sec, 1]
+        p, b = _unpack64(np.asarray(lo), np.asarray(hi), self.n_blocks)
+        return int(p), b
+
+    def _block_span(self, i: int, j: int, trace: Optional[List[int]]
+                    ) -> Tuple[int, int]:
+        """The counter word and row_ptr reads of ``locate``: (first slot
+        of ``j``'s block, its count)."""
+        sec, off = j // self.section, j % self.section
+        blk = off // self.block
+        if trace is not None:
+            trace.append(CTR_BASE + (i * self.n_sections + sec))
+        prefix, blocks = self.counter(i, sec)
+        n_before = prefix + int(blocks[:blk].sum())
+        if trace is not None:
+            trace.append(PTR_BASE + i)
+        return int(self.crs.row_ptr[i]) + n_before, int(blocks[blk])
+
+    def locate(self, i: int, j: int, trace: Optional[List[int]] = None
+               ) -> Tuple[float, int]:
+        """Section III-A's access path; returns (value, memory_accesses):
+        one access for the counter word, one for row_ptr, then a scan of
+        ``j``'s block alone (<= its count, b/2 on average)."""
+        base, n_in_blk = self._block_span(i, j, trace)
+        ma = 2
+        for k in range(base, base + n_in_blk):
+            ma += 1
+            if trace is not None:
+                trace.append(IDX_BASE + k)
+            c = int(self.crs.col_idx[k])
+            if c == j:
+                ma += 1
+                if trace is not None:
+                    trace.append(VAL_BASE + k)
+                return float(self.crs.values[k]), ma
+            if c > j:
+                break
+        return 0.0, ma
+
+    def locate_binary(self, i: int, j: int,
+                      trace: Optional[List[int]] = None
+                      ) -> Tuple[float, int]:
+        """Footnote 2's variant: a binary search inside the block instead
+        of the linear scan (the paper skipped it for poor cache locality;
+        both are here so that Table I can measure the claim)."""
+        lo, n_in_blk = self._block_span(i, j, trace)
+        ma = 2
+        hi = lo + n_in_blk
+        while lo < hi:
+            mid = (lo + hi) // 2
+            ma += 1
+            if trace is not None:
+                trace.append(IDX_BASE + mid)
+            c = int(self.crs.col_idx[mid])
+            if c == j:
+                ma += 1
+                if trace is not None:
+                    trace.append(VAL_BASE + mid)
+                return float(self.crs.values[mid]), ma
+            if c < j:
+                lo = mid + 1
+            else:
+                hi = mid
+        return 0.0, ma
+
+    def get_column(self, j: int, trace: Optional[List[int]] = None
+                   ) -> Tuple[np.ndarray, int]:
+        m = self.shape[0]
+        col = np.zeros(m, dtype=self.crs.values.dtype)
+        ma = 0
+        for i in range(m):
+            col[i], a = self.locate(i, j, trace)
+            ma += a
+        return col, ma
+
+    def get_row(self, i: int, trace: Optional[List[int]] = None):
+        """Row-order access is CRS's (paper section V-B)."""
+        return self.crs.get_row(i, trace)
+
+
+# ----------------------------------------------------------------------
+# Analytical models (paper section III-C), behind Table II.
+def expected_ma_incrs(block: int = B_DEFAULT) -> float:
+    """~ b/2 + 1 accesses to locate a random element."""
+    return block / 2.0 + 1.0
+
+
+def expected_ma_reduction(n_cols: int, density: float,
+                          block: int = B_DEFAULT) -> float:
+    """Memory accesses fall by a factor ~ N D / (b + 2)."""
+    return n_cols * density / (block + 2.0)
+
+
+def expected_storage_ratio(density: float, section: int = S_DEFAULT
+                           ) -> float:
+    """CRS / InCRS storage ~ 2DS / (2DS + 1)."""
+    return 2 * density * section / (2 * density * section + 1.0)

@@ -78,11 +78,12 @@ def mlp_loss(model: Mapping[str, Linear], x: torch.Tensor,
 def dense_oracle(model: Mapping[str, Linear], x: torch.Tensor,
                  y: torch.Tensor
                  ) -> Tuple[float, Dict[str, torch.Tensor], torch.Tensor]:
-    """The same loss on the dense weights in float64 on the host: (loss,
-    dL/dW of each layer (d_in, d_out), dL/dh)."""
-    ws = {k: torch.from_numpy(lin.to_dense()).double().requires_grad_()
-          for k, lin in model.items()}
-    xd, yd = x.detach().double().cpu(), y.detach().double().cpu()
+    """The same loss on the dense weights in float64 on ``x``'s device:
+    (loss, dL/dW of each layer (d_in, d_out), dL/dh)."""
+    dev = x.device
+    ws = {k: torch.from_numpy(lin.to_dense()).to(dev, torch.float64)
+          .requires_grad_() for k, lin in model.items()}
+    xd, yd = x.detach().double(), y.detach().to(dev).double()
     h = torch.tanh(xd @ ws["l1"])
     h.retain_grad()
     loss = torch.mean((h @ ws["l2"] - yd) ** 2)
@@ -101,11 +102,12 @@ def grad_errors(model: Mapping[str, Linear], x: torch.Tensor,
     _, ref, ref_h = dense_oracle(model, x, y)
     errs = {}
     for (name, lin), g in zip(model.items(), grads):
-        live = torch.from_numpy(lin.pattern.mask)
-        gd = torch.from_numpy(lin.to_dense(g)).double()
+        dev = ref[name].device
+        live = torch.from_numpy(lin.pattern.mask).to(dev)
+        gd = torch.from_numpy(lin.to_dense(g)).to(dev, torch.float64)
         scale = max(float(ref[name].abs().max()), 1e-30)
         errs[name] = float((gd - ref[name])[live].abs().max()) / scale
-    errs["dh"] = float((grads[-1].double().cpu() - ref_h).abs().max()) / \
+    errs["dh"] = float((grads[-1].double() - ref_h).abs().max()) / \
         max(float(ref_h.abs().max()), 1e-30)
     return errs
 

@@ -199,14 +199,12 @@ def _main_lm(args) -> int:
 
 
 def main(argv=None) -> int:
-    from ..configs import ARCH_NAMES, UNPORTED
+    from ..configs import ARCH_NAMES
     from ..configs.paper_spmm import WORKLOADS
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-34b",
-                    choices=ARCH_NAMES + tuple(UNPORTED),
-                    help="LM to serve (the names not yet ported raise, "
-                         "naming their ROADMAP item)")
+                    choices=ARCH_NAMES, help="LM to serve")
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's small config")
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -9,10 +9,9 @@ line; ``--losses-out`` also writes every step's loss, exactly, as JSON.
       --ckpt-dir /tmp/ck --device cpu
 
 Every architecture of the port's registry trains: the dense ones, the
-MoE ones (mixtral-8x7b, qwen2-moe-a2.7b) and the embeds ones
-(musicgen-medium, internvl2-1b, whose batches carry ``prefix_embeds``).
-mamba2-370m and recurrentgemma-2b (the SSD and RG-LRU mixers) raise
-``NotImplementedError`` naming ROADMAP queue 1 item 12b.
+MoE ones (mixtral-8x7b, qwen2-moe-a2.7b), the embeds ones
+(musicgen-medium, internvl2-1b, whose batches carry ``prefix_embeds``)
+and the recurrent ones (mamba2-370m's SSD, recurrentgemma-2b's RG-LRU).
 """
 from __future__ import annotations
 

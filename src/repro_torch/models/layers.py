@@ -1,8 +1,8 @@
 """Layers of the LM stack: RMS norm, rotary embedding, GQA attention, the
-dense MLP and the MoE FFN.
+dense MLP, the MoE FFN and the two recurrent mixers, Mamba2's SSD and
+RecurrentGemma's RG-LRU.
 
-The port of ``repro.models.layers`` for attention models (the SSD and
-RG-LRU mixers are ROADMAP queue 1 item 12b). Parameters
+The port of ``repro.models.layers``. Parameters
 live in ``cfg.param_dtype`` and are cast to the activations' dtype at use,
 as in JAX. ``Attention`` has the JAX layer's three modes: ``train`` (the
 full sequence, no cache), ``prefill`` (the full sequence, filling the decode
@@ -24,9 +24,22 @@ jnp outside any Pallas kernel). The gather and the combine add in
 ascending expert order, one add a row an expert, so forward and backward
 are the same bits on every run.
 
-The decode cache is a dict ``{"k", "v": (B, alloc, KV, hd), "end": int}``
-updated in place (JAX returns a new one), which saves a copy of every
-layer's K and V per token. One device: the JAX layer's sharding
+``SSD`` and ``RGLRU`` are JAX's ``layers.ssd`` and ``layers.rglru`` branch
+for branch, their recurrences in f32 (f64 in an f64 model). The SSD's
+chunked form masks its intra-chunk decay inside the exponent,
+``exp(where(tri, li, -inf))``: the same forward as JAX's ``where(tri,
+exp(li), 0)``, whose upper triangle overflows to inf at a chunk of 256 and
+gives NaN gradients (ROADMAP queue 3, C5). Its 4-operand products are
+explicit batched matmuls, so no (B, C, Q, Q, H) einsum intermediate is
+contracted in an unplanned order. The RG-LRU solves h_t = a_t h_{t-1} + b_t
+by a doubling scan, ceil(log2 S) steps of torch ops that autograd
+differentiates (JAX: ``jax.lax.associative_scan``).
+
+The attention decode cache is a dict ``{"k", "v": (B, alloc, KV, hd),
+"end": int}`` updated in place (JAX returns a new one), which saves a copy
+of every layer's K and V per token. The recurrent caches ``{"conv": (B,
+W-1, C), "state", "end": int}`` are updated in place too; their size does
+not grow with the position. One device: the JAX layer's sharding
 annotations have no counterpart here.
 """
 from __future__ import annotations
@@ -473,3 +486,242 @@ class MoE(nn.Module):
         gs = x @ self.ws_gate.to(dt)
         us = x @ self.ws_up.to(dt)
         return out + (F.silu(gs) * us) @ self.ws_down.to(dt)
+
+
+# ======================================================================
+# Mamba2 SSD (chunked state-space duality) and the RG-LRU.
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 cache: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv. x: (B, S, C), w: (W, C); ``cache`` (B, W-1,
+    C) is the left context (zeros when None). Returns (y, new_cache), the
+    new cache the last W-1 inputs in ``x.dtype`` (a copy: it does not keep
+    the padded input alive)."""
+    wlen, s = w.shape[0], x.shape[1]
+    if cache is None:
+        pad = x.new_zeros((x.shape[0], wlen - 1, x.shape[2]))
+    else:
+        pad = cache.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    new_cache = (xp[:, -(wlen - 1):] if wlen > 1 else pad[:, :0]).clone()
+    y = sum(xp[:, i:i + s] * w[i] for i in range(wlen))
+    return y, new_cache
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t along dim 1 from h_{-1} = 0, for every t:
+    a doubling (Hillis-Steele) scan, ceil(log2 S) steps of elementwise
+    torch ops, each combining step t with step t - d."""
+    s = a.shape[1]
+    d = 1
+    while d < s:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        if 2 * d < s:
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+def _acc_dtype(dt: torch.dtype) -> torch.dtype:
+    """The recurrences' dtype: f32, or f64 in an f64 model."""
+    return torch.promote_types(dt, torch.float32)
+
+
+class SSD(nn.Module):
+    """Mamba2's SSD mixer (JAX ``layers.ssd``): ``w_x``/``w_z`` (d, inner),
+    ``w_bc`` (d, 2N), ``w_dt`` (d, H), ``dt_bias``/``a_log``/``d_skip``
+    (H,), ``conv_w`` (W, inner + 2N), ``w_out`` (inner, d)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, inner, n, nh = (cfg.d_model, cfg.ssm_inner, cfg.ssm_state,
+                           cfg.ssm_heads)
+        self.w_x = _param((d, inner), cfg, device)
+        self.w_z = _param((d, inner), cfg, device)
+        self.w_bc = _param((d, 2 * n), cfg, device)
+        self.w_dt = _param((d, nh), cfg, device)
+        self.dt_bias = _param((nh,), cfg, device)
+        self.a_log = _param((nh,), cfg, device)
+        self.d_skip = _param((nh,), cfg, device)
+        self.conv_w = _param((cfg.conv_width, inner + 2 * n), cfg, device)
+        self.w_out = _param((inner, d), cfg, device)
+
+    def forward(self, x: torch.Tensor, *, mode: str,
+                cache: Optional[Cache] = None
+                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        """x: (B, S, d). ``train`` and ``prefill`` run the chunked form
+        (``prefill`` starting from ``cache``'s state and conv tail when
+        given, and filling it); ``decode`` one step of the recurrence.
+        Returns the output and the cache (None in ``train`` mode)."""
+        cfg = self.cfg
+        bsz, s, _ = x.shape
+        inner, n, nh, hp = (cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads,
+                            cfg.ssm_head_dim)
+        dt_ = x.dtype
+        acc = _acc_dtype(dt_)
+        z = x @ self.w_z.to(dt_)
+        xin = x @ self.w_x.to(dt_)
+        bc = x @ self.w_bc.to(dt_)
+        conv_out, new_conv = _causal_conv(
+            torch.cat([xin, bc], dim=-1), self.conv_w.to(dt_),
+            None if cache is None else cache["conv"])
+        conv_out = F.silu(conv_out)
+        xs = conv_out[..., :inner].reshape(bsz, s, nh, hp)
+        bmat = conv_out[..., inner:inner + n]                    # (B, S, N)
+        cmat = conv_out[..., inner + n:]                         # (B, S, N)
+        dt = F.softplus((x @ self.w_dt.to(dt_)).to(acc)
+                        + self.dt_bias.to(acc))                  # (B, S, H)
+        adt = dt * -torch.exp(self.a_log.to(acc))                # <= 0
+
+        if mode == "decode":
+            if cache is None or s != 1:
+                raise ValueError("decode mode needs a cache and a "
+                                 "single-token step")
+            st = cache["state"].to(acc)                          # (B,H,P,N)
+            x1 = xs[:, 0].to(acc)                                # (B, H, P)
+            xb = x1[..., None] * bmat[:, 0].to(acc)[:, None, None, :]
+            st = (torch.exp(adt[:, 0])[..., None, None] * st
+                  + dt[:, 0][..., None, None] * xb)
+            y = (st @ cmat[:, 0].to(acc)[:, None, :, None])[..., 0]
+            y = y + self.d_skip.to(acc)[None, :, None] * x1
+            y = y.reshape(bsz, 1, inner).to(dt_)
+            cache["conv"] = new_conv
+            cache["state"] = st.to(cache["state"].dtype)
+            cache["end"] = int(cache["end"]) + 1
+            new_cache = cache
+        else:
+            init = (cache["state"].to(acc) if cache is not None else
+                    x.new_zeros((bsz, nh, hp, n), dtype=acc))
+            y, final = self._chunked(xs, bmat, cmat, dt, adt, init)
+            y = y.reshape(bsz, -1, inner)[:, :s].to(dt_)
+            new_cache = None
+            if mode == "prefill":
+                new_cache = {} if cache is None else cache
+                new_cache.update(conv=new_conv, state=final.to(dt_), end=s)
+        y = y * F.silu(z)
+        return y @ self.w_out.to(dt_), new_cache
+
+    def _chunked(self, xs, bmat, cmat, dt, adt, init):
+        """The chunked SSD over S padded to a multiple of the chunk with
+        identity steps (decay 1, zero input), so the final state is exact.
+        Returns y (B, Sp, H, P) in the recurrences' dtype and the final
+        state (B, H, P, N)."""
+        bsz, s, nh, hp = xs.shape
+        n = bmat.shape[-1]
+        acc = init.dtype
+        q = min(self.cfg.ssm_chunk, s)
+        sp = -(-s // q) * q
+        if sp != s:
+            xs = F.pad(xs, (0, 0, 0, 0, 0, sp - s))
+            bmat, cmat = (F.pad(t, (0, 0, 0, sp - s)) for t in (bmat, cmat))
+            dt, adt = (F.pad(t, (0, 0, 0, sp - s)) for t in (dt, adt))
+        nc = sp // q
+        xs = xs.to(acc)
+        xs_h = xs.reshape(bsz, nc, q, nh, hp).transpose(2, 3)   # (B,C,H,Q,P)
+        b_c = bmat.reshape(bsz, nc, q, n).to(acc)
+        c_c = cmat.reshape(bsz, nc, q, n).to(acc)
+        dt_h = dt.reshape(bsz, nc, q, nh).transpose(2, 3)       # (B,C,H,Q)
+        cum = torch.cumsum(adt.reshape(bsz, nc, q, nh), dim=2).transpose(
+            2, 3)                                               # (B,C,H,Q)
+        # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j, else 0, the
+        # mask inside the exponent (the upper triangle's exp overflows)
+        tri = torch.ones((q, q), dtype=torch.bool, device=xs.device).tril()
+        lmat = torch.exp(torch.where(
+            tri, cum[..., :, None] - cum[..., None, :], float("-inf")))
+        cb = c_c @ b_c.transpose(-1, -2)                        # (B,C,Q,K)
+        y = (cb[:, :, None] * lmat * dt_h[..., None, :]) @ xs_h  # (B,C,H,Q,P)
+        # chunk-final states: sum_k exp(cum_end - cum_k) dt_k x_k b_k^T
+        w_end = torch.exp(cum[..., -1:] - cum) * dt_h           # (B,C,H,Q)
+        s_local = (xs_h * w_end[..., None]).transpose(-1, -2) @ \
+            b_c[:, :, None]                                     # (B,C,H,P,N)
+        chunk_decay = torch.exp(cum[..., -1])                   # (B,C,H)
+        prev, st = [], init
+        for c in range(nc):                 # the state before each chunk
+            prev.append(st)
+            st = chunk_decay[:, c, :, None, None] * st + s_local[:, c]
+        prev = torch.stack(prev, dim=1)                         # (B,C,H,P,N)
+        y_inter = (c_c[:, :, None] @ prev.transpose(-1, -2)) * \
+            torch.exp(cum)[..., None]                           # (B,C,H,Q,P)
+        y = (y + y_inter).transpose(2, 3).reshape(bsz, sp, nh, hp)
+        y = y + self.d_skip.to(acc)[None, None, :, None] * xs
+        return y, st
+
+
+def init_ssd_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                   device=None) -> Cache:
+    return {"conv": torch.zeros((batch, cfg.conv_width - 1,
+                                 cfg.ssm_inner + 2 * cfg.ssm_state),
+                                dtype=dtype, device=device),
+            "state": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                  cfg.ssm_state), dtype=dtype, device=device),
+            "end": 0}
+
+
+_LRU_C = 8.0
+
+
+class RGLRU(nn.Module):
+    """Griffin's recurrent block (JAX ``layers.rglru``): a GELU gate branch
+    times the RG-LRU branch. ``w_in``/``w_gate_branch`` (d, w), ``conv_w``
+    (W, w), ``w_rg``/``w_ig`` (w, w) (recurrence and input gates),
+    ``a_param`` (w,), ``w_out`` (w, d)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, w = cfg.d_model, cfg.lru_dim
+        self.w_in = _param((d, w), cfg, device)
+        self.w_gate_branch = _param((d, w), cfg, device)
+        self.conv_w = _param((cfg.conv_width, w), cfg, device)
+        self.w_rg = _param((w, w), cfg, device)
+        self.w_ig = _param((w, w), cfg, device)
+        self.a_param = _param((w,), cfg, device)
+        self.w_out = _param((w, d), cfg, device)
+
+    def forward(self, x: torch.Tensor, *, mode: str,
+                cache: Optional[Cache] = None
+                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        """x: (B, S, d); the modes and the cache as ``SSD.forward``'s."""
+        bsz, s, _ = x.shape
+        dt = x.dtype
+        acc = _acc_dtype(dt)
+        gate = F.gelu(x @ self.w_gate_branch.to(dt), approximate="tanh")
+        u, new_conv = _causal_conv(x @ self.w_in.to(dt), self.conv_w.to(dt),
+                                   None if cache is None else cache["conv"])
+        r = torch.sigmoid((u @ self.w_rg.to(dt)).to(acc))
+        i = torch.sigmoid((u @ self.w_ig.to(dt)).to(acc))
+        log_a = _LRU_C * r * (-torch.exp(self.a_param.to(acc)) - 1e-3)
+        a = torch.exp(log_a)                                     # (B, S, w)
+        beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
+                                      min=1e-9)) * (i * u.to(acc))
+        if mode == "decode":
+            if cache is None or s != 1:
+                raise ValueError("decode mode needs a cache and a "
+                                 "single-token step")
+            h = a[:, 0] * cache["state"].to(acc) + beta[:, 0]
+            y = h[:, None, :]
+            cache["conv"] = new_conv
+            cache["state"] = h.to(cache["state"].dtype)
+            cache["end"] = int(cache["end"]) + 1
+            new_cache = cache
+        else:
+            if cache is not None:           # the initial state enters b_0
+                b0 = beta[:, :1] + a[:, :1] * cache["state"].to(acc)[:, None]
+                beta = torch.cat([b0, beta[:, 1:]], dim=1)
+            y = linear_scan(a, beta)
+            new_cache = None
+            if mode == "prefill":
+                new_cache = {} if cache is None else cache
+                new_cache.update(conv=new_conv, state=y[:, -1].to(dt), end=s)
+        y = y.to(dt) * gate
+        return y @ self.w_out.to(dt), new_cache
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                     device=None) -> Cache:
+    return {"conv": torch.zeros((batch, cfg.conv_width - 1, cfg.lru_dim),
+                                dtype=dtype, device=device),
+            "state": torch.zeros((batch, cfg.lru_dim), dtype=dtype,
+                                 device=device),
+            "end": 0}

@@ -1,11 +1,14 @@
 """Model assembly: embedding -> blocks -> norm -> logits.
 
-The port of ``repro.models.model`` for attention models with a dense MLP
-or the MoE FFN, on token input or on ``prefix_embeds`` prepended to it
-(the embeds front end: the modality stub's frame or patch embeddings).
-Each block is pre-norm residual, x += mixer(norm(x));
-x += ffn(norm(x)), and the blocks are an ``nn.ModuleList``, one per layer
-(JAX stacks them per group of ``cfg.block_pattern`` and scans). Layer
+The port of ``repro.models.model``: every architecture of the registry,
+on token input or on ``prefix_embeds`` prepended to it (the embeds front
+end: the modality stub's frame or patch embeddings). A block's mixer is
+chosen by its kind in ``cfg.block_pattern``: attention (``attn``,
+``local_attn``), Mamba2's SSD (``ssd``) or the RG-LRU (``rglru``); its FFN
+is the dense MLP, the MoE FFN or none (``mlp_type="none"``). Each block is
+pre-norm residual, x += mixer(norm(x)); x += ffn(norm(x)), and the blocks
+are an ``nn.ModuleList``, one per layer (JAX stacks them per group of
+``cfg.block_pattern`` and scans). Layer
 ``i`` is block ``i % len(cfg.block_pattern)`` of group
 ``i // len(cfg.block_pattern)``.
 
@@ -19,18 +22,22 @@ Entry points:
                                           -> last logits, cache
   decode_step(model, token, cache, pos=)  -> logits, cache
 
-In ``train`` mode with grad on and ``remat``, each group of blocks (one
-repetition of ``cfg.block_pattern``, JAX's scan body) runs under
-``torch.utils.checkpoint`` by ``cfg.remat_policy``: ``"nothing"`` keeps
-only the group's input and recomputes the rest in the backward pass;
+In ``train`` mode with grad on and ``remat``, each block runs under
+``torch.utils.checkpoint`` by ``cfg.remat_policy`` (JAX checkpoints its
+scan body, one repetition of ``cfg.block_pattern``; a block is the smaller
+unit, so a backward pass holds one block's recompute, not a whole
+pattern's, and every op is recomputed once either way): ``"nothing"``
+keeps only the block's input and recomputes the rest in the backward pass;
 ``"dots"`` also keeps the weight products (``aten.mm``/``addmm``, JAX's
 ``dots_with_no_batch_dims_saveable``) and recomputes the rest, the
 attention's batched einsums included. In an MoE block the router and the
 shared experts are unbatched products (``mm``) and are kept; the routed
 experts' products are batched over the expert axis (``bmm``, JAX's
 ``einsum("becd,edf->becf")`` with its batch dim) and are recomputed, as
-JAX's policy recomputes them. Remat changes no value: the recomputed
-forward routes as the first one did, bit for bit.
+JAX's policy recomputes them. The recurrent mixers' weight products are
+``mm`` and are kept; their scans (the SSD's chunk products and state
+recurrence, the RG-LRU's doubling scan) are recomputed. Remat changes no
+value: the recomputed forward routes as the first one did, bit for bit.
 
 The activations run in ``cfg.dtype``, the embedding scaled by
 sqrt(d_model) in that dtype (the JAX model scales by a numpy float64,
@@ -54,14 +61,6 @@ from .config import ModelConfig
 Caches = List[Optional[layers.Cache]]
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    bad = sorted(set(cfg.block_pattern) - {"attn", "local_attn"})
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: blocks {bad} (the SSD / RG-LRU mixers) are not "
-            f"ported yet (ROADMAP queue 1 item 12b)")
-
-
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, kind: str, *, device=None):
         super().__init__()
@@ -69,7 +68,14 @@ class Block(nn.Module):
         pdt = layers.torch_dtype(cfg.param_dtype)
         self.norm_mixer = nn.Parameter(torch.empty(cfg.d_model, dtype=pdt,
                                                    device=device))
-        self.mixer = layers.Attention(cfg, device=device)
+        if kind in ("attn", "local_attn"):
+            self.mixer = layers.Attention(cfg, device=device)
+        elif kind == "ssd":
+            self.mixer = layers.SSD(cfg, device=device)
+        elif kind == "rglru":
+            self.mixer = layers.RGLRU(cfg, device=device)
+        else:
+            raise ValueError(f"unknown block kind {kind!r}")
         self.norm_mlp = self.ffn = None
         if cfg.mlp_type != "none":
             self.norm_mlp = nn.Parameter(torch.empty(
@@ -86,8 +92,11 @@ class Block(nn.Module):
                 cache: Optional[layers.Cache]):
         cfg = self.cfg
         h = layers.rms_norm(x, self.norm_mixer, cfg.norm_eps)
-        y, new_cache = self.mixer(h, pos, window=self.window, mode=mode,
-                                  cache=cache)
+        if self.kind in ("attn", "local_attn"):
+            y, new_cache = self.mixer(h, pos, window=self.window, mode=mode,
+                                      cache=cache)
+        else:
+            y, new_cache = self.mixer(h, mode=mode, cache=cache)
         x = x + y
         if self.ffn is not None:
             h = layers.rms_norm(x, self.norm_mlp, cfg.norm_eps)
@@ -103,7 +112,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         pdt = layers.torch_dtype(cfg.param_dtype)
         v, d = cfg.padded_vocab(), cfg.d_model
@@ -145,10 +153,9 @@ class Model(nn.Module):
                ).expand(bsz, s)
         new_caches: Caches = []
         if remat and mode == "train" and torch.is_grad_enabled():
-            period = len(cfg.block_pattern)
-            for g0 in range(0, len(self.blocks), period):
+            for blk in self.blocks:
                 x = _ckpt.checkpoint(
-                    self._group, x, pos, g0, use_reentrant=False,
+                    _train_block, blk, x, pos, use_reentrant=False,
                     context_fn=_remat_context(cfg.remat_policy))
         else:
             for i, blk in enumerate(self.blocks):
@@ -167,13 +174,11 @@ class Model(nn.Module):
             return logits
         return logits, new_caches
 
-    def _group(self, x: torch.Tensor, pos: torch.Tensor,
-               g0: int) -> torch.Tensor:
-        """One repetition of the block pattern in ``train`` mode, from
-        block ``g0``: the unit remat checkpoints."""
-        for blk in self.blocks[g0:g0 + len(self.cfg.block_pattern)]:
-            x, _ = blk(x, pos, mode="train", cache=None)
-        return x
+
+def _train_block(blk: Block, x: torch.Tensor,
+                 pos: torch.Tensor) -> torch.Tensor:
+    """One block in ``train`` mode: the unit remat checkpoints."""
+    return blk(x, pos, mode="train", cache=None)[0]
 
 
 # The weight products "dots" keeps; every other op is recomputed.
@@ -220,13 +225,17 @@ def loss_fn(model: Model, batch: Dict[str, object], *,
 @torch.no_grad()
 def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Model:
     """A model with weights drawn from ``seed`` on ``device`` (default
-    CUDA): matrices and the MoE's 3-D expert tensors normal(0, 0.02), the
-    1-D norms zeros, as the JAX init draws them."""
+    CUDA) by each parameter's JAX init kind: the SSD's ``d_skip`` ones;
+    the other vectors (the norms, ``dt_bias``, ``a_log``, ``a_param``)
+    zeros; matrices (``conv_w`` included) and the MoE's 3-D expert tensors
+    normal(0, 0.02)."""
     dev = resolve_device(device)
     model = Model(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    for _, p in model.named_parameters():
-        if p.ndim == 1:
+    for name, p in model.named_parameters():
+        if name.endswith(".d_skip"):
+            p.fill_(1.0)
+        elif p.ndim == 1:
             p.zero_()
         else:
             p.normal_(0.0, 0.02, generator=gen)
@@ -235,17 +244,23 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Model:
 
 def init_cache(cfg: ModelConfig, batch: int, alloc_seq: int,
                dtype=torch.bfloat16, device=None) -> Caches:
-    """One decode cache per layer: attention blocks allocate
-    min(alloc_seq, their window) slots."""
-    _check_ported(cfg)
+    """One decode cache per layer, by its kind: attention blocks allocate
+    min(alloc_seq, their window) slots; SSD and RG-LRU blocks hold their
+    O(1) state and conv tail."""
     dev = resolve_device(device)
     caches: Caches = []
     pattern = cfg.block_pattern
     for i in range(cfg.n_layers):
         kind = pattern[i % len(pattern)]
-        win = cfg.sliding_window if kind == "attn" else cfg.local_window
-        alloc = min(alloc_seq, win) if win else alloc_seq
-        caches.append(layers.init_attn_cache(cfg, batch, alloc, dtype, dev))
+        if kind == "ssd":
+            caches.append(layers.init_ssd_cache(cfg, batch, dtype, dev))
+        elif kind == "rglru":
+            caches.append(layers.init_rglru_cache(cfg, batch, dtype, dev))
+        else:
+            win = cfg.sliding_window if kind == "attn" else cfg.local_window
+            alloc = min(alloc_seq, win) if win else alloc_seq
+            caches.append(layers.init_attn_cache(cfg, batch, alloc, dtype,
+                                                 dev))
     return caches
 
 

@@ -3,7 +3,9 @@ against its plain torch version over types, head dims, group sizes,
 windows, soft caps and ragged lengths; the wrapper's refusals; one launch
 per ``ops.flash_mha``; a smoke-width model and ``ServeEngine`` prefilling
 through the kernel; the MoE FFN against the CPU and run to run, its ties,
-and an embeds prefill through the kernel.
+and an embeds prefill through the kernel; the SSD and RG-LRU models (train,
+prefill, decode and grads) against the CPU, and the SSD's grads finite at
+mamba2's chunk of 256.
 
 This file imports nothing of JAX, so it runs on a machine that has the card
 and no JAX: ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
@@ -18,7 +20,8 @@ output is 2^-8; a bound on the whole output's max would let an error of
 the long rows, whose outputs are small, through); model logits on the
 card against the same model on the CPU ``1e-4`` (f32 throughout); an
 MoE layer's output and grads ``1e-4`` of each tensor's max against the
-CPU, bitwise against its repeat.
+CPU, bitwise against its repeat; a recurrent model's grads ``1e-4`` of
+each tensor's max against the CPU.
 """
 import dataclasses
 
@@ -27,6 +30,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _recurrent_draw import MIXER_LEAVES, draw_mixer_leaf # noqa: E402
 from repro_torch import configs                           # noqa: E402
 from repro_torch.kernels import flash_attention as F      # noqa: E402
 from repro_torch.kernels import ops                       # noqa: E402
@@ -389,3 +393,76 @@ def test_embeds_prefill_launches_flash_once_a_layer(cuda):
                              cache_dtype=torch.float32)
     np.testing.assert_allclose(logits.cpu().numpy(), want.numpy(),
                                rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+
+# ----------------------------------------------------------------------
+# The recurrent mixers (SSD, RG-LRU) on the card.
+def _recurrent_pair(cuda, name):
+    """``name``'s smoke model (f32) on the CPU, its SSD or RG-LRU leaves
+    drawn by ``draw_mixer_leaf`` (the state carries the output), and a
+    copy on the card."""
+    cfg = configs.get_smoke(name)
+    cpu = M.init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    with torch.no_grad():
+        for n, p in cpu.named_parameters():
+            leaf = n.rsplit(".", 1)[-1]
+            if ".mixer." in n and leaf in MIXER_LEAVES:
+                p.copy_(torch.from_numpy(draw_mixer_leaf(leaf, p.shape,
+                                                         rng)))
+    card = M.Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+@pytest.mark.parametrize("name", ["mamba2-370m", "recurrentgemma-2b"])
+def test_recurrent_model_on_the_card_matches_the_cpu(cuda, monkeypatch,
+                                                     name):
+    """Train logits and grads (S = 40: three SSD chunks of 16), a prefill
+    of 40 (recurrentgemma's local attention through the flash kernel, one
+    launch) and 6 decode steps against the CPU."""
+    cfg, cpu, card = _recurrent_pair(cuda, name)
+    monkeypatch.setattr(layers, "FLASH_THRESHOLD", 32)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 41))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    grads = []
+    for m in (card, cpu):
+        m.zero_grad(set_to_none=True)
+        M.loss_fn(m, batch).backward()
+        grads.append({n: p.grad.cpu() for n, p in m.named_parameters()})
+    for n, want in grads[1].items():
+        scale = float(want.abs().max())
+        assert float((grads[0][n] - want).abs().max()) <= 1e-4 * scale, n
+    F.reset_launches()
+    got, gc = M.prefill_step(card, toks[:, :40], alloc_seq=60,
+                             cache_dtype=torch.float32)
+    n_attn = sum(k == "local_attn" for k in (
+        cfg.block_pattern * cfg.n_layers)[:cfg.n_layers])
+    assert F.LAUNCHES["flash_attention"] == n_attn
+    want, wc = M.prefill_step(cpu, toks[:, :40], alloc_seq=60,
+                              cache_dtype=torch.float32)
+    for step in range(7):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=LOGIT_TOL, atol=LOGIT_TOL)
+        tok = want.argmax(-1, keepdim=True)
+        got, gc = M.decode_step(card, tok.to(cuda), gc, pos=40 + step)
+        want, wc = M.decode_step(cpu, tok, wc, pos=40 + step)
+
+
+def test_ssd_grads_finite_at_chunk_256_on_the_card(cuda):
+    """mamba2-370m's published chunk, one layer at full width on 2 x 512
+    tokens with the init's dt_bias = a_log = 0 (dt ~ 0.69 a step, so the
+    intra-chunk exponents reach ~177 across a chunk): every grad finite
+    and nonzero (ROADMAP queue 3, C5)."""
+    cfg = dataclasses.replace(configs.get("mamba2-370m"), n_layers=1,
+                              dtype="float32")
+    assert cfg.ssm_chunk == 256
+    model = M.init(cfg, seed=0, device=cuda)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 513))
+    loss = M.loss_fn(model, {"tokens": toks[:, :-1],
+                             "labels": toks[:, 1:]})
+    loss.backward()
+    assert bool(torch.isfinite(loss))
+    for n, p in model.named_parameters():
+        assert bool(torch.isfinite(p.grad).all()), n
+        assert bool((p.grad != 0).any()), n

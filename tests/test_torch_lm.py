@@ -1,7 +1,7 @@
 """The port's LM stack (configs, flash attention, layers, model, serving
-engine, launcher) against the JAX package on the CPU, the MoE and embeds
-architectures included (their prefix embeds in the logits, the engines'
-tokens, the cache that counts the prefix).
+engine, launcher) against the JAX package on the CPU, the MoE, embeds and
+recurrent (SSD, RG-LRU) architectures included (their prefix embeds in the
+logits, the engines' tokens, the cache that counts the prefix).
 
 Inputs are made with numpy from a seed and handed to both packages. The
 port's flash attention on the CPU is its plain version; the JAX side runs
@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 import jax                                                # noqa: E402
 import jax.numpy as jnp                                   # noqa: E402
+from _recurrent_draw import MIXER_LEAVES, draw_mixer_leaf # noqa: E402
 
 from repro import configs as jconfigs                     # noqa: E402
 from repro.kernels import ops as jops                     # noqa: E402
@@ -39,9 +40,10 @@ from repro_torch.serve import engine as teng              # noqa: E402
 
 ATTN_TOL = 2e-5
 LOGIT_TOL = 1e-4
-PORTED = ("granite-34b", "phi3-medium-14b", "mistral-large-123b",
-          "llama3-405b", "mixtral-8x7b", "qwen2-moe-a2.7b", "musicgen-medium",
-          "internvl2-1b")
+# the JAX registry's ten, in its order
+PORTED = ("musicgen-medium", "mamba2-370m", "mixtral-8x7b", "qwen2-moe-a2.7b",
+          "internvl2-1b", "granite-34b", "phi3-medium-14b",
+          "mistral-large-123b", "llama3-405b", "recurrentgemma-2b")
 # the MoE and embeds architectures (ROADMAP queue 1 item 12a)
 FAMILIES = ("mixtral-8x7b", "qwen2-moe-a2.7b", "musicgen-medium",
             "internvl2-1b")
@@ -82,21 +84,21 @@ def test_ported_configs_equal_jax(name):
 
 
 def test_unported_architectures_name_their_roadmap_item():
-    """Only the SSD and RG-LRU architectures are refused now (item 12b);
-    the MoE and embeds ones build (``test_item_12a_archs_build_and_run``)."""
-    assert set(tconfigs.ARCH_NAMES) | set(tconfigs.UNPORTED) == \
-        set(jconfigs.ARCH_NAMES)
-    assert set(tconfigs.UNPORTED) == {"mamba2-370m", "recurrentgemma-2b"}
-    for name, what in (("mamba2-370m", "SSD"),
-                       ("recurrentgemma-2b", "RG-LRU")):
+    """No architecture is refused now: the registry is JAX's ten, in its
+    order, ``UNPORTED`` is gone, and the SSD and RG-LRU architectures
+    build, from the registry and from a config built by hand, with their
+    mixers."""
+    assert tconfigs.ARCH_NAMES == jconfigs.ARCH_NAMES
+    assert not hasattr(tconfigs, "UNPORTED")
+    assert not hasattr(tmodel, "_check_ported")
+    for name, mixer in (("mamba2-370m", tlayers.SSD),
+                        ("recurrentgemma-2b", tlayers.RGLRU)):
         for get in (tconfigs.get, tconfigs.get_smoke):
-            with pytest.raises(NotImplementedError,
-                               match=f"{what}.*item 12"):
-                get(name)
-        # a config built by hand is refused by the model too
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tmodel.Model(tconfig.ModelConfig(**_as_dict(
-                jconfigs.get_smoke(name))), device="cpu")
+            assert get(name) == tconfig.ModelConfig(**_as_dict(
+                getattr(jconfigs, get.__name__)(name)))
+        model = tmodel.Model(tconfig.ModelConfig(**_as_dict(
+            jconfigs.get_smoke(name))), device="cpu")
+        assert isinstance(model.blocks[0].mixer, mixer)
     for name in FAMILIES:
         assert tconfigs.get(name) == tconfig.ModelConfig(**_as_dict(
             jconfigs.get(name)))
@@ -212,6 +214,8 @@ MODEL_CASES = {
     "qwen2": ("qwen2-moe-a2.7b", {}),
     "musicgen": ("musicgen-medium", {}),
     "internvl2": ("internvl2-1b", {}),
+    "mamba2": ("mamba2-370m", {}),
+    "recurrentgemma": ("recurrentgemma-2b", {}),
 }
 EMBEDS = ("musicgen", "internvl2")
 
@@ -229,6 +233,12 @@ def models():
             tcfg = dataclasses.replace(
                 tcfg, sparsity=tconfig.BlockSparsity(block=16))
         params, _ = jmodel.init(jcfg, jax.random.PRNGKey(0))
+        # the recurrent mixers' leaves: their state carries the output
+        rng = np.random.default_rng(9)
+        params = jax.tree_util.tree_map_with_path(
+            lambda path, v: jnp.asarray(draw_mixer_leaf(
+                path[-1].key, v.shape, rng), v.dtype)
+            if path[-1].key in MIXER_LEAVES else v, params)
         if jcfg.sparsity is not None:
             # the block masks init to ones; prune half the blocks
             ffn = params["groups"]["block0_attn"]["ffn"]
@@ -282,6 +292,8 @@ def test_forward_matches_jax(models, flash_threshold, case, threshold):
     ("qwen2", 12, 8192),               # MoE with shared experts
     ("musicgen", 12, 8192),            # embeds: the prefix takes positions
     ("internvl2", 12, 16),
+    ("mamba2", 20, 8192),              # SSD: a chunk of 16 and a ragged one
+    ("recurrentgemma", 20, 8),         # RG-LRU; the local window wraps
 ])
 def test_prefill_then_decode_match_jax_step_for_step(
         models, flash_threshold, case, prompt, threshold):
@@ -367,10 +379,12 @@ def test_serve_engine_matches_jax_engine(models, temperature):
 
 
 @pytest.mark.parametrize("case", ["mixtral", "qwen2", "musicgen",
-                                  "internvl2"])
+                                  "internvl2", "mamba2", "recurrentgemma"])
 def test_serve_engine_matches_jax_engine_moe_and_embeds(models, case):
-    """Both engines' tokens on the MoE and embeds smoke configs (the
-    embeds engines prefill zero front-end embeddings first)."""
+    """Both engines' tokens on the MoE, embeds and recurrent smoke configs
+    (the embeds engines prefill zero front-end embeddings first; the
+    recurrent ones carry a state that no padding token may enter: waves
+    are grouped by prompt length)."""
     jcfg, params, model = models[case]
     out = []
     for eng in (jeng.ServeEngine(jcfg, params, n_slots=2,
@@ -426,5 +440,8 @@ def test_launcher_serves_an_lm_on_cpu(capsys):
                            "--n-requests", "2", "--max-new", "3"]) == 0
         assert f"arch={arch}-smoke served 2 requests, 6 tokens" in \
             capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="SSD"):
-        serve.main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu"])
+    for arch in ("mamba2-370m", "recurrentgemma-2b"):
+        assert serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                           "--n-requests", "2", "--max-new", "3"]) == 0
+        assert f"arch={arch}-smoke served 2 requests, 6 tokens" in \
+            capsys.readouterr().out

@@ -1,7 +1,7 @@
 """The port's LM training path (train-mode chunked attention, loss_fn with
 remat, loss_and_grads with microbatches, the AdamW step, the launcher and
 the sparse-FFN example) against the JAX package on the CPU, for the
-dense, MoE and embeds smoke configs.
+dense, MoE, embeds and recurrent (SSD, RG-LRU) smoke configs.
 
 Inputs come from numpy seeds and ``repro.data.pipeline.SyntheticTokens``
 and go to both packages; the weights are JAX's, carried over by
@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 import jax                                                # noqa: E402
 import jax.numpy as jnp                                   # noqa: E402
+from _recurrent_draw import MIXER_LEAVES, draw_mixer_leaf # noqa: E402
 
 from repro import configs as jconfigs                     # noqa: E402
 from repro.data.pipeline import SyntheticTokens           # noqa: E402
@@ -47,8 +48,8 @@ STEP_TOL = 1e-4
 ATTN_TOL = 3e-5
 ARCHS = ("granite-34b", "phi3-medium-14b", "mistral-large-123b",
          "llama3-405b", "mixtral-8x7b", "qwen2-moe-a2.7b", "musicgen-medium",
-         "internvl2-1b")
-# the MoE and embeds architectures (ROADMAP queue 1 item 12a)
+         "internvl2-1b", "mamba2-370m", "recurrentgemma-2b")
+# the MoE, embeds and recurrent architectures
 FAMILIES = ARCHS[4:]
 
 
@@ -66,6 +67,12 @@ def _pair(name, seed=0, sparse=False, **over):
         tcfg = dataclasses.replace(tcfg,
                                    sparsity=tconfig.BlockSparsity(block=16))
     params, _ = jmodel.init(jcfg, jax.random.PRNGKey(seed))
+    # the recurrent mixers' leaves: their state carries the output
+    rng = np.random.default_rng(seed + 9)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, v: jnp.asarray(draw_mixer_leaf(path[-1].key, v.shape,
+                                                    rng), v.dtype)
+        if path[-1].key in MIXER_LEAVES else v, params)
     if sparse:
         rng = np.random.default_rng(6)
         for blk in params["groups"].values():
@@ -241,7 +248,8 @@ def test_grad_accumulation_equivalence(n_micro):
 def test_grad_accumulation_equivalence_moe_and_embeds(name):
     """Two microbatches against one batch and against JAX's accumulation
     (MoE routing and capacity are per sequence, so a split changes no
-    route; the prefix embeds split with their tokens)."""
+    route; the prefix embeds split with their tokens; a recurrent state is
+    per sequence)."""
     jcfg, params, model = _pair(name)
     batch = _batch(jcfg, batch=4)
     l1, g1 = ttrainer.loss_and_grads(model, batch, n_micro=1, remat=False)
@@ -273,7 +281,8 @@ def _jax_steps(jcfg, params, opt, batches, n_micro=1):
 ADAMW_ARCH = {"granite": "granite-34b", "phi3": "phi3-medium-14b",
               "sparse_micro": "granite-34b", "mixtral": "mixtral-8x7b",
               "qwen2_micro": "qwen2-moe-a2.7b",
-              "musicgen": "musicgen-medium", "internvl2": "internvl2-1b"}
+              "musicgen": "musicgen-medium", "internvl2": "internvl2-1b",
+              "mamba2": "mamba2-370m", "recurrentgemma": "recurrentgemma-2b"}
 
 
 @pytest.mark.parametrize("case", list(ADAMW_ARCH))
@@ -504,9 +513,10 @@ def test_launcher_flag_conflicts(flags, match):
 
 
 def test_launcher_int8_microbatches_and_unported(capsys):
-    """int8 moments and microbatches; the MoE and embeds architectures
-    train through the launcher (a finite loss every step); the SSD one is
-    still refused, naming item 12."""
+    """int8 moments and microbatches; the MoE, embeds and SSD
+    architectures train through the launcher (a finite loss every step;
+    mamba2's smoke config, which item 12 once refused, its loss falling
+    at S = 40, three SSD chunks of 16)."""
     loss = _launch(["--arch", "phi3-medium-14b", "--smoke", "--device",
                     "cpu", "--steps", "2", "--seq", "16", "--batch", "4",
                     "--n-micro", "2", "--int8-opt"])
@@ -520,8 +530,18 @@ def test_launcher_int8_microbatches_and_unported(capsys):
         out = capsys.readouterr().out
         assert f"arch={arch}-smoke" in out and np.isfinite(last)
         assert out.count("  loss ") == 6
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _launch(["--arch", "mamba2-370m", "--smoke", "--device", "cpu"])
+    capsys.readouterr()
+    losses = []
+    for seed in (0, 0):
+        losses.append(_launch(["--arch", "mamba2-370m", "--smoke",
+                               "--device", "cpu", "--steps", "8", "--seq",
+                               "40", "--batch", "4", "--lr", "3e-3",
+                               "--log-every", "1", "--seed", str(seed)]))
+    out = capsys.readouterr().out
+    assert "arch=mamba2-370m-smoke" in out and out.count("  loss ") == 16
+    assert losses[0] == losses[1] and np.isfinite(losses[0])
+    first = float(out.split("  loss ")[1].split()[0])
+    assert losses[0] < first
 
 
 def test_sparse_lm_example_on_cpu(capsys):

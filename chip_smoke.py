@@ -20,12 +20,12 @@ Phases, each printing one JSON line:
              subprocess. Launch counters are zeroed just before and read
              just after, and must equal the waves.
 4. profile — incrs-docword served again in a fresh process (this script
-             with --profile): plain for the wall time and the host's
-             staging, then under torch.profiler for device time by kind
-             (kernel, copies); the idle share of the card. After phase 10
-             the same for docword as bsr and as dense plans and for the
-             granite bsr plan, and in phase 13 for the lifecycle's
-             operands.
+             with --profile), after phase 10 and in the same process as
+             docword as bsr and as dense plans and the granite bsr plan:
+             plain for the wall time and the host's staging, then under
+             torch.profiler for device time by kind (kernel, copies); the
+             idle share of the card. In phase 13 the same for the
+             lifecycle's operands.
 5. times   — the three InCRS orders' median times over CUDA events on
              each Table II operand at N = 512 (incrs-docword also at 128
              and 640), beside ``torch.sparse.mm`` and the bound of the
@@ -251,9 +251,9 @@ Phases, each printing one JSON line:
              zeroed just before the pipeline's runs and read just after.
              ``python3 chip_smoke.py --lm-train`` runs this phase alone.
 19. lm_families — the MoE FFN and the embeds front end: mixtral-8x7b
-             (served at 4 of 32 layers, trained at 2), qwen2-moe-a2.7b (4
-             of 24, both), musicgen-medium and internvl2-1b (full depth)
-             at full width. Each: ``ServeEngine`` serves 2 requests of
+             (2 of 32 layers), qwen2-moe-a2.7b (4 of 24), musicgen-medium
+             (12 of 48) and internvl2-1b (12 of 24), each served and
+             trained at that depth, at full width. Each: ``ServeEngine`` serves 2 requests of
              8,192 positions (prefix embeds included: one wave, one flash
              launch a layer) and 4 of 512 (none), counters zeroed just
              before each, the long wave's dropped (token, expert)
@@ -274,10 +274,10 @@ Phases, each printing one JSON line:
              8,192 positions, while the training launcher on qwen2-moe's
              is resumed from its step-4 checkpoint, steps 5-8 bitwise.
              ``python3 chip_smoke.py --lm-families`` runs this phase alone.
-20. lm_recurrent — the SSD and RG-LRU mixers: mamba2-370m (all 48
-             layers, served and trained) and recurrentgemma-2b (served at
-             all 26 layers, trained at 13, one repetition of its
-             pattern: 9 RG-LRU, 4 local attention) at full width. Each:
+20. lm_recurrent — the SSD and RG-LRU mixers: mamba2-370m (24 of 48
+             layers) and recurrentgemma-2b (13 of 26, one repetition of
+             its pattern: 9 RG-LRU, 4 local attention), each served and
+             trained at that depth, at full width. Each:
              ``ServeEngine`` serves 2 requests of 8,192 positions (one
              wave: one flash launch a
              local-attention layer, 8 for recurrentgemma, none for
@@ -299,12 +299,29 @@ Phases, each printing one JSON line:
              bitwise. ``python3 chip_smoke.py --lm-recurrent`` runs this
              phase alone; ``--lm-recurrent-profile`` profiles both archs'
              long prefill and training step in a process of its own.
-21. profile_in_process — last, so that it perturbs no later profile:
+21. proofs, dryrun, examples — with every exit-code subprocess of the
+             smoke in one pool at the end (``late_checks``: these four,
+             tenancy's serve bench and example, the training and
+             lifecycle examples, the LM training launcher's resumed
+             pair; beside them the LM serving launchers and their
+             in-process training resumes): ``python -m
+             repro_torch.analysis --check`` (every seeded case of the ten
+             wrappers on the card: bounds, accumulator, coverage, race and
+             ring checks; its proof matrix printed on lines of its own,
+             every cell proved or n/a); ``python -m
+             repro_torch.launch.dryrun --all`` (each applicable arch x
+             shape cell's bytes against the card, and the depth that
+             fits; its parameter and AdamW bytes of lm_train's granite-34b
+             at LM_DEPTH layers equal to what the card held, its peak
+             beside the measured one); the quickstart and lm_serve
+             examples, each exiting 0.
+22. profile_in_process — last, so that it perturbs no later profile:
              phase 4's plan-path operands (docword bsr and dense, granite
              bsr) planned again and each served once under torch.profiler
              in this process, its kernel records against its 16 launches
-             (ROADMAP P4: the profiler losing records late in the smoke).
-             A loss is printed, not failed.
+             (ROADMAP P4: the profiler losing records late in the smoke),
+             Kineto's log on and its count of the records it discards
+             ("Out-of-range") kept. A loss is printed, not failed.
 
 Then the card's line, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --serial`` runs
@@ -446,30 +463,10 @@ def phase_env(torch, build):
 
 
 def _edge_operands():
-    """Small operands that reach each masked edge of the kernels."""
-    rng = np.random.default_rng(7)
-
-    def sparse(m, k, d):
-        a = rng.uniform(0.5, 1.5, size=(m, k)).astype(np.float32)
-        a[rng.random(size=(m, k)) >= d] = 0.0
-        return a
-
-    ragged = sparse(203, 1000, 0.05)              # M not a multiple of 8
-    empty = sparse(64, 777, 0.05)
-    empty[3] = 0.0
-    empty[10:20] = 0.0                            # empty rows
-    single = np.zeros((50, 1024), np.float32)     # smax = 1
-    for r in range(50):
-        for s in range(0, 4, 1 + r % 2):
-            single[r, s * 256 + rng.integers(256)] = 1.0 + r
-    dense_sec = sparse(40, 600, 0.03)
-    dense_sec[:, 256:512] = rng.uniform(0.5, 1.5, size=(40, 256))
-    k_ragged = sparse(90, 300, 0.1)               # K not a multiple of S
-    skewed = sparse(600, 2048, 0.01)              # one row tile holds most
-    skewed[:48] = sparse(48, 2048, 0.5)           # of the non-zeros
-    return {"m_ragged": ragged, "empty_rows": empty, "smax_1": single,
-            "dense_section": dense_sec, "k_ragged": k_ragged,
-            "skewed": skewed}
+    """Small operands that reach each masked edge of the kernels (the
+    proofs' ``edge_*`` cases too)."""
+    from repro_torch.analysis import cases
+    return cases.edge_incrs()
 
 
 def _compare(torch, K, idx, val, b, *, section, bm, bn, label):
@@ -605,18 +602,21 @@ def phase_serve(K, engine_mod, table2):
     launches = dict(K.LAUNCHES)
     check(all(v > 0 for v in launches.values()),
           f"every kernel ran on the main path: {launches}")
-    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
-               os.environ.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--spmm",
-           "--workload", "incrs-docword", "--scale", "1.0",
-           "--device", "cuda"]
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=600)
-    emit({"phase": "serve_launcher", "cmd": " ".join(cmd[1:]),
-          "rc": proc.returncode, "stdout": proc.stdout.strip()[-2000:],
-          "stderr": proc.stderr.strip()[-2000:]})
-    check(proc.returncode == 0, "launcher exited 0")
     return launches
+
+
+# phase serve's serving launcher: an exit-code subprocess (run in
+# ``late_checks``)
+SERVE_LAUNCHER = ("repro_torch.launch.serve", "--spmm", "--workload",
+                  "incrs-docword", "--scale", "1.0", "--device", "cuda")
+
+
+def report_serve_launcher(result):
+    rc, wall, out, err = result
+    emit({"phase": "serve_launcher", "cmd": " ".join(SERVE_LAUNCHER),
+          "rc": rc, "wall_s": wall, "stdout": out.strip()[-2000:],
+          "stderr": err.strip()[-2000:]})
+    check(rc == 0, "launcher exited 0")
 
 
 INCRS_SYMBOLS = ("expand_kernel", "reuse_kernel", "pipelined_kernel")
@@ -690,13 +690,47 @@ def phase_profile(torch, jobs):
 PROFILE_TRIES = 3
 
 
+# Kineto's lines of dropped records, a full buffer, and its own count of
+# the records it discards ("Out-of-range", "CPU GPU out-of-order")
+P4_MESSAGE = re.compile(r"drop|overflow|record counts", re.I)
+
+
+class _Stderr:
+    """File descriptor 2 captured for a block (Kineto and CUPTI log there,
+    below Python) and written back after it; ``p4`` holds its lines that
+    speak of dropped or discarded records or a full buffer (ROADMAP
+    P4)."""
+
+    def __enter__(self):
+        import tempfile
+        sys.stderr.flush()
+        self._saved = os.dup(2)
+        self._file = tempfile.TemporaryFile()
+        os.dup2(self._file.fileno(), 2)
+        return self
+
+    def __exit__(self, *exc):
+        sys.stderr.flush()
+        os.dup2(self._saved, 2)
+        os.close(self._saved)
+        self._file.seek(0)
+        text = self._file.read().decode(errors="replace")
+        self._file.close()
+        sys.stderr.write(text)
+        self.p4 = [ln.strip()[:300] for ln in text.splitlines()
+                   if P4_MESSAGE.search(ln)]
+        return False
+
+
 def _profiled_serve(torch, serve, keys, kernel_kind):
     """One ``serve()`` under torch.profiler: the device ms by kind (the
     format's kernel by its symbols ``keys``, the copies, the rest), the
-    count of the format's kernel records, and the serve's summary."""
+    count of the format's kernel records, the serve's summary and Kineto's
+    lines of dropped or discarded records (ROADMAP P4)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _Stderr() as err, profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) \
+            as prof:
         s_prof = serve()
     by_kind = {kernel_kind: 0.0, "memcpy_h2d": 0.0, "memcpy_d2h": 0.0,
                "other": 0.0}
@@ -712,7 +746,7 @@ def _profiled_serve(torch, serve, keys, kernel_kind):
                 "memcpy_d2h" if "dtoh" in key else "other")
         by_kind[kind] += us / 1e3
         n_kernels += ev.count if kind == kernel_kind else 0
-    return n_kernels, by_kind, s_prof
+    return n_kernels, by_kind, s_prof, err.p4
 
 
 def _plan_serve_fn(torch, engine_mod, operand, k):
@@ -733,26 +767,31 @@ def _plan_serve_fn(torch, engine_mod, operand, k):
 
 def phase_profile_in_process(torch, engine_mod, api, operands):
     """ROADMAP P4: each plan-path operand (label, format, dense A, block)
-    planned on the card and its serve profiled once in this process, as
-    the profile phase did before it moved to a fresh process; the kernel
-    records it keeps against the waves' launches (16 each). A loss is
-    printed, not failed: phase 4's fresh process's profile is the one
-    read."""
+    planned on the card and its serve profiled in this process, as the
+    profile phase did before it moved to a fresh process; the kernel
+    records it keeps against the waves' launches (16 each), with Kineto's
+    log on (``KINETO_LOG_LEVEL``) and its lines of dropped or discarded
+    records kept: its "Record counts" line counts the records it drops
+    as outside the profile's window ("Out-of-range"). A loss is printed,
+    not failed: the fresh process's profile is the one read."""
     out = []
     for label, fmt, a, block in operands:
         bound = api.plan_for_operand(a, api.SparseSpec(fmt, block=block),
                                      device="cuda")
         serve = _plan_serve_fn(torch, engine_mod, bound, bound.shape[1])
         serve()                                     # warm
-        n, by_kind, s = _profiled_serve(torch, serve, (
-            f"{fmt}_kernel", f"{fmt}src"), f"kernel_{fmt}")
+        n, by_kind, s, msgs = _profiled_serve(
+            torch, serve, (f"{fmt}_kernel", f"{fmt}src"), f"kernel_{fmt}")
         out.append({"workload": label, "format": fmt,
                     "kernel_records": n, "waves": s["waves"],
-                    "lost": s["waves"] - n, "device_ms_by_kind": by_kind})
+                    "lost": s["waves"] - n, "device_ms_by_kind": by_kind,
+                    "kineto_lines": msgs})
         del bound, serve
     emit({"phase": "profile_in_process", "runs": out,
           "records": sum(r["kernel_records"] for r in out),
-          "expected": sum(r["waves"] for r in out)})
+          "expected": sum(r["waves"] for r in out),
+          "kineto_log_level": os.environ.get("KINETO_LOG_LEVEL"),
+          "kineto_lines": [m for r in out for m in r["kineto_lines"]]})
 
 
 def profile_child(path) -> int:
@@ -771,7 +810,7 @@ def profile_child(path) -> int:
         s = serve()
         seen, best = [], None
         for _ in range(PROFILE_TRIES):
-            n_kernels, by_kind, s_prof = _profiled_serve(
+            n_kernels, by_kind, s_prof, _ = _profiled_serve(
                 torch, serve, keys, f"kernel_{job['fmt']}")
             seen.append(n_kernels)
             if best is None or n_kernels > best[0]:
@@ -1253,30 +1292,8 @@ ALLOC_STATS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
 
 def _spgemm_edges():
     """(A, Bt) dense pairs that reach each masked edge of the kernels."""
-    rng = np.random.default_rng(17)
-
-    def sparse(m, k, d):
-        a = rng.uniform(-1.5, 1.5, size=(m, k)).astype(np.float32)
-        a[rng.random(size=(m, k)) >= d] = 0.0
-        return a
-
-    empty = sparse(150, 700, 0.05)
-    empty[3] = 0.0
-    empty[40:60] = 0.0                            # empty rows
-    single = np.zeros((100, 512), np.float32)     # rmax = 1
-    for r in range(100):
-        for t in range(0, 4, 1 + r % 2):
-            single[r, t * 128 + rng.integers(128)] = 1.0 + r
-    full = sparse(90, 384, 0.03)
-    full[::4, 128:256] = rng.uniform(0.5, 1.5, size=(23, 128))  # rmax = R
-    return {"all_zero": (np.zeros((64, 300), np.float32),
-                         sparse(40, 300, 0.1)),
-            "empty_rows": (empty, empty),
-            "rmax_1": (single, single),
-            "full_window": (full, full),
-            "k_ragged": (sparse(130, 1000, 0.04), sparse(130, 1000, 0.04)),
-            "mn_ragged_a_ne_b": (sparse(203, 640, 0.06),
-                                 sparse(77, 640, 0.08))}
+    from repro_torch.analysis import cases
+    return cases.edge_spgemm()
 
 
 def _match_geo(P, ai, bi, rounds, kernel, **kw):
@@ -1937,37 +1954,8 @@ def _dense_check(torch, Q, a, b, label):
 
 def _bsr_edges():
     """(label, A, (bm, bk), N): operands that reach each masked edge."""
-    rng = np.random.default_rng(23)
-
-    def blocky(m, k, bm, bk, d, empty=()):
-        keep = rng.random((m // bm, k // bk)) < d
-        keep[list(empty)] = False
-        a = rng.uniform(-1.5, 1.5, size=(m, k)).astype(np.float32)
-        return (a.reshape(m // bm, bm, k // bk, bk) *
-                keep[:, None, :, None]).reshape(m, k)
-
-    return [("empty_block_rows", blocky(640, 768, 64, 64, 0.4, (0, 3, 9)),
-             (64, 64), 512),
-            ("all_empty", np.zeros((256, 384), np.float32), (32, 32), 256),
-            ("n_1", blocky(500, 600, 50, 50, 0.5), (50, 50), 1),
-            ("n_129", blocky(500, 600, 50, 50, 0.5, (2,)), (50, 50), 129),
-            ("rect_32x64", blocky(512, 1024, 32, 64, 0.3, (1,)), (32, 64),
-             320),
-            # split-K over short runs: 8 block-rows x 1 column tile
-            ("split_k", blocky(1024, 4096, 128, 128, 0.3), (128, 128), 128),
-            # block-rows of 1 to 32 blocks
-            ("skewed", _skewed_blocks(rng), (128, 128), 256)]
-
-
-def _skewed_blocks(rng):
-    """A (1024, 4096) operand of 128 x 128 blocks whose eight block-rows
-    hold 1, 2, 4, ..., 32 and 0 blocks."""
-    a = np.zeros((1024, 4096), np.float32)
-    for r, count in enumerate((1, 2, 4, 8, 16, 32, 0, 3)):
-        for c in rng.choice(32, size=count, replace=False):
-            a[r * 128:(r + 1) * 128, c * 128:(c + 1) * 128] = \
-                rng.uniform(-1.5, 1.5, size=(128, 128))
-    return a
+    from repro_torch.analysis import cases
+    return cases.edge_bsr()
 
 
 def phase_plan_kernels(torch, Q, table2, granite):
@@ -2510,9 +2498,11 @@ def _gemm_sweep(torch, Q, operands, flush, n):
         del a_t, b
 
 
-def plan_path(torch, K, ops, engine_mod, table2):
-    """Phases 9-11 and the profiles of the plan path; the kernels' rows,
-    and the operands phase profile_in_process plans again."""
+def plan_path(torch, K, ops, engine_mod, table2, profile_first=()):
+    """Phases 9-11 and the profiles of the plan path, after
+    ``profile_first``'s in the same fresh process (phase 4's); the
+    kernels' rows, and the operands phase profile_in_process plans
+    again."""
     from repro_torch.core.bsr import BSR
     from repro_torch.kernels import bsr_spmm as KB
     from repro_torch.kernels import dense_mm as KD
@@ -2530,9 +2520,10 @@ def plan_path(torch, K, ops, engine_mod, table2):
     launches, by_launcher, kept = phase_plan_serve(torch, Q, table2,
                                                    granite)
     # the general kernels' symbols, and the GEMM core's by its source
-    jobs = [profile_job(bound, bound.shape[1], workload=label, fmt=fmt,
-                        kernel_keys=(f"{fmt}_kernel", f"{fmt}src"))
-            for (label, fmt), bound in sorted(kept.items())]
+    jobs = list(profile_first) + [
+        profile_job(bound, bound.shape[1], workload=label, fmt=fmt,
+                    kernel_keys=(f"{fmt}_kernel", f"{fmt}src"))
+        for (label, fmt), bound in sorted(kept.items())]
     phase_profile(torch, jobs)
     del jobs
     del kept
@@ -2579,23 +2570,6 @@ def _granite_checkpoints(T):
         out[d] = (T.InCRS.from_crs(T.CRS.from_mask(a, mask), 256, 32),
                   np.where(mask, a, np.float32(0.0)))
     return out, time.perf_counter() - t0
-
-
-def _run_module(module, args, timeout=600):
-    """``python -m module args`` from the root, as a check of its exit
-    code; its output's tail is printed."""
-    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
-               os.environ.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-m", module, *args]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=timeout)
-    emit({"phase": "tenancy", "entry": module, "args": args,
-          "rc": proc.returncode, "wall_s": time.perf_counter() - t0,
-          "stdout": proc.stdout.strip()[-3000:],
-          "stderr": proc.stderr.strip()[-2000:]})
-    check(proc.returncode == 0, f"{module} exited 0")
-    return proc.stdout
 
 
 def _freed_by_evict(torch, pool, name):
@@ -2746,12 +2720,25 @@ def phase_tenancy(torch, T, table2):
           "tolerance": f"max|C - C64| <= {SERVE_TOL} * max|C64|"})
     del pool, tenants
     torch.cuda.empty_cache()
-    bench, example = _concurrently(_run_module, [
-        ("repro_torch.benchmarks.serve_bench", ["--smoke"]),
-        ("repro_torch.examples.spmm_serve", [])])
-    check("crosscheck,ok" in bench, "the serve bench's cross-check passed")
-    check("max rel err" in example, "the example checked every request")
     return launches
+
+
+# tenancy's exit-code subprocesses (run in ``late_checks``)
+TENANCY_JOBS = (("repro_torch.benchmarks.serve_bench", "--smoke"),
+                ("repro_torch.examples.spmm_serve",))
+
+
+def report_tenancy_jobs(results):
+    """The serve bench's and the example's lines and checks."""
+    for job, (rc, wall, out, err) in zip(TENANCY_JOBS, results):
+        emit({"phase": "tenancy", "entry": job[0], "args": list(job[1:]),
+              "rc": rc, "wall_s": wall, "stdout": out.strip()[-3000:],
+              "stderr": err.strip()[-2000:]})
+        check(rc == 0, f"{job[0]} exited 0")
+    check("crosscheck,ok" in results[0][2],
+          "the serve bench's cross-check passed")
+    check("max rel err" in results[1][2],
+          "the example checked every request")
 
 
 def tenancy_path(torch, K, ops, table2):
@@ -3174,19 +3161,26 @@ def train_path(torch):
         out[fmt] = row, phase_lifecycle(torch, R, fmt, handoff)
         del handoff
         torch.cuda.empty_cache()
-    # the examples, as subprocesses at once: exit-code checks
-    examples = [("repro_torch.examples.train_unstructured", "--format", fmt)
-                for fmt in ("incrs", "bsr")]
-    examples.append(("repro_torch.examples.train_reprune", "--device",
-                     "cuda"))
-    for args, (rc, wall, stdout, stderr) in zip(
-            examples, _concurrently(_run_example, examples)):
+    return out
+
+
+# the training and lifecycle examples: exit-code subprocesses (run in
+# ``late_checks``)
+TRAIN_EXAMPLES = (("repro_torch.examples.train_unstructured", "--format",
+                   "incrs"),
+                  ("repro_torch.examples.train_unstructured", "--format",
+                   "bsr"),
+                  ("repro_torch.examples.train_reprune", "--device",
+                   "cuda"))
+
+
+def report_train_examples(results):
+    for args, (rc, wall, stdout, stderr) in zip(TRAIN_EXAMPLES, results):
         emit({"phase": "lifecycle_example" if "train_reprune" in args[0]
               else "train_example", "cmd": " ".join(args), "rc": rc,
               "wall_s": wall, "stdout": stdout.strip()[-1500:],
               "stderr": stderr.strip()[-1500:]})
         check(rc == 0, f"{' '.join(args)} exited 0")
-    return out
 
 
 def _run_example(*args):
@@ -4265,12 +4259,15 @@ def phase_lm_serve(torch, F, L):
     warm_s, warm_wall_s = _serve_lm(torch, L.E, model, _lm_requests(
         L.E, v, 4, 512, max_new, 10, seed=2))
     F.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # Kineto's lines of dropped or discarded records kept (P4)
+    with _Stderr() as err, profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) \
+            as prof:
         _, wall_prof = _serve_lm(torch, L.E, model, _lm_requests(
             L.E, v, 2, 8192, max_new, 0, seed=1))
     by_kind, by_route, records = lm_profile_tally(torch, F, prof)
     records["flash_launches"] = F.LAUNCHES["flash_attention"]
+    records["kineto_lines"] = err.p4
     in_process = dict(records, wall_ms_profiled=wall_prof * 1e3)
     complete = records["flash_records"] == records["flash_launches"] and \
         records["kernel_records"] >= records["launch_calls"]
@@ -4611,6 +4608,7 @@ def _lm_train_modules():
     from repro_torch import configs
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.kernels import flash_attention as F
+    from repro_torch.launch import specs
     from repro_torch.kernels import incrs_spmm as K
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
@@ -4623,7 +4621,7 @@ def _lm_train_modules():
     return types.SimpleNamespace(configs=configs, Tokens=SyntheticTokens,
                                  F=F, K=K, ops=ops, make_mesh=make_mesh,
                                  M=M, api=api, lin=lin, O=O, P=P,
-                                 trainer=trainer)
+                                 trainer=trainer, specs=specs)
 
 
 def _rel_errs(got, want):
@@ -4723,6 +4721,9 @@ def _lm_train_steps(torch, T, cfg, label, one_batch=False, n_micro=1):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
+    card_bytes = {"params": sum(p.numel() * p.element_size()
+                                for p in model.parameters()),
+                  "opt": T.specs.tree_bytes(state)}
     npfx = cfg.n_prefix_embeds if cfg.input_mode == "embeds" else 0
     src = T.Tokens(cfg.vocab_size, g["batch"], g["seq"], seed=g["seed"],
                    n_prefix=npfx, d_model=cfg.d_model)
@@ -4792,6 +4793,7 @@ def _lm_train_steps(torch, T, cfg, label, one_batch=False, n_micro=1):
                 for k in ("step_ms", "fwd_bwd_ms", "opt_ms",
                           "tokens_per_s")},
             "peak_gb": max(r["peak_gb"] for r in steps),
+            "card_bytes": card_bytes,
             "flash_launches": flash, "params_without_grad": missing,
             "idle_experts": {k: int(next(iter(v.values())).sum())
                              for k, v in idle.items()}}
@@ -4822,6 +4824,7 @@ def phase_lm_train_full(torch, T):
     emit({"phase": "lm_train", "model": f"granite-34b, {LM_DEPTH} of 88 "
           f"layers, full width", **run})
     _check_lm_train(run, "lm_train")
+    return cfg, run
 
 
 def phase_lm_train_repair(torch, T):
@@ -5017,6 +5020,12 @@ def phase_lm_train_launcher(torch):
     """The training launcher as subprocesses: 8 smoke steps on the card
     checkpointing every 4, then a second run resumed from the step-4
     checkpoint alone, whose steps 5-8 losses must equal the first's."""
+    report_lm_train_launcher(lm_train_launcher_runs())
+
+
+def lm_train_launcher_runs():
+    """``phase_lm_train_launcher``'s two subprocesses (printing nothing):
+    their lines and both runs' losses, or the failed run's stderr."""
     import shutil
     import tempfile
     base = os.path.join(ROOT, "build")
@@ -5045,14 +5054,25 @@ def phase_lm_train_launcher(torch):
                      "wall_s": time.perf_counter() - t0,
                      "tail": proc.stdout.strip().splitlines()[-3:]})
         if proc.returncode != 0:
-            emit({"phase": "lm_train_launcher", "runs": runs,
-                  "stderr": proc.stderr[-2000:]})
-        check(proc.returncode == 0, "the training launcher exited 0")
+            shutil.rmtree(tmp, ignore_errors=True)
+            return {"runs": runs, "stderr": proc.stderr[-2000:]}
     with open(os.path.join(tmp, "full.json")) as f:
         full = {int(k): v for k, v in json.load(f).items()}
     with open(os.path.join(tmp, "resumed.json")) as f:
         resumed = {int(k): v for k, v in json.load(f).items()}
     shutil.rmtree(tmp, ignore_errors=True)
+    return {"runs": runs, "full": full, "resumed": resumed}
+
+
+def report_lm_train_launcher(res):
+    """The launcher runs' line and checks."""
+    runs = res["runs"]
+    if "stderr" in res:
+        emit({"phase": "lm_train_launcher", "runs": runs,
+              "stderr": res["stderr"]})
+    check(all(r["rc"] == 0 for r in runs) and len(runs) == 2,
+          "the training launcher exited 0")
+    full, resumed = res["full"], res["resumed"]
     diff = {s: resumed[s] - full[s] for s in resumed}
     emit({"phase": "lm_train_launcher", "runs": runs, "losses": full,
           "resumed_losses": resumed, "resumed_minus_full": diff,
@@ -5065,21 +5085,23 @@ def phase_lm_train_launcher(torch):
           f"steps' losses differ from the uninterrupted run's: {diff}")
 
 
-def lm_train_path(torch):
+def lm_train_path(torch, launcher=True):
     """Phase lm_train: the check at one layer, the full-width steps, the
     repaired attention, the pipeline and the launcher. Returns the
-    pipeline's InCRS launches by kernel."""
+    pipeline's InCRS launches by kernel, and the full-width run's config
+    and result (phase dryrun holds the dry run against them)."""
     T = _lm_train_modules()
     phase_lm_train_check(torch, T)
     torch.cuda.empty_cache()
-    phase_lm_train_full(torch, T)
+    granite = phase_lm_train_full(torch, T)
     torch.cuda.empty_cache()
     phase_lm_train_repair(torch, T)
     torch.cuda.empty_cache()
     counts = phase_lm_train_pipeline(torch, T)
     torch.cuda.empty_cache()
-    phase_lm_train_launcher(torch)
-    return counts
+    if launcher:            # else in late_checks, beside the others
+        phase_lm_train_launcher(torch)
+    return counts, granite
 
 
 # ----------------------------------------------------------------------
@@ -5087,10 +5109,12 @@ def lm_train_path(torch):
 # (the MoE FFN), musicgen-medium and internvl2-1b (the embeds front end)
 # at full width, each served, checked against float64 and trained.
 LM_FAMILIES = (  # (arch, layers served, layers trained; None = all)
-    ("mixtral-8x7b", 4, 2),
+    # cut in depth to keep the smoke's time (mixtral was served at 4,
+    # musicgen and internvl2 whole); widths as published
+    ("mixtral-8x7b", 2, 2),
     ("qwen2-moe-a2.7b", 4, 4),
-    ("musicgen-medium", None, None),
-    ("internvl2-1b", None, None),
+    ("musicgen-medium", 12, 12),
+    ("internvl2-1b", 12, 12),
 )
 FAM = {"positions": 8192, "short": 512, "max_new": 8, "seed": 31,
        "tie_rows": 512}
@@ -5493,7 +5517,7 @@ def phase_lm_family_launchers(torch):
     return sum(line["launches"] for line in lines)
 
 
-def lm_families_path(torch):
+def lm_families_path(torch, launchers=True):
     """Phase lm_families: each architecture of LM_FAMILIES, then the
     launchers. Returns the served long waves' flash launches by arch and
     the launchers' total."""
@@ -5507,7 +5531,7 @@ def lm_families_path(torch):
         launches[arch] = phase_lm_family(torch, T, E, arch, serve_layers,
                                          train_layers)
         torch.cuda.empty_cache()
-    by_launcher = phase_lm_family_launchers(torch)
+    by_launcher = phase_lm_family_launchers(torch) if launchers else None
     emit({"phase": "lm_families_done", "seconds":
           time.perf_counter() - t0, "flash_launches": launches,
           "launcher_flash_launches": by_launcher})
@@ -5520,14 +5544,15 @@ def lm_families_path(torch):
 # served, held against float64 and trained.
 LM_RECURRENT = (  # (arch, layers served, layers trained (None = all),
     #                microbatches a training step)
-    ("mamba2-370m", None, None, 1),
-    # trained at 13 layers, one repetition of its pattern, in 4
-    # microbatches of 1 x 2,048: 2.43 G parameters' f32 AdamW state is
-    # 39 GB, and one batch of 4 x 2,048 tokens' 256,000-word f32 logits
-    # 8.4 GB, their gradient as much again. In 2 microbatches the phase
-    # alone peaked at 67.11 GB, and after the smoke's earlier phases step
-    # 2 found no 3.91 GiB block free
-    ("recurrentgemma-2b", None, 13, 4),
+    # half its 48 layers, served and trained (it was whole)
+    ("mamba2-370m", 24, 24, 1),
+    # served and trained at 13 layers, one repetition of its pattern
+    # (it was served whole), in 4 microbatches of 1 x 2,048: 2.43 G
+    # parameters' f32 AdamW state is 39 GB, and one batch of 4 x 2,048
+    # tokens' 256,000-word f32 logits 8.4 GB, their gradient as much
+    # again. In 2 microbatches the phase alone peaked at 67.11 GB, and
+    # after the smoke's earlier phases step 2 found no 3.91 GiB block free
+    ("recurrentgemma-2b", 13, 13, 4),
 )
 # the serving launcher's run: (smoke arch, flash launches = its local
 # attention layers) at FAM["positions"]; the training launcher's resume
@@ -5625,7 +5650,7 @@ def phase_lm_recurrent_launchers(torch):
     return line["launches"]
 
 
-def lm_recurrent_path(torch):
+def lm_recurrent_path(torch, launchers=True):
     """Phase lm_recurrent: each architecture of LM_RECURRENT, then the
     launchers. Returns the served long waves' flash launches by arch and
     the launcher's."""
@@ -5639,11 +5664,121 @@ def lm_recurrent_path(torch):
         launches[arch] = phase_lm_recurrent(torch, T, E, arch, serve_layers,
                                             train_layers, n_micro)
         torch.cuda.empty_cache()
-    by_launcher = phase_lm_recurrent_launchers(torch)
+    by_launcher = phase_lm_recurrent_launchers(torch) if launchers \
+        else None
     emit({"phase": "lm_recurrent_done", "seconds":
           time.perf_counter() - t0, "flash_launches": launches,
           "launcher_flash_launches": by_launcher})
     return launches, by_launcher
+
+
+# ----------------------------------------------------------------------
+# Slice 13: the kernel proofs (``python -m repro_torch.analysis --check``),
+# the one-card dry run and the two ported examples, as subprocesses at once.
+PROOFS_JSON = os.path.join("build", "proofs.json")
+DRYRUN_JSON = os.path.join("build", "dryrun.json")
+PROOF_JOBS = (("repro_torch.analysis", "--check", "--json", PROOFS_JSON),
+              ("repro_torch.launch.dryrun", "--all", "--json", DRYRUN_JSON),
+              ("repro_torch.examples.quickstart",),
+              ("repro_torch.examples.lm_serve",))
+
+
+def phase_proofs(rc, wall, out, err):
+    """The proofs' matrix printed on lines of its own, its findings and
+    cases: every cell proved or n/a, exit 0."""
+    print(out.strip(), flush=True)
+    with open(os.path.join(ROOT, PROOFS_JSON)) as fh:
+        report = json.load(fh)
+    cells = report["proof_matrix"]
+    emit({"phase": "proofs", "rc": rc, "wall_s": wall,
+          "device": report["device"], "cases": len(report["cases"]),
+          "ring_cases": sum(1 for c in report["cases"] if c["trips"]),
+          "findings": report["findings"][:20], "proof_matrix": cells,
+          "case_seconds": sum(c["seconds"] for c in report["cases"]),
+          "stderr": err.strip()[-1000:]})
+    check(rc == 0 and report["count"] == 0,
+          f"the proofs found {report['count']} faults (exit {rc})")
+    check(all(v == "proved" or v.startswith("n/a")
+              for row in cells.values() for v in row.values()),
+          f"a cell of the proof matrix is not proved: {cells}")
+
+
+def phase_dryrun(torch, rc, wall, err, granite):
+    """The dry run's table of every applicable cell; its parameter and
+    optimizer-state bytes of lm_train's granite-34b (LM_DEPTH layers)
+    against what the card held for them, equal; its peak beside the
+    measured one (printed, no gate)."""
+    from repro_torch.configs.shapes import SHAPES, applicable
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.train.optimizer import AdamWConfig
+    check(rc == 0, f"the dry run exited {rc}: {err.strip()[-2000:]}")
+    with open(os.path.join(ROOT, DRYRUN_JSON)) as fh:
+        rows = json.load(fh)["cells"]
+    want = [(a, s) for a in configs.ARCH_NAMES for s in SHAPES
+            if applicable(configs.get(a), SHAPES[s])[0]]
+    check([(r["arch"], r["shape"]) for r in rows] == want,
+          "the dry run has one row per applicable cell")
+    cfg, run = granite
+    params = specs.params_specs(cfg)
+    predicted = {"params": specs.tree_bytes(params),
+                 "opt": specs.tree_bytes(specs.opt_specs(AdamWConfig(),
+                                                         params))}
+    g = LM_TRAIN
+    acts = dryrun.saved_bytes(cfg, g["batch"], g["seq"])
+    peak = predicted["params"] * 2 + predicted["opt"] + acts
+    emit({"phase": "dryrun", "rc": rc, "wall_s": wall,
+          "card": rows[0]["card"], "card_bytes": rows[0]["card_bytes"],
+          "cells": [{k: r[k] for k in ("arch", "shape", "total_bytes",
+                                       "fits", "max_layers", "n_layers")}
+                    for r in rows],
+          "granite_lm_train": {
+              "layers": cfg.n_layers, "batch": [g["batch"], g["seq"]],
+              "predicted_bytes": predicted, "card_bytes": run["card_bytes"],
+              "predicted_peak_gb": peak / 1e9,
+              "predicted_acts_gb": acts / 1e9,
+              "measured_peak_gb": run["peak_gb"]}})
+    check(predicted == run["card_bytes"],
+          f"the dry run's parameter and AdamW bytes {predicted} are not the "
+          f"card's {run['card_bytes']}")
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def late_checks(torch, granite):
+    """The smoke's exit-code subprocesses at once, in one pool: phases
+    proofs, dryrun and examples (slice 13), phase serve's launcher,
+    tenancy's serve bench and example, the training and lifecycle
+    examples, and the LM training launcher's resumed pair; beside them, in this thread, the LM serving
+    launchers with their in-process training resumes (lm_families' and
+    lm_recurrent's). None of them is timed. Then each group's lines and
+    checks. Returns the two serving launcher groups' flash launches."""
+    jobs = [(_run_example, *job) for job in
+            PROOF_JOBS + TENANCY_JOBS + TRAIN_EXAMPLES + (SERVE_LAUNCHER,)]
+    jobs.append((lm_train_launcher_runs,))
+    results, (fam, rec) = _concurrently(
+        _call, jobs, workers=8, beside=lambda: (
+            phase_lm_family_launchers(torch),
+            phase_lm_recurrent_launchers(torch)))
+    a, b = len(PROOF_JOBS), len(PROOF_JOBS) + len(TENANCY_JOBS)
+    proofs, tenancy, train, launcher = (results[:a], results[a:b],
+                                        results[b:-2], results[-1])
+    report_serve_launcher(results[-2])
+    report_tenancy_jobs(tenancy)
+    report_train_examples(train)
+    report_lm_train_launcher(launcher)
+    (rc_p, wall_p, out_p, err_p), (rc_d, wall_d, _, err_d) = proofs[:2]
+    phase_proofs(rc_p, wall_p, out_p, err_p)
+    phase_dryrun(torch, rc_d, wall_d, err_d, granite)
+    for job, (rc, wall, out, err) in zip(PROOF_JOBS[2:], proofs[2:]):
+        emit({"phase": "examples", "module": job[0], "rc": rc,
+              "wall_s": wall, "stdout": out.strip()[-1500:],
+              "stderr": err.strip()[-1000:]})
+        check(rc == 0, f"{job[0]} exited 0")
+    check("quickstart OK" in proofs[2][2], "the quickstart finished")
+    return fam, rec
 
 
 def lm_recurrent_only() -> int:
@@ -5771,7 +5906,7 @@ def lm_train_only() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_env(torch, _build)
-    counts = lm_train_path(torch)
+    counts, _ = lm_train_path(torch)
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "pipeline_launches": counts})
     return 0
@@ -5818,7 +5953,6 @@ def main() -> int:
     docword = table2["incrs-docword"]
     errs_512 = phase_kernels(torch, K, ops, InCRS, table2)
     launches = phase_serve(K, engine_mod, table2)
-    phase_profile(torch, [profile_job(docword, docword.shape[1])])
     rows = phase_times(torch, K, ops, table2, errs_512, launches)
     table4 = {name: datasets.synthesize(WORKLOADS[name].dataset, seed=0)
               for name in TABLE4}
@@ -5841,7 +5975,10 @@ def main() -> int:
                                errs_dw, spgemm_launches)
     phase_spgemm_operands(torch, P, table4)
     del table4, P
-    plan_rows, late_profile = plan_path(torch, K, ops, engine_mod, table2)
+    # phase 4's profile: docword served in the plan path's fresh process
+    plan_rows, late_profile = plan_path(
+        torch, K, ops, engine_mod, table2,
+        [profile_job(docword, docword.shape[1])])
     rows += plan_rows
     for kname, n in tenancy_path(torch, K, ops, table2).items():
         r = next(r for r in rows if r["name"] == kname)
@@ -5876,22 +6013,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += lm_path(torch)
     torch.cuda.empty_cache()
-    for kname, n in lm_train_path(torch).items():
+    counts, granite = lm_train_path(torch, launcher=False)
+    for kname, n in counts.items():
         r = next(r for r in rows if r["name"] == kname)
         r["launches_by_path"]["lm_train"] = n
         r["launches"] += n
     torch.cuda.empty_cache()
-    fam, fam_launcher = lm_families_path(torch)
+    fam, _ = lm_families_path(torch, launchers=False)
     r = next(r for r in rows if r["name"] == "flash_attention")
     r["launches_by_path"]["lm_families"] = fam
-    r["launches_by_path"]["lm_families_launchers"] = fam_launcher
     r["launches"] += sum(fam.values())
     torch.cuda.empty_cache()
-    rec, rec_launcher = lm_recurrent_path(torch)
+    rec, _ = lm_recurrent_path(torch, launchers=False)
     r["launches_by_path"]["lm_recurrent"] = rec
-    r["launches_by_path"]["lm_recurrent_launchers"] = rec_launcher
     r["launches"] += sum(rec.values())
     torch.cuda.empty_cache()
+    fam_launcher, rec_launcher = late_checks(torch, granite)
+    r["launches_by_path"]["lm_families_launchers"] = fam_launcher
+    r["launches_by_path"]["lm_recurrent_launchers"] = rec_launcher
     phase_profile_in_process(torch, engine_mod, api, late_profile)
     del late_profile
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -5904,6 +6043,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # Kineto's log at INFO, read at its first use (ROADMAP P4's probe)
+    os.environ.setdefault("KINETO_LOG_LEVEL", "1")
     if len(sys.argv) == 3 and sys.argv[1] == "--profile":
         sys.exit(profile_child(sys.argv[2]))
     if len(sys.argv) in (2, 3) and sys.argv[1] == "--lm-profile":

@@ -310,7 +310,7 @@ def _match_launch(name, geometry, *, m, n, n_rounds, rmax_a, rmax_b, rounds,
         limits, ("ring_kernel" if ring else "match_kernel",
                  str(int(geo.stripes))),
         geo.threads, geo.smem, grid,
-        lambda regs: _im.CTAS_PER_SM[geo.instance],
+        lambda regs: _im.assumed_ctas(geo),
         lambda: _im.ctas_per_sm(geo),
         lambda: _im.match_geometry(
             m, n, n_rounds, rmax_a, rmax_b, rounds, name,

@@ -435,7 +435,7 @@ def _match_terms(m: int, n: int, *, rounds: int, n_rounds: int,
     geo = geometry or _im.match_geometry(m, n, n_rounds, rmax_a, rmax_b,
                                          rounds, kernel)
     ctas = geo.grid if geo.instance == "ring" else geo.tiles
-    waves = _waves(ctas, _im.CTAS_PER_SM[geo.instance])
+    waves = _waves(ctas, _im.assumed_ctas(geo))
     entries = (geo.col_tiles * m * n_rounds * rmax_a * 8 +
                geo.row_tiles * n * n_rounds * rmax_b * 8)
     out = (n_rounds if stripes else 1) * m * n * 4

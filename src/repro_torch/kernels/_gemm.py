@@ -22,6 +22,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from . import _alloc
+
 INSTANCES = ("f32_fma", "bf16_wgmma", "general_f32", "general_bf16")
 FAST = {torch.float32: "f32_fma", torch.bfloat16: "bf16_wgmma"}
 GENERAL = {torch.float32: "general_f32", torch.bfloat16: "general_bf16"}
@@ -152,7 +154,7 @@ def workspace(geo: GemmGeometry, device: torch.device):
     """The split-K partials and tickets of one launch, or (None, None)."""
     if geo.splits == 1:
         return None, None
-    ws = torch.empty(geo.splits * geo.tiles * geo.tile_m * geo.tile_n,
-                     dtype=torch.float32, device=device)
+    ws = _alloc.empty((geo.splits * geo.tiles * geo.tile_m * geo.tile_n,),
+                      torch.float32, device)
     tickets = torch.zeros(geo.tiles, dtype=torch.int32, device=device)
     return ws, tickets

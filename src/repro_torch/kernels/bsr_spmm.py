@@ -29,7 +29,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from . import _build
+from . import _alloc, _build
 from . import _gemm
 from ._gemm import GemmGeometry
 from .ref import bsr_spmm as _plain_bsr
@@ -180,7 +180,7 @@ def _launch(col_of: torch.Tensor, values: torch.Tensor, b: torch.Tensor,
     values, b = values.to(dt), b.to(dt)
     nnz, bm, bk = values.shape
     k, n = b.shape
-    out = torch.empty((n_block_rows * bm, n), dtype=dt, device=b.device)
+    out = _alloc.empty((n_block_rows * bm, n), dt, b.device)
     if out.numel() == 0 or k == 0:
         return out.zero_().to(out_dtype)
     geo = geometry or gemm_geometry(

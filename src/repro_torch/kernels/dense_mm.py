@@ -21,7 +21,7 @@ from typing import Dict, Optional
 
 import torch
 
-from . import _build
+from . import _alloc, _build
 from . import _gemm
 from ._gemm import GemmGeometry
 from .ref import dense_mm as _plain_dense
@@ -112,7 +112,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, geometry=None) -> torch.Tensor:
     a, b = a.to(dt), b.to(dt)
     m, k = a.shape
     n = b.shape[1]
-    out = torch.empty((m, n), dtype=dt, device=a.device)
+    out = _alloc.empty((m, n), dt, a.device)
     if out.numel() == 0 or k == 0:
         return out.zero_().to(out_dtype)
     geo = geometry or gemm_geometry(m, n, k, dt,

@@ -38,7 +38,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _alloc, _build
 from .ref import flash_attention as _plain_flash
 
 # Shared memory one block may use on an H100 (227 KB).
@@ -207,7 +207,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the launch. Raises on anything the kernels do not take."""
     launch = plan(q, k, v, window)
     b, sq, kv, g, hd = q.shape
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = _alloc.empty(q.shape, q.dtype, q.device)
     if out.numel() == 0:
         return out
     lib = _library()

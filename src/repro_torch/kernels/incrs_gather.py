@@ -27,7 +27,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from . import _build
+from . import _alloc, _build
 from .incrs_spmm import CTA_RESERVED, SM_SMEM, SMS
 from .ref import incrs_decompress
 
@@ -199,8 +199,8 @@ def _launch(idx: torch.Tensor, val: torch.Tensor, section: int,
         raise ValueError(f"incrs_gather: {n_sections} x {smax} slots per row "
                          f"overflow the kernel's int32 slot index")
     if out is None:
-        out = torch.empty((m, n_sections * section), dtype=torch.float32,
-                          device=idx.device)
+        out = _alloc.empty((m, n_sections * section), torch.float32,
+                           idx.device)
     if out.numel() == 0:
         return out
     geo = geometry or gather_geometry(m, n_sections, smax, section)

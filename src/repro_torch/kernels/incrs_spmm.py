@@ -29,7 +29,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _alloc, _build
 from .ref import incrs_decompress
 
 # Row tiles are kept to multiples of this, as in the Pallas contract, so a
@@ -459,7 +459,7 @@ def _launch(name: str, idx: torch.Tensor, val: torch.Tensor,
     # the stripes are staged by 16-byte copies
     idx, val = (t if t.data_ptr() % 16 == 0 else t.clone()
                 for t in (idx, val))
-    out = torch.empty((mp, n), dtype=torch.float32, device=idx.device)
+    out = _alloc.empty((mp, n), torch.float32, idx.device)
     if mp == 0 or n == 0:
         return out
     if n_sections == 0:

@@ -34,8 +34,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from . import _build
-from .incrs_spmm import SMEM_LIMIT
+from . import _alloc, _build
+from .incrs_spmm import CTA_RESERVED, SM_SMEM, SMEM_LIMIT
 from .ref import round_densify
 
 LAUNCHES: Dict[str, int] = {"index_match_spmm": 0}
@@ -256,6 +256,15 @@ def ctas_per_sm(geo: MatchGeometry) -> int:
     return out.value
 
 
+def assumed_ctas(geo: MatchGeometry) -> int:
+    """The CTAs of ``geo``'s instance one SM holds, as the wrapper counts
+    them: the instance's launch bound (``CTAS_PER_SM``), fewer where its
+    shared memory (1 KB reserved a CTA) holds fewer: the general
+    instance's round window at R > 225."""
+    return min(CTAS_PER_SM[geo.instance],
+               SM_SMEM // (geo.smem + CTA_RESERVED))
+
+
 def raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} at launch: "
@@ -441,7 +450,7 @@ def index_match_spmm(a_idx: torch.Tensor, a_val: torch.Tensor,
     if a_idx.device.type != "cuda":
         raise ValueError(f"index_match_spmm: no kernel for device "
                          f"{a_idx.device}")
-    out = torch.empty((m, n), dtype=torch.float32, device=a_idx.device)
+    out = _alloc.empty((m, n), torch.float32, a_idx.device)
     if launch_match("index_match_spmm", a_idx, a_val, b_idx, b_val, out,
                     rounds, geometry):
         LAUNCHES["index_match_spmm"] += 1

@@ -396,6 +396,51 @@ class _Dispatch(torch.autograd.Function):
         return dx, None
 
 
+class _Embed(torch.autograd.Function):
+    """table[tokens]. The backward adds each token's grads in the order
+    the tokens come (flattened), one ``index_add_`` per occurrence rank
+    (the k-th repeat of every token in one add, whose rows are distinct):
+    the same bits on every run and device, where the indexing backward
+    on the CPU adds a repeated token's rows in parallel."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.shape = table.shape
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        flat = tokens.reshape(-1)
+        dt = g.new_zeros(ctx.shape)
+        if flat.numel() == 0:
+            return dt, None
+        g = g.reshape(flat.shape[0], -1)
+        order = torch.sort(flat, stable=True).indices
+        tok = flat[order]
+        pos = torch.arange(tok.shape[0], device=tok.device)
+        first = torch.ones_like(tok, dtype=torch.bool)
+        first[1:] = tok[1:] != tok[:-1]
+        start = torch.cummax(torch.where(first, pos, 0), 0).values
+        rank = torch.empty_like(flat)           # occurrence of its token
+        rank[order] = pos - start
+        # rank-major, each rank's positions in flat order: one slice a rank
+        by_rank = torch.sort(rank, stable=True).indices
+        a = 0
+        for c in torch.bincount(rank).tolist():
+            sel = by_rank[a:a + c]
+            dt.index_add_(0, flat[sel], g[sel])
+            a += c
+        return dt, None
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` whose gradient sums a repeated token's rows in
+    token order, bit for bit from run to run (``_Embed``)."""
+    return _Embed.apply(table, tokens)
+
+
 class _Combine(torch.autograd.Function):
     """out = zeros (N, d) f32, then out[rows[e]] += y[e] for e ascending
     (JAX's ``out.at[bidx, idx].add(y)`` in its update order): a token

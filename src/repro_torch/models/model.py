@@ -144,7 +144,8 @@ class Model(nn.Module):
                              f"{mode!r}")
         cdt = layers.torch_dtype(cfg.dtype)
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        x = self.embed[tokens].to(cdt) * math.sqrt(cfg.d_model)
+        x = layers.embed_lookup(self.embed, tokens).to(cdt) * \
+            math.sqrt(cfg.d_model)
         if prefix_embeds is not None:
             pfx = torch.as_tensor(prefix_embeds, device=self.device)
             x = torch.cat([pfx.to(cdt), x], dim=1)

@@ -39,6 +39,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from ..kernels import _alloc
 from ..kernels import index_match_spmm as _im
 from ..kernels.incrs_spmm import CTA_RESERVED, SM_SMEM
 
@@ -223,8 +224,7 @@ def spgemm_condense(a_idx: torch.Tensor, a_val: torch.Tensor,
     if a_idx.device.type != "cuda":
         raise ValueError(f"spgemm_condense: no kernel for device "
                          f"{a_idx.device}")
-    out = torch.empty((n_rounds, m, n), dtype=torch.float32,
-                      device=a_idx.device)
+    out = _alloc.empty((n_rounds, m, n), torch.float32, a_idx.device)
     if _im.launch_match("spgemm_condense", a_idx, a_val, b_idx, b_val, out,
                         rounds, geometry):
         LAUNCHES["spgemm_condense"] += 1
@@ -249,7 +249,7 @@ def spgemm_merge(stripes: torch.Tensor, *, bm: int = 128, bn: int = 128,
     if not stripes.is_contiguous():
         raise ValueError("spgemm_merge: stripes must be contiguous")
     n_rounds, m, n = stripes.shape
-    out = torch.empty((m, n), dtype=torch.float32, device=stripes.device)
+    out = _alloc.empty((m, n), torch.float32, stripes.device)
     if out.numel() == 0:
         return out.to(out_dtype)
     aligned = (stripes.data_ptr() | out.data_ptr()) % 16 == 0

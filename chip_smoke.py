@@ -252,7 +252,7 @@ Phases, each printing one JSON line:
              ``python3 chip_smoke.py --lm-train`` runs this phase alone.
 19. lm_families — the MoE FFN and the embeds front end: mixtral-8x7b
              (2 of 32 layers), qwen2-moe-a2.7b (4 of 24), musicgen-medium
-             (12 of 48) and internvl2-1b (12 of 24), each served and
+             (6 of 48) and internvl2-1b (6 of 24), each served and
              trained at that depth, at full width. Each: ``ServeEngine`` serves 2 requests of
              8,192 positions (prefix embeds included: one wave, one flash
              launch a layer) and 4 of 512 (none), counters zeroed just
@@ -274,7 +274,7 @@ Phases, each printing one JSON line:
              8,192 positions, while the training launcher on qwen2-moe's
              is resumed from its step-4 checkpoint, steps 5-8 bitwise.
              ``python3 chip_smoke.py --lm-families`` runs this phase alone.
-20. lm_recurrent — the SSD and RG-LRU mixers: mamba2-370m (24 of 48
+20. lm_recurrent — the SSD and RG-LRU mixers: mamba2-370m (12 of 48
              layers) and recurrentgemma-2b (13 of 26, one repetition of
              its pattern: 9 RG-LRU, 4 local attention), each served and
              trained at that depth, at full width. Each:
@@ -299,6 +299,20 @@ Phases, each printing one JSON line:
              bitwise. ``python3 chip_smoke.py --lm-recurrent`` runs this
              phase alone; ``--lm-recurrent-profile`` profiles both archs'
              long prefill and training step in a process of its own.
+   lm_sharded — the dense LM over a (data 2, model 4) mesh of one card
+             named 8 times (``models.spmd``): granite-34b at full width
+             cut to 2 layers, f32. One AdamW step on 4 x 1,024 tokens with
+             FSDP and ZeRO-1 against the one-device step on the same
+             seeded weights (the loss within 1e-5, each gathered gradient
+             and first moment within 1e-4 of its max), step ms of both
+             (first and second step), peak GB and the collectives by kind;
+             then a prefill of 2 x 8,192 tokens (one sequence a data
+             shard) and 4 decode steps under the default rules against one
+             device (logits within 1e-4 of max|logit| at every step), 16
+             flash launches in the sharded prefill (8 coordinates x 2
+             layers), counters zeroed just before. ``python3
+             chip_smoke.py --lm-sharded`` runs the build, this phase and
+             the mesh dry run alone.
 21. proofs, dryrun, examples — with every exit-code subprocess of the
              smoke in one pool at the end (``late_checks``: these four,
              tenancy's serve bench and example, the training and
@@ -313,8 +327,12 @@ Phases, each printing one JSON line:
              shape cell's bytes against the card, and the depth that
              fits; its parameter and AdamW bytes of lm_train's granite-34b
              at LM_DEPTH layers equal to what the card held, its peak
-             beside the measured one); the quickstart and lm_serve
-             examples, each exiting 0.
+             beside the measured one); ``python -m
+             repro_torch.launch.dryrun --all --single-pod`` (phase
+             dryrun_mesh: every cell's bytes a device on JAX's 16 x 16
+             mesh, the dense families' collectives, granite-34b's
+             train_4k among them); the quickstart and lm_serve examples,
+             each exiting 0.
 22. profile_in_process — last, so that it perturbs no later profile:
              phase 4's plan-path operands (docword bsr and dense, granite
              bsr) planned again and each served once under torch.profiler
@@ -5110,11 +5128,12 @@ def lm_train_path(torch, launcher=True):
 # at full width, each served, checked against float64 and trained.
 LM_FAMILIES = (  # (arch, layers served, layers trained; None = all)
     # cut in depth to keep the smoke's time (mixtral was served at 4,
-    # musicgen and internvl2 whole); widths as published
+    # musicgen and internvl2 whole, then at 12 until the sharded LM's
+    # phase joined); widths as published
     ("mixtral-8x7b", 2, 2),
     ("qwen2-moe-a2.7b", 4, 4),
-    ("musicgen-medium", 12, 12),
-    ("internvl2-1b", 12, 12),
+    ("musicgen-medium", 6, 6),
+    ("internvl2-1b", 6, 6),
 )
 FAM = {"positions": 8192, "short": 512, "max_new": 8, "seed": 31,
        "tie_rows": 512}
@@ -5544,8 +5563,9 @@ def lm_families_path(torch, launchers=True):
 # served, held against float64 and trained.
 LM_RECURRENT = (  # (arch, layers served, layers trained (None = all),
     #                microbatches a training step)
-    # half its 48 layers, served and trained (it was whole)
-    ("mamba2-370m", 24, 24, 1),
+    # a quarter of its 48 layers, served and trained (it was whole, then
+    # at 24 until the sharded LM's phase joined)
+    ("mamba2-370m", 12, 12, 1),
     # served and trained at 13 layers, one repetition of its pattern
     # (it was served whole), in 4 microbatches of 1 x 2,048: 2.43 G
     # parameters' f32 AdamW state is 39 GB, and one batch of 4 x 2,048
@@ -5675,6 +5695,242 @@ def lm_recurrent_path(torch, launchers=True):
 # ----------------------------------------------------------------------
 # Slice 13: the kernel proofs (``python -m repro_torch.analysis --check``),
 # the one-card dry run and the two ported examples, as subprocesses at once.
+# ----------------------------------------------------------------------
+# The dense LM over a (data, model) mesh (slice 14): granite-34b at full
+# width (d 6,144, 48 heads on one kv head, d_ff 24,576, vocab 49,152) cut
+# to 2 layers, f32, on one card named 8 times as a (data 2, model 4) mesh.
+LM_SHARDED = {"arch": "granite-34b", "layers": 2, "mesh": (2, 4),
+              "batch": 4, "seq": 1024, "prefill": (2, 8192), "decode": 4,
+              "seed": 41}
+LM_SHARDED_LOSS_RTOL = 1e-5  # the sharded step's loss against one device's
+LM_SHARDED_TOL = 1e-4        # per tensor of max|ref|: grads, first moments;
+                             # logits of max|logit|
+
+
+def _lm_sharded_modules():
+    import numpy as np_
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import spmd
+    from repro_torch.train.zero import FSDP_OVERRIDES
+    T = _lm_train_modules()
+    g = LM_SHARDED
+    mesh = Mesh(np_.full(g["mesh"], "cuda:0", dtype=object),
+                ("data", "model"))
+    return T, types.SimpleNamespace(Mesh=Mesh, sh=sh, spmd=spmd, mesh=mesh,
+                                    FSDP=FSDP_OVERRIDES)
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _coll(mesh):
+    return {k: {"count": v["count"], "wire_gb": v["wire_bytes"] / 1e9}
+            for k, v in mesh.collectives.items() if v["count"]}
+
+
+def phase_lm_sharded_train(torch, T, S, cfg):
+    """One AdamW step with FSDP and ZeRO-1 on LM_SHARDED's batch, sharded
+    and on one device from the same seeded weights: the loss within
+    LM_SHARDED_LOSS_RTOL, each gathered gradient and first moment within
+    LM_SHARDED_TOL of the tensor's max; step ms of both (CUDA-synchronized
+    host clock: the first step, and a second one on the same batch), the
+    sharded first step's peak GB and collectives by kind."""
+    g = LM_SHARDED
+    batch = T.Tokens(cfg.vocab_size, g["batch"], g["seq"],
+                     seed=g["seed"]).batch_at(0)
+    opt = T.O.AdamWConfig(lr=1e-4, warmup_steps=0)
+    model = T.M.init(cfg, seed=g["seed"], device="cuda")
+    params = dict(model.named_parameters())
+    state = T.O.adamw_init(opt, params)
+
+    def one():
+        loss, grads = T.trainer.loss_and_grads(model, batch)
+        T.O.adamw_update(opt, grads, state, params)
+        return loss, grads
+    (loss1, g1), one_first_ms = _timed(torch, one)
+    ref = {"grads": {k: v.to("cpu", copy=True) for k, v in g1.items()},
+           "m": {k: v.to("cpu", copy=True) for k, v in state["m"].items()}}
+    del g1
+    _, one_ms = _timed(torch, one)          # a second step, warm
+    del model, params, state
+    torch.cuda.empty_cache()
+    sm = S.spmd.shard_model(T.M.init(cfg, seed=g["seed"], device="cuda"),
+                            S.mesh, S.FSDP)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with S.sh.axis_rules(S.mesh, S.FSDP):
+        ms = T.trainer.moment_specs(opt, sm)
+        st = T.trainer.init_sharded_opt_state(opt, sm)
+        S.mesh.reset_collectives()
+
+        def sharded():
+            loss, parts = T.trainer.sharded_loss_and_grads(sm, batch)
+            red = T.trainer.reduce_grads(sm, parts, ms)
+            del parts
+            T.O.sharded_adamw_update(opt, red, st, sm, ms)
+            return loss, red
+        (loss2, red), sharded_first_ms = _timed(torch, sharded)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        coll = _coll(S.mesh)
+        # held on the card, the reference brought back a tensor at a time
+        gerr = {k: _rel_errs({k: S.spmd.Sharded(S.mesh, ms[k], tuple(
+            w.shape), red[k]).full()}, {k: w.cuda()})[k]
+            for k, w in ref["grads"].items()}
+        merr = {k: _rel_errs({k: st["m"][k].full()}, {k: w.cuda()})[k]
+                for k, w in ref["m"].items()}
+        del red, ref
+        _, sharded_ms = _timed(torch, sharded)   # a second step, warm
+    lerr = abs(float(loss2) / float(loss1) - 1)
+    worst_g, worst_m = max(gerr, key=gerr.get), max(merr, key=merr.get)
+    specs_of = {k: str(sm.params[k].spec) for k in
+                ("embed", "unembed", "blocks.0.mixer.wq",
+                 "blocks.0.mixer.wk", "blocks.0.ffn.w_down",
+                 "blocks.0.norm_mixer")}
+    del sm, st
+    torch.cuda.empty_cache()
+    return {"loss": [float(loss1), float(loss2)], "loss_rel_err": lerr,
+            "grad_worst": [worst_g, gerr[worst_g]],
+            "moment_worst": [worst_m, merr[worst_m]],
+            "step_ms": {"one_device": one_ms, "sharded": sharded_ms},
+            "first_step_ms": {"one_device": one_first_ms,
+                              "sharded": sharded_first_ms},
+            "peak_gb": peak, "collectives": coll, "specs": specs_of,
+            "tokens": g["batch"] * g["seq"]}
+
+
+def phase_lm_sharded_serve(torch, T, S, cfg):
+    """A prefill of LM_SHARDED's 2 x 8,192 tokens (one sequence a data
+    shard) and 4 decode steps, f32 cache, sharded under the default rules
+    and on one device from the same weights: last-position logits within
+    LM_SHARDED_TOL of max|logit| at every step, the flash kernel launched
+    once a coordinate a layer in the sharded prefill; ms of both."""
+    g = LM_SHARDED
+    b, s = g["prefill"]
+    gen = torch.Generator().manual_seed(g["seed"])
+    tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    nxt = torch.randint(0, cfg.vocab_size, (b, g["decode"]), generator=gen)
+    alloc = s + g["decode"]
+    model = T.M.init(cfg, seed=g["seed"] + 1, device="cuda")
+
+    def run(m):
+        (l0, cache), pre_ms = _timed(torch, lambda: T.M.prefill_step(
+            m, tok, alloc_seq=alloc, cache_dtype=torch.float32))
+        logits, dec_ms = [l0], []
+        for t in range(g["decode"]):
+            (lt, cache), ms = _timed(torch, lambda: T.M.decode_step(
+                m, nxt[:, t:t + 1], cache, pos=s + t))
+            logits.append(lt)
+            dec_ms.append(ms)
+        return logits, pre_ms, dec_ms
+    T.F.reset_launches()
+    ref, one_pre, one_dec = run(model)
+    ref = [x.cpu() for x in ref]
+    one_launches = T.F.LAUNCHES["flash_attention"]
+    sm = S.spmd.shard_model(model, S.mesh)
+    del model
+    torch.cuda.empty_cache()
+    S.mesh.reset_collectives()
+    T.F.reset_launches()
+    got, sh_pre, sh_dec = run(sm)
+    launches = T.F.LAUNCHES["flash_attention"]
+    errs = [_rel_errs({"l": x.full().cpu()}, {"l": r})["l"]
+            for x, r in zip(got, ref)]
+    coll = _coll(S.mesh)
+    del sm, got
+    torch.cuda.empty_cache()
+    return {"prefill": [b, s], "decode_steps": g["decode"],
+            "logit_rel_err": errs, "flash_launches": launches,
+            "flash_launches_one_device": one_launches,
+            "prefill_ms": {"one_device": one_pre, "sharded": sh_pre},
+            "decode_ms": {"one_device": one_dec, "sharded": sh_dec},
+            "collectives": coll}
+
+
+def lm_sharded_path(torch):
+    """Phase lm_sharded: granite-34b at full width, LM_SHARDED["layers"]
+    layers, f32, on a (data 2, model 4) mesh of one card: the train step
+    and the serve path held against one device. Returns the sharded
+    prefill's flash launches (its coordinates x layers)."""
+    import dataclasses
+    T, S = _lm_sharded_modules()
+    g = LM_SHARDED
+    cfg = dataclasses.replace(T.configs.get(g["arch"]), n_layers=g["layers"],
+                              dtype="float32")
+    t0 = time.perf_counter()
+    train = phase_lm_sharded_train(torch, T, S, cfg)
+    serve = phase_lm_sharded_serve(torch, T, S, cfg)
+    want = S.mesh.size * cfg.n_layers
+    emit({"phase": "lm_sharded", "model": f"{g['arch']}, {g['layers']} of "
+          f"88 layers, full width, f32", "mesh": S.mesh.shape,
+          "devices": sorted({str(d) for d in S.mesh.device_list}),
+          "seconds": time.perf_counter() - t0, "train": train,
+          "serve": serve})
+    check(train["loss_rel_err"] <= LM_SHARDED_LOSS_RTOL,
+          f"lm_sharded: loss off by {train['loss_rel_err']}")
+    for what in ("grad_worst", "moment_worst"):
+        name, err = train[what]
+        check(err <= LM_SHARDED_TOL, f"lm_sharded: {what} {name} off by "
+              f"{err} of its max")
+    check(train["peak_gb"] < 70, f"lm_sharded: peak {train['peak_gb']} GB")
+    check(max(serve["logit_rel_err"]) <= LM_SHARDED_TOL,
+          f"lm_sharded: logits off by {serve['logit_rel_err']}")
+    check(serve["flash_launches"] == want, f"lm_sharded: "
+          f"{serve['flash_launches']} flash launches, want {want}")
+    return serve["flash_launches"]
+
+
+DRYRUN_MESH_JSON = os.path.join("build", "dryrun_mesh.json")
+DRYRUN_MESH_JOB = ("repro_torch.launch.dryrun", "--all", "--single-pod",
+                   "--json", DRYRUN_MESH_JSON)
+
+
+def phase_dryrun_mesh(rc, wall, err):
+    """The mesh dry run on JAX's 16 x 16 mesh (every applicable cell): a
+    row a cell with its per-device bytes; the dense families'
+    collectives, granite-34b's train_4k among them; the MoE and recurrent
+    families' "not executed sharded yet". (Both meshes' table: ``python
+    -m repro_torch.launch.dryrun --all --both-meshes``.)"""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import SHAPES, applicable
+    from repro_torch.launch import dryrun
+    check(rc == 0, f"the mesh dry run exited {rc}: {err.strip()[-2000:]}")
+    with open(os.path.join(ROOT, DRYRUN_MESH_JSON)) as fh:
+        rows = json.load(fh)["cells"]
+    want = [("16x16", a, s) for a in configs.ARCH_NAMES for s in SHAPES
+            if applicable(configs.get(a), SHAPES[s])[0]]
+    check([(r["mesh"], r["arch"], r["shape"]) for r in rows] == want,
+          "the mesh dry run has one row per applicable cell")
+    cells = []
+    for r in rows:
+        c = r["collectives"]
+        cells.append({k: r[k] for k in ("mesh", "arch", "shape", "fits")} |
+                     {"total_gb": r["total_bytes"] / 1e9,
+                      "wire_gb": None if isinstance(c, str) else
+                      r["wire_bytes_per_device"] / 1e9})
+        check(isinstance(r["total_bytes"], int) and r["total_bytes"] > 0,
+              f"the mesh dry run priced {r['arch']} x {r['shape']}")
+    granite = next(r for r in rows if r["mesh"] == "16x16" and
+                   r["arch"] == "granite-34b" and r["shape"] == "train_4k")
+    check(isinstance(granite["collectives"], dict) and
+          granite["collectives"]["all-reduce"]["count"] > 0,
+          "the mesh dry run ran granite-34b train_4k's collectives")
+    check(all(r["collectives"] == dryrun.NOT_SHARDED_YET for r in rows
+              if r["arch"] in ("mixtral-8x7b", "qwen2-moe-a2.7b",
+                               "mamba2-370m", "recurrentgemma-2b")),
+          "the MoE and recurrent families read not executed sharded yet")
+    emit({"phase": "dryrun_mesh", "rc": rc, "wall_s": wall,
+          "card": rows[0]["card"], "card_bytes": rows[0]["card_bytes"],
+          "cells": cells, "granite_train_4k_16x16": {
+              k: granite[k] for k in ("params_bytes", "grads_bytes",
+                                      "opt_bytes", "collectives")}})
+
+
 PROOFS_JSON = os.path.join("build", "proofs.json")
 DRYRUN_JSON = os.path.join("build", "dryrun.json")
 PROOF_JOBS = (("repro_torch.analysis", "--check", "--json", PROOFS_JSON),
@@ -5756,7 +6012,8 @@ def late_checks(torch, granite):
     lm_recurrent's). None of them is timed. Then each group's lines and
     checks. Returns the two serving launcher groups' flash launches."""
     jobs = [(_run_example, *job) for job in
-            PROOF_JOBS + TENANCY_JOBS + TRAIN_EXAMPLES + (SERVE_LAUNCHER,)]
+            PROOF_JOBS + TENANCY_JOBS + TRAIN_EXAMPLES + (SERVE_LAUNCHER,
+                                                          DRYRUN_MESH_JOB)]
     jobs.append((lm_train_launcher_runs,))
     results, (fam, rec) = _concurrently(
         _call, jobs, workers=8, beside=lambda: (
@@ -5764,8 +6021,10 @@ def late_checks(torch, granite):
             phase_lm_recurrent_launchers(torch)))
     a, b = len(PROOF_JOBS), len(PROOF_JOBS) + len(TENANCY_JOBS)
     proofs, tenancy, train, launcher = (results[:a], results[a:b],
-                                        results[b:-2], results[-1])
-    report_serve_launcher(results[-2])
+                                        results[b:-3], results[-1])
+    report_serve_launcher(results[-3])
+    rc_m, wall_m, _, err_m = results[-2]
+    phase_dryrun_mesh(rc_m, wall_m, err_m)
     report_tenancy_jobs(tenancy)
     report_train_examples(train)
     report_lm_train_launcher(launcher)
@@ -5871,6 +6130,29 @@ def lm_recurrent_profile() -> int:
               flush=True)
         del model
         torch.cuda.empty_cache()
+    return 0
+
+
+def lm_sharded_only() -> int:
+    """``python3 chip_smoke.py --lm-sharded``: the build and phase
+    lm_sharded alone, then the mesh dry run (a quick loop on that path;
+    not the smoke run)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    phase_env(torch, _build)
+    launches = lm_sharded_path(torch)
+    rc, wall, _, err = _run_example(*DRYRUN_MESH_JOB)
+    phase_dryrun_mesh(rc, wall, err)
+    emit({"phase": "done", "seconds": time.perf_counter() - t0,
+          "flash_launches": launches})
+    print(smi_line(), flush=True)
     return 0
 
 
@@ -6028,6 +6310,9 @@ def main() -> int:
     r["launches_by_path"]["lm_recurrent"] = rec
     r["launches"] += sum(rec.values())
     torch.cuda.empty_cache()
+    r["launches_by_path"]["lm_sharded"] = lm_sharded_path(torch)
+    r["launches"] += r["launches_by_path"]["lm_sharded"]
+    torch.cuda.empty_cache()
     fam_launcher, rec_launcher = late_checks(torch, granite)
     r["launches_by_path"]["lm_families_launchers"] = fam_launcher
     r["launches_by_path"]["lm_recurrent_launchers"] = rec_launcher
@@ -6055,6 +6340,8 @@ if __name__ == "__main__":
         sys.exit(lm_families_only())
     if len(sys.argv) == 2 and sys.argv[1] == "--lm-recurrent":
         sys.exit(lm_recurrent_only())
+    if len(sys.argv) == 2 and sys.argv[1] == "--lm-sharded":
+        sys.exit(lm_sharded_only())
     if len(sys.argv) == 2 and sys.argv[1] == "--lm-recurrent-profile":
         sys.exit(lm_recurrent_profile())
     if len(sys.argv) == 2 and sys.argv[1] == "--serial":

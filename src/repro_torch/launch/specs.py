@@ -7,9 +7,9 @@ device, which records shapes and dtypes and allocates nothing. The trees
 are the port's own: parameters by ``named_parameters()`` name (one leaf a
 layer where JAX stacks a group's layers), the AdamW state of
 ``train.optimizer.adamw_init``, the per-layer decode caches of
-``models.model.init_cache``. One card has no mesh, so no logical axes or
-shardings come with them (README, "What one process on one card stands
-in for").
+``models.model.init_cache``. Their logical axes are
+``models.model.init_axes`` and ``init_cache_axes``, and the mesh dry run
+(``launch.dryrun.mesh_bytes``) places them by the rule table.
 """
 from __future__ import annotations
 

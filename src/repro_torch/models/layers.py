@@ -39,8 +39,14 @@ The attention decode cache is a dict ``{"k", "v": (B, alloc, KV, hd),
 "end": int}`` updated in place (JAX returns a new one), which saves a copy
 of every layer's K and V per token. The recurrent caches ``{"conv": (B,
 W-1, C), "state", "end": int}`` are updated in place too; their size does
-not grow with the position. One device: the JAX layer's sharding
-annotations have no counterpart here.
+not grow with the position.
+
+Every parameter carries JAX's logical axes (``_param``'s ``axes``, read
+by ``model.init_axes``). Over a device mesh, ``attention_sharded`` and
+``mlp_sharded`` are the dense block's sharded forward (the activations'
+constraints of the JAX layer become the placement ``models.spmd`` gives
+each coordinate's tensors): column-parallel projections, whole heads a
+coordinate, row-parallel outputs and their all-reduce.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from . import spmd
 from .config import ModelConfig
 
 # Sequences of at least this many tokens take the chunked attention (the
@@ -143,9 +150,16 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
-def _param(shape, cfg: ModelConfig, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=torch_dtype(cfg.param_dtype),
-                                    device=device))
+def _param(shape, cfg: ModelConfig, device, axes) -> nn.Parameter:
+    """An allocated parameter carrying JAX's logical axes of it
+    (``logical_axes``, one name or None a dim; ``model.init_axes``)."""
+    if len(axes) != len(shape):
+        raise ValueError(f"axes {axes} do not name the {len(shape)} dims "
+                         f"of {shape}")
+    p = nn.Parameter(torch.empty(shape, dtype=torch_dtype(cfg.param_dtype),
+                                 device=device))
+    p.logical_axes = tuple(axes)
+    return p
 
 
 # ======================================================================
@@ -158,10 +172,10 @@ class Attention(nn.Module):
         self.cfg = cfg
         d, hd = cfg.d_model, cfg.head_dim
         q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-        self.wq = _param((d, q), cfg, device)
-        self.wk = _param((d, kv), cfg, device)
-        self.wv = _param((d, kv), cfg, device)
-        self.wo = _param((q, d), cfg, device)
+        self.wq = _param((d, q), cfg, device, ("embed", "qkv_flat"))
+        self.wk = _param((d, kv), cfg, device, ("embed", "qkv_flat"))
+        self.wv = _param((d, kv), cfg, device, ("embed", "qkv_flat"))
+        self.wo = _param((q, d), cfg, device, ("qkv_flat", "embed"))
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor, *,
                 window: Optional[int], mode: str,
@@ -179,71 +193,97 @@ class Attention(nn.Module):
         q = _rope(q, pos, cfg.rope_theta)
         k = _rope(k, pos, cfg.rope_theta)
         qg = q.view(bsz, s, kv, h // kv, hd)
-
-        new_cache = None
-        if mode == "decode":
-            if cache is None or s != 1:
-                raise ValueError("decode mode needs a cache and a "
-                                 "single-token step")
-            end = int(cache["end"])                 # tokens already cached
-            ck, cv = cache["k"], cache["v"]
-            s_alloc = ck.shape[1]
-            wpos = end % s_alloc                    # ring-buffer write slot
-            ck[:, wpos] = k[:, 0].to(ck.dtype)
-            cv[:, wpos] = v[:, 0].to(cv.dtype)
-            cache["end"] = end + 1
-            new_cache = cache
-            # absolute position of each slot (ring semantics)
-            slot = torch.arange(s_alloc, device=x.device)
-            abs_pos = torch.where(slot <= wpos, slot + (end - wpos),
-                                  slot + (end - wpos) - s_alloc)
-            valid = (abs_pos >= 0) & (abs_pos <= end)
-            if window is not None:
-                valid &= abs_pos > end - window
-            logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
-                                  ck.to(dt)) / math.sqrt(hd)
-            logits = _soft_cap(logits, cfg.logits_soft_cap)
-            logits = torch.where(valid, logits, NEG_INF)
-            att = torch.softmax(logits.to(torch.float32), dim=-1).to(dt)
-            yg = torch.einsum("bkgqs,bskd->bqkgd", att, cv.to(dt))
-        else:
-            if mode == "prefill":
-                if cache is not None:
-                    # the last min(S, alloc) keys go into the ring buffer
-                    alloc = cache["k"].shape[1]
-                    ln = min(s, alloc)
-                    slots = torch.arange(s - ln, s, device=x.device) % alloc
-                    cache["k"][:, slots] = k[:, -ln:].to(cache["k"].dtype)
-                    cache["v"][:, slots] = v[:, -ln:].to(cache["v"].dtype)
-                    cache["end"] = s
-                    new_cache = cache
-                else:
-                    new_cache = {"k": k, "v": v, "end": s}
-            if s >= FLASH_THRESHOLD and mode == "train":
-                # differentiable chunked attention: the kernel has no
-                # backward
-                yg = _flash_attention(qg, k, v, pos, pos, window=window,
-                                      soft_cap=cfg.logits_soft_cap,
-                                      chunk=cfg.flash_chunk)
-            elif s >= FLASH_THRESHOLD:
-                # the flash kernel: no (S x S) scores in memory
-                yg = ops.flash_mha(qg, k, v, window=window,
-                                   soft_cap=cfg.logits_soft_cap,
-                                   bk=cfg.flash_chunk)
-            else:
-                logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
-                                      k) / math.sqrt(hd)
-                logits = _soft_cap(logits, cfg.logits_soft_cap)
-                qp, kp = pos[:, :, None], pos[:, None, :]
-                mask = kp <= qp                          # causal
-                if window is not None:
-                    mask &= kp > qp - window
-                logits = torch.where(mask[:, None, None], logits, NEG_INF)
-                att = torch.softmax(logits.to(torch.float32),
-                                    dim=-1).to(dt)
-                yg = torch.einsum("bkgqs,bskd->bqkgd", att, v)
+        yg, new_cache = _attend(cfg, qg, k, v, pos, window=window,
+                                mode=mode, cache=cache)
         y = yg.reshape(bsz, s, h * hd)
         return y @ self.wo.to(dt), new_cache
+
+
+def _flash_kernel(qg, k, v, *, window, cfg: ModelConfig) -> torch.Tensor:
+    """``ops.flash_mha`` (the flash kernel; its plain version on the CPU).
+    On ``meta`` tensors, which hold no values, the launch is planned
+    (``flash_attention.plan``: what the kernel takes) and an output of its
+    shape is returned: the dry run's stand-in, never a computation."""
+    if qg.device.type == "meta":
+        from ..kernels import flash_attention as fa
+        fa.plan(qg, k, v, window)
+        return torch.empty_like(qg)
+    return ops.flash_mha(qg, k, v, window=window,
+                         soft_cap=cfg.logits_soft_cap, bk=cfg.flash_chunk)
+
+
+def _attend(cfg: ModelConfig, qg: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, pos: torch.Tensor, *, window: Optional[int],
+            mode: str, cache: Optional[Cache] = None, kv_sel=None
+            ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Attention of roped ``qg`` (B, S, KV, G, hd) on roped ``k``, ``v``
+    (B, S, KVc, hd), filling or reading ``cache`` (the KVc heads);
+    ``kv_sel`` (a slice or index tensor over KVc, default all) picks
+    the heads ``qg``'s KV groups attend to. Returns yg (B, S, KV, G,
+    hd) and the cache."""
+    s, hd, dt = qg.shape[1], qg.shape[-1], qg.dtype
+    sel = slice(None) if kv_sel is None else kv_sel
+    new_cache = None
+    if mode == "decode":
+        if cache is None or s != 1:
+            raise ValueError("decode mode needs a cache and a "
+                             "single-token step")
+        end = int(cache["end"])                 # tokens already cached
+        ck, cv = cache["k"], cache["v"]
+        s_alloc = ck.shape[1]
+        wpos = end % s_alloc                    # ring-buffer write slot
+        ck[:, wpos] = k[:, 0].to(ck.dtype)
+        cv[:, wpos] = v[:, 0].to(cv.dtype)
+        cache["end"] = end + 1
+        new_cache = cache
+        # absolute position of each slot (ring semantics)
+        slot = torch.arange(s_alloc, device=qg.device)
+        abs_pos = torch.where(slot <= wpos, slot + (end - wpos),
+                              slot + (end - wpos) - s_alloc)
+        valid = (abs_pos >= 0) & (abs_pos <= end)
+        if window is not None:
+            valid &= abs_pos > end - window
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                              ck[:, :, sel].to(dt)) / math.sqrt(hd)
+        logits = _soft_cap(logits, cfg.logits_soft_cap)
+        logits = torch.where(valid, logits, NEG_INF)
+        att = torch.softmax(logits.to(torch.float32), dim=-1).to(dt)
+        return torch.einsum("bkgqs,bskd->bqkgd", att,
+                            cv[:, :, sel].to(dt)), new_cache
+    if mode == "prefill":
+        if cache is not None:
+            # the last min(S, alloc) keys go into the ring buffer
+            alloc = cache["k"].shape[1]
+            ln = min(s, alloc)
+            slots = torch.arange(s - ln, s, device=qg.device) % alloc
+            cache["k"][:, slots] = k[:, -ln:].to(cache["k"].dtype)
+            cache["v"][:, slots] = v[:, -ln:].to(cache["v"].dtype)
+            cache["end"] = s
+            new_cache = cache
+        else:
+            new_cache = {"k": k, "v": v, "end": s}
+    k, v = k[:, :, sel], v[:, :, sel]
+    if s >= FLASH_THRESHOLD and mode == "train":
+        # differentiable chunked attention: the kernel has no backward
+        yg = _flash_attention(qg, k, v, pos, pos, window=window,
+                              soft_cap=cfg.logits_soft_cap,
+                              chunk=cfg.flash_chunk)
+    elif s >= FLASH_THRESHOLD:
+        # the flash kernel: no (S x S) scores in memory
+        yg = _flash_kernel(qg, k, v, window=window, cfg=cfg)
+    else:
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                              k) / math.sqrt(hd)
+        logits = _soft_cap(logits, cfg.logits_soft_cap)
+        qp, kp = pos[:, :, None], pos[:, None, :]
+        mask = kp <= qp                          # causal
+        if window is not None:
+            mask &= kp > qp - window
+        logits = torch.where(mask[:, None, None], logits, NEG_INF)
+        att = torch.softmax(logits.to(torch.float32),
+                            dim=-1).to(dt)
+        yg = torch.einsum("bkgqs,bskd->bqkgd", att, v)
+    return yg, new_cache
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, alloc: int,
@@ -279,8 +319,10 @@ class MLP(nn.Module):
         shapes = {"w_up": (d, f), "w_down": (f, d)}
         if cfg.mlp_type == "swiglu":
             shapes = {"w_gate": (d, f), **shapes}
+        axes = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                "w_down": ("mlp", "embed")}
         for name, shape in shapes.items():
-            setattr(self, name, _param(shape, cfg, device))
+            setattr(self, name, _param(shape, cfg, device, axes[name]))
         self.block = cfg.sparsity.block if cfg.sparsity else 0
         for name, (r, c) in shapes.items():
             self.register_buffer(
@@ -303,6 +345,135 @@ class MLP(nn.Module):
             hdn = F.gelu(u, approximate="tanh")     # jax.nn.gelu's default
         return _maybe_sparse_mm(hdn, self.w_down.to(dt), self.mask_w_down,
                                 self.block)
+
+
+# ======================================================================
+# The sharded dense block. Each function takes one tensor a mesh
+# coordinate (``models.spmd``) and the ``model.ShardedModel`` whose weights
+# it reads; ``act`` is the axes the activations' batch splits over. A
+# weight comes from ``ShardedModel.weight``: every mesh axis of it
+# all-gathered (FSDP's "embed" -> "data" included) but the tensor-parallel
+# axes of its parallel dim, with the span of that dim the coordinate holds.
+def _row_reduce(outs, sm, axes, what: str):
+    """The all-reduce after a row-parallel product (``what``: "wo" or
+    "w_down"); none where the contraction dim is not sharded."""
+    return spmd.all_reduce(outs, sm.mesh, axes) if axes else outs
+
+
+def _whole_heads(sm, xs, spans, axes, hd: int, width: int):
+    """Per-coordinate column slices of a flat (..., heads * hd) projection,
+    all-gathered over ``axes`` where a slice is not whole heads (as GSPMD
+    reshards)."""
+    if all(a % hd == 0 and b % hd == 0 for a, b in spans):
+        return xs, spans
+    return (spmd.all_gather(xs, sm.mesh, axes, -1),
+            [(0, width)] * len(xs))
+
+
+def _head_groups(q: torch.Tensor, h0: int, h1: int, g: int, kv0: int):
+    """Query heads [h0, h1) (q: (B, S, n, hd)) arranged for ``_attend``:
+    (B, S, KV', G', hd) and the selection of KV' heads among the kv heads
+    held from ``kv0``. Whole groups keep JAX's layout; the heads of one kv
+    head share it; heads that cut groups unevenly attend one head a
+    group."""
+    bsz, s, n, hd = q.shape
+    if h0 % g == 0 and n % g == 0:
+        a = h0 // g - kv0
+        return q.view(bsz, s, n // g, g, hd), slice(a, a + n // g)
+    if h0 // g == (h1 - 1) // g:
+        a = h0 // g - kv0
+        return q.view(bsz, s, 1, n, hd), slice(a, a + 1)
+    idx = torch.arange(h0, h1, device=q.device) // g - kv0
+    return q.view(bsz, s, n, 1, hd), idx
+
+
+def attention_sharded(sm, li: int, xs, pos, *, window, mode: str,
+                      caches, act) -> Tuple[list, Optional[Cache]]:
+    """``Attention`` over the mesh: column-parallel ``wq``/``wk``/``wv``,
+    whole heads a coordinate (a slice that is not whole heads, or kv heads
+    another coordinate holds, all-gathered over the model axes first),
+    ``_attend`` on the coordinate's heads (a long prefill launches the
+    flash kernel once a coordinate), row-parallel ``wo`` and its
+    all-reduce. ``caches``: the layer's sharded cache (``ShardedModel.
+    init_cache``) or None."""
+    cfg, n = sm.cfg, len(xs)
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g, dt = h // kvh, xs[0].dtype
+    pre = f"blocks.{li}.mixer."
+    wq, qspan, qax = sm.weight(pre + "wq", 1, act, dt)
+    q, qspan = _whole_heads(sm, [x @ w for x, w in zip(xs, wq)], qspan,
+                            qax, hd, h * hd)
+    wk, kspan, kax = sm.weight(pre + "wk", 1, act, dt)
+    wv = sm.weight(pre + "wv", 1, act, dt)[0]
+    k = [x @ w for x, w in zip(xs, wk)]
+    v = [x @ w for x, w in zip(xs, wv)]
+    need = []                       # kv heads [lo, hi) each coordinate
+    for i in range(n):
+        h0, h1 = qspan[i][0] // hd, qspan[i][1] // hd
+        lo, hi = h0 // g, (h1 - 1) // g + 1
+        if caches is not None:
+            c0, c1 = caches["k"].span(i, 2)
+            if not (c0 <= lo and hi <= c1):
+                raise ValueError(f"layer {li}: coordinate {i} attends kv "
+                                 f"heads [{lo}, {hi}), its cache holds "
+                                 f"[{c0}, {c1})")
+            lo, hi = c0, c1
+        need.append((lo, hi))
+    if any(not (a <= lo * hd and hi * hd <= b)
+           for (a, b), (lo, hi) in zip(kspan, need)):
+        k = spmd.all_gather(k, sm.mesh, kax, -1)
+        v = spmd.all_gather(v, sm.mesh, kax, -1)
+        kspan = [(0, kvh * hd)] * n
+    ys, new = [], None if caches is None else dict(caches)
+    for i in range(n):
+        bsz, s = xs[i].shape[:2]
+        (a, _), (lo, hi) = kspan[i], need[i]
+        cols = slice(lo * hd - a, hi * hd - a)
+        ki = _rope(k[i][..., cols].reshape(bsz, s, hi - lo, hd), pos[i],
+                   cfg.rope_theta)
+        vi = v[i][..., cols].reshape(bsz, s, hi - lo, hd)
+        h0, h1 = qspan[i][0] // hd, qspan[i][1] // hd
+        qi = _rope(q[i].view(bsz, s, h1 - h0, hd), pos[i], cfg.rope_theta)
+        qg, sel = _head_groups(qi, h0, h1, g, lo)
+        cache = None
+        if caches is not None:
+            cache = {"k": caches["k"].shards[i], "v": caches["v"].shards[i],
+                     "end": caches["end"]}
+        yg, cache = _attend(cfg, qg, ki, vi, pos[i], window=window,
+                            mode=mode, cache=cache, kv_sel=sel)
+        if caches is not None:
+            new["end"] = cache["end"]
+        ys.append((yg.reshape(bsz, s, (h1 - h0) * hd), h0 * hd))
+    wo, ospan, oax = sm.weight(pre + "wo", 0, act, dt)
+    outs = []
+    for (y, y0), (a, b), w in zip(ys, ospan, wo):
+        if a < y0 or b > y0 + y.shape[-1]:
+            raise ValueError(f"layer {li}: wo rows [{a}, {b}) are not "
+                             f"among the coordinate's heads' columns")
+        outs.append(y[..., a - y0:b - y0] @ w)
+    return _row_reduce(outs, sm, oax, "wo"), new
+
+
+def mlp_sharded(sm, li: int, xs, act) -> list:
+    """``MLP`` over the mesh: column-parallel ``w_gate``/``w_up``,
+    row-parallel ``w_down`` and its all-reduce."""
+    cfg, dt = sm.cfg, xs[0].dtype
+    pre = f"blocks.{li}.ffn."
+    wu, uspan, _ = sm.weight(pre + "w_up", 1, act, dt)
+    u = [x @ w for x, w in zip(xs, wu)]
+    if cfg.mlp_type == "swiglu":
+        wg = sm.weight(pre + "w_gate", 1, act, dt)[0]
+        hdn = [F.silu(x @ w) * ui for x, w, ui in zip(xs, wg, u)]
+    else:
+        hdn = [F.gelu(ui, approximate="tanh") for ui in u]
+    wd, dspan, dax = sm.weight(pre + "w_down", 0, act, dt)
+    outs = []
+    for hh, (u0, u1), (a, b), w in zip(hdn, uspan, dspan, wd):
+        if a < u0 or b > u1:
+            raise ValueError(f"layer {li}: w_down rows [{a}, {b}) are not "
+                             f"among w_up's columns [{u0}, {u1})")
+        outs.append(hh[..., a - u0:b - u0] @ w)
+    return _row_reduce(outs, sm, dax, "w_down")
 
 
 # ======================================================================
@@ -414,8 +585,8 @@ class _Embed(torch.autograd.Function):
         tokens, = ctx.saved_tensors
         flat = tokens.reshape(-1)
         dt = g.new_zeros(ctx.shape)
-        if flat.numel() == 0:
-            return dt, None
+        if flat.numel() == 0 or g.device.type == "meta":
+            return dt, None             # meta holds shapes, no values
         g = g.reshape(flat.shape[0], -1)
         order = torch.sort(flat, stable=True).indices
         tok = flat[order]
@@ -477,15 +648,18 @@ class MoE(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
-        self.router = _param((d, e), cfg, device)
-        self.w_gate = _param((e, d, f), cfg, device)
-        self.w_up = _param((e, d, f), cfg, device)
-        self.w_down = _param((e, f, d), cfg, device)
+        self.router = _param((d, e), cfg, device, ("embed", "experts"))
+        self.w_gate = _param((e, d, f), cfg, device,
+                             ("experts", "embed", "expert_mlp"))
+        self.w_up = _param((e, d, f), cfg, device,
+                           ("experts", "embed", "expert_mlp"))
+        self.w_down = _param((e, f, d), cfg, device,
+                             ("experts", "expert_mlp", "embed"))
         if cfg.n_shared_experts:
             fs = cfg.n_shared_experts * f
-            self.ws_gate = _param((d, fs), cfg, device)
-            self.ws_up = _param((d, fs), cfg, device)
-            self.ws_down = _param((fs, d), cfg, device)
+            self.ws_gate = _param((d, fs), cfg, device, ("embed", "mlp"))
+            self.ws_up = _param((d, fs), cfg, device, ("embed", "mlp"))
+            self.ws_down = _param((fs, d), cfg, device, ("mlp", "embed"))
         self.route_log: Optional[List[Route]] = None
         self.held_route: Optional[Route] = None
 
@@ -582,15 +756,16 @@ class SSD(nn.Module):
         self.cfg = cfg
         d, inner, n, nh = (cfg.d_model, cfg.ssm_inner, cfg.ssm_state,
                            cfg.ssm_heads)
-        self.w_x = _param((d, inner), cfg, device)
-        self.w_z = _param((d, inner), cfg, device)
-        self.w_bc = _param((d, 2 * n), cfg, device)
-        self.w_dt = _param((d, nh), cfg, device)
-        self.dt_bias = _param((nh,), cfg, device)
-        self.a_log = _param((nh,), cfg, device)
-        self.d_skip = _param((nh,), cfg, device)
-        self.conv_w = _param((cfg.conv_width, inner + 2 * n), cfg, device)
-        self.w_out = _param((inner, d), cfg, device)
+        self.w_x = _param((d, inner), cfg, device, ("embed", "ssm_inner"))
+        self.w_z = _param((d, inner), cfg, device, ("embed", "ssm_inner"))
+        self.w_bc = _param((d, 2 * n), cfg, device, ("embed", None))
+        self.w_dt = _param((d, nh), cfg, device, ("embed", None))
+        self.dt_bias = _param((nh,), cfg, device, (None,))
+        self.a_log = _param((nh,), cfg, device, (None,))
+        self.d_skip = _param((nh,), cfg, device, (None,))
+        self.conv_w = _param((cfg.conv_width, inner + 2 * n), cfg, device,
+                             ("conv_width", None))
+        self.w_out = _param((inner, d), cfg, device, ("ssm_inner", "embed"))
 
     def forward(self, x: torch.Tensor, *, mode: str,
                 cache: Optional[Cache] = None
@@ -716,13 +891,15 @@ class RGLRU(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, w = cfg.d_model, cfg.lru_dim
-        self.w_in = _param((d, w), cfg, device)
-        self.w_gate_branch = _param((d, w), cfg, device)
-        self.conv_w = _param((cfg.conv_width, w), cfg, device)
-        self.w_rg = _param((w, w), cfg, device)
-        self.w_ig = _param((w, w), cfg, device)
-        self.a_param = _param((w,), cfg, device)
-        self.w_out = _param((w, d), cfg, device)
+        self.w_in = _param((d, w), cfg, device, ("embed", "lru_width"))
+        self.w_gate_branch = _param((d, w), cfg, device,
+                                    ("embed", "lru_width"))
+        self.conv_w = _param((cfg.conv_width, w), cfg, device,
+                             ("conv_width", None))
+        self.w_rg = _param((w, w), cfg, device, ("lru_width", None))
+        self.w_ig = _param((w, w), cfg, device, ("lru_width", None))
+        self.a_param = _param((w,), cfg, device, (None,))
+        self.w_out = _param((w, d), cfg, device, ("lru_width", "embed"))
 
     def forward(self, x: torch.Tensor, *, mode: str,
                 cache: Optional[Cache] = None

@@ -303,16 +303,33 @@ Phases, each printing one JSON line:
              named 8 times (``models.spmd``): granite-34b at full width
              cut to 2 layers, f32. One AdamW step on 4 x 1,024 tokens with
              FSDP and ZeRO-1 against the one-device step on the same
-             seeded weights (the loss within 1e-5, each gathered gradient
-             and first moment within 1e-4 of its max), step ms of both
-             (first and second step), peak GB and the collectives by kind;
-             then a prefill of 2 x 8,192 tokens (one sequence a data
-             shard) and 4 decode steps under the default rules against one
-             device (logits within 1e-4 of max|logit| at every step), 16
-             flash launches in the sharded prefill (8 coordinates x 2
-             layers), counters zeroed just before. ``python3
-             chip_smoke.py --lm-sharded`` runs the build, this phase and
-             the mesh dry run alone.
+             seeded weights (the one-device reference first, its grads
+             and first moments to the host, its model freed; the loss
+             within 1e-5, each gathered gradient and first moment within
+             1e-4 of its max), step ms of both, peak GB and the
+             collectives by kind; then a prefill of 2 x 8,192 tokens (one
+             sequence a data shard) and 4 decode steps under the default
+             rules against one device (logits within 1e-4 of max|logit|
+             at every step), 16 flash launches in the sharded prefill (8
+             coordinates x 2 layers), counters zeroed just before; every
+             run's collectives equal a meta-device run's to the byte.
+             ``python3 chip_smoke.py --lm-sharded`` runs the build, this
+             phase, lm_sharded_families and the mesh dry run alone.
+   lm_sharded_families — the MoE, SSD and RG-LRU families through the
+             same checks (``_sharded_arch``), each at full width cut to
+             its depth (LM_FAMILIES_SHARDED: mixtral-8x7b 1 layer,
+             qwen2-moe-a2.7b 2, mamba2-370m 12, recurrentgemma-2b 13; the
+             train batch 4 x 1,024 tokens, recurrentgemma's 2 x 1,024).
+             The MoE families print the tokens whose experts differ
+             between the sharded run and one device, and where any do,
+             the reference runs again on the sharded routes
+             (``MoE.held_route``) before the comparison. Flash launches
+             of the sharded prefill: 8 coordinates x the attention layers
+             (8, 16, 0, 32); peaks under 70 GB.
+             Then one sharded step of examples/train_sparse_lm.py's
+             block-sparse configuration (d 768, 12 layers, blocks of 32)
+             with half of each mask's blocks zeroed, held to one device,
+             a zeroed block's gathered gradient 0.
 21. proofs, dryrun, examples — with every exit-code subprocess of the
              smoke in one pool at the end (``late_checks``: these four,
              tenancy's serve bench and example, the training and
@@ -5165,6 +5182,20 @@ def _moes(T, model):
     return [b.ffn for b in model.blocks if isinstance(b.ffn, T.layers.MoE)]
 
 
+def _hold(T, model, routes):
+    """Give ``model``'s MoE layers ``routes`` (one a layer)."""
+    for m, r in zip(_moes(T, model), routes):
+        m.held_route = r
+
+
+def _log(T, model):
+    """``model``'s MoE layers, each with an empty route log."""
+    moes = _moes(T, model)
+    for m in moes:
+        m.route_log = []
+    return moes
+
+
 def _fam_serve(torch, T, E, cfg, want_long=None):
     """ServeEngine on ``cfg`` seeded on the card: 2 requests of
     FAM["positions"] positions (prefix included: one wave, one flash launch
@@ -5186,9 +5217,7 @@ def _fam_serve(torch, T, E, cfg, want_long=None):
     long_reqs = _lm_requests(E, v, 2, n - npfx, max_new, 0, seed=1)
     short_reqs = _lm_requests(E, v, 4, FAM["short"] - npfx, max_new, 10,
                               seed=2)
-    moes = _moes(T, model)
-    for m in moes:
-        m.route_log = []
+    moes = _log(T, model)
     T.F.reset_launches()
     eng_l, wall_l = _serve_lm(torch, E, model, long_reqs)
     launches_long = T.F.LAUNCHES["flash_attention"]
@@ -5316,9 +5345,8 @@ def _hold_routes(T, model, held):
     returns a list that a hook fills with, per layer, the tokens whose
     experts ``model``'s own router would choose otherwise."""
     flips = []
+    _hold(T, model, held)
     for m, route in zip(_moes(T, model), held):
-        m.held_route = route
-
         def own(mod, args, route=route):
             x = args[0]
             logits = x.detach() @ mod.router.detach().to(x.dtype)
@@ -5333,9 +5361,7 @@ def _hold_routes(T, model, held):
 def _logged_grads(T, model, batch):
     """Loss and grads of one run (no remat), with each MoE layer's
     route."""
-    moes = _moes(T, model)
-    for m in moes:
-        m.route_log = []
+    moes = _log(T, model)
     loss, grads = T.trainer.loss_and_grads(model, batch, remat=False)
     routes = [m.route_log[0] for m in moes]
     for m in moes:
@@ -5713,7 +5739,10 @@ def _lm_sharded_modules():
     from repro_torch.models import sharding as sh
     from repro_torch.models import spmd
     from repro_torch.train.zero import FSDP_OVERRIDES
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.models import layers
     T = _lm_train_modules()
+    T.ShapeSpec, T.layers = ShapeSpec, layers
     g = LM_SHARDED
     mesh = Mesh(np_.full(g["mesh"], "cuda:0", dtype=object),
                 ("data", "model"))
@@ -5734,36 +5763,99 @@ def _coll(mesh):
             for k, v in mesh.collectives.items() if v["count"]}
 
 
-def phase_lm_sharded_train(torch, T, S, cfg):
-    """One AdamW step with FSDP and ZeRO-1 on LM_SHARDED's batch, sharded
-    and on one device from the same seeded weights: the loss within
-    LM_SHARDED_LOSS_RTOL, each gathered gradient and first moment within
-    LM_SHARDED_TOL of the tensor's max; step ms of both (CUDA-synchronized
-    host clock: the first step, and a second one on the same batch), the
-    sharded first step's peak GB and collectives by kind."""
-    g = LM_SHARDED
-    batch = T.Tokens(cfg.vocab_size, g["batch"], g["seq"],
-                     seed=g["seed"]).batch_at(0)
-    opt = T.O.AdamWConfig(lr=1e-4, warmup_steps=0)
-    model = T.M.init(cfg, seed=g["seed"], device="cuda")
+# Phase lm_sharded_families: the MoE, SSD and RG-LRU families over the same
+# mesh, each at full width cut to its depth (layers, train batch: sequences
+# x tokens), f32; recurrentgemma's batch keeps its sharded step under 70 GB.
+LM_FAMILIES_SHARDED = {"mixtral-8x7b": (1, (4, 1024)),
+                       "qwen2-moe-a2.7b": (2, (4, 1024)),
+                       "mamba2-370m": (12, (4, 1024)),
+                       "recurrentgemma-2b": (13, (2, 1024))}
+# examples/train_sparse_lm.py's ~100M block-sparse configuration (d 768,
+# 12 layers, blocks of 32), half of each mask's blocks zeroed; one step.
+LM_SPARSE_SHARDED = {"d_model": 768, "layers": 12, "vocab": 512,
+                     "block": 32, "batch": (8, 512)}
+
+
+def _exact_coll(mesh):
+    return {k: dict(v) for k, v in mesh.collectives.items()}
+
+
+def _meta_collectives(T, S, cfg, rules, run):
+    """The collectives ``run(sm, mesh)`` counts on a (data 2, model 4) mesh
+    of ``meta`` devices: shapes alone, coordinate 0's program (the dry
+    run's count), to hold the card's count against."""
+    mesh = S.Mesh(np.full(LM_SHARDED["mesh"], "meta", dtype=object),
+                  ("data", "model"))
+    sm = S.spmd.shard_model(T.M.Model(cfg, device="meta"), mesh, rules)
+    mesh.reset_collectives()
+    run(sm, mesh)
+    return _exact_coll(mesh)
+
+
+def _flips(mine, theirs):
+    """Per logged MoE call, the tokens whose experts differ."""
+    return [int((a.topi.sort(-1).values != b.topi.to(
+        a.topi.device).sort(-1).values).any(-1).sum())
+        for a, b in zip(mine, theirs)]
+
+
+def _ref_step(torch, T, cfg, batch, opt, seed, held=None):
+    """The one-device AdamW step from ``seed``'s weights (MoE layers on
+    ``held`` routes where given): loss, grads and first moments on the
+    host, each MoE layer's route, ms, peak GB; the model freed."""
+    model = T.M.init(cfg, seed=seed, device="cuda")
+    moes = _log(T, model)
+    if held:
+        _hold(T, model, [r.to("cuda") for r in held])
     params = dict(model.named_parameters())
     state = T.O.adamw_init(opt, params)
+    torch.cuda.reset_peak_memory_stats()
 
     def one():
         loss, grads = T.trainer.loss_and_grads(model, batch)
         T.O.adamw_update(opt, grads, state, params)
         return loss, grads
-    (loss1, g1), one_first_ms = _timed(torch, one)
-    ref = {"grads": {k: v.to("cpu", copy=True) for k, v in g1.items()},
+    (loss, g), ms = _timed(torch, one)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ref = {"grads": {k: v.to("cpu", copy=True) for k, v in g.items()},
            "m": {k: v.to("cpu", copy=True) for k, v in state["m"].items()}}
-    del g1
-    _, one_ms = _timed(torch, one)          # a second step, warm
-    del model, params, state
+    routes = [m.route_log[0].to("cpu") for m in moes]
+    del model, params, state, g, moes
     torch.cuda.empty_cache()
-    sm = S.spmd.shard_model(T.M.init(cfg, seed=g["seed"], device="cuda"),
+    return float(loss), ref, routes, ms, peak
+
+
+def _worst_errs(torch, got, ref):
+    """Worst (name, error / max) of each of "grads" and "m": ``got``
+    {kind: {name: callable giving the tensor}}, the reference on the host
+    brought to the card a tensor at a time."""
+    out = {}
+    for kind in ("grads", "m"):
+        errs = {k: _rel_errs({k: got[kind][k]()}, {k: w.cuda()})[k]
+                for k, w in ref[kind].items()}
+        worst = max(errs, key=errs.get)
+        out[kind] = [worst, errs[worst]]
+    return out
+
+
+def phase_lm_sharded_train(torch, T, S, cfg, batch, opt, seed):
+    """One AdamW step with FSDP and ZeRO-1 on ``batch``, the one-device
+    reference first (its grads and first moments to the host, the model
+    freed), then sharded from the same seeded weights; where an MoE route
+    differs, the reference again on the sharded routes
+    (``MoE.held_route``) before the comparison. The loss within
+    LM_SHARDED_LOSS_RTOL, each gathered gradient and first moment within
+    LM_SHARDED_TOL of the tensor's max (checked by ``_check_sharded``);
+    step ms of both (CUDA-synchronized host clock), peak GB, and the
+    sharded step's collectives against the meta run's."""
+    loss1, ref, routes1, one_ms, one_peak = _ref_step(
+        torch, T, cfg, batch, opt, seed)
+    sm = S.spmd.shard_model(T.M.init(cfg, seed=seed, device="cuda"),
                             S.mesh, S.FSDP)
+    sm.route_log = []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    n = len(batch["tokens"])
     with S.sh.axis_rules(S.mesh, S.FSDP):
         ms = T.trainer.moment_specs(opt, sm)
         st = T.trainer.init_sharded_opt_state(opt, sm)
@@ -5775,114 +5867,272 @@ def phase_lm_sharded_train(torch, T, S, cfg):
             del parts
             T.O.sharded_adamw_update(opt, red, st, sm, ms)
             return loss, red
-        (loss2, red), sharded_first_ms = _timed(torch, sharded)
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        coll = _coll(S.mesh)
-        # held on the card, the reference brought back a tensor at a time
-        gerr = {k: _rel_errs({k: S.spmd.Sharded(S.mesh, ms[k], tuple(
-            w.shape), red[k]).full()}, {k: w.cuda()})[k]
-            for k, w in ref["grads"].items()}
-        merr = {k: _rel_errs({k: st["m"][k].full()}, {k: w.cuda()})[k]
-                for k, w in ref["m"].items()}
-        del red, ref
-        _, sharded_ms = _timed(torch, sharded)   # a second step, warm
-    lerr = abs(float(loss2) / float(loss1) - 1)
-    worst_g, worst_m = max(gerr, key=gerr.get), max(merr, key=merr.get)
-    specs_of = {k: str(sm.params[k].spec) for k in
-                ("embed", "unembed", "blocks.0.mixer.wq",
-                 "blocks.0.mixer.wk", "blocks.0.ffn.w_down",
-                 "blocks.0.norm_mixer")}
-    del sm, st
+        (loss2, red), sh_ms = _timed(torch, sharded)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    coll = _exact_coll(S.mesh)
+    routes2 = [r.to("cpu") for _, r in sm.joined_routes(n)]
+    flips = _flips(routes2, routes1)
+    got = {"grads": {k: (lambda k=k, shape=tuple(w.shape): S.spmd.Sharded(
+        S.mesh, ms[k], shape, red[k]).full())
+        for k, w in ref["grads"].items()},
+           "m": {k: (lambda k=k: st["m"][k].full()) for k in ref["m"]}}
+    if any(flips):      # the sharded run's state to the host, then held
+        got = {kind: {k: (lambda t=fn().cpu(): t.cuda())
+                      for k, fn in d.items()} for kind, d in got.items()}
+        del sm, st, red
+        torch.cuda.empty_cache()
+        loss1, ref, _, _, _ = _ref_step(torch, T, cfg, batch, opt, seed,
+                                        held=routes2)
+    errs = _worst_errs(torch, got, ref)
+    del got, ref
+    sm = st = red = None
     torch.cuda.empty_cache()
-    return {"loss": [float(loss1), float(loss2)], "loss_rel_err": lerr,
-            "grad_worst": [worst_g, gerr[worst_g]],
-            "moment_worst": [worst_m, merr[worst_m]],
-            "step_ms": {"one_device": one_ms, "sharded": sharded_ms},
-            "first_step_ms": {"one_device": one_first_ms,
-                              "sharded": sharded_first_ms},
-            "peak_gb": peak, "collectives": coll, "specs": specs_of,
-            "tokens": g["batch"] * g["seq"]}
+    meta_batch = T.specs.batch_specs(cfg, T.ShapeSpec(
+        "b", batch["tokens"].shape[1], n, "train"))
+
+    def meta_run(msm, mesh):
+        with S.sh.axis_rules(mesh, S.FSDP):
+            mms = T.trainer.moment_specs(opt, msm)
+            mst = T.trainer.init_sharded_opt_state(opt, msm)
+            mesh.reset_collectives()
+            _, parts = T.trainer.sharded_loss_and_grads(msm, meta_batch)
+            T.O.sharded_adamw_update(
+                opt, T.trainer.reduce_grads(msm, parts, mms), mst, msm, mms)
+    meta = _meta_collectives(T, S, cfg, S.FSDP, meta_run)
+    return {"loss": [loss1, float(loss2)],
+            "loss_rel_err": abs(float(loss2) / loss1 - 1),
+            "grad_worst": errs["grads"], "moment_worst": errs["m"],
+            "route_flips": flips, "routes_held": any(flips),
+            "step_ms": {"one_device": one_ms, "sharded": sh_ms},
+            "peak_gb": {"one_device": one_peak, "sharded": peak},
+            "collectives": _coll(S.mesh), "collectives_equal_meta":
+            coll == meta, "tokens": n * batch["tokens"].shape[1]}
 
 
-def phase_lm_sharded_serve(torch, T, S, cfg):
+def _serve_run(torch, T, m, tok, nxt, alloc, held=None):
+    """Prefill then decode steps on ``m``: the logits of each on the host,
+    and each call's MoE routes (``held``: one per call, held in turn on a
+    one-device model)."""
+    s = tok.shape[1]
+    calls = [lambda c: T.M.prefill_step(m, tok, alloc_seq=alloc,
+                                        cache_dtype=torch.float32)]
+    calls += [lambda c, t=t: T.M.decode_step(m, nxt[:, t:t + 1], c,
+                                             pos=s + t)
+              for t in range(nxt.shape[1])]
+    cache, logits, ms, routes = None, [], [], []
+    sharded = isinstance(m, T.M.ShardedModel)
+    for j, call in enumerate(calls):
+        if sharded:
+            m.route_log = []
+        else:
+            moes = _log(T, m)
+            if held:
+                _hold(T, m, [r.to("cuda") for r in held[j]])
+        (lg, cache), t_ms = _timed(torch, lambda: call(cache))
+        logits.append((lg.full() if sharded else lg).cpu())
+        ms.append(t_ms)
+        routes.append([r.to("cpu") for _, r in m.joined_routes(
+            tok.shape[0])] if sharded else [x.route_log[0].to("cpu")
+                                            for x in moes])
+    return logits, ms, routes
+
+
+def phase_lm_sharded_serve(torch, T, S, cfg, seed):
     """A prefill of LM_SHARDED's 2 x 8,192 tokens (one sequence a data
-    shard) and 4 decode steps, f32 cache, sharded under the default rules
-    and on one device from the same weights: last-position logits within
-    LM_SHARDED_TOL of max|logit| at every step, the flash kernel launched
-    once a coordinate a layer in the sharded prefill; ms of both."""
+    shard) and 4 decode steps, f32 cache, default rules: the one-device
+    run first (its logits to the host), then sharded from the same
+    weights (the one-device model freed); where an MoE route differs, the
+    one-device run again on the sharded routes. Logits within
+    LM_SHARDED_TOL of max|logit| at every step (``_check_sharded``), the
+    flash launches of the sharded run (counters zeroed just before), ms
+    of both, the collectives against the meta run's."""
     g = LM_SHARDED
     b, s = g["prefill"]
-    gen = torch.Generator().manual_seed(g["seed"])
+    gen = torch.Generator().manual_seed(seed)
     tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
     nxt = torch.randint(0, cfg.vocab_size, (b, g["decode"]), generator=gen)
     alloc = s + g["decode"]
-    model = T.M.init(cfg, seed=g["seed"] + 1, device="cuda")
-
-    def run(m):
-        (l0, cache), pre_ms = _timed(torch, lambda: T.M.prefill_step(
-            m, tok, alloc_seq=alloc, cache_dtype=torch.float32))
-        logits, dec_ms = [l0], []
-        for t in range(g["decode"]):
-            (lt, cache), ms = _timed(torch, lambda: T.M.decode_step(
-                m, nxt[:, t:t + 1], cache, pos=s + t))
-            logits.append(lt)
-            dec_ms.append(ms)
-        return logits, pre_ms, dec_ms
+    model = T.M.init(cfg, seed=seed + 1, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
     T.F.reset_launches()
-    ref, one_pre, one_dec = run(model)
-    ref = [x.cpu() for x in ref]
+    ref, one_ms, routes1 = _serve_run(torch, T, model, tok, nxt, alloc)
     one_launches = T.F.LAUNCHES["flash_attention"]
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
     sm = S.spmd.shard_model(model, S.mesh)
     del model
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     S.mesh.reset_collectives()
     T.F.reset_launches()
-    got, sh_pre, sh_dec = run(sm)
+    got, sh_ms, routes2 = _serve_run(torch, T, sm, tok, nxt, alloc)
     launches = T.F.LAUNCHES["flash_attention"]
-    errs = [_rel_errs({"l": x.full().cpu()}, {"l": r})["l"]
-            for x, r in zip(got, ref)]
-    coll = _coll(S.mesh)
-    del sm, got
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    coll = _exact_coll(S.mesh)
+    flips = [_flips(a, b_) for a, b_ in zip(routes2, routes1)]
+    if any(map(any, flips)):
+        model = S.spmd.gather_model(sm)
+        del sm
+        torch.cuda.empty_cache()
+        ref, _, _ = _serve_run(torch, T, model, tok, nxt, alloc,
+                               held=routes2)
+        del model
+    else:
+        del sm
     torch.cuda.empty_cache()
+    errs = [_rel_errs({"l": x.cuda()}, {"l": r.cuda()})["l"]
+            for x, r in zip(got, ref)]
+
+    def meta_run(msm, mesh):
+        cache = None
+        _, cache = T.M.prefill_step(
+            msm, torch.empty((b, s), dtype=torch.int32, device="meta"),
+            alloc_seq=alloc, cache_dtype=torch.float32)
+        for t in range(g["decode"]):
+            _, cache = T.M.decode_step(msm, torch.empty(
+                (b, 1), dtype=torch.int32, device="meta"), cache, pos=s + t)
+    meta = _meta_collectives(T, S, cfg, None, meta_run)
     return {"prefill": [b, s], "decode_steps": g["decode"],
-            "logit_rel_err": errs, "flash_launches": launches,
+            "logit_rel_err": errs, "route_flips": flips,
+            "routes_held": any(map(any, flips)),
+            "flash_launches": launches,
             "flash_launches_one_device": one_launches,
-            "prefill_ms": {"one_device": one_pre, "sharded": sh_pre},
-            "decode_ms": {"one_device": one_dec, "sharded": sh_dec},
-            "collectives": coll}
+            "prefill_ms": {"one_device": one_ms[0], "sharded": sh_ms[0]},
+            "decode_ms": {"one_device": one_ms[1:], "sharded": sh_ms[1:]},
+            "peak_gb": {"one_device": one_peak, "sharded": peak},
+            "collectives": _coll(S.mesh), "collectives_equal_meta":
+            coll == meta}
+
+
+def _sharded_arch(torch, T, S, arch, layers, batch_shape, phase):
+    """``arch`` at full width cut to ``layers`` layers, f32, on
+    LM_SHARDED's mesh: ``phase_lm_sharded_train`` and
+    ``phase_lm_sharded_serve``, emitted under ``phase`` and checked.
+    Returns the sharded prefill's flash launches (coordinates x
+    attention layers)."""
+    t0 = time.perf_counter()
+    seed = LM_SHARDED["seed"]
+    cfg = _fam_cfg(T, arch, layers, dtype="float32")
+    batch = T.Tokens(cfg.vocab_size, *batch_shape, seed=seed).batch_at(0)
+    opt = T.O.AdamWConfig(lr=1e-4, warmup_steps=0)
+    train = phase_lm_sharded_train(torch, T, S, cfg, batch, opt, seed)
+    serve = phase_lm_sharded_serve(torch, T, S, cfg, seed)
+    want = S.mesh.size * _attention_layers(cfg)
+    full = T.configs.get(arch)
+    emit({"phase": phase, "arch": arch,
+          "model": f"{arch}, {layers} of {full.n_layers} layers, full "
+          f"width, f32", "params": sum(
+              p.numel() for p in T.M.Model(cfg, device="meta").parameters()),
+          "mesh": S.mesh.shape,
+          "devices": sorted({str(d) for d in S.mesh.device_list}),
+          "seconds": time.perf_counter() - t0, "train": train,
+          "serve": serve})
+    check(train["loss_rel_err"] <= LM_SHARDED_LOSS_RTOL,
+          f"{arch}: sharded loss off by {train['loss_rel_err']}")
+    for what in ("grad_worst", "moment_worst"):
+        name, err = train[what]
+        check(err <= LM_SHARDED_TOL, f"{arch}: {what} {name} off by "
+              f"{err} of its max")
+    check(max(serve["logit_rel_err"]) <= LM_SHARDED_TOL,
+          f"{arch}: sharded logits off by {serve['logit_rel_err']}")
+    check(serve["flash_launches"] == want, f"{arch}: "
+          f"{serve['flash_launches']} flash launches, want {want}")
+    for run in (train, serve):
+        check(run["collectives_equal_meta"], f"{arch}: the card's "
+              f"collectives are not the meta run's")
+        check(max(run["peak_gb"].values()) < 70,
+              f"{arch}: peak {run['peak_gb']} GB")
+    return serve["flash_launches"]
 
 
 def lm_sharded_path(torch):
     """Phase lm_sharded: granite-34b at full width, LM_SHARDED["layers"]
     layers, f32, on a (data 2, model 4) mesh of one card: the train step
-    and the serve path held against one device. Returns the sharded
-    prefill's flash launches (its coordinates x layers)."""
-    import dataclasses
+    and the serve path held against one device (``_sharded_arch``).
+    Returns the sharded prefill's flash launches (its coordinates x
+    layers)."""
     T, S = _lm_sharded_modules()
     g = LM_SHARDED
-    cfg = dataclasses.replace(T.configs.get(g["arch"]), n_layers=g["layers"],
-                              dtype="float32")
-    t0 = time.perf_counter()
-    train = phase_lm_sharded_train(torch, T, S, cfg)
-    serve = phase_lm_sharded_serve(torch, T, S, cfg)
-    want = S.mesh.size * cfg.n_layers
-    emit({"phase": "lm_sharded", "model": f"{g['arch']}, {g['layers']} of "
-          f"88 layers, full width, f32", "mesh": S.mesh.shape,
-          "devices": sorted({str(d) for d in S.mesh.device_list}),
-          "seconds": time.perf_counter() - t0, "train": train,
-          "serve": serve})
-    check(train["loss_rel_err"] <= LM_SHARDED_LOSS_RTOL,
-          f"lm_sharded: loss off by {train['loss_rel_err']}")
-    for what in ("grad_worst", "moment_worst"):
-        name, err = train[what]
-        check(err <= LM_SHARDED_TOL, f"lm_sharded: {what} {name} off by "
-              f"{err} of its max")
-    check(train["peak_gb"] < 70, f"lm_sharded: peak {train['peak_gb']} GB")
-    check(max(serve["logit_rel_err"]) <= LM_SHARDED_TOL,
-          f"lm_sharded: logits off by {serve['logit_rel_err']}")
-    check(serve["flash_launches"] == want, f"lm_sharded: "
-          f"{serve['flash_launches']} flash launches, want {want}")
-    return serve["flash_launches"]
+    return _sharded_arch(torch, T, S, g["arch"], g["layers"],
+                         (g["batch"], g["seq"]), "lm_sharded")
+
+
+def phase_lm_sharded_sparse(torch, T, S):
+    """One sharded AdamW step (FSDP, ZeRO-1) of examples/train_sparse_lm.py's
+    block-sparse configuration, half of each mask's blocks zeroed, held to
+    one device as the families' steps are."""
+    from repro_torch.examples import train_sparse_lm
+    c = LM_SPARSE_SHARDED
+    cfg = train_sparse_lm.build("sparse-lm", c["d_model"], c["layers"],
+                                c["vocab"], True, c["block"])
+    seed = LM_SHARDED["seed"]
+    batch = T.Tokens(cfg.vocab_size, *c["batch"], seed=seed).batch_at(0)
+    opt = T.O.AdamWConfig(lr=1e-4, warmup_steps=0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = T.M.init(cfg, seed=seed, device="cuda")
+    with torch.no_grad():
+        for _, m in model.named_buffers():
+            m.copy_(torch.rand(m.shape, generator=gen, device="cuda") < 0.5)
+    masks = {k: v.clone() for k, v in model.named_buffers()}
+    sm = S.spmd.shard_model(model, S.mesh, S.FSDP)
+    loss1, g1 = T.trainer.loss_and_grads(model, batch)
+    st1 = T.O.adamw_init(opt, dict(model.named_parameters()))
+    T.O.adamw_update(opt, g1, st1, dict(model.named_parameters()))
+    with S.sh.axis_rules(S.mesh, S.FSDP):
+        ms = T.trainer.moment_specs(opt, sm)
+        st2 = T.trainer.init_sharded_opt_state(opt, sm)
+        S.mesh.reset_collectives()
+        (loss2, parts), step_ms = _timed(
+            torch, lambda: T.trainer.sharded_loss_and_grads(sm, batch))
+        red = T.trainer.reduce_grads(sm, parts, ms)
+        T.O.sharded_adamw_update(opt, red, st2, sm, ms)
+    gsh = {k: S.spmd.Sharded(S.mesh, ms[k], tuple(w.shape), red[k]).full()
+           for k, w in g1.items()}
+    gerr = _rel_errs(gsh, g1)
+    merr = _rel_errs({k: st2["m"][k].full() for k in st1["m"]}, st1["m"])
+    blk = cfg.sparsity.block
+    zero_ok = all(
+        float(gsh[k.replace("mask_", "")][m.repeat_interleave(blk, 0)
+              .repeat_interleave(blk, 1) == 0].abs().max()) == 0.0
+        for k, m in masks.items())
+    wg, wm = max(gerr, key=gerr.get), max(merr, key=merr.get)
+    out = {"config": f"{cfg.name}, d {cfg.d_model}, {cfg.n_layers} layers, "
+           f"d_ff {cfg.d_ff}, blocks of {cfg.sparsity.block}",
+           "params": sum(p.numel() for p in model.parameters()),
+           "mask_density": float(sum(m.sum() for m in masks.values()) /
+                                 sum(m.numel() for m in masks.values())),
+           "loss_rel_err": abs(float(loss2) / float(loss1) - 1),
+           "grad_worst": [wg, gerr[wg]], "moment_worst": [wm, merr[wm]],
+           "zeroed_blocks_no_grad": zero_ok, "sharded_grads_ms": step_ms,
+           "collectives": _coll(S.mesh)}
+    del model, sm, g1, gsh, st1, st2, red, parts
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_sharded_families_path(torch):
+    """Phase lm_sharded_families: mixtral-8x7b, qwen2-moe-a2.7b,
+    mamba2-370m and recurrentgemma-2b at full width cut to
+    LM_FAMILIES_SHARDED's depths, f32, on LM_SHARDED's (data 2, model 4)
+    mesh of one card: a step and the serve path each held to one device,
+    then the block-sparse FFN's step. Returns the flash launches of the
+    sharded prefills by arch (coordinates x attention layers)."""
+    T, S = _lm_sharded_modules()
+    t_all = time.perf_counter()
+    launches = {arch: _sharded_arch(torch, T, S, arch, layers, batch_shape,
+                                    "lm_sharded_families")
+                for arch, (layers, batch_shape) in
+                LM_FAMILIES_SHARDED.items()}
+    sparse = phase_lm_sharded_sparse(torch, T, S)
+    emit({"phase": "lm_sharded_families", "arch": "block-sparse FFN",
+          **sparse, "seconds_all": time.perf_counter() - t_all})
+    check(sparse["loss_rel_err"] <= LM_SHARDED_LOSS_RTOL and
+          sparse["grad_worst"][1] <= LM_SHARDED_TOL and
+          sparse["moment_worst"][1] <= LM_SHARDED_TOL,
+          f"block-sparse FFN: sharded step off: {sparse}")
+    check(sparse["zeroed_blocks_no_grad"] and
+          0 < sparse["mask_density"] < 1,
+          "block-sparse FFN: a zeroed block took a gradient")
+    return launches
 
 
 DRYRUN_MESH_JSON = os.path.join("build", "dryrun_mesh.json")
@@ -5892,13 +6142,12 @@ DRYRUN_MESH_JOB = ("repro_torch.launch.dryrun", "--all", "--single-pod",
 
 def phase_dryrun_mesh(rc, wall, err):
     """The mesh dry run on JAX's 16 x 16 mesh (every applicable cell): a
-    row a cell with its per-device bytes; the dense families'
-    collectives, granite-34b's train_4k among them; the MoE and recurrent
-    families' "not executed sharded yet". (Both meshes' table: ``python
-    -m repro_torch.launch.dryrun --all --both-meshes``.)"""
+    row a cell with its per-device bytes and the collectives of its step,
+    prefill or decode, every family's, granite-34b's train_4k among them.
+    (Both meshes' table: ``python -m repro_torch.launch.dryrun --all
+    --both-meshes``.)"""
     from repro_torch import configs
     from repro_torch.configs.shapes import SHAPES, applicable
-    from repro_torch.launch import dryrun
     check(rc == 0, f"the mesh dry run exited {rc}: {err.strip()[-2000:]}")
     with open(os.path.join(ROOT, DRYRUN_MESH_JSON)) as fh:
         rows = json.load(fh)["cells"]
@@ -5908,11 +6157,9 @@ def phase_dryrun_mesh(rc, wall, err):
           "the mesh dry run has one row per applicable cell")
     cells = []
     for r in rows:
-        c = r["collectives"]
         cells.append({k: r[k] for k in ("mesh", "arch", "shape", "fits")} |
                      {"total_gb": r["total_bytes"] / 1e9,
-                      "wire_gb": None if isinstance(c, str) else
-                      r["wire_bytes_per_device"] / 1e9})
+                      "wire_gb": r["wire_bytes_per_device"] / 1e9})
         check(isinstance(r["total_bytes"], int) and r["total_bytes"] > 0,
               f"the mesh dry run priced {r['arch']} x {r['shape']}")
     granite = next(r for r in rows if r["mesh"] == "16x16" and
@@ -5920,10 +6167,10 @@ def phase_dryrun_mesh(rc, wall, err):
     check(isinstance(granite["collectives"], dict) and
           granite["collectives"]["all-reduce"]["count"] > 0,
           "the mesh dry run ran granite-34b train_4k's collectives")
-    check(all(r["collectives"] == dryrun.NOT_SHARDED_YET for r in rows
-              if r["arch"] in ("mixtral-8x7b", "qwen2-moe-a2.7b",
-                               "mamba2-370m", "recurrentgemma-2b")),
-          "the MoE and recurrent families read not executed sharded yet")
+    check(all(isinstance(r["collectives"], dict) and
+              r["wire_bytes_per_device"] > 0 for r in rows),
+          "every row of the mesh dry run, the MoE and recurrent families' "
+          "included, has its collectives")
     emit({"phase": "dryrun_mesh", "rc": rc, "wall_s": wall,
           "card": rows[0]["card"], "card_bytes": rows[0]["card_bytes"],
           "cells": cells, "granite_train_4k_16x16": {
@@ -6134,9 +6381,9 @@ def lm_recurrent_profile() -> int:
 
 
 def lm_sharded_only() -> int:
-    """``python3 chip_smoke.py --lm-sharded``: the build and phase
-    lm_sharded alone, then the mesh dry run (a quick loop on that path;
-    not the smoke run)."""
+    """``python3 chip_smoke.py --lm-sharded``: the build and phases
+    lm_sharded and lm_sharded_families alone, then the mesh dry run (a
+    quick loop on that path; not the smoke run)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6148,10 +6395,12 @@ def lm_sharded_only() -> int:
     t0 = time.perf_counter()
     phase_env(torch, _build)
     launches = lm_sharded_path(torch)
+    torch.cuda.empty_cache()
+    families = lm_sharded_families_path(torch)
     rc, wall, _, err = _run_example(*DRYRUN_MESH_JOB)
     phase_dryrun_mesh(rc, wall, err)
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
-          "flash_launches": launches})
+          "flash_launches": launches, "families": families})
     print(smi_line(), flush=True)
     return 0
 
@@ -6312,6 +6561,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     r["launches_by_path"]["lm_sharded"] = lm_sharded_path(torch)
     r["launches"] += r["launches_by_path"]["lm_sharded"]
+    torch.cuda.empty_cache()
+    fam_sharded = lm_sharded_families_path(torch)
+    r["launches_by_path"]["lm_sharded_families"] = fam_sharded
+    r["launches"] += sum(fam_sharded.values())
     torch.cuda.empty_cache()
     fam_launcher, rec_launcher = late_checks(torch, granite)
     r["launches_by_path"]["lm_families_launchers"] = fam_launcher

@@ -15,13 +15,13 @@ On a mesh (``run_mesh_cell``) each cell takes JAX's overrides for it
 (``cell_overrides``: ``FSDP_OVERRIDES`` for train, ``serve_rules``
 otherwise, and ``default_overrides``) and reports per device the exact
 bytes of params, grads, AdamW state and cache from their shard shapes
-(``mesh_bytes``), held against one card's memory; for the dense families
-also the collectives of one step, prefill or decode by kind, from a run
-on a mesh of ``meta`` devices (``mesh_collectives``: one and two groups
-of ``block_pattern`` taken to full depth), under the overrides the port
-executes (``cache_seq`` and ``attn_q_seq`` over "model" are priced, not
-run). The MoE and recurrent families' collectives read "not executed
-sharded yet".
+(``mesh_bytes``), held against one card's memory, and the collectives
+of one step, prefill or decode by kind, from a run on a mesh of ``meta``
+devices (``mesh_collectives``: one and two groups of ``block_pattern``
+taken to full depth), under the overrides the port executes
+(``cache_seq`` and ``attn_q_seq`` over "model" are priced, not run). The
+meta run reads no value: nothing in the sharded forward, the MoE's
+routing included, turns a tensor into a host number.
 
 Without a mesh flag, the one-card report: each cell that
 ``configs.shapes.applicable`` admits is built at full width on
@@ -205,7 +205,6 @@ def run_cell(arch: str, shape_name: str, *, device: str = "cuda") -> dict:
 MESHES = {"16x16": False, "2x16x16": True}      # name -> multi_pod
 # Serve overrides whose execution is not ported: priced (bytes), not run.
 UNEXECUTED_RULES = ("cache_seq", "attn_q_seq")
-NOT_SHARDED_YET = "not executed sharded yet"
 
 
 def serve_rules(cfg: ModelConfig) -> dict:
@@ -353,7 +352,7 @@ def mesh_collectives(cfg: ModelConfig, shape: ShapeSpec, mesh,
                      overrides: dict) -> Dict[str, Dict[str, float]]:
     """Per-device collective count, result and wire bytes by kind of one
     step (train: ``default_n_micro`` microbatches and the update) or one
-    prefill or decode call of a dense family on the meta ``mesh``: run at
+    prefill or decode call of ``cfg`` on the meta ``mesh``: run at
     one and two groups of ``block_pattern`` and taken to full depth (each
     is a fixed part plus the same a group, as JAX's ``roofline_cell``
     takes it), the microbatch's part times the microbatches."""
@@ -380,8 +379,8 @@ def run_mesh_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                   device: str = "cuda") -> dict:
     """The row of one applicable cell on JAX's 16 x 16 mesh (or 2 x 16 x
     16 with ``multi_pod``): its overrides, per-device bytes
-    (``mesh_bytes``) against one card's memory, and for the dense families
-    the per-device collectives of a meta-device run (``mesh_collectives``)
+    (``mesh_bytes``) against one card's memory, and the per-device
+    collectives of a meta-device run (``mesh_collectives``)
     under the overrides the port executes (those of ``UNEXECUTED_RULES``
     dropped and named)."""
     cfg = configs.get(arch)
@@ -405,11 +404,6 @@ def run_mesh_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     if shape.kind == "train":
         row["n_micro"] = specs.default_n_micro(cfg)
         row["opt_int8"] = specs.default_opt(cfg).quantize
-    try:
-        M.ShardedModel.check_config(cfg)
-    except ValueError:
-        row["collectives"] = NOT_SHARDED_YET
-        return row
     executed = {k: v for k, v in overrides.items()
                 if k not in UNEXECUTED_RULES}
     coll = mesh_collectives(cfg, shape, mesh, executed)
@@ -428,8 +422,6 @@ def format_mesh_row(r: dict) -> str:
             f"{_gb(r['card_bytes'])}: "
             f"{'fits' if r['fits'] else 'does not fit'}")
     coll = r["collectives"]
-    if isinstance(coll, str):
-        return f"{head}; collectives {coll}"
     kinds = ", ".join(f"{k} {int(v['count'])} x {v['wire_bytes'] / 1e9:.3f}"
                       for k, v in coll.items() if v["count"])
     return (f"{head}; wire {r['wire_bytes_per_device'] / 1e9:.3f} GB a "

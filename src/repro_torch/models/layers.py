@@ -42,11 +42,14 @@ W-1, C), "state", "end": int}`` are updated in place too; their size does
 not grow with the position.
 
 Every parameter carries JAX's logical axes (``_param``'s ``axes``, read
-by ``model.init_axes``). Over a device mesh, ``attention_sharded`` and
-``mlp_sharded`` are the dense block's sharded forward (the activations'
-constraints of the JAX layer become the placement ``models.spmd`` gives
-each coordinate's tensors): column-parallel projections, whole heads a
-coordinate, row-parallel outputs and their all-reduce.
+by ``model.init_axes``). Over a device mesh, ``attention_sharded``,
+``mlp_sharded`` (a block-sparse FFN's masks whole on every coordinate),
+``moe_sharded``, ``ssd_sharded`` and ``rglru_sharded`` are the blocks'
+sharded forward (the activations' constraints of the JAX layer become the
+placement ``models.spmd`` gives each coordinate's tensors):
+column-parallel projections, whole heads a coordinate, row-parallel
+outputs and their all-reduce; an MoE coordinate routes its own rows and
+runs its span of the experts; a recurrent mixer scans its own channels.
 """
 from __future__ import annotations
 
@@ -59,6 +62,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from . import sharding as sh
 from . import spmd
 from .config import ModelConfig
 
@@ -454,25 +458,72 @@ def attention_sharded(sm, li: int, xs, pos, *, window, mode: str,
     return _row_reduce(outs, sm, oax, "wo"), new
 
 
-def mlp_sharded(sm, li: int, xs, act) -> list:
-    """``MLP`` over the mesh: column-parallel ``w_gate``/``w_up``,
-    row-parallel ``w_down`` and its all-reduce."""
-    cfg, dt = sm.cfg, xs[0].dtype
-    pre = f"blocks.{li}.ffn."
-    wu, uspan, _ = sm.weight(pre + "w_up", 1, act, dt)
+def _mask_cols(mask, block: int, span, what: str):
+    """The block columns of ``mask`` that a weight's column span [a, b)
+    covers; a span that cuts a block raises."""
+    a, b = span
+    if a % block or b % block:
+        raise ValueError(f"{what}: the shard span [{a}, {b}) cuts the "
+                         f"sparsity blocks of {block}")
+    return mask[:, a // block:b // block]
+
+
+def _masked(w, mask, block: int, rows, cols, what: str):
+    """``w`` (a coordinate's shard) times its part of the block ``mask``
+    (whole on every coordinate): the blocks of rows [rows) and columns
+    [cols) of the whole weight, ``_maybe_sparse_mm``'s mask-dense form."""
+    if mask is None:
+        return w
+    part = _mask_cols(_mask_cols(mask, block, cols, what).T, block, rows,
+                      what).T
+    return w * part.to(w.dtype).repeat_interleave(block, 0) \
+        .repeat_interleave(block, 1)
+
+
+def _ffn_sharded(sm, pre: str, names, xs, act, swiglu: bool):
+    """A column-parallel up (and gate) and row-parallel down projection,
+    ``names`` = (gate, up, down) leaves under ``pre``: the partial outputs
+    a coordinate and the axes to all-reduce them over. A block-sparse FFN
+    applies each coordinate's part of its masks (``sm.masks``: one whole
+    copy a coordinate)."""
+    gate, up, down = names
+    dt, block = xs[0].dtype, sm.cfg.sparsity.block if sm.cfg.sparsity else 0
+
+    def masks(name):
+        return sm.masks.get(pre + "mask_" + name, [None] * len(xs))
+
+    def cols(name):
+        ws, spans, _ = sm.weight(pre + name, 1, act, dt)
+        return [_masked(w, m, block, (0, w.shape[0]), sp, pre + name)
+                for w, sp, m in zip(ws, spans, masks(name))], spans
+    wu, uspan = cols(up)
     u = [x @ w for x, w in zip(xs, wu)]
-    if cfg.mlp_type == "swiglu":
-        wg = sm.weight(pre + "w_gate", 1, act, dt)[0]
+    if swiglu:
+        wg = cols(gate)[0]
         hdn = [F.silu(x @ w) * ui for x, w, ui in zip(xs, wg, u)]
     else:
         hdn = [F.gelu(ui, approximate="tanh") for ui in u]
-    wd, dspan, dax = sm.weight(pre + "w_down", 0, act, dt)
+    wd, dspan, dax = sm.weight(pre + down, 0, act, dt)
     outs = []
-    for hh, (u0, u1), (a, b), w in zip(hdn, uspan, dspan, wd):
+    for hh, (u0, u1), (a, b), w, m in zip(hdn, uspan, dspan, wd,
+                                          masks(down)):
         if a < u0 or b > u1:
-            raise ValueError(f"layer {li}: w_down rows [{a}, {b}) are not "
-                             f"among w_up's columns [{u0}, {u1})")
+            raise ValueError(f"{pre}{down} rows [{a}, {b}) are not among "
+                             f"{up}'s columns [{u0}, {u1})")
+        w = _masked(w, m, block, (a, b), (0, w.shape[1]), pre + down)
         outs.append(hh[..., a - u0:b - u0] @ w)
+    return outs, dax
+
+
+def mlp_sharded(sm, li: int, xs, act) -> list:
+    """``MLP`` over the mesh: column-parallel ``w_gate``/``w_up``,
+    row-parallel ``w_down`` and its all-reduce. A block-sparse FFN's
+    masks are whole on every coordinate (JAX's ``(None, None)``), each
+    coordinate taking the blocks of its columns of ``w_gate``/``w_up``
+    and its rows of ``w_down``; a shard span that cuts a block raises."""
+    outs, dax = _ffn_sharded(sm, f"blocks.{li}.ffn.",
+                             ("w_gate", "w_up", "w_down"), xs, act,
+                             sm.cfg.mlp_type == "swiglu")
     return _row_reduce(outs, sm, dax, "w_down")
 
 
@@ -498,6 +549,11 @@ class Route:
         if self.rows is None:
             return 0
         return self.rows.shape[1] // self.topi.shape[0]
+
+    def to(self, device) -> "Route":
+        """The same route with its tensors on ``device``."""
+        return Route(*(None if t is None else t.to(device) for t in
+                       (self.topi, self.rows, self.valid)))
 
     def dropped(self) -> int:
         """(token, expert) assignments that found no slot."""
@@ -632,6 +688,36 @@ class _Combine(torch.autograd.Function):
         return g[rows], None, None
 
 
+def _moe_experts(x, logits, route: Route, wg, wu, wd, e0: int, e1: int,
+                 dense: bool) -> torch.Tensor:
+    """Experts ``e0:e1`` of the routed FFN on x (B, S, d), given their
+    weights ``wg``/``wu`` (E', d, f') and ``wd`` (E', f', d), whole or a
+    coordinate's ``expert_mlp`` span: their output (B*S, d) in the
+    dtype of the router ``logits`` (B, S, E), a partial sum where the
+    span is part of the experts or of ``expert_mlp``. The dense path
+    (decode, S <= k) runs every expert on every token, weighted by the
+    routed ones; the capacity path dispatches each expert's slots, runs
+    them and combines."""
+    bsz, s, d = x.shape
+    dt = x.dtype
+    topw = torch.softmax(torch.gather(logits, -1, route.topi), dim=-1)
+    wse = torch.zeros_like(logits).scatter(-1, route.topi, topw)
+    wse = wse.reshape(bsz * s, -1)[:, e0:e1]
+    if dense:
+        xe = x.reshape(1, bsz * s, d)
+        g = torch.matmul(xe, wg)                               # (E', BS, f)
+        u = torch.matmul(xe, wu)
+        y = torch.bmm(F.silu(g) * u, wd)                       # (E', BS, d)
+        return torch.einsum("end,ne->nd", y.to(logits.dtype), wse)
+    rows, valid = route.rows[e0:e1], route.valid[e0:e1]
+    xg = _Dispatch.apply(x.reshape(bsz * s, d), rows)
+    g = torch.bmm(xg, wg)                                      # (E', BC, f)
+    u = torch.bmm(xg, wu)
+    y = torch.bmm(F.silu(g) * u, wd)                           # (E', BC, d)
+    y = y * (torch.gather(wse.t(), 1, rows) * valid)[..., None].to(dt)
+    return _Combine.apply(y.to(logits.dtype), rows, bsz * s)
+
+
 class MoE(nn.Module):
     """Top-k routed FFN (JAX ``layers.moe``): ``router`` (d, E),
     ``w_gate``/``w_up`` (E, d, f), ``w_down`` (E, f, d); with
@@ -678,24 +764,9 @@ class MoE(nn.Module):
             route = moe_route(logits.detach(), cfg, dense=dense)
         if self.route_log is not None:
             self.route_log.append(route)
-        topw = torch.softmax(torch.gather(logits, -1, route.topi), dim=-1)
-        wse = torch.zeros_like(logits).scatter(-1, route.topi, topw)
-        if dense:
-            # all experts on every token, weighted by the routed ones
-            xe = x.reshape(1, bsz * s, d)
-            g = torch.matmul(xe, self.w_gate.to(dt))           # (E, BS, f)
-            u = torch.matmul(xe, self.w_up.to(dt))
-            y = torch.bmm(F.silu(g) * u, self.w_down.to(dt))  # (E, BS, d)
-            out = torch.einsum("end,ne->nd", y.to(acc),
-                               wse.reshape(bsz * s, -1))
-        else:
-            xg = _Dispatch.apply(x.reshape(bsz * s, d), route.rows)
-            g = torch.bmm(xg, self.w_gate.to(dt))              # (E, BC, f)
-            u = torch.bmm(xg, self.w_up.to(dt))
-            y = torch.bmm(F.silu(g) * u, self.w_down.to(dt))   # (E, BC, d)
-            wg = torch.gather(wse.reshape(bsz * s, -1).t(), 1, route.rows)
-            y = y * (wg * route.valid)[..., None].to(dt)
-            out = _Combine.apply(y.to(acc), route.rows, bsz * s)
+        out = _moe_experts(x, logits, route, self.w_gate.to(dt),
+                           self.w_up.to(dt), self.w_down.to(dt), 0,
+                           cfg.n_experts, dense)
         return self._shared(x, out.to(dt).reshape(bsz, s, d))
 
     def _shared(self, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -705,6 +776,73 @@ class MoE(nn.Module):
         gs = x @ self.ws_gate.to(dt)
         us = x @ self.ws_up.to(dt)
         return out + (F.silu(gs) * us) @ self.ws_down.to(dt)
+
+
+def join_routes(routes, rows, s: int) -> Route:
+    """One ``Route`` of the whole batch from the coordinates' routes of
+    their rows (``rows``: the batch slice of each; replicas of a slice are
+    the same route, the first is taken): sequences in batch order, each
+    coordinate's flat token rows moved to the whole batch's."""
+    first = {}
+    for r, sl in zip(routes, rows):
+        first.setdefault(sl.start, r)
+    starts = sorted(first)
+    topi = torch.cat([first[a].topi for a in starts])
+    if first[starts[0]].rows is None:
+        return Route(topi)
+    return Route(topi, torch.cat([first[a].rows + a * s for a in starts], 1),
+                 torch.cat([first[a].valid for a in starts], 1))
+
+
+def moe_sharded(sm, li: int, xs, act, *, mode: str, log: bool = True
+                ) -> list:
+    """``MoE`` over the mesh. The router is used whole on every coordinate
+    (all-gathered where its spec shards it); each coordinate routes its
+    own batch rows (``moe_route``: the capacity is per sequence, so the
+    data split is exact) and runs its span of the routed experts: under
+    the default rules every expert's ``expert_mlp`` columns of
+    ``w_gate``/``w_up`` and rows of ``w_down``, under an EP rule
+    (``experts`` over "model") its experts whole. Which dim is
+    tensor-parallel is read from the weights' specs. The capacity path
+    dispatches, runs the span and combines into a partial output; the
+    dense path (decode, S <= k) weights the span's experts; both end in
+    one all-reduce. Shared experts are ``_ffn_sharded`` with their own
+    all-reduce. With ``sm.route_log`` a list and ``log`` (False in a remat
+    recompute, which routes as the first run did), the call appends (li,
+    the coordinates' routes)."""
+    cfg, dt = sm.cfg, xs[0].dtype
+    acc = torch.promote_types(dt, torch.float32)
+    pre = f"blocks.{li}.ffn."
+    router = sm.weight(pre + "router", None, act, dt)[0]
+    eax = sh.axes_of(sm.params[pre + "w_gate"].spec[0])
+    ep = bool(eax) and set(eax).isdisjoint(act)     # experts over "model"
+    ws, spans = {}, {}
+    for name, dim in (("w_gate", 2), ("w_up", 2), ("w_down", 1)):
+        ws[name], spans[name], red = sm.weight(pre + name, 0 if ep else dim,
+                                               act, dt)
+    if not spans["w_gate"] == spans["w_up"] == spans["w_down"]:
+        raise ValueError(f"layer {li}: w_gate, w_up and w_down are not split "
+                         f"alike over the experts or expert_mlp")
+    espan = spans["w_gate"] if ep else [(0, cfg.n_experts)] * len(xs)
+    routes, outs = [], []
+    for i, x in enumerate(xs):
+        logits = (x @ router[i]).to(acc)                        # (B, S, E)
+        dense = mode == "decode" or x.shape[1] <= cfg.n_experts_per_tok
+        route = moe_route(logits.detach(), cfg, dense=dense)
+        routes.append(route)
+        outs.append(_moe_experts(x, logits, route, ws["w_gate"][i],
+                                 ws["w_up"][i], ws["w_down"][i], *espan[i],
+                                 dense))
+    if log and sm.route_log is not None:
+        sm.route_log.append((li, routes))
+    outs = _row_reduce(outs, sm, red, "experts")
+    outs = [o.to(dt).reshape(x.shape) for o, x in zip(outs, xs)]
+    if cfg.n_shared_experts:
+        sh_outs, sax = _ffn_sharded(sm, pre, ("ws_gate", "ws_up", "ws_down"),
+                                    xs, act, True)
+        sh_outs = _row_reduce(sh_outs, sm, sax, "ws_down")
+        outs = [o + so for o, so in zip(outs, sh_outs)]
+    return outs
 
 
 # ======================================================================
@@ -798,13 +936,8 @@ class SSD(nn.Module):
             if cache is None or s != 1:
                 raise ValueError("decode mode needs a cache and a "
                                  "single-token step")
-            st = cache["state"].to(acc)                          # (B,H,P,N)
-            x1 = xs[:, 0].to(acc)                                # (B, H, P)
-            xb = x1[..., None] * bmat[:, 0].to(acc)[:, None, None, :]
-            st = (torch.exp(adt[:, 0])[..., None, None] * st
-                  + dt[:, 0][..., None, None] * xb)
-            y = (st @ cmat[:, 0].to(acc)[:, None, :, None])[..., 0]
-            y = y + self.d_skip.to(acc)[None, :, None] * x1
+            y, st = _ssd_step(cache["state"].to(acc), xs, bmat, cmat, dt,
+                              adt, self.d_skip)
             y = y.reshape(bsz, 1, inner).to(dt_)
             cache["conv"] = new_conv
             cache["state"] = st.to(cache["state"].dtype)
@@ -813,7 +946,8 @@ class SSD(nn.Module):
         else:
             init = (cache["state"].to(acc) if cache is not None else
                     x.new_zeros((bsz, nh, hp, n), dtype=acc))
-            y, final = self._chunked(xs, bmat, cmat, dt, adt, init)
+            y, final = _ssd_chunked(xs, bmat, cmat, dt, adt, init,
+                                    self.d_skip, cfg.ssm_chunk)
             y = y.reshape(bsz, -1, inner)[:, :s].to(dt_)
             new_cache = None
             if mode == "prefill":
@@ -822,50 +956,66 @@ class SSD(nn.Module):
         y = y * F.silu(z)
         return y @ self.w_out.to(dt_), new_cache
 
-    def _chunked(self, xs, bmat, cmat, dt, adt, init):
-        """The chunked SSD over S padded to a multiple of the chunk with
-        identity steps (decay 1, zero input), so the final state is exact.
-        Returns y (B, Sp, H, P) in the recurrences' dtype and the final
-        state (B, H, P, N)."""
-        bsz, s, nh, hp = xs.shape
-        n = bmat.shape[-1]
-        acc = init.dtype
-        q = min(self.cfg.ssm_chunk, s)
-        sp = -(-s // q) * q
-        if sp != s:
-            xs = F.pad(xs, (0, 0, 0, 0, 0, sp - s))
-            bmat, cmat = (F.pad(t, (0, 0, 0, sp - s)) for t in (bmat, cmat))
-            dt, adt = (F.pad(t, (0, 0, 0, sp - s)) for t in (dt, adt))
-        nc = sp // q
-        xs = xs.to(acc)
-        xs_h = xs.reshape(bsz, nc, q, nh, hp).transpose(2, 3)   # (B,C,H,Q,P)
-        b_c = bmat.reshape(bsz, nc, q, n).to(acc)
-        c_c = cmat.reshape(bsz, nc, q, n).to(acc)
-        dt_h = dt.reshape(bsz, nc, q, nh).transpose(2, 3)       # (B,C,H,Q)
-        cum = torch.cumsum(adt.reshape(bsz, nc, q, nh), dim=2).transpose(
-            2, 3)                                               # (B,C,H,Q)
-        # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j, else 0, the
-        # mask inside the exponent (the upper triangle's exp overflows)
-        tri = torch.ones((q, q), dtype=torch.bool, device=xs.device).tril()
-        lmat = torch.exp(torch.where(
-            tri, cum[..., :, None] - cum[..., None, :], float("-inf")))
-        cb = c_c @ b_c.transpose(-1, -2)                        # (B,C,Q,K)
-        y = (cb[:, :, None] * lmat * dt_h[..., None, :]) @ xs_h  # (B,C,H,Q,P)
-        # chunk-final states: sum_k exp(cum_end - cum_k) dt_k x_k b_k^T
-        w_end = torch.exp(cum[..., -1:] - cum) * dt_h           # (B,C,H,Q)
-        s_local = (xs_h * w_end[..., None]).transpose(-1, -2) @ \
-            b_c[:, :, None]                                     # (B,C,H,P,N)
-        chunk_decay = torch.exp(cum[..., -1])                   # (B,C,H)
-        prev, st = [], init
-        for c in range(nc):                 # the state before each chunk
-            prev.append(st)
-            st = chunk_decay[:, c, :, None, None] * st + s_local[:, c]
-        prev = torch.stack(prev, dim=1)                         # (B,C,H,P,N)
-        y_inter = (c_c[:, :, None] @ prev.transpose(-1, -2)) * \
-            torch.exp(cum)[..., None]                           # (B,C,H,Q,P)
-        y = (y + y_inter).transpose(2, 3).reshape(bsz, sp, nh, hp)
-        y = y + self.d_skip.to(acc)[None, None, :, None] * xs
-        return y, st
+
+def _ssd_step(st, xs, bmat, cmat, dt, adt, d_skip):
+    """One decode step of the SSD recurrence on state ``st`` (B, H, P, N)
+    in the recurrences' dtype: xs (B, 1, H, P), bmat/cmat (B, 1, N), dt/adt
+    (B, 1, H). Returns y (B, H, P) and the new state."""
+    acc = st.dtype
+    x1 = xs[:, 0].to(acc)                                        # (B, H, P)
+    xb = x1[..., None] * bmat[:, 0].to(acc)[:, None, None, :]
+    st = (torch.exp(adt[:, 0])[..., None, None] * st
+          + dt[:, 0][..., None, None] * xb)
+    y = (st @ cmat[:, 0].to(acc)[:, None, :, None])[..., 0]
+    return y + d_skip.to(acc)[None, :, None] * x1, st
+
+
+def _ssd_chunked(xs, bmat, cmat, dt, adt, init, d_skip, chunk: int):
+    """The chunked SSD over S padded to a multiple of the chunk with
+    identity steps (decay 1, zero input), so the final state is exact.
+    xs (B, S, H, P), bmat/cmat (B, S, N), dt/adt (B, S, H), ``init`` (B,
+    H, P, N) and ``d_skip`` (H,): the heads given, any H. Returns y (B,
+    Sp, H, P) in the recurrences' dtype and the final state (B, H, P,
+    N)."""
+    bsz, s, nh, hp = xs.shape
+    n = bmat.shape[-1]
+    acc = init.dtype
+    q = min(chunk, s)
+    sp = -(-s // q) * q
+    if sp != s:
+        xs = F.pad(xs, (0, 0, 0, 0, 0, sp - s))
+        bmat, cmat = (F.pad(t, (0, 0, 0, sp - s)) for t in (bmat, cmat))
+        dt, adt = (F.pad(t, (0, 0, 0, sp - s)) for t in (dt, adt))
+    nc = sp // q
+    xs = xs.to(acc)
+    xs_h = xs.reshape(bsz, nc, q, nh, hp).transpose(2, 3)   # (B,C,H,Q,P)
+    b_c = bmat.reshape(bsz, nc, q, n).to(acc)
+    c_c = cmat.reshape(bsz, nc, q, n).to(acc)
+    dt_h = dt.reshape(bsz, nc, q, nh).transpose(2, 3)       # (B,C,H,Q)
+    cum = torch.cumsum(adt.reshape(bsz, nc, q, nh), dim=2).transpose(
+        2, 3)                                               # (B,C,H,Q)
+    # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j, else 0, the
+    # mask inside the exponent (the upper triangle's exp overflows)
+    tri = torch.ones((q, q), dtype=torch.bool, device=xs.device).tril()
+    lmat = torch.exp(torch.where(
+        tri, cum[..., :, None] - cum[..., None, :], float("-inf")))
+    cb = c_c @ b_c.transpose(-1, -2)                        # (B,C,Q,K)
+    y = (cb[:, :, None] * lmat * dt_h[..., None, :]) @ xs_h  # (B,C,H,Q,P)
+    # chunk-final states: sum_k exp(cum_end - cum_k) dt_k x_k b_k^T
+    w_end = torch.exp(cum[..., -1:] - cum) * dt_h           # (B,C,H,Q)
+    s_local = (xs_h * w_end[..., None]).transpose(-1, -2) @ \
+        b_c[:, :, None]                                     # (B,C,H,P,N)
+    chunk_decay = torch.exp(cum[..., -1])                   # (B,C,H)
+    prev, st = [], init
+    for c in range(nc):                 # the state before each chunk
+        prev.append(st)
+        st = chunk_decay[:, c, :, None, None] * st + s_local[:, c]
+    prev = torch.stack(prev, dim=1)                         # (B,C,H,P,N)
+    y_inter = (c_c[:, :, None] @ prev.transpose(-1, -2)) * \
+        torch.exp(cum)[..., None]                           # (B,C,H,Q,P)
+    y = (y + y_inter).transpose(2, 3).reshape(bsz, sp, nh, hp)
+    y = y + d_skip.to(acc)[None, None, :, None] * xs
+    return y, st
 
 
 def init_ssd_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
@@ -911,33 +1061,51 @@ class RGLRU(nn.Module):
         gate = F.gelu(x @ self.w_gate_branch.to(dt), approximate="tanh")
         u, new_conv = _causal_conv(x @ self.w_in.to(dt), self.conv_w.to(dt),
                                    None if cache is None else cache["conv"])
-        r = torch.sigmoid((u @ self.w_rg.to(dt)).to(acc))
-        i = torch.sigmoid((u @ self.w_ig.to(dt)).to(acc))
-        log_a = _LRU_C * r * (-torch.exp(self.a_param.to(acc)) - 1e-3)
-        a = torch.exp(log_a)                                     # (B, S, w)
-        beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
-                                      min=1e-9)) * (i * u.to(acc))
+        a, beta = _lru_coeffs(u @ self.w_rg.to(dt), u @ self.w_ig.to(dt), u,
+                              self.a_param, acc)
         if mode == "decode":
             if cache is None or s != 1:
                 raise ValueError("decode mode needs a cache and a "
                                  "single-token step")
-            h = a[:, 0] * cache["state"].to(acc) + beta[:, 0]
-            y = h[:, None, :]
+            y = _lru_recur(a, beta, cache["state"], mode)
             cache["conv"] = new_conv
-            cache["state"] = h.to(cache["state"].dtype)
+            cache["state"] = y[:, 0].to(cache["state"].dtype)
             cache["end"] = int(cache["end"]) + 1
             new_cache = cache
         else:
-            if cache is not None:           # the initial state enters b_0
-                b0 = beta[:, :1] + a[:, :1] * cache["state"].to(acc)[:, None]
-                beta = torch.cat([b0, beta[:, 1:]], dim=1)
-            y = linear_scan(a, beta)
+            y = _lru_recur(a, beta, None if cache is None else
+                           cache["state"], mode)
             new_cache = None
             if mode == "prefill":
                 new_cache = {} if cache is None else cache
                 new_cache.update(conv=new_conv, state=y[:, -1].to(dt), end=s)
         y = y.to(dt) * gate
         return y @ self.w_out.to(dt), new_cache
+
+
+def _lru_coeffs(rg, ig, u, a_param, acc):
+    """The RG-LRU's decay a and input beta (B, S, w) in ``acc`` from the
+    gates' pre-activations ``rg``, ``ig`` and the conv output ``u`` on
+    the channels of ``a_param``."""
+    r = torch.sigmoid(rg.to(acc))
+    i = torch.sigmoid(ig.to(acc))
+    log_a = _LRU_C * r * (-torch.exp(a_param.to(acc)) - 1e-3)
+    a = torch.exp(log_a)                                         # (B, S, w)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
+                                  min=1e-9)) * (i * u.to(acc))
+    return a, beta
+
+
+def _lru_recur(a, beta, state, mode: str) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + beta_t from ``state`` (B, w), or from 0 where
+    it is None: one step in ``decode`` mode, else the doubling scan.
+    Returns every h (B, S, w) in ``a``'s dtype."""
+    if mode == "decode":
+        return (a[:, 0] * state.to(a.dtype) + beta[:, 0])[:, None, :]
+    if state is not None:               # the initial state enters b_0
+        b0 = beta[:, :1] + a[:, :1] * state.to(a.dtype)[:, None]
+        beta = torch.cat([b0, beta[:, 1:]], dim=1)
+    return linear_scan(a, beta)
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
@@ -947,3 +1115,175 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
             "state": torch.zeros((batch, cfg.lru_dim), dtype=dtype,
                                  device=device),
             "end": 0}
+
+
+# ======================================================================
+# The sharded recurrent mixers: tensor-parallel over their channels, the
+# scans on each coordinate's own channels.
+def _gather(sm, xs, axes, dim: int) -> list:
+    return spmd.all_gather(xs, sm.mesh, axes, dim) if axes else list(xs)
+
+
+def ssd_sharded(sm, li: int, xs, *, mode: str, caches, act
+                ) -> Tuple[list, Optional[Cache]]:
+    """``SSD`` over the mesh: ``w_x``/``w_z`` column-parallel over
+    ``ssm_inner`` in whole heads (a span that cuts a head raises); the
+    whole ``w_bc``, ``w_dt``, ``dt_bias``, ``a_log``, ``d_skip`` and
+    ``conv_w`` sliced to the coordinate's heads and its conv channels (its
+    inner channels and the B/C channels, which every coordinate
+    computes); the chunked scan (C5's mask inside the exponent) or the
+    decode step on those heads; ``w_out`` row-parallel and its
+    all-reduce.
+
+    The cache keeps JAX's specs: ``conv`` (B, W-1, inner + 2N) splits its
+    channels over "model" where they divide, so a shard does not hold
+    whole heads and the B/C channels lie on the last coordinates;
+    ``state`` (B, H, P, N) is whole over "model". So a decode step
+    all-gathers the conv tail to read its channels, and a prefill or a
+    decode step all-gathers the new tail's inner channels and the new
+    state's heads, each coordinate storing its span of the tail and the
+    whole state (a prefill on a fresh cache, ``end`` 0, reads nothing:
+    its left context and initial state are zeros)."""
+    cfg, mesh = sm.cfg, sm.mesh
+    inner, nst, hp = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_head_dim
+    dt_ = xs[0].dtype
+    acc = _acc_dtype(dt_)
+    pre = f"blocks.{li}.mixer."
+    wx, xspan, xax = sm.weight(pre + "w_x", 1, act, dt_)
+    wz, zspan, _ = sm.weight(pre + "w_z", 1, act, dt_)
+    wo, ospan, oax = sm.weight(pre + "w_out", 0, act, dt_)
+    if zspan != xspan or ospan != xspan:
+        raise ValueError(f"layer {li}: w_x, w_z and w_out do not split "
+                         f"ssm_inner alike")
+    for a, b in xspan:
+        if a % hp or b % hp:
+            raise ValueError(f"layer {li}: the ssm_inner span [{a}, {b}) "
+                             f"cuts the SSD heads of ssm_head_dim {hp}")
+    w_bc, w_dt, conv_w = (sm.weight(pre + k, None, act, dt_)[0]
+                          for k in ("w_bc", "w_dt", "conv_w"))
+    vec = {k: sm.weight(pre + k, None, act)[0]
+           for k in ("dt_bias", "a_log", "d_skip")}
+    if mode == "decode" and (caches is None or xs[0].shape[1] != 1):
+        raise ValueError("decode mode needs a cache and a single-token step")
+    read = caches is not None and caches["end"] > 0
+    if read:
+        cc, cs = caches["conv"], caches["state"]
+        old_conv = _gather(sm, cc.shards, sh.axes_of(cc.spec[2]), 2)
+        old_state = _gather(sm, cs.shards, sh.axes_of(cs.spec[3]), 3)
+    ys, tails, finals = [], [], []
+    for i, x in enumerate(xs):
+        bsz, s, _ = x.shape
+        (a, b), w = xspan[i], xspan[i][1] - xspan[i][0]
+        h0, h1 = a // hp, b // hp
+        z = x @ wz[i]
+        left = None
+        if read:
+            left = torch.cat([old_conv[i][..., a:b],
+                              old_conv[i][..., inner:]], -1)
+        conv_out, tail = _causal_conv(
+            torch.cat([x @ wx[i], x @ w_bc[i]], -1),
+            torch.cat([conv_w[i][:, a:b], conv_w[i][:, inner:]], 1), left)
+        conv_out = F.silu(conv_out)
+        xsh = conv_out[..., :w].reshape(bsz, s, h1 - h0, hp)
+        bmat, cmat = conv_out[..., w:w + nst], conv_out[..., w + nst:]
+        dt = F.softplus((x @ w_dt[i][:, h0:h1]).to(acc)
+                        + vec["dt_bias"][i][h0:h1].to(acc))      # (B, S, H')
+        adt = dt * -torch.exp(vec["a_log"][i][h0:h1].to(acc))
+        dsk = vec["d_skip"][i][h0:h1]
+        init = (old_state[i][:, h0:h1].to(acc) if read else
+                x.new_zeros((bsz, h1 - h0, hp, nst), dtype=acc))
+        if mode == "decode":
+            y, st = _ssd_step(init, xsh, bmat, cmat, dt, adt, dsk)
+            y = y.reshape(bsz, 1, w).to(dt_)
+        else:
+            y, st = _ssd_chunked(xsh, bmat, cmat, dt, adt, init, dsk,
+                                 cfg.ssm_chunk)
+            y = y.reshape(bsz, -1, w)[:, :s].to(dt_)
+        ys.append((y * F.silu(z)) @ wo[i])
+        tails.append(tail)
+        finals.append(st)
+    outs = _row_reduce(ys, sm, oax, "w_out")
+    if caches is None:
+        return outs, None
+    cc, cs = caches["conv"], caches["state"]
+    sdt = dt_ if mode == "prefill" else cs.dtype
+    tail_in = _gather(sm, [t[..., :b - a] for t, (a, b) in
+                           zip(tails, xspan)], xax, 2)
+    states = _gather(sm, [f.to(sdt) for f in finals], xax, 1)
+    conv_sh, state_sh = [], []
+    for i, (t, (a, b)) in enumerate(zip(tails, xspan)):
+        full = torch.cat([tail_in[i], t[..., b - a:]], -1)
+        c0, c1 = cc.span(i, 2)
+        s0, s1 = cs.span(i, 3)
+        conv_sh.append(full[..., c0:c1].contiguous())
+        state_sh.append(states[i][..., s0:s1].contiguous())
+    new = dict(caches)
+    new["conv"] = spmd.Sharded(mesh, cc.spec, cc.shape, conv_sh)
+    new["state"] = spmd.Sharded(mesh, cs.spec, cs.shape, state_sh)
+    new["end"] = caches["end"] + 1 if mode == "decode" else xs[0].shape[1]
+    return outs, new
+
+
+def rglru_sharded(sm, li: int, xs, *, mode: str, caches, act
+                  ) -> Tuple[list, Optional[Cache]]:
+    """``RGLRU`` over the mesh: ``w_in``/``w_gate_branch`` column-parallel
+    over ``lru_width``, ``conv_w`` and ``a_param`` sliced to the
+    coordinate's channels; ``w_rg`` and ``w_ig`` (rows over
+    ``lru_width``) row-parallel partial products, all-reduced (one
+    collective for both) to the full width, of which each coordinate
+    keeps its channels; the doubling scan or the decode step on those
+    channels; ``w_out`` row-parallel and its all-reduce. The caches are
+    sharded as the channels are, so nothing of them moves."""
+    cfg = sm.cfg
+    dt = xs[0].dtype
+    acc = _acc_dtype(dt)
+    width = cfg.lru_dim
+    pre = f"blocks.{li}.mixer."
+    wi, span, _ = sm.weight(pre + "w_in", 1, act, dt)
+    spans = [span]
+    wg = sm.weight(pre + "w_gate_branch", 1, act, dt)
+    wr, wq, wo = (sm.weight(pre + k, 0, act, dt)
+                  for k in ("w_rg", "w_ig", "w_out"))
+    spans += [wg[1], wr[1], wq[1], wo[1]]
+    if caches is not None:
+        spans += [[caches[k].span(i, caches[k].shards[i].ndim - 1)
+                   for i in range(len(xs))] for k in ("conv", "state")]
+    if any(sp != span for sp in spans):
+        raise ValueError(f"layer {li}: the RG-LRU's weights and caches do "
+                         f"not split lru_width alike")
+    conv_w = sm.weight(pre + "conv_w", None, act, dt)[0]
+    a_param = sm.weight(pre + "a_param", None, act)[0]
+    if mode == "decode" and (caches is None or xs[0].shape[1] != 1):
+        raise ValueError("decode mode needs a cache and a single-token step")
+    us, tails, gates, parts = [], [], [], []
+    for i, x in enumerate(xs):
+        l0, l1 = span[i]
+        gates.append(F.gelu(x @ wg[0][i], approximate="tanh"))
+        u, tail = _causal_conv(x @ wi[i], conv_w[i][:, l0:l1],
+                               None if caches is None else
+                               caches["conv"].shards[i])
+        us.append(u)
+        tails.append(tail)
+        parts.append(torch.cat([u @ wr[0][i], u @ wq[0][i]], -1))
+    gsum = _row_reduce(parts, sm, wr[2], "w_rg")
+    ys, hs = [], []
+    for i, (u, gate) in enumerate(zip(us, gates)):
+        l0, l1 = span[i]
+        a, beta = _lru_coeffs(gsum[i][..., l0:l1],
+                              gsum[i][..., width + l0:width + l1], u,
+                              a_param[i][l0:l1], acc)
+        y = _lru_recur(a, beta, None if caches is None else
+                       caches["state"].shards[i], mode)
+        hs.append(y[:, -1])
+        ys.append((y.to(dt) * gate) @ wo[0][i])
+    outs = _row_reduce(ys, sm, wo[2], "w_out")
+    if caches is None:
+        return outs, None
+    cc, cs = caches["conv"], caches["state"]
+    sdt = dt if mode == "prefill" else cs.dtype
+    new = dict(caches)
+    new["conv"] = spmd.Sharded(sm.mesh, cc.spec, cc.shape, tails)
+    new["state"] = spmd.Sharded(sm.mesh, cs.spec, cs.shape,
+                                [h.to(sdt) for h in hs])
+    new["end"] = caches["end"] + 1 if mode == "decode" else xs[0].shape[1]
+    return outs, new

@@ -300,40 +300,41 @@ class ShardedModel:
     and its forward as one SPMD program over the mesh's coordinates.
 
     ``params``: {name: ``spmd.Sharded``} by the specs ``rules`` resolve
-    from ``init_axes`` (each shard an ``nn.Parameter`` leaf). Each
-    coordinate computes on its own shards and on what collectives bring it:
-    the batch splits over the rule of ``"batch"`` (data, and pod where the
-    mesh has one; replicated where it does not divide), and
-    ``prefix_embeds`` with it; the embedding and the logits are
-    vocab-parallel where ``vocab`` is sharded (a masked lookup and an
-    all-reduce; the cross-entropy from all-reduced max, sum-exp and gold
-    logit), else the table is used whole; the blocks are
-    ``layers.attention_sharded`` and ``layers.mlp_sharded``; a weight whose
-    "embed" dim is sharded (FSDP) is all-gathered over "data" before use
-    and its gradient comes back reduce-scattered by autograd. A coordinate
+    from ``init_axes`` (each shard an ``nn.Parameter`` leaf); ``masks``:
+    {name: one whole copy a coordinate} of a block-sparse FFN's masks
+    (JAX's ``(None, None)``). Each coordinate computes on its own shards
+    and on what collectives bring it: the batch splits over the rule of
+    ``"batch"`` (data, and pod where the mesh has one; replicated where it
+    does not divide), and ``prefix_embeds`` with it; the embedding and the
+    logits are vocab-parallel where ``vocab`` is sharded (a masked lookup
+    and an all-reduce; the cross-entropy from all-reduced max, sum-exp and
+    gold logit), else the table is used whole; a weight whose "embed" dim
+    is sharded (FSDP) is all-gathered over "data" before use and its
+    gradient comes back reduce-scattered by autograd. A coordinate
     computes on a whole weight only where its spec leaves it replicated.
 
-    The dense families only: attention blocks and a dense MLP, with or
-    without ``prefix_embeds``. The serve rules ``cache_seq`` and
-    ``attn_q_seq`` are not executed (``init_cache`` and ``forward``
+    Every family: a block's mixer is ``layers.attention_sharded``,
+    ``ssd_sharded`` or ``rglru_sharded`` by its kind, its FFN
+    ``layers.mlp_sharded`` (dense or block-sparse) or ``moe_sharded``.
+    ``route_log``, when a list, gets each MoE call's (layer, the
+    coordinates' routes) once, not again in a remat recompute;
+    ``joined_routes`` turns them into routes of the whole batch (what a
+    one-device ``MoE.held_route`` takes). The serve rules ``cache_seq``
+    and ``attn_q_seq`` are not executed (``init_cache`` and ``forward``
     raise)."""
 
-    def __init__(self, cfg: ModelConfig, mesh, rules, params):
-        self.check_config(cfg)
+    def __init__(self, cfg: ModelConfig, mesh, rules, params, masks=None):
         self.cfg, self.mesh, self.rules = cfg, mesh, dict(rules)
         self.params: Dict[str, spmd.Sharded] = params
+        self.masks: Dict[str, List[torch.Tensor]] = dict(masks or {})
+        self.route_log: Optional[list] = None
 
-    @staticmethod
-    def check_config(cfg: ModelConfig) -> None:
-        what = [f"{k} blocks" for k in sorted(
-            set(cfg.block_pattern) - {"attn", "local_attn"})]
-        what += ["the MoE FFN"] * cfg.is_moe
-        what += ["a block-sparse FFN"] * (cfg.sparsity is not None)
-        if what:
-            raise ValueError(
-                f"{cfg.name}: the sharded forward runs attention blocks and "
-                f"a dense MLP; {', '.join(what)}: not executed sharded yet "
-                f"(ROADMAP queue 1)")
+    def joined_routes(self, batch: int) -> List[Tuple[int, layers.Route]]:
+        """(layer, the ``Route`` of the whole batch) of each logged MoE
+        call (``route_log``) of a batch of ``batch`` sequences."""
+        return [(li, layers.join_routes(rs, self.rows(batch),
+                                        rs[0].topi.shape[1]))
+                for li, rs in self.route_log]
 
     def leaves(self) -> List[torch.Tensor]:
         """Every shard of every parameter, by name then coordinate."""
@@ -395,27 +396,39 @@ class ShardedModel:
         xs = spmd.all_reduce(xs, self.mesh, vax)
         return [x * math.sqrt(self.cfg.d_model) for x in xs]
 
-    def _block(self, li: int, xs, pos, *, mode: str, cache, act):
+    def _block(self, li: int, xs, pos, *, mode: str, cache, act,
+               log: bool = True):
         cfg = self.cfg
         kind = cfg.block_pattern[li % len(cfg.block_pattern)]
-        window = cfg.sliding_window if kind == "attn" else cfg.local_window
         pre = f"blocks.{li}."
         nw = self.weight(pre + "norm_mixer", None, act)[0]
         h = [layers.rms_norm(x, w, cfg.norm_eps) for x, w in zip(xs, nw)]
-        ys, cache = layers.attention_sharded(self, li, h, pos, window=window,
-                                             mode=mode, caches=cache,
-                                             act=act)
+        if kind in ("attn", "local_attn"):
+            window = (cfg.sliding_window if kind == "attn"
+                      else cfg.local_window)
+            ys, cache = layers.attention_sharded(
+                self, li, h, pos, window=window, mode=mode, caches=cache,
+                act=act)
+        else:
+            mixer = (layers.ssd_sharded if kind == "ssd"
+                     else layers.rglru_sharded)
+            ys, cache = mixer(self, li, h, mode=mode, caches=cache, act=act)
         xs = [x + y for x, y in zip(xs, ys)]
         if cfg.mlp_type != "none":
             nw = self.weight(pre + "norm_mlp", None, act)[0]
             h = [layers.rms_norm(x, w, cfg.norm_eps) for x, w in zip(xs, nw)]
-            xs = [x + y for x, y in zip(xs, layers.mlp_sharded(self, li, h,
-                                                                act))]
+            ys = (layers.moe_sharded(self, li, h, act, mode=mode, log=log)
+                  if cfg.is_moe else layers.mlp_sharded(self, li, h, act))
+            xs = [x + y for x, y in zip(xs, ys)]
         return xs, cache
 
-    def _train_block(self, li: int, pos, act, *xs):
+    def _train_block(self, li: int, pos, act, ran: list, *xs):
+        # under remat the backward pass runs this again: ``ran`` tells the
+        # recompute, which routes as the first run did, not to log again
+        log = not ran
+        ran.append(True)
         return tuple(self._block(li, list(xs), pos, mode="train", cache=None,
-                                 act=act)[0])
+                                 act=act, log=log)[0])
 
     def __call__(self, tokens, *, prefix_embeds=None, mode: str = "train",
                  cache=None, pos_offset: int = 0, remat: bool = True):
@@ -450,7 +463,8 @@ class ShardedModel:
         for li in range(cfg.n_layers):
             if ckpt:
                 x = list(_ckpt.checkpoint(
-                    functools.partial(self._train_block, li, pos, act), *x,
+                    functools.partial(self._train_block, li, pos, act, []),
+                    *x,
                     use_reentrant=False,
                     context_fn=_remat_context(cfg.remat_policy)))
             else:
@@ -478,14 +492,28 @@ class ShardedModel:
         return out, cache
 
     def init_cache(self, batch: int, alloc_seq: int, dtype=torch.bfloat16):
-        """``init_cache`` over the mesh: each layer's ``{"k", "v":
-        spmd.Sharded, "end": int}`` by ``init_cache_axes`` (batch over the
-        batch axes, kv heads over "model" where it divides). A rule that
-        shards ``cache_seq`` raises: not executed yet."""
+        """``init_cache`` over the mesh, each tensor an ``spmd.Sharded`` by
+        ``init_cache_axes`` (batch over the batch axes; an attention
+        layer's kv heads over "model" where it divides; the SSD's conv
+        channels over "model", its state whole; the RG-LRU's channels over
+        "model"), and ``"end"`` an int. A rule that shards an attention
+        cache's ``cache_seq`` raises: not executed yet."""
         cfg, caches = self.cfg, []
         pattern = cfg.block_pattern
         for li, axes in enumerate(init_cache_axes(cfg)):
             kind = pattern[li % len(pattern)]
+            if kind in ("ssd", "rglru"):
+                init = (layers.init_ssd_cache if kind == "ssd" else
+                        layers.init_rglru_cache)
+                shapes = {k: tuple(t.shape) for k, t in init(
+                    cfg, batch, dtype, torch.device("meta")).items()
+                    if k != "end"}
+                caches.append({k: spmd.zeros(shape, dtype, self.mesh,
+                                             sh.resolve_with(
+                                                 self.rules, self.mesh.shape,
+                                                 axes[k], shape))
+                               for k, shape in shapes.items()} | {"end": 0})
+                continue
             win = cfg.sliding_window if kind == "attn" else cfg.local_window
             alloc = min(alloc_seq, win) if win else alloc_seq
             shape = (batch, alloc, cfg.n_kv_heads, cfg.head_dim)

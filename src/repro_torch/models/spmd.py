@@ -273,14 +273,12 @@ def shard_model(model, mesh, overrides: Optional[Dict[str, sh.MeshAxes]]
                 = None):
     """``model``'s parameters placed on ``mesh`` by their logical axes
     (``model.init_axes``) under ``DEFAULT_RULES`` updated by
-    ``overrides`` (``sharding.resolve``, shapes checked): a
-    ``model.ShardedModel``. The dense families only (attention and a dense
-    MLP); a block-sparse FFN, the MoE FFN and the recurrent mixers raise.
-    ``convert.model_from_jax`` then ``shard_model`` carries JAX's weights
-    onto a mesh."""
+    ``overrides`` (``sharding.resolve``, shapes checked), and a
+    block-sparse FFN's masks whole on every coordinate: a
+    ``model.ShardedModel``. ``convert.model_from_jax`` then
+    ``shard_model`` carries JAX's weights onto a mesh."""
     from .model import ShardedModel, init_axes
     cfg = model.cfg
-    ShardedModel.check_config(cfg)
     rules = sh.filter_rules(mesh, overrides)
     axes = init_axes(cfg)
     params = {}
@@ -288,18 +286,22 @@ def shard_model(model, mesh, overrides: Optional[Dict[str, sh.MeshAxes]]
         spec = sh.resolve_with(rules, mesh.shape, axes[name],
                                tuple(p.shape))
         params[name] = place(p.detach(), mesh, spec, parameter=True)
-    return ShardedModel(cfg, mesh, rules, params)
+    masks = {name: place(b, mesh, (None,) * b.ndim).shards
+             for name, b in model.named_buffers()}
+    return ShardedModel(cfg, mesh, rules, params, masks)
 
 
 @torch.no_grad()
 def gather_model(sharded, device=None):
-    """The one-device ``Model`` of a ``ShardedModel``'s weights, on
-    ``device`` (default: the first coordinate's)."""
+    """The one-device ``Model`` of a ``ShardedModel``'s weights (and
+    masks), on ``device`` (default: the first coordinate's)."""
     from .model import Model
     dev = sharded.mesh.device_list[0] if device is None else device
     model = Model(sharded.cfg, device=dev)
     for name, p in model.named_parameters():
         p.copy_(sharded.params[name].full(dev))
+    for name, b in model.named_buffers():
+        b.copy_(sharded.masks[name][0])
     return model
 
 

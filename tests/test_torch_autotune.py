@@ -13,6 +13,7 @@ import logging
 
 import numpy as np
 import pytest
+from _threads import one_thread                          # noqa: F401
 
 torch = pytest.importorskip("torch")
 

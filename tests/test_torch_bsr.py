@@ -11,6 +11,7 @@ order). Output dtypes follow the JAX rules: ``b.dtype`` for BSR,
 """
 import numpy as np
 import pytest
+from _threads import one_thread                          # noqa: F401
 
 torch = pytest.importorskip("torch")
 

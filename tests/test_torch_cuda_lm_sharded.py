@@ -1,6 +1,8 @@
 """The sharded LM on the card: a (data 2, model 4) mesh of one card named
 eight times, granite-34b's smoke config (one kv head), against the same
-model on one device of the card.
+model on one device of the card; and the MoE, SSD and RG-LRU families'
+smoke configs and the block-sparse FFN there in float64 (``_sharded_lm``:
+a route that flips in f32 is no fault of the mesh), held as on the CPU.
 
 This file imports nothing of JAX, so it runs on a machine that has the
 card and no JAX: ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
@@ -122,3 +124,47 @@ def test_sharded_prefill_launches_flash_a_coordinate(cuda):
         l1, c1 = M.decode_step(model, nt, c1, pos=layers.FLASH_THRESHOLD + t)
         l2, c2 = M.decode_step(sm, nt, c2, pos=layers.FLASH_THRESHOLD + t)
         assert _rel(l2.full(), l1) < TOL
+
+
+FAMILIES = ("mixtral-8x7b", "qwen2-moe-a2.7b", "mamba2-370m",
+            "recurrentgemma-2b")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_step_on_the_card(cuda, arch):
+    """One FSDP + ZeRO-1 step of the family's smoke config in float64:
+    the loss rtol 1e-6, gradients and first moments within 1e-6 of max."""
+    from _sharded_lm import batch, cfg_of, init, step_errors
+    cfg = cfg_of(arch)
+    lerr, gerr, merr, sm = step_errors(init(cfg, device=cuda), batch(cfg),
+                                       (2, 4), FSDP_OVERRIDES,
+                                       device="cuda:0")
+    assert lerr < 1e-6 and gerr < 1e-6 and merr < 1e-6, (lerr, gerr, merr)
+    assert all(t.is_cuda for t in sm.params["embed"].shards)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_prefill_and_decode_on_the_card(cuda, arch):
+    """A prefill of 16 positions and 3 decode steps in float64: logits
+    within 1e-5 of max|logit| of one device on the card."""
+    from _sharded_lm import cfg_of, init, mesh, serve_errors
+    model = init(cfg_of(arch), device=cuda)
+    errs, _, _ = serve_errors(model, spmd.shard_model(model,
+                                                      mesh((2, 4), "cuda:0")))
+    assert max(errs) < 1e-5, errs
+
+
+def test_block_sparse_step_on_the_card(cuda):
+    """The sparse-FFN example's config, half of the mask blocks zeroed,
+    one FSDP step in float64 held to one device."""
+    from _sharded_lm import batch, cfg_of, init, step_errors
+    from repro_torch.examples import train_sparse_lm
+    cfg = cfg_of(train_sparse_lm.build("sparse-lm", 128, 2, 512, True, 32))
+    model = init(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        for _, m in model.named_buffers():
+            m.copy_(torch.rand(m.shape, generator=gen, device=cuda) < 0.5)
+    lerr, gerr, merr, _ = step_errors(model, batch(cfg), (2, 4),
+                                      FSDP_OVERRIDES, device="cuda:0")
+    assert lerr < 1e-6 and gerr < 1e-6 and merr < 1e-6, (lerr, gerr, merr)

@@ -6,6 +6,7 @@ import time
 
 import numpy as np
 import pytest
+from _threads import one_thread                          # noqa: F401
 
 from repro.data import pipeline as jpipe
 from repro_torch.data import pipeline as tpipe

@@ -13,6 +13,7 @@ import json
 import jax
 import numpy as np
 import pytest
+from _threads import one_thread                          # noqa: F401
 import torch
 
 from repro import configs as jconfigs

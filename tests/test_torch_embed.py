@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from _threads import one_thread                          # noqa: F401
 
 from repro_torch.models import layers
 

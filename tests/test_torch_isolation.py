@@ -5,6 +5,7 @@ import subprocess
 import sys
 
 import pytest
+from _threads import one_thread                          # noqa: F401
 
 pytest.importorskip("torch")
 
@@ -27,7 +28,11 @@ def _port_files():
            os.path.join(ROOT, "tests", "test_torch_cuda_lm_train.py"),
            os.path.join(ROOT, "tests", "test_torch_cuda_proofs.py"),
            os.path.join(ROOT, "tests", "test_torch_cuda_lm_sharded.py"),
-           os.path.join(ROOT, "tests", "test_torch_launch_check.py")]
+           os.path.join(ROOT, "tests", "test_torch_launch_check.py"),
+           # helpers the card tests import
+           os.path.join(ROOT, "tests", "_recurrent_draw.py"),
+           os.path.join(ROOT, "tests", "_sharded_lm.py"),
+           os.path.join(ROOT, "tests", "_threads.py")]
     for base, _, files in os.walk(PORT):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return sorted(out)

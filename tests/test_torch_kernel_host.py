@@ -8,6 +8,7 @@ a planted fault and against the JAX Pallas kernel in interpret mode.
 """
 import numpy as np
 import pytest
+from _threads import one_thread                          # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -15,6 +15,7 @@ from functools import lru_cache
 
 import numpy as np
 import pytest
+from _threads import one_thread                          # noqa: F401
 
 torch = pytest.importorskip("torch")
 

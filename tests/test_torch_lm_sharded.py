@@ -29,6 +29,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+from _threads import one_thread                          # noqa: F401
 import torch
 
 from repro_torch import configs
@@ -186,13 +187,30 @@ def test_sharded_prefill_and_decode(arch, shape):
     assert c2[0]["end"] == npfx + s + 3
 
 
-def test_gather_model_and_from_jax_weights_roundtrip():
-    """``shard_model`` then ``gather_model`` gives back the weights bit
-    for bit, under FSDP on a 2 x 4 mesh."""
-    cfg = configs.get_smoke("phi3-medium-14b")
-    model = M.init(cfg, seed=2, device="cpu")
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "mixtral-8x7b",
+                                  "qwen2-moe-a2.7b", "mamba2-370m",
+                                  "recurrentgemma-2b"])
+def test_gather_model_and_from_jax_weights_roundtrip(arch):
+    """JAX's weights (``repro.models.model.init`` of the smoke config)
+    through ``convert.model_from_jax``, then ``shard_model`` under FSDP on
+    a 2 x 4 mesh, then ``gather_model``: every weight bit for bit."""
+    import jax
+    from repro import configs as jconfigs
+    from repro.models import model as jmodel
+    from repro_torch import convert
+    params, _ = jmodel.init(jconfigs.get_smoke(arch), jax.random.PRNGKey(2))
+    model = convert.model_from_jax(configs.get_smoke(arch),
+                                   jax.tree.map(np.asarray, params),
+                                   device="cpu")
     sm = spmd.shard_model(model, _mesh((2, 4)), FSDP_OVERRIDES)
-    assert sm.params["blocks.1.mixer.wo"].spec == ("model", "data")
+    spec = {"phi3-medium-14b": ("blocks.1.mixer.wo", ("model", "data")),
+            "mixtral-8x7b": ("blocks.1.ffn.w_down", (None, "model", "data")),
+            "qwen2-moe-a2.7b": ("blocks.1.ffn.w_gate",
+                                (None, "data", "model")),
+            "mamba2-370m": ("blocks.1.mixer.w_x", ("data", "model")),
+            "recurrentgemma-2b": ("blocks.0.mixer.w_rg", ("model", None))}
+    name, want = spec[arch]
+    assert sm.params[name].spec == want
     back = spmd.gather_model(sm)
     for (k, a), (k2, b) in zip(model.named_parameters(),
                                back.named_parameters()):
@@ -200,20 +218,27 @@ def test_gather_model_and_from_jax_weights_roundtrip():
 
 
 def test_refusals():
-    """The MoE and recurrent families, a block-sparse FFN, and the serve
-    rules not executed here raise, naming the queue."""
+    """The MoE and recurrent families and a block-sparse FFN shard and run
+    (their steps and serving are held to one device in
+    ``test_torch_lm_sharded_{moe,recurrent,sparse}.py``); the serve rules
+    not executed here raise, naming the queue."""
     mesh = _mesh((2, 4))
-    for arch in ("mixtral-8x7b", "mamba2-370m", "recurrentgemma-2b"):
-        with pytest.raises(ValueError, match="not executed sharded yet"):
-            spmd.shard_model(M.Model(configs.get_smoke(arch),
-                                     device="meta"), mesh)
+    for arch in ("mixtral-8x7b", "qwen2-moe-a2.7b", "mamba2-370m",
+                 "recurrentgemma-2b"):
+        cfg = configs.get_smoke(arch)
+        sm = spmd.shard_model(M.init(cfg, seed=0, device="cpu"), mesh)
+        logits = sm(torch.zeros((2, 4), dtype=torch.long))
+        assert logits.full().shape == (2, 4, cfg.padded_vocab())
     sparse = dataclasses.replace(configs.get_smoke("granite-34b"),
                                  sparsity=__import__(
                                      "repro_torch.models.config",
                                      fromlist=["BlockSparsity"]
                                  ).BlockSparsity(block=16))
-    with pytest.raises(ValueError, match="block-sparse FFN"):
-        spmd.shard_model(M.Model(sparse, device="meta"), mesh)
+    sm = spmd.shard_model(M.init(sparse, seed=0, device="cpu"), mesh)
+    assert set(sm.masks) == {f"blocks.{i}.ffn.mask_{w}" for i in range(2)
+                             for w in ("w_gate", "w_up", "w_down")}
+    assert torch.isfinite(sm(torch.zeros((2, 4), dtype=torch.long))
+                          .full()).all()
     cfg = configs.get_smoke("granite-34b")
     model = M.init(cfg, seed=0, device="cpu")
     sm = spmd.shard_model(model, mesh, {"cache_seq": "model"})

@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from _threads import one_thread                          # noqa: F401
 
 from repro.data.pipeline import SyntheticTokens
 from repro.models.config import ModelConfig as JConfig

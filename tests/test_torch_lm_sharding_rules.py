@@ -23,6 +23,7 @@ import types
 import jax
 import numpy as np
 import pytest
+from _threads import one_thread                          # noqa: F401
 import torch
 
 from repro import configs as jconfigs
@@ -386,8 +387,7 @@ def test_production_and_pipeline_meshes():
 @pytest.mark.parametrize("arch", ["granite-34b", "mixtral-8x7b"])
 def test_mesh_dryrun_rows(arch, capsys):
     """The CLI on the 16 x 16 mesh: a row a cell with its overrides and
-    bytes; the dense family's collectives, the MoE family's "not executed
-    sharded yet"."""
+    bytes and its collectives, the MoE family's too."""
     import json
     out = os.path.join(os.environ.get("TMPDIR", "/tmp"),
                        f"mesh-dryrun-{os.getpid()}-{arch}.json")
@@ -406,11 +406,9 @@ def test_mesh_dryrun_rows(arch, capsys):
     assert row["overrides"] == dryrun.cell_overrides(tcfg, "decode")
     assert row["total_bytes"] == sum(row[f"{k}_bytes"] for k in
                                      ("params", "grads", "opt", "cache"))
-    if arch == "mixtral-8x7b":
-        assert row["collectives"] == dryrun.NOT_SHARDED_YET
-    else:
-        assert row["unexecuted_rules"] == ["cache_seq"]
-        assert row["collectives"]["all-reduce"]["count"] > 0
+    assert row["unexecuted_rules"] == ["cache_seq"]
+    assert row["collectives"]["all-reduce"]["count"] > 0
+    assert row["wire_bytes_per_device"] > 0
     assert "16x16" in capsys.readouterr().out
     assert applicable(tcfg, SHAPES["decode_32k"])[0]
     assert JSHAPES["decode_32k"].seq_len == SHAPES["decode_32k"].seq_len

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+from _threads import one_thread                          # noqa: F401
 import torch
 
 from repro_torch import configs
@@ -154,10 +155,10 @@ def _step_counts(mesh, cfg, batch, opt, rules, kind):
 
 @pytest.mark.parametrize("kind", ["train", "serve"])
 @pytest.mark.parametrize("rules", [None, FSDP_OVERRIDES])
-def test_meta_run_counts_equal_a_cpu_run(kind, rules):
+def test_meta_run_counts_equal_a_cpu_run(kind, rules, arch="granite-34b"):
     """The dry run's meta-device run (coordinate 0 alone) counts what a CPU
     run of every coordinate counts, kind by kind, to the byte."""
-    cfg = configs.get_smoke("granite-34b")
+    cfg = configs.get_smoke(arch)
     opt = O.AdamWConfig(lr=1e-3, warmup_steps=0)
     cpu_b = {k: torch.as_tensor(v) for k, v in
              SyntheticTokens(cfg.vocab_size, 8, 32, seed=1).batch_at(0)
@@ -168,6 +169,23 @@ def test_meta_run_counts_equal_a_cpu_run(kind, rules):
                         kind)
     assert meta == cpu
     assert cpu["all-reduce"]["count"] > 0
+
+
+MOE = ("mixtral-8x7b", "qwen2-moe-a2.7b")
+FAMILY_RULES = {"default": None, "fsdp": FSDP_OVERRIDES,
+                "ep": {"experts": "model"}}
+
+
+@pytest.mark.parametrize("kind", ["train", "serve"])
+@pytest.mark.parametrize("arch,rules", [
+    (a, r) for a in MOE + ("mamba2-370m", "recurrentgemma-2b")
+    for r in ("default", "fsdp") + (("ep",) if a in MOE else ())])
+def test_meta_run_counts_equal_a_cpu_run_every_family(arch, rules, kind):
+    """``test_meta_run_counts_equal_a_cpu_run`` for the MoE and recurrent
+    families (and the EP rule for the MoE ones): the meta run reads no
+    value, the MoE's routing included, and counts what a CPU run
+    counts."""
+    test_meta_run_counts_equal_a_cpu_run(kind, FAMILY_RULES[rules], arch)
 
 
 def test_data_parallel_grad_all_reduce_wire_bytes():
@@ -228,12 +246,20 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+# the long prefill's length: FLASH_THRESHOLD lowered to it (8,192 positions
+# on the CPU took about a minute; the branch is the same at a few hundred)
+LONG = 384
+
+
 def test_long_prefill_runs_flash_once_a_coordinate(monkeypatch):
-    """granite's smoke config (kv 1) at 8,192 positions, (data 2, model
-    4): the flash path (``ops.flash_mha``, its plain version on the CPU)
-    once a coordinate a layer, 8 x 2 = 16 calls, each on the
-    coordinate's heads (1 kv head x 1 query head); logits within 1e-5 of
-    max|logit| of one device, before and after a decode step."""
+    """granite's smoke config (kv 1), (data 2, model 4), a prefill on the
+    long side of ``FLASH_THRESHOLD`` (lowered to LONG positions for the
+    test, so the branch is reached at a CPU's size): the flash path
+    (``ops.flash_mha``, its plain version on the CPU) once a coordinate a
+    layer, 8 x 2 = 16 calls, each on the coordinate's heads (1 kv head x
+    1 query head); logits within 1e-5 of max|logit| of one device, before
+    and after a decode step."""
+    monkeypatch.setattr(tlayers, "FLASH_THRESHOLD", LONG)
     cfg = configs.get_smoke("granite-34b")
     model = M.init(cfg, seed=0, device="cpu")
     sm = spmd.shard_model(model, _mesh((2, 4)))
@@ -251,7 +277,7 @@ def test_long_prefill_runs_flash_once_a_coordinate(monkeypatch):
     l2, c2 = M.prefill_step(sm, tok, alloc_seq=alloc,
                             cache_dtype=torch.float32)
     assert len(shapes) == 8 * cfg.n_layers
-    assert set(shapes) == {((1, 8192, 1, 1, 16), (1, 8192, 1, 16))}
+    assert set(shapes) == {((1, LONG, 1, 1, 16), (1, LONG, 1, 16))}
     assert _rel(l2.full(), l1) < 1e-5
     nt = tok[:, :1]
     l1, _ = M.decode_step(model, nt, c1, pos=tlayers.FLASH_THRESHOLD)

@@ -12,6 +12,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+from _threads import one_thread                          # noqa: F401
 
 torch = pytest.importorskip("torch")
 

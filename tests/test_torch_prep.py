@@ -2,6 +2,7 @@
 Table II datasets, InCRS counter words and prep_sections stripes."""
 import numpy as np
 import pytest
+from _threads import one_thread                          # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -18,6 +18,7 @@ import sys
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from _threads import one_thread                          # noqa: F401
 import torch
 
 from repro.analysis import grid_interp, kernel_check

@@ -19,6 +19,7 @@ import weakref
 
 import numpy as np
 import pytest
+from _threads import one_thread                          # noqa: F401
 
 torch = pytest.importorskip("torch")
 

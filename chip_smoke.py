@@ -4140,9 +4140,10 @@ LM_KERNEL_CASES = [
 ]
 
 
-def _causal_pairs(sq, sk, window):
-    """Number of (query, key) pairs the mask keeps: the work of the call."""
-    i = np.arange(sq, dtype=np.int64)
+def _causal_pairs(sq, sk, window, q_offset=0):
+    """Number of (query, key) pairs the mask keeps: the work of the call
+    (query row r at position r + ``q_offset``)."""
+    i = q_offset + np.arange(sq, dtype=np.int64)
     hi = np.minimum(i, sk - 1)
     lo = np.zeros_like(i) if window is None else np.maximum(0, i - window + 1)
     return int(np.maximum(hi - lo + 1, 0).sum())
@@ -5147,8 +5148,9 @@ LM_FAMILIES = (  # (arch, layers served, layers trained; None = all)
     # cut in depth to keep the smoke's time (mixtral was served at 4,
     # musicgen and internvl2 whole, then at 12 until the sharded LM's
     # phase joined); widths as published
-    ("mixtral-8x7b", 2, 2),
-    ("qwen2-moe-a2.7b", 4, 4),
+    # mixtral 2 and qwen2-moe 4 until the serve overrides' phases joined
+    ("mixtral-8x7b", 1, 1),
+    ("qwen2-moe-a2.7b", 2, 2),
     ("musicgen-medium", 6, 6),
     ("internvl2-1b", 6, 6),
 )
@@ -5589,16 +5591,18 @@ def lm_families_path(torch, launchers=True):
 # served, held against float64 and trained.
 LM_RECURRENT = (  # (arch, layers served, layers trained (None = all),
     #                microbatches a training step)
-    # a quarter of its 48 layers, served and trained (it was whole, then
-    # at 24 until the sharded LM's phase joined)
-    ("mamba2-370m", 12, 12, 1),
-    # served and trained at 13 layers, one repetition of its pattern
-    # (it was served whole), in 4 microbatches of 1 x 2,048: 2.43 G
+    # an eighth of its 48 layers, served and trained (it was whole, then
+    # at 24 until the sharded LM's phase joined, then 12 until the serve
+    # overrides' phases joined)
+    ("mamba2-370m", 6, 6, 1),
+    # served and trained at 7 layers (13, one repetition of its pattern,
+    # until the serve overrides' phases joined; it was served whole
+    # before), in 4 microbatches of 1 x 2,048: at 13 layers 2.43 G
     # parameters' f32 AdamW state is 39 GB, and one batch of 4 x 2,048
     # tokens' 256,000-word f32 logits 8.4 GB, their gradient as much
     # again. In 2 microbatches the phase alone peaked at 67.11 GB, and
     # after the smoke's earlier phases step 2 found no 3.91 GiB block free
-    ("recurrentgemma-2b", 13, 13, 4),
+    ("recurrentgemma-2b", 7, 7, 4),
 )
 # the serving launcher's run: (smoke arch, flash launches = its local
 # attention layers) at FAM["positions"]; the training launcher's resume
@@ -5741,13 +5745,15 @@ def _lm_sharded_modules():
     from repro_torch.train.zero import FSDP_OVERRIDES
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.models import layers
+    from repro_torch.launch.dryrun import cell_overrides
     T = _lm_train_modules()
     T.ShapeSpec, T.layers = ShapeSpec, layers
     g = LM_SHARDED
     mesh = Mesh(np_.full(g["mesh"], "cuda:0", dtype=object),
                 ("data", "model"))
     return T, types.SimpleNamespace(Mesh=Mesh, sh=sh, spmd=spmd, mesh=mesh,
-                                    FSDP=FSDP_OVERRIDES)
+                                    FSDP=FSDP_OVERRIDES,
+                                    cell_overrides=cell_overrides)
 
 
 def _timed(torch, fn):
@@ -5766,14 +5772,32 @@ def _coll(mesh):
 # Phase lm_sharded_families: the MoE, SSD and RG-LRU families over the same
 # mesh, each at full width cut to its depth (layers, train batch: sequences
 # x tokens), f32; recurrentgemma's batch keeps its sharded step under 70 GB.
+# Each serves under JAX's serve overrides (``dryrun.cell_overrides`` of the
+# prefill cell: a context-parallel KV cache, and recurrentgemma's 10 heads
+# sequence-parallel). Cut for the serve overrides' phases: qwen2-moe from
+# 2 layers, mamba2 from 12, recurrentgemma from 13 (7 keeps two of its
+# local attention layers), the sparse FFN from 12.
 LM_FAMILIES_SHARDED = {"mixtral-8x7b": (1, (4, 1024)),
-                       "qwen2-moe-a2.7b": (2, (4, 1024)),
-                       "mamba2-370m": (12, (4, 1024)),
-                       "recurrentgemma-2b": (13, (2, 1024))}
+                       "qwen2-moe-a2.7b": (1, (4, 1024)),
+                       "mamba2-370m": (6, (4, 1024)),
+                       "recurrentgemma-2b": (7, (2, 1024))}
 # examples/train_sparse_lm.py's ~100M block-sparse configuration (d 768,
-# 12 layers, blocks of 32), half of each mask's blocks zeroed; one step.
-LM_SPARSE_SHARDED = {"d_model": 768, "layers": 12, "vocab": 512,
+# blocks of 32) at 6 of its 12 layers, half of each mask's blocks zeroed;
+# one step.
+LM_SPARSE_SHARDED = {"d_model": 768, "layers": 6, "vocab": 512,
                      "block": 32, "batch": (8, 512)}
+# The serve overrides' full-width path: phi3-medium-14b (d 5,120,
+# 40 heads on 10 kv heads: 16 does not divide them, so JAX shards the
+# query sequence) at 2 of 40 layers, f32, under its prefill cell's
+# overrides, on LM_SHARDED's mesh: a prefill of 2 x 8,192, 4 decode steps.
+LM_PHI3 = {"arch": "phi3-medium-14b", "layers": 2}
+# internvl2-1b's train cell's overrides (FSDP and attn_q_seq): one step of
+# 4 x 1,024 at 2 of 24 layers
+LM_INTERNVL2 = {"arch": "internvl2-1b", "layers": 2, "batch": (4, 1024)}
+# The checkpoint round trip: mamba2-370m at full width, 4 of 48 layers (so
+# that 2 and 4 data coordinates own whole layers), ZeRO-1 without FSDP
+LM_CKPT = {"arch": "mamba2-370m", "layers": 4, "batch": (4, 512),
+           "meshes": ((2, 4), (4, 2))}
 
 
 def _exact_coll(mesh):
@@ -5838,8 +5862,9 @@ def _worst_errs(torch, got, ref):
     return out
 
 
-def phase_lm_sharded_train(torch, T, S, cfg, batch, opt, seed):
-    """One AdamW step with FSDP and ZeRO-1 on ``batch``, the one-device
+def phase_lm_sharded_train(torch, T, S, cfg, batch, opt, seed, rules=None):
+    """One AdamW step with FSDP and ZeRO-1 (``rules``, default
+    ``S.FSDP``) on ``batch``, the one-device
     reference first (its grads and first moments to the host, the model
     freed), then sharded from the same seeded weights; where an MoE route
     differs, the reference again on the sharded routes
@@ -5848,15 +5873,16 @@ def phase_lm_sharded_train(torch, T, S, cfg, batch, opt, seed):
     LM_SHARDED_TOL of the tensor's max (checked by ``_check_sharded``);
     step ms of both (CUDA-synchronized host clock), peak GB, and the
     sharded step's collectives against the meta run's."""
+    rules = S.FSDP if rules is None else rules
     loss1, ref, routes1, one_ms, one_peak = _ref_step(
         torch, T, cfg, batch, opt, seed)
     sm = S.spmd.shard_model(T.M.init(cfg, seed=seed, device="cuda"),
-                            S.mesh, S.FSDP)
+                            S.mesh, rules)
     sm.route_log = []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     n = len(batch["tokens"])
-    with S.sh.axis_rules(S.mesh, S.FSDP):
+    with S.sh.axis_rules(S.mesh, rules):
         ms = T.trainer.moment_specs(opt, sm)
         st = T.trainer.init_sharded_opt_state(opt, sm)
         S.mesh.reset_collectives()
@@ -5872,9 +5898,8 @@ def phase_lm_sharded_train(torch, T, S, cfg, batch, opt, seed):
     coll = _exact_coll(S.mesh)
     routes2 = [r.to("cpu") for _, r in sm.joined_routes(n)]
     flips = _flips(routes2, routes1)
-    got = {"grads": {k: (lambda k=k, shape=tuple(w.shape): S.spmd.Sharded(
-        S.mesh, ms[k], shape, red[k]).full())
-        for k, w in ref["grads"].items()},
+    got = {"grads": {k: (lambda k=k: T.O.moment_sharded(
+        sm, k, ms[k], red[k]).full()) for k in ref["grads"]},
            "m": {k: (lambda k=k: st["m"][k].full()) for k in ref["m"]}}
     if any(flips):      # the sharded run's state to the host, then held
         got = {kind: {k: (lambda t=fn().cpu(): t.cuda())
@@ -5891,14 +5916,14 @@ def phase_lm_sharded_train(torch, T, S, cfg, batch, opt, seed):
         "b", batch["tokens"].shape[1], n, "train"))
 
     def meta_run(msm, mesh):
-        with S.sh.axis_rules(mesh, S.FSDP):
+        with S.sh.axis_rules(mesh, rules):
             mms = T.trainer.moment_specs(opt, msm)
             mst = T.trainer.init_sharded_opt_state(opt, msm)
             mesh.reset_collectives()
             _, parts = T.trainer.sharded_loss_and_grads(msm, meta_batch)
             T.O.sharded_adamw_update(
                 opt, T.trainer.reduce_grads(msm, parts, mms), mst, msm, mms)
-    meta = _meta_collectives(T, S, cfg, S.FSDP, meta_run)
+    meta = _meta_collectives(T, S, cfg, rules, meta_run)
     return {"loss": [loss1, float(loss2)],
             "loss_rel_err": abs(float(loss2) / loss1 - 1),
             "grad_worst": errs["grads"], "moment_worst": errs["m"],
@@ -5907,6 +5932,21 @@ def phase_lm_sharded_train(torch, T, S, cfg, batch, opt, seed):
             "peak_gb": {"one_device": one_peak, "sharded": peak},
             "collectives": _coll(S.mesh), "collectives_equal_meta":
             coll == meta, "tokens": n * batch["tokens"].shape[1]}
+
+
+def _attn_cache_spec(T, S, sm, b, alloc):
+    """The spec of the first attention layer's KV cache on ``sm`` (its
+    slots over "model" under ``cache_seq``), or None where it has none."""
+    cfg = sm.cfg
+    for li, axes in enumerate(T.M.init_cache_axes(cfg)):
+        kind = cfg.block_pattern[li % len(cfg.block_pattern)]
+        if kind in ("attn", "local_attn"):
+            win = cfg.sliding_window if kind == "attn" else cfg.local_window
+            n = min(alloc, win) if win else alloc
+            return list(S.sh.resolve_with(
+                sm.rules, S.mesh.shape, axes["k"],
+                (b, n, cfg.n_kv_heads, cfg.head_dim)))
+    return None
 
 
 def _serve_run(torch, T, m, tok, nxt, alloc, held=None):
@@ -5937,9 +5977,10 @@ def _serve_run(torch, T, m, tok, nxt, alloc, held=None):
     return logits, ms, routes
 
 
-def phase_lm_sharded_serve(torch, T, S, cfg, seed):
+def phase_lm_sharded_serve(torch, T, S, cfg, seed, rules=None):
     """A prefill of LM_SHARDED's 2 x 8,192 tokens (one sequence a data
-    shard) and 4 decode steps, f32 cache, default rules: the one-device
+    shard) and 4 decode steps, f32 cache, under ``rules`` (default: the
+    default rules): the one-device
     run first (its logits to the host), then sharded from the same
     weights (the one-device model freed); where an MoE route differs, the
     one-device run again on the sharded routes. Logits within
@@ -5958,13 +5999,14 @@ def phase_lm_sharded_serve(torch, T, S, cfg, seed):
     ref, one_ms, routes1 = _serve_run(torch, T, model, tok, nxt, alloc)
     one_launches = T.F.LAUNCHES["flash_attention"]
     one_peak = torch.cuda.max_memory_allocated() / 1e9
-    sm = S.spmd.shard_model(model, S.mesh)
+    sm = S.spmd.shard_model(model, S.mesh, rules)
     del model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     S.mesh.reset_collectives()
     T.F.reset_launches()
     got, sh_ms, routes2 = _serve_run(torch, T, sm, tok, nxt, alloc)
+    cache_spec = _attn_cache_spec(T, S, sm, b, alloc)
     launches = T.F.LAUNCHES["flash_attention"]
     peak = torch.cuda.max_memory_allocated() / 1e9
     coll = _exact_coll(S.mesh)
@@ -5990,8 +6032,9 @@ def phase_lm_sharded_serve(torch, T, S, cfg, seed):
         for t in range(g["decode"]):
             _, cache = T.M.decode_step(msm, torch.empty(
                 (b, 1), dtype=torch.int32, device="meta"), cache, pos=s + t)
-    meta = _meta_collectives(T, S, cfg, None, meta_run)
+    meta = _meta_collectives(T, S, cfg, rules, meta_run)
     return {"prefill": [b, s], "decode_steps": g["decode"],
+            "rules": rules or {}, "attention_cache_spec": cache_spec,
             "logit_rel_err": errs, "route_flips": flips,
             "routes_held": any(map(any, flips)),
             "flash_launches": launches,
@@ -6003,19 +6046,20 @@ def phase_lm_sharded_serve(torch, T, S, cfg, seed):
             coll == meta}
 
 
-def _sharded_arch(torch, T, S, arch, layers, batch_shape, phase):
+def _sharded_arch(torch, T, S, arch, layers, batch_shape, phase,
+                  serve_rules=None):
     """``arch`` at full width cut to ``layers`` layers, f32, on
     LM_SHARDED's mesh: ``phase_lm_sharded_train`` and
-    ``phase_lm_sharded_serve``, emitted under ``phase`` and checked.
-    Returns the sharded prefill's flash launches (coordinates x
-    attention layers)."""
+    ``phase_lm_sharded_serve`` (under ``serve_rules``), emitted under
+    ``phase`` and checked. Returns the sharded prefill's flash launches
+    (coordinates x attention layers)."""
     t0 = time.perf_counter()
     seed = LM_SHARDED["seed"]
     cfg = _fam_cfg(T, arch, layers, dtype="float32")
     batch = T.Tokens(cfg.vocab_size, *batch_shape, seed=seed).batch_at(0)
     opt = T.O.AdamWConfig(lr=1e-4, warmup_steps=0)
     train = phase_lm_sharded_train(torch, T, S, cfg, batch, opt, seed)
-    serve = phase_lm_sharded_serve(torch, T, S, cfg, seed)
+    serve = phase_lm_sharded_serve(torch, T, S, cfg, seed, serve_rules)
     want = S.mesh.size * _attention_layers(cfg)
     full = T.configs.get(arch)
     emit({"phase": phase, "arch": arch,
@@ -6085,8 +6129,8 @@ def phase_lm_sharded_sparse(torch, T, S):
             torch, lambda: T.trainer.sharded_loss_and_grads(sm, batch))
         red = T.trainer.reduce_grads(sm, parts, ms)
         T.O.sharded_adamw_update(opt, red, st2, sm, ms)
-    gsh = {k: S.spmd.Sharded(S.mesh, ms[k], tuple(w.shape), red[k]).full()
-           for k, w in g1.items()}
+    gsh = {k: T.O.moment_sharded(sm, k, ms[k], red[k]).full()
+           for k in g1}
     gerr = _rel_errs(gsh, g1)
     merr = _rel_errs({k: st2["m"][k].full() for k in st1["m"]}, st1["m"])
     blk = cfg.sparsity.block
@@ -6109,19 +6153,269 @@ def phase_lm_sharded_sparse(torch, T, S):
     return out
 
 
+def _flash_offset_times(torch, F):
+    """The flash kernels at LM_PHI3's last coordinate's span: 2,048 queries
+    of 40 heads (10 kv x 4) at q_offset 6,144 against keys 0..8,191, hd
+    128, bf16 and f32; each against its plain version, their medians beside
+    the plain version's, SDPA with the same mask (a boolean (Sq, Sk) mask:
+    row r sees keys <= r + 6,144) and the bound of the pairs the mask
+    keeps."""
+    b, sq, off, kv, g, hd = 1, 2048, 6144, 10, 4, 128
+    sk = sq + off
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((b, sq, kv, g, hd), (b, sk, kv, hd),
+                                      (b, sk, kv, hd)))
+    flush = torch.empty(64 * 2 ** 20, device="cuda")
+    out = {}
+    with torch.no_grad():
+        want = F.plain(q.float(), k.float(), v.float(), q_offset=off)
+        got = F.flash_attention(q, k, v, q_offset=off)
+        out["bf16_row_err"] = F.worst_row_error(got, want)
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        got32 = F.flash_attention(q32, k32, v32, q_offset=off)
+        out["f32_max_abs_err"] = float((got32 - want).abs().max())
+        out["f32_rel_err"] = out["f32_max_abs_err"] / float(
+            want.abs().max())
+        out["ms"] = _time_ms(torch, lambda: F.flash_attention(
+            q, k, v, q_offset=off), flush)
+        out["ms_f32_inputs"] = _time_ms(torch, lambda: F.flash_attention(
+            q32, k32, v32, q_offset=off), flush)
+        out["plain_ms"] = _time_ms(torch, lambda: F.plain(
+            q, k, v, q_offset=off), flush, reps=5)
+        fn = torch.nn.functional.scaled_dot_product_attention
+        qs = q.reshape(b, sq, kv * g, hd).transpose(1, 2).contiguous()
+        ks, vs = (t.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+                  for t in (k, v))
+        mask = (torch.arange(sk, device="cuda")[None, :] <=
+                off + torch.arange(sq, device="cuda")[:, None])
+        sdpa = lambda: fn(qs, ks, vs, attn_mask=mask)  # noqa: E731
+        lib = sdpa().transpose(1, 2).reshape(b, sq, kv, g, hd)
+        out["library_vs_kernel_max_abs_diff"] = float(
+            (lib.float() - got.float()).abs().max())
+        out["library_ms"] = _time_ms(torch, sdpa, flush)
+        del qs, ks, vs, mask, lib, got, got32, want, q32, k32, v32
+    flops = 4 * hd * b * kv * g * _causal_pairs(sq, sk, None, off)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_ops = flops / BF16_TC_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    out.update(shape=[b, sq, kv, g, hd], q_offset=off, sk=sk,
+               kernel=F.KERNEL_SYMBOLS["bf16_wgmma"], flops=flops,
+               bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library="scaled_dot_product_attention(attn_mask), k/v "
+               "expanded by repeat_interleave")
+    emit({"phase": "lm_times_offset", **out})
+    check(out["bf16_row_err"] <= 1e-2 and out["f32_rel_err"] <= 1e-5,
+          f"the flash kernels at a query offset disagree with the plain "
+          f"version: {out['bf16_row_err']}, {out['f32_rel_err']}")
+    return out
+
+
+def phase_lm_sharded_phi3(torch, T, S):
+    """Phase lm_sharded_phi3: LM_PHI3 at full width, f32, under its prefill
+    cell's overrides (``attn_q_seq`` and ``cache_seq`` over "model") on
+    LM_SHARDED's mesh, held to one device (``phase_lm_sharded_serve``):
+    the logits within LM_SHARDED_TOL, 8 coordinates x 2 layers of flash
+    launches, each at its span's q_offset, the collectives the meta run's,
+    the cache's slots over "model"; then the kernel at the last span's
+    shape (``_flash_offset_times``). Returns (flash launches, the
+    timing)."""
+    t0 = time.perf_counter()
+    g = LM_PHI3
+    cfg = _fam_cfg(T, g["arch"], g["layers"], dtype="float32")
+    rules = S.cell_overrides(T.configs.get(g["arch"]), "prefill")
+    from repro_torch.kernels import ops
+    real, calls = ops._flash_kernel, []
+
+    def logged(q, k, v, **kw):
+        calls.append((q.shape[1], k.shape[1], kw.get("q_offset", 0)))
+        return real(q, k, v, **kw)
+    ops._flash_kernel = logged
+    try:
+        serve = phase_lm_sharded_serve(torch, T, S, cfg, LM_SHARDED["seed"],
+                                       rules)
+    finally:
+        ops._flash_kernel = real
+    sharded = calls[cfg.n_layers:]      # after the one-device prefill's
+    want = S.mesh.size * _attention_layers(cfg)
+    emit({"phase": "lm_sharded_phi3", "arch": g["arch"],
+          "model": f"{g['arch']}, {g['layers']} of "
+          f"{T.configs.get(g['arch']).n_layers} layers, full width, f32",
+          "params": sum(p.numel() for p in
+                        T.M.Model(cfg, device="meta").parameters()),
+          "mesh": S.mesh.shape, "seconds": time.perf_counter() - t0,
+          "flash_calls_q_len_k_len_offset": sorted(set(sharded)),
+          "serve": serve})
+    check(max(serve["logit_rel_err"]) <= LM_SHARDED_TOL,
+          f"phi3: sharded logits off by {serve['logit_rel_err']}")
+    check(serve["flash_launches"] == want and
+          {c[2] for c in sharded} == {0, 2048, 4096, 6144},
+          f"phi3: {serve['flash_launches']} flash launches at offsets "
+          f"{sorted({c[2] for c in sharded})}, want {want}")
+    check(serve["collectives_equal_meta"],
+          "phi3: the card's collectives are not the meta run's")
+    check(serve["attention_cache_spec"][1] == "model",
+          f"phi3: the cache is not context-parallel: "
+          f"{serve['attention_cache_spec']}")
+    check(max(serve["peak_gb"].values()) < 70,
+          f"phi3: peak {serve['peak_gb']} GB")
+    torch.cuda.empty_cache()
+    return serve["flash_launches"], _flash_offset_times(torch, T.F)
+
+
+def phase_lm_sharded_internvl2(torch, T, S):
+    """Phase lm_sharded_internvl2: LM_INTERNVL2's FSDP + ZeRO-1 step under
+    its train cell's overrides (``attn_q_seq`` over "model"), held to one
+    device as the families' steps are."""
+    t0 = time.perf_counter()
+    g = LM_INTERNVL2
+    seed = LM_SHARDED["seed"]
+    cfg = _fam_cfg(T, g["arch"], g["layers"], dtype="float32")
+    rules = S.cell_overrides(T.configs.get(g["arch"]), "train")
+    batch = T.Tokens(cfg.vocab_size, *g["batch"], seed=seed).batch_at(0)
+    # its image front end's 256 embeddings a sequence (the meta run's
+    # batch has them too): 1,280 positions, 320 a model coordinate
+    batch["prefix_embeds"] = np.random.default_rng(seed).normal(
+        size=(g["batch"][0], cfg.n_prefix_embeds, cfg.d_model)
+    ).astype(np.float32)
+    opt = T.O.AdamWConfig(lr=1e-4, warmup_steps=0)
+    train = phase_lm_sharded_train(torch, T, S, cfg, batch, opt, seed, rules)
+    emit({"phase": "lm_sharded_internvl2", "arch": g["arch"],
+          "model": f"{g['arch']}, {g['layers']} of "
+          f"{T.configs.get(g['arch']).n_layers} layers, full width, f32",
+          "rules": rules, "seconds": time.perf_counter() - t0,
+          "train": train})
+    check(train["loss_rel_err"] <= LM_SHARDED_LOSS_RTOL,
+          f"internvl2: sharded loss off by {train['loss_rel_err']}")
+    for what in ("grad_worst", "moment_worst"):
+        check(train[what][1] <= LM_SHARDED_TOL,
+              f"internvl2: {what} {train[what]}")
+    check(train["collectives_equal_meta"] and
+          train["collectives"].get("all-to-all", {}).get("count", 0) > 0,
+          "internvl2: the step's collectives are not the meta run's, or "
+          "no all-to-all ran")
+    torch.cuda.empty_cache()
+
+
+def phase_lm_sharded_checkpoint(torch, T, S):
+    """Phase lm_sharded_checkpoint: LM_CKPT at full width, f32, ZeRO-1
+    without FSDP on LM_SHARDED's mesh (every block leaf's moments owned by
+    layer: each coordinate's moment bytes the dry run's, a non-owner
+    holding none); a step, a save, a second step; then the saved state
+    restored onto (data 2, model 4), (data 4, model 2) and one device, the
+    second step taken from each: the same mesh's loss bit for bit, the
+    others within LM_SHARDED_LOSS_RTOL. Save and restore seconds
+    (synchronized host clock; the restores read a file just written, so
+    the page cache is warm), the file's bytes."""
+    import shutil
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    g = LM_CKPT
+    seed = LM_SHARDED["seed"]
+    cfg = _fam_cfg(T, g["arch"], g["layers"], dtype="float32")
+    opt = T.O.AdamWConfig(lr=1e-4, warmup_steps=0)
+    batches = [T.Tokens(cfg.vocab_size, *g["batch"], seed=seed + i)
+               .batch_at(0) for i in range(2)]
+    d = os.path.join(ROOT, "build", f"ckpt-{os.getpid()}")
+    shutil.rmtree(d, ignore_errors=True)
+    ck = CheckpointManager(d, async_write=False)
+    sm = S.spmd.shard_model(T.M.init(cfg, seed=seed, device="cuda"), S.mesh)
+    with S.sh.axis_rules(S.mesh):
+        ms = T.trainer.moment_specs(opt, sm)
+        stacks = T.O.layer_stacks(sm, ms)
+        st = T.trainer.init_sharded_opt_state(opt, sm)
+        priced = dryrun.mesh_bytes(cfg, SHAPES["train_4k"], S.mesh.shape,
+                                   sm.rules)["opt"]
+        held = [4 + sum(t.shards[i].numel() * 4 for kind in ("m", "v")
+                        for t in st[kind].values()
+                        if t.shards[i] is not None)
+                for i in range(S.mesh.size)]
+        none_held = all(sum(t is None for t in st["m"][nm].shards) ==
+                        S.mesh.size // 2 for _, names in stacks
+                        for nm in names)
+        step = T.trainer.build_train_step(cfg, opt)
+        sm, st, m1 = step(sm, st, batches[0])
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        ck.save(1, {"params": sm, "opt": st})
+        save_s = time.perf_counter() - ts
+        _, _, m2 = step(sm, st, batches[1])
+    want = float(m2["loss"])
+    path = os.path.join(d, "step_00000001.npz")
+    nbytes = os.path.getsize(path)
+    del sm, st
+    torch.cuda.empty_cache()
+    runs = {}
+    for shape in g["meshes"]:
+        mh = S.Mesh(np.full(shape, "cuda:0", dtype=object),
+                    ("data", "model"))
+        tmpl = S.spmd.shard_model(T.M.init(cfg, seed=seed + 7,
+                                           device="cuda"), mh)
+        with S.sh.axis_rules(mh):
+            st2 = T.trainer.init_sharded_opt_state(opt, tmpl)
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            tree = ck.restore(1, {"params": tmpl, "opt": st2})
+            torch.cuda.synchronize()
+            rs = time.perf_counter() - ts
+            _, _, m3 = T.trainer.build_train_step(cfg, opt)(
+                tmpl, tree["opt"], batches[1])
+        runs["x".join(map(str, shape))] = {"loss": float(m3["loss"]),
+                                            "restore_s": rs}
+        del tmpl, st2, tree
+        torch.cuda.empty_cache()
+    model = T.M.init(cfg, seed=seed + 7, device="cuda")
+    st0 = T.O.adamw_init(opt, dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    tree = ck.restore(1, {"params": model, "opt": st0})
+    torch.cuda.synchronize()
+    rs = time.perf_counter() - ts
+    _, _, m4 = T.trainer.make_step_fn(cfg, opt)(model, tree["opt"],
+                                                batches[1])
+    runs["one device"] = {"loss": float(m4["loss"]), "restore_s": rs}
+    del model, st0, tree
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out = {"model": f"{g['arch']}, {g['layers']} of "
+           f"{T.configs.get(g['arch']).n_layers} layers, full width, f32",
+           "owned_stacks": len(stacks), "moment_bytes": held,
+           "moment_bytes_priced": priced, "non_owners_hold_none": none_held,
+           "loss_uninterrupted": want, "save_s": save_s,
+           "file_bytes": nbytes, "restores": runs,
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_sharded_checkpoint", **out})
+    check(stacks and none_held and all(h == priced for h in held),
+          f"checkpoint: moments not owned by layer as priced: {held} vs "
+          f"{priced}")
+    check(runs["2x4"]["loss"] == want, f"checkpoint: the same mesh's "
+          f"resumed loss {runs['2x4']['loss']} is not {want}")
+    for k, r in runs.items():
+        check(abs(r["loss"] / want - 1) <= LM_SHARDED_LOSS_RTOL,
+              f"checkpoint: the resumed loss on {k} is {r['loss']}, "
+              f"want {want}")
+    return out
+
+
 def lm_sharded_families_path(torch):
     """Phase lm_sharded_families: mixtral-8x7b, qwen2-moe-a2.7b,
     mamba2-370m and recurrentgemma-2b at full width cut to
     LM_FAMILIES_SHARDED's depths, f32, on LM_SHARDED's (data 2, model 4)
-    mesh of one card: a step and the serve path each held to one device,
-    then the block-sparse FFN's step. Returns the flash launches of the
-    sharded prefills by arch (coordinates x attention layers)."""
+    mesh of one card: a step and the serve path (under JAX's serve
+    overrides) each held to one device, then the block-sparse FFN's step;
+    then phi3-medium-14b's serve under its overrides, internvl2-1b's step
+    under its train override and the checkpoint round trip. Returns the
+    flash launches of the sharded prefills by arch (coordinates x
+    attention layers) and the kernel's times at an offset span."""
     T, S = _lm_sharded_modules()
     t_all = time.perf_counter()
-    launches = {arch: _sharded_arch(torch, T, S, arch, layers, batch_shape,
-                                    "lm_sharded_families")
-                for arch, (layers, batch_shape) in
-                LM_FAMILIES_SHARDED.items()}
+    launches = {arch: _sharded_arch(
+        torch, T, S, arch, layers, batch_shape, "lm_sharded_families",
+        serve_rules=S.cell_overrides(T.configs.get(arch), "prefill"))
+        for arch, (layers, batch_shape) in LM_FAMILIES_SHARDED.items()}
     sparse = phase_lm_sharded_sparse(torch, T, S)
     emit({"phase": "lm_sharded_families", "arch": "block-sparse FFN",
           **sparse, "seconds_all": time.perf_counter() - t_all})
@@ -6132,7 +6426,11 @@ def lm_sharded_families_path(torch):
     check(sparse["zeroed_blocks_no_grad"] and
           0 < sparse["mask_density"] < 1,
           "block-sparse FFN: a zeroed block took a gradient")
-    return launches
+    torch.cuda.empty_cache()
+    launches[LM_PHI3["arch"]], offset = phase_lm_sharded_phi3(torch, T, S)
+    phase_lm_sharded_internvl2(torch, T, S)
+    phase_lm_sharded_checkpoint(torch, T, S)
+    return launches, offset
 
 
 DRYRUN_MESH_JSON = os.path.join("build", "dryrun_mesh.json")
@@ -6382,8 +6680,10 @@ def lm_recurrent_profile() -> int:
 
 def lm_sharded_only() -> int:
     """``python3 chip_smoke.py --lm-sharded``: the build and phases
-    lm_sharded and lm_sharded_families alone, then the mesh dry run (a
-    quick loop on that path; not the smoke run)."""
+    lm_sharded and lm_sharded_families alone (the latter with the serve
+    overrides' phases: phi3-medium-14b, internvl2-1b's step, the
+    checkpoint round trip, the kernel at an offset), then the mesh dry run
+    (a quick loop on that path; not the smoke run)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6396,7 +6696,7 @@ def lm_sharded_only() -> int:
     phase_env(torch, _build)
     launches = lm_sharded_path(torch)
     torch.cuda.empty_cache()
-    families = lm_sharded_families_path(torch)
+    families, _ = lm_sharded_families_path(torch)
     rc, wall, _, err = _run_example(*DRYRUN_MESH_JOB)
     phase_dryrun_mesh(rc, wall, err)
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
@@ -6562,9 +6862,12 @@ def main() -> int:
     r["launches_by_path"]["lm_sharded"] = lm_sharded_path(torch)
     r["launches"] += r["launches_by_path"]["lm_sharded"]
     torch.cuda.empty_cache()
-    fam_sharded = lm_sharded_families_path(torch)
+    fam_sharded, offset = lm_sharded_families_path(torch)
     r["launches_by_path"]["lm_sharded_families"] = fam_sharded
     r["launches"] += sum(fam_sharded.values())
+    r["offset_span"] = {k: offset[k] for k in (
+        "shape", "q_offset", "sk", "ms", "ms_f32_inputs", "plain_ms",
+        "bound_ms", "bound_by", "library_ms")}
     torch.cuda.empty_cache()
     fam_launcher, rec_launcher = late_checks(torch, granite)
     r["launches_by_path"]["lm_families_launchers"] = fam_launcher

@@ -29,7 +29,9 @@ family:
 * flash attention: sq != sk, lengths off the tiles, a window that skips
   whole key tiles, GQA groups 1, 4, 7 and 10, head dims 64, 128, 192 and
   256 (with the soft cap) in f32 and bf16, the bf16 kernel's K/V ring at
-  1, 2, ``stages`` and ``stages`` + 1 trips;
+  1, 2, ``stages`` and ``stages`` + 1 trips, and query spans at an offset
+  (``q_offset`` > 0, Sk = Sq + q_offset: sequence-parallel attention's
+  shape), with a window and off the tiles;
 
 and ``chip_smoke.py``'s fixed edge operands, by name (``edge_*``). Every
 instance of every ``.cu`` dispatch is launched by some case: the instances
@@ -525,20 +527,26 @@ def _dense_cases(rng) -> List[Case]:
 
 # ----------------------------------------------------------------------
 def _flash_cases(rng) -> List[Case]:
-    specs = [  # (name, batch, sq, sk, kv, g, hd, window, cap)
-        ("sq_lt_sk", 1, 100, 300, 2, 4, 64, None, None),
-        ("sq_gt_sk", 1, 200, 130, 1, 1, 64, None, None),
-        ("ragged_len", 2, 77, 77, 1, 7, 128, None, None),
-        ("window_skips_tiles", 1, 512, 512, 1, 4, 64, 64, None),
-        ("gqa10_hd256_cap", 1, 130, 130, 1, 10, 256, 96, 30.0),
-        ("hd192", 1, 96, 96, 2, 2, 192, None, None),
-        ("hd128_cap", 1, 160, 160, 2, 4, 128, None, 50.0),
-        ("one_query", 1, 1, 1, 1, 1, 64, None, None),
+    specs = [  # (name, batch, sq, sk, kv, g, hd, window, cap, q_offset)
+        ("sq_lt_sk", 1, 100, 300, 2, 4, 64, None, None, 0),
+        ("sq_gt_sk", 1, 200, 130, 1, 1, 64, None, None, 0),
+        ("ragged_len", 2, 77, 77, 1, 7, 128, None, None, 0),
+        ("window_skips_tiles", 1, 512, 512, 1, 4, 64, 64, None, 0),
+        ("gqa10_hd256_cap", 1, 130, 130, 1, 10, 256, 96, 30.0, 0),
+        ("hd192", 1, 96, 96, 2, 2, 192, None, None, 0),
+        ("hd128_cap", 1, 160, 160, 2, 4, 128, None, 50.0, 0),
+        ("one_query", 1, 1, 1, 1, 1, 64, None, None, 0),
+        # a sequence-parallel span: rows at q_offset.., keys 0..Sq+q_offset
+        ("offset_span", 2, 128, 384, 2, 4, 128, None, None, 256),
+        ("offset_ragged", 1, 77, 77 + 301, 1, 7, 64, None, None, 301),
+        ("offset_window", 1, 200, 712, 1, 4, 64, 128, None, 512),
+        ("offset_gqa10_hd256_cap", 1, 130, 130 + 2048, 1, 10, 256, 2048,
+         30.0, 2048),
     ]
-    specs += [(f"trips{t}", 1, 64 * t, 64 * t, 1, 2, 64, None, None)
+    specs += [(f"trips{t}", 1, 64 * t, 64 * t, 1, 2, 64, None, None, 0)
               for t in (1, 2, 3)]
     out = []
-    for name, batch, sq, sk, kv, g, hd, window, cap in specs:
+    for name, batch, sq, sk, kv, g, hd, window, cap, q_off in specs:
         q = _normal(rng, (batch, sq, kv, g, hd))
         k = _normal(rng, (batch, sk, kv, hd))
         v = _normal(rng, (batch, sk, kv, hd))
@@ -546,14 +554,15 @@ def _flash_cases(rng) -> List[Case]:
             if name.startswith("trips") and dt == F32:
                 continue                  # the f32 kernel has no ring
             # the K/V tiles the last query row walks
-            last = min(sq, sk) - 1
+            last = min(sq + q_off, sk) - 1
             lo = 0 if window is None else max(0, last - window + 1)
             trips = (last // _flash.KEY_TILE - lo // _flash.KEY_TILE + 1) \
                 if dt == BF16 else None
             out.append(Case(
                 "flash_attention", f"{name}_{'bf16' if dt == BF16 else 'f32'}",
                 {"q": q, "k": k, "v": v}, {"window": window,
-                                           "soft_cap": cap, "dtype": dt},
+                                           "soft_cap": cap, "dtype": dt,
+                                           "q_offset": q_off},
                 dict(batch=batch, sq=sq, sk=sk, kv=kv, g=g, hd=hd, dtype=dt,
                      window=window), None, trips,
                 FLASH_STAGES if dt == BF16 else None,

@@ -299,7 +299,8 @@ def call_wrapper(case: C.Case, t: Dict[str, torch.Tensor]) -> torch.Tensor:
                          a["n_block_rows"], geo)
     with torch.no_grad():
         return F.flash_attention(t["q"], t["k"], t["v"],
-                                 window=a["window"], soft_cap=a["soft_cap"])
+                                 window=a["window"], soft_cap=a["soft_cap"],
+                                 q_offset=a.get("q_offset", 0))
 
 
 def call_plain(case: C.Case, t: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -332,7 +333,7 @@ def call_plain(case: C.Case, t: Dict[str, torch.Tensor]) -> torch.Tensor:
         return B.plain(t["row_of"], t["col_of"], t["values"], t["b"],
                        n_block_rows=a["n_block_rows"])
     return F.plain(t["q"], t["k"], t["v"], window=a["window"],
-                   soft_cap=a["soft_cap"])
+                   soft_cap=a["soft_cap"], q_offset=a.get("q_offset", 0))
 
 
 # ----------------------------------------------------------------------

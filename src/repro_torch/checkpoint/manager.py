@@ -15,7 +15,15 @@ written.
                  ``keep_every`` milestone).
   * ELASTIC    — arrays are stored whole, on the host; ``restore`` puts
                  them on each template leaf's device, on ``device=``, or
-                 (the row-sharded family) on the shards of ``mesh=``.
+                 (the row-sharded family) on the shards of ``mesh=``. A
+                 ``models.model.ShardedModel`` and its sharded AdamW state
+                 (``spmd.Sharded`` leaves, layer-owned moments included)
+                 are saved as whole arrays under the one-device keys, so a
+                 sharded checkpoint is the one-device checkpoint of the
+                 same weights; a ``ShardedModel`` template on any mesh and
+                 rule table, or a one-device ``Model``, takes it back,
+                 each leaf cut by the template's spec (JAX's
+                 ``restore(step, template, shardings)``).
   * AUTO-RESUME — ``latest_step`` + ``restore`` pick up after preemption;
                  partial writes are ignored (no manifest entry), a corrupt
                  manifest reads as empty.
@@ -28,9 +36,12 @@ written.
 
 A tree is nested dicts, lists and tuples over tensors, numpy arrays,
 Python numbers, the sparse families' params nodes (their ``values``;
-the static meta is rebuilt from the template) and ``torch.nn.Module``s
+the static meta is rebuilt from the template), ``torch.nn.Module``s
 (their own parameters and buffers and their child modules, by name; a
-``sparse.Linear`` is its ``inner`` node). Paths join keys with ``/``.
+``sparse.Linear`` is its ``inner`` node), ``ShardedModel``s (their
+parameters and masks by the module names of the one-device model:
+``blocks.0.mixer.wq`` is ``blocks/0/mixer/wq``) and ``spmd.Sharded``
+tensors. Paths join keys with ``/``.
 A tensor is stored in its dtype, bf16 as f32 (exact); ``restore`` casts
 each leaf to its template leaf's dtype and takes its shape from the
 file. Modules in the template are restored in place (a parameter keeps
@@ -51,6 +62,8 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..models import spmd
+from ..models.model import ShardedModel
 from ..sparse import api
 from ..sparse import linear as lin
 from ..sparse import pattern as spat
@@ -64,8 +77,26 @@ def _is_node(x: Any) -> bool:
     return type(x) in spat._FAMILIES
 
 
+def _sharded_tree(sm: ShardedModel) -> Dict[str, Any]:
+    """A ``ShardedModel``'s parameters (``spmd.Sharded``) and masks (one
+    coordinate's copy) nested by their module names, as the one-device
+    ``Model`` walks."""
+    tree: Dict[str, Any] = {}
+    leaves = list(sm.params.items()) + [(n, c[0])
+                                        for n, c in sm.masks.items()]
+    for name, leaf in leaves:
+        *head, last = name.split(".")
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return tree
+
+
 def _children(x: Any) -> Optional[List[Tuple[str, Any]]]:
     """(key, child) pairs of an inner node of a tree; None for a leaf."""
+    if isinstance(x, ShardedModel):
+        return list(_sharded_tree(x).items())
     if isinstance(x, dict):
         return [(str(k), v) for k, v in x.items()]
     if isinstance(x, (list, tuple)):
@@ -96,7 +127,9 @@ def _walk(tree: Any, stop: Callable[[Any], bool] = lambda x: False,
 def _host(leaf: Any) -> np.ndarray:
     """A host copy of ``leaf`` that shares no memory with it: the writer
     thread reads it while the next step writes the live tensors in
-    place."""
+    place. A ``spmd.Sharded`` is assembled whole."""
+    if isinstance(leaf, spmd.Sharded):
+        leaf = leaf.full("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
@@ -176,9 +209,49 @@ class _Restorer:
         return torch.from_numpy(np.array(self.array(path))).to(
             device=dev, dtype=like.dtype)
 
+    def sharded(self, x: spmd.Sharded, path: str) -> spmd.Sharded:
+        """The array at ``path`` cut by ``x``'s spec onto its coordinates
+        (those that hold a shard), in ``x``'s dtype: a new ``Sharded``."""
+        arr = self.array(path)
+        if tuple(arr.shape) != tuple(x.shape):
+            raise ValueError(f"checkpoint array {path!r} has shape "
+                             f"{tuple(arr.shape)}, the template "
+                             f"{tuple(x.shape)}")
+        full = torch.from_numpy(np.array(arr))
+        shards = [None if t is None else
+                  full[x.slices(i)].to(device=t.device, dtype=t.dtype)
+                  .contiguous() for i, t in enumerate(x.shards)]
+        return spmd.Sharded(x.mesh, x.spec, x.shape, shards)
+
+    def sharded_model(self, x: ShardedModel, path: str) -> ShardedModel:
+        """Each parameter's shards and each mask's copies of ``x``
+        overwritten in place from the file (every key of the one-device
+        model, and no other under ``path``)."""
+        want = {p for p, _ in _walk(x, path=path)}
+        pre = f"{path}/" if path else ""
+        have = {k for k in self.flat if k.startswith(pre)}
+        if have != want:
+            raise ValueError(f"the checkpoint's model under {path!r} is not "
+                             f"the template's: {sorted(have ^ want)[:4]} "
+                             f"differ")
+        with torch.no_grad():
+            for name, p in x.params.items():
+                new = self.sharded(p, pre + name.replace(".", "/"))
+                for t, src in zip(p.shards, new.shards):
+                    t.copy_(src)
+            for name, copies in x.masks.items():
+                arr = self.array(pre + name.replace(".", "/"))
+                for t in copies:
+                    t.copy_(torch.from_numpy(np.array(arr)).to(t.dtype))
+        return x
+
     def build(self, x: Any, path: str) -> Any:
         def sub(k):
             return f"{path}/{k}" if path else k
+        if isinstance(x, ShardedModel):
+            return self.sharded_model(x, path)
+        if isinstance(x, spmd.Sharded):
+            return self.sharded(x, path)
         if isinstance(x, api.Linear):
             x.set_inner(self.node(x.inner, sub("inner")))
             return x
@@ -362,7 +435,12 @@ class CheckpointManager:
         dtypes. Each array goes to its template leaf's device, or to
         ``device`` when given; a row-sharded node's shards go to ``mesh``'s
         shard devices when given (the same shard count), else stay on
-        the template's.
+        the template's. A ``ShardedModel`` in the template is filled in
+        place, each parameter cut by its spec on its mesh; a
+        ``spmd.Sharded`` leaf (a sharded AdamW state's moments, built for
+        the template's mesh by ``trainer.init_sharded_opt_state``) comes
+        back cut by its spec onto the coordinates that hold it. A template
+        whose model keys or shapes are not the file's raises.
 
         When the checkpoint carries sparsity patterns, the template's
         lifecycle nodes are REPACKED to the saved pattern (mask + version)

@@ -8,12 +8,13 @@
 // layers.py:143/:287).
 //
 // What both compute, for each query lane (b, kv head, group member g),
-// query position i < Sq and head dim d: logit[i, j] = q[i] . k[j] /
-// sqrt(hd); with a soft cap, cap * tanh(logit / cap); only keys j <= i,
-// j < Sk and, with a window, j > i - window count; an online softmax in f32
-// (running max m, denominator l, accumulator acc); out = acc / max(l,
-// 1e-30), cast to the input type. The G query heads of one KV head read the
-// same K and V rows (GQA, MQA at KV = 1); nothing is repeated in memory.
+// query row r < Sq at position i = r + q_off and head dim d: logit[i, j] =
+// q[r] . k[j] / sqrt(hd); with a soft cap, cap * tanh(logit / cap); only
+// keys j <= i, j < Sk and, with a window, j > i - window count; an online
+// softmax in f32 (running max m, denominator l, accumulator acc); out = acc
+// / max(l, 1e-30), cast to the input type. The G query heads of one KV head
+// read the same K and V rows (GQA, MQA at KV = 1); nothing is repeated in
+// memory.
 //
 // Inputs in the JAX layout, read through strides: q and out
 // (B, Sq, KV, G, hd), k and v (B, Sk, KV, hd), each with the head dim
@@ -23,7 +24,11 @@
 // the tiles of the heaviest (last) queries first, since causal work grows
 // with the position and short tiles then fill the tail; each walks the
 // 64-key tiles from the first one its window reaches to the diagonal, and
-// key tiles wholly masked are never loaded.
+// key tiles wholly masked are never loaded. The query offset q_off (a span
+// of a longer sequence: sequence-parallel attention over a mesh, whose
+// coordinate c holds rows [c S / m, (c + 1) S / m) and keys from 0) adds
+// q_off keys to every row, so a later tile still holds at least as many
+// keys as an earlier one and the order stays the heaviest first.
 //
 // What bounds it on the H100: operations. At granite-34b's prefill wave
 // (B = 2, S = 8192, KV = 1, G = 48, hd = 128) the causal pairs need 1.649
@@ -95,6 +100,7 @@ struct Params {
   long long v_sb, v_ss, v_sk;
   long long o_sb, o_ss, o_sk, o_sg;
   int kv, g, sq, sk, hd, lanes, n_qt;
+  int q_off;  // the position of query row 0
   int has_window, window;
   float scale, soft_cap;  // soft_cap 0: no cap
 };
@@ -114,10 +120,11 @@ __device__ __forceinline__ Work work_of(const Params& p) {
   w.gi = lane % p.g;
   w.q0 = qt * BQ;
   // Key tiles holding at least one valid key for some row of this tile.
-  const int q_last = min(w.q0 + BQ - 1, p.sq - 1);
-  const int key_hi = min(q_last, p.sk - 1);
+  const long long q_last = (long long)min(w.q0 + BQ - 1, p.sq - 1) + p.q_off;
+  const int key_hi = (int)min(q_last, (long long)p.sk - 1);
   long long key_lo = 0;
-  if (p.has_window) key_lo = max(0LL, (long long)w.q0 - p.window + 1);
+  if (p.has_window)
+    key_lo = max(0LL, (long long)w.q0 + p.q_off - p.window + 1);
   w.kt_lo = (int)(key_lo / kBk);
   w.kt_hi = key_hi < 0 ? -1 : key_hi / kBk;
   return w;
@@ -203,7 +210,7 @@ flash_kernel_f32(const Params p) {
     // Cap, mask, online softmax; rows are shared by the 16 threads tx.
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+      const long long pos = (long long)(q0 + ty * 4 + i) + p.q_off;
       bool valid[4];
       float mx = kNegInf;
 #pragma unroll
@@ -211,9 +218,8 @@ flash_kernel_f32(const Params p) {
         const int col = k0 + tx * 4 + c;
         float x = s[i][c] * p.scale;
         if (p.soft_cap != 0.0f) x = p.soft_cap * tanhf(x / p.soft_cap);
-        valid[c] = col <= row && col < p.sk &&
-                   (!p.has_window || (long long)col > (long long)row -
-                                                          p.window);
+        valid[c] = col <= pos && col < p.sk &&
+                   (!p.has_window || (long long)col > pos - p.window);
         s[i][c] = valid[c] ? x : kNegInf;
         mx = fmaxf(mx, s[i][c]);
       }
@@ -377,6 +383,7 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap tq,
   const Work w = work_of<kBqBf16>(p);
   const int n_kt = w.kt_hi - w.kt_lo + 1;
   const int wq0 = w.q0 + kBqWg * wg;       // this warpgroup's first row
+  const long long wp0 = (long long)wq0 + p.q_off;  // and its position
   const uint32_t sq_ = base + kTile * wg;  // and its Q tile
 
   if (tid == 0) {
@@ -429,9 +436,9 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap tq,
     mbar_wait(bar_kv + 8 * st, (j / kStages) & 1);
     // A key tile that no row of this warpgroup sees (past its diagonal,
     // before its window, or rows all past Sq) changes nothing: skip it.
-    const bool seen = k0 <= wq0 + kBqWg - 1 && wq0 < p.sq &&
+    const bool seen = k0 <= wp0 + kBqWg - 1 && wq0 < p.sq &&
                       (!p.has_window ||
-                       (long long)k0 + kBk - 1 > (long long)wq0 - p.window);
+                       (long long)k0 + kBk - 1 > wp0 - p.window);
     if (seen) {
       // S = Q . K^T over HDP / 16 steps (columns past hd are zeros).
       float s[32];
@@ -461,9 +468,8 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap tq,
         c = 1.0f;
       }
       const bool edge =
-          k0 + kBk - 1 > wq0 || k0 + kBk > p.sk ||
-          (p.has_window &&
-           (long long)k0 <= (long long)wq0 + kBqWg - 1 - p.window);
+          k0 + kBk - 1 > wp0 || k0 + kBk > p.sk ||
+          (p.has_window && (long long)k0 <= wp0 + kBqWg - 1 - p.window);
       if (edge) {
 #pragma unroll
         for (int i = 0; i < 8; ++i)
@@ -471,10 +477,11 @@ flash_kernel_bf16(const __grid_constant__ CUtensorMap tq,
           for (int h = 0; h < 2; ++h)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const int row = r0 + 8 * h, col = k0 + 8 * i + 2 * quad + e;
-              const bool valid = col <= row && col < p.sk &&
+              const long long pos = (long long)(r0 + 8 * h) + p.q_off;
+              const int col = k0 + 8 * i + 2 * quad + e;
+              const bool valid = col <= pos && col < p.sk &&
                                  (!p.has_window ||
-                                  (long long)col > (long long)row - p.window);
+                                  (long long)col > pos - p.window);
               if (!valid) s[4 * i + 2 * h + e] = -INFINITY;
             }
       }
@@ -685,18 +692,19 @@ int flash_attention_ctas_per_sm(int dtype, int hd, size_t smem, int* ctas) {
 }
 
 // strides: q (b, s, kv, g), k (b, s, kv), v (b, s, kv), o (b, s, kv, g),
-// in elements. dtype 0 = f32 (flash_kernel_f32), 1 = bf16
+// in elements. Query row r is at position r + q_off (q_off >= 0). dtype 0
+// = f32 (flash_kernel_f32), 1 = bf16
 // (flash_kernel_bf16; every stride but the head dim's a multiple of 8 and
 // q, k, v 16-byte aligned, as TMA requires). The caller sizes the launch:
 // n_qt query tiles of the kernel's own (64 rows f32, 128 bf16) and `smem`
 // bytes of shared memory per block (flash_attention.smem_bytes).
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     const long long* strides, int batch, int kv, int g,
-                    int sq, int sk, int hd, int has_window, int window,
-                    float scale, float soft_cap, int dtype, int n_qt,
-                    size_t smem, int device, void* stream) {
+                    int sq, int sk, int hd, int q_off, int has_window,
+                    int window, float scale, float soft_cap, int dtype,
+                    int n_qt, size_t smem, int device, void* stream) {
   if (batch <= 0 || kv <= 0 || g <= 0 || sq <= 0 || sk < 0 || hd <= 0 ||
-      hd % 8 || hd > 256 || n_qt <= 0)
+      hd % 8 || hd > 256 || n_qt <= 0 || q_off < 0)
     return (int)cudaErrorInvalidValue;
   int err = (int)cudaSetDevice(device);
   if (err) return err;
@@ -708,7 +716,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   p.v_sb = strides[7]; p.v_ss = strides[8]; p.v_sk = strides[9];
   p.o_sb = strides[10]; p.o_ss = strides[11]; p.o_sk = strides[12];
   p.o_sg = strides[13];
-  p.kv = kv; p.g = g; p.sq = sq; p.sk = sk; p.hd = hd;
+  p.kv = kv; p.g = g; p.sq = sq; p.sk = sk; p.hd = hd; p.q_off = q_off;
   p.lanes = batch * kv * g;
   p.n_qt = n_qt;
   p.has_window = has_window; p.window = window;

@@ -11,6 +11,9 @@ and k/v (B, Sk, KV, hd), and reads it through strides: the Pallas wrapper's
 lane transposes and its padding of Sq and Sk to the tiles are gone, since
 the kernels mask their ragged tiles. Query head (kv, g) reads KV head kv
 (the Pallas kernel's ``lane // g``). The output has q's layout and dtype.
+``q_offset`` places query row r at position r + q_offset (keys stay at
+0..Sk-1): a span of a longer sequence, as sequence-parallel attention over
+a mesh hands each coordinate (``models.layers.attention_sharded``).
 
 The kernel is chosen by the type of q, k and v (one type for all three):
 
@@ -71,7 +74,7 @@ def _library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention.argtypes = [
             p, p, p, p, ctypes.POINTER(ctypes.c_longlong),
-            i, i, i, i, i, i, i, i, f, f, i, i, ctypes.c_size_t, i, p]
+            i, i, i, i, i, i, i, i, i, f, f, i, i, ctypes.c_size_t, i, p]
         lib.flash_attention.restype = i
         lib.flash_attention_ctas_per_sm.argtypes = [i, i, ctypes.c_size_t,
                                                     p]
@@ -158,7 +161,7 @@ def _tma_strides(t: torch.Tensor, what: str) -> Tuple[int, ...]:
 
 
 def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         window: Optional[int] = None) -> Launch:
+         window: Optional[int] = None, q_offset: int = 0) -> Launch:
     """Check what the kernels take and choose the route by type; raises on
     anything no kernel takes. Reads only shapes, types, strides and
     addresses, so it runs on tensors of any device."""
@@ -180,6 +183,9 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None and not -_INT_MAX <= int(window) <= _INT_MAX:
         raise ValueError(f"flash_attention: window {window} does not fit "
                          f"in 32 bits")
+    if not 0 <= int(q_offset) <= _INT_MAX - sq:
+        raise ValueError(f"flash_attention: q_offset {q_offset} must be >= 0 "
+                         f"and keep the last position in 32 bits")
     lanes, n_qt = b * kv * g, -(-sq // Q_TILE[route])
     if lanes * n_qt > _INT_MAX or max(sq, sk) > _INT_MAX:
         raise ValueError(f"flash_attention: {lanes} lanes x {n_qt} query "
@@ -202,10 +208,11 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            window: Optional[int], soft_cap) -> torch.Tensor:
+            window: Optional[int], soft_cap, q_offset: int = 0
+            ) -> torch.Tensor:
     """Plan, allocate the output, launch on the current stream and count
     the launch. Raises on anything the kernels do not take."""
-    launch = plan(q, k, v, window)
+    launch = plan(q, k, v, window, q_offset)
     b, sq, kv, g, hd = q.shape
     out = _alloc.empty(q.shape, q.dtype, q.device)
     if out.numel() == 0:
@@ -215,7 +222,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        b, kv, g, sq, k.shape[1], hd, int(window is not None),
+        b, kv, g, sq, k.shape[1], hd, int(q_offset), int(window is not None),
         0 if window is None else int(window), 1.0 / math.sqrt(hd),
         float(soft_cap) if soft_cap else 0.0, _DTYPE_CODE[q.dtype],
         launch.n_qt, launch.smem, q.device.index, stream)
@@ -229,12 +236,14 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           window: Optional[int] = None, soft_cap=None,
-          chunk: int = 1024) -> torch.Tensor:
+          chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
     """The plain torch version on any device, with the wrapper's checks:
     what the kernel is held against."""
     _check(q, k, v)
+    if int(q_offset) < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} must be >= 0")
     return _plain_flash(q, k, v, window=window, soft_cap=soft_cap,
-                        chunk=chunk)
+                        chunk=chunk, q_offset=int(q_offset))
 
 
 def worst_row_error(out: torch.Tensor, want: torch.Tensor) -> float:
@@ -253,10 +262,11 @@ def worst_row_error(out: torch.Tensor, want: torch.Tensor) -> float:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None, soft_cap=None,
-                    chunk: int = 1024) -> torch.Tensor:
+                    chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
     """Causal GQA attention, q (B, Sq, KV, G, hd), k/v (B, Sk, KV, hd) ->
-    (B, Sq, KV, G, hd) in ``q.dtype``. ``chunk`` is the plain version's
-    key chunk (CPU tensors only); the kernels' tiles are fixed.
+    (B, Sq, KV, G, hd) in ``q.dtype``; query row r at position r +
+    ``q_offset``. ``chunk`` is the plain version's key chunk (CPU tensors
+    only); the kernels' tiles are fixed.
 
     The kernels have no backward, so with grad mode on, inputs that
     require grad raise on every device rather than get an output cut off
@@ -269,8 +279,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "autograd (ROADMAP queue 3, P5); train through "
             "models.layers._flash_attention, or call under torch.no_grad()")
     if q.device.type == "cpu":
-        return plain(q, k, v, window=window, soft_cap=soft_cap, chunk=chunk)
+        return plain(q, k, v, window=window, soft_cap=soft_cap, chunk=chunk,
+                     q_offset=q_offset)
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    return _launch(q, k, v, window, soft_cap)
+    return _launch(q, k, v, window, soft_cap, q_offset)

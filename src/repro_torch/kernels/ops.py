@@ -883,13 +883,16 @@ def spmm(a, b, *, bm: int = 128, bn: Optional[int] = None,
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               window: Optional[int] = None, soft_cap=None,
               bq: Optional[int] = None,
-              bk: Optional[int] = None) -> torch.Tensor:
+              bk: Optional[int] = None, q_offset: int = 0) -> torch.Tensor:
     """Grouped-query flash attention through the flash kernel.
 
     q: (B, Sq, KV, G, hd); k/v: (B, Sk, KV, hd). Causal over absolute
     positions 0..S-1 (prefill/train layout), with an optional sliding
     ``window`` and tanh ``soft_cap``. Returns (B, Sq, KV, G, hd) in
-    ``q.dtype``, on the device of q.
+    ``q.dtype``, on the device of q. ``q_offset`` (not in JAX's
+    signature; JAX takes query positions from its own ``pos``) puts query
+    row r at position r + q_offset: a span of a longer sequence, keys from
+    0.
 
     ``bq``/``bk`` keep the JAX signature, where they are the Pallas tiles
     that Sq and Sk are padded to. None of those tile rules carry over: the
@@ -903,4 +906,5 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t is not None and int(t) <= 0:
             raise ValueError(f"flash_mha: {name} must be positive, got {t}")
     return _flash_kernel(q, k, v, window=window, soft_cap=soft_cap,
-                         chunk=1024 if bk is None else int(bk))
+                         chunk=1024 if bk is None else int(bk),
+                         q_offset=q_offset)

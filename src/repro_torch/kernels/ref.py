@@ -72,14 +72,16 @@ def dense_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window=None, soft_cap=None,
-                    chunk: int = 1024) -> torch.Tensor:
+                    window=None, soft_cap=None, chunk: int = 1024,
+                    q_offset: int = 0) -> torch.Tensor:
     """Causal grouped-query attention over positions 0..S-1, as the
     Pallas ``flash_attention`` and ``layers._flash_attention`` compute it.
 
     q (B, Sq, KV, G, hd), k/v (B, Sk, KV, hd) -> (B, Sq, KV, G, hd) in
-    ``q.dtype``. Keys of ``chunk`` at a time with an online softmax in f32
-    (m, l, acc), so the (Sq, Sk) scores never exist whole: at granite-34b's
+    ``q.dtype``; query row r sits at position r + ``q_offset`` (a span of
+    a longer sequence whose keys start at 0). Keys of ``chunk`` at a time
+    with an online softmax in f32 (m, l, acc), so the (Sq, Sk) scores
+    never exist whole: at granite-34b's
     wave (B = 2, S = 8192, 48 heads) one chunk of 1024 keys takes 3.2 GB
     where the whole score matrix would take 25.8 GB. Key j counts for query
     i iff j <= i and, with a window, j > i - window; the soft cap is
@@ -90,7 +92,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     scale = 1.0 / float(np.sqrt(hd))
     qf = q.to(torch.float32).permute(0, 2, 3, 1, 4)       # (B, KV, G, Sq, hd)
-    qpos = torch.arange(sq, device=dev)[:, None]
+    qpos = q_offset + torch.arange(sq, device=dev)[:, None]
     m = torch.full((bsz, kvh, g, sq), -1e30, dtype=torch.float32, device=dev)
     l = torch.zeros((bsz, kvh, g, sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((bsz, kvh, g, sq, hd), dtype=torch.float32,

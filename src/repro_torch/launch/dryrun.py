@@ -18,10 +18,11 @@ bytes of params, grads, AdamW state and cache from their shard shapes
 (``mesh_bytes``), held against one card's memory, and the collectives
 of one step, prefill or decode by kind, from a run on a mesh of ``meta``
 devices (``mesh_collectives``: one and two groups of ``block_pattern``
-taken to full depth), under the overrides the port executes
-(``cache_seq`` and ``attn_q_seq`` over "model" are priced, not run). The
-meta run reads no value: nothing in the sharded forward, the MoE's
-routing included, turns a tensor into a host number.
+taken to full depth), under every override of the cell: the serve cells
+with a context-parallel KV cache (``cache_seq``) and, where the 16-way
+model axis does not divide the heads, sequence-parallel attention
+(``attn_q_seq``). The meta run reads no value: nothing in the sharded
+forward, the MoE's routing included, turns a tensor into a host number.
 
 Without a mesh flag, the one-card report: each cell that
 ``configs.shapes.applicable`` admits is built at full width on
@@ -203,8 +204,6 @@ def run_cell(arch: str, shape_name: str, *, device: str = "cuda") -> dict:
 # ----------------------------------------------------------------------
 # The mesh dry run: what one device of JAX's production meshes holds.
 MESHES = {"16x16": False, "2x16x16": True}      # name -> multi_pod
-# Serve overrides whose execution is not ported: priced (bytes), not run.
-UNEXECUTED_RULES = ("cache_seq", "attn_q_seq")
 
 
 def serve_rules(cfg: ModelConfig) -> dict:
@@ -380,9 +379,8 @@ def run_mesh_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     """The row of one applicable cell on JAX's 16 x 16 mesh (or 2 x 16 x
     16 with ``multi_pod``): its overrides, per-device bytes
     (``mesh_bytes``) against one card's memory, and the per-device
-    collectives of a meta-device run (``mesh_collectives``)
-    under the overrides the port executes (those of ``UNEXECUTED_RULES``
-    dropped and named)."""
+    collectives of a meta-device run (``mesh_collectives``) under the
+    same overrides."""
     cfg = configs.get(arch)
     shape = SHAPES[shape_name]
     ok, why = applicable(cfg, shape)
@@ -404,11 +402,8 @@ def run_mesh_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     if shape.kind == "train":
         row["n_micro"] = specs.default_n_micro(cfg)
         row["opt_int8"] = specs.default_opt(cfg).quantize
-    executed = {k: v for k, v in overrides.items()
-                if k not in UNEXECUTED_RULES}
-    coll = mesh_collectives(cfg, shape, mesh, executed)
-    row.update(collectives=coll, collective_overrides=executed,
-               unexecuted_rules=sorted(set(overrides) - set(executed)),
+    coll = mesh_collectives(cfg, shape, mesh, overrides)
+    row.update(collectives=coll,
                wire_bytes_per_device=sum(v["wire_bytes"]
                                          for v in coll.values()))
     return row

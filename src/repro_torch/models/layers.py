@@ -57,6 +57,7 @@ import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -203,28 +204,83 @@ class Attention(nn.Module):
         return y @ self.wo.to(dt), new_cache
 
 
-def _flash_kernel(qg, k, v, *, window, cfg: ModelConfig) -> torch.Tensor:
-    """``ops.flash_mha`` (the flash kernel; its plain version on the CPU).
-    On ``meta`` tensors, which hold no values, the launch is planned
-    (``flash_attention.plan``: what the kernel takes) and an output of its
-    shape is returned: the dry run's stand-in, never a computation."""
+def _flash_kernel(qg, k, v, *, window, cfg: ModelConfig,
+                  q_offset: int = 0) -> torch.Tensor:
+    """``ops.flash_mha`` (the flash kernel; its plain version on the CPU),
+    query row r at position r + ``q_offset``. On ``meta`` tensors, which
+    hold no values, the launch is planned (``flash_attention.plan``: what
+    the kernel takes) and an output of its shape is returned: the dry
+    run's stand-in, never a computation."""
     if qg.device.type == "meta":
         from ..kernels import flash_attention as fa
-        fa.plan(qg, k, v, window)
+        fa.plan(qg, k, v, window, q_offset)
         return torch.empty_like(qg)
     return ops.flash_mha(qg, k, v, window=window,
-                         soft_cap=cfg.logits_soft_cap, bk=cfg.flash_chunk)
+                         soft_cap=cfg.logits_soft_cap, bk=cfg.flash_chunk,
+                         q_offset=q_offset)
+
+
+def _attention(cfg: ModelConfig, qg, k, v, qpos, kpos, *, window, mode: str,
+               long: bool, q_offset: int = 0) -> torch.Tensor:
+    """Causal (windowed) attention of roped ``qg`` (B, Sq, KV, G, hd) at
+    positions ``qpos`` (B, Sq) on ``k``, ``v`` (B, Sk, KV, hd) at ``kpos``
+    (B, Sk). ``long`` (the whole sequence has ``FLASH_THRESHOLD`` tokens or
+    more) picks the chunked attention: ``_flash_attention`` in train mode,
+    the flash kernel otherwise, whose query row r sits at ``q_offset`` + r
+    and keys at 0..Sk-1; below it the scores are formed whole."""
+    hd, dt = qg.shape[-1], qg.dtype
+    if long and mode == "train":
+        # differentiable chunked attention: the kernel has no backward
+        return _flash_attention(qg, k, v, qpos, kpos, window=window,
+                                soft_cap=cfg.logits_soft_cap,
+                                chunk=cfg.flash_chunk)
+    if long:
+        # the flash kernel: no (S x S) scores in memory
+        return _flash_kernel(qg, k, v, window=window, cfg=cfg,
+                             q_offset=q_offset)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / math.sqrt(hd)
+    logits = _soft_cap(logits, cfg.logits_soft_cap)
+    qp, kp = qpos[:, :, None], kpos[:, None, :]
+    mask = kp <= qp                          # causal
+    if window is not None:
+        mask &= kp > qp - window
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    att = torch.softmax(logits.to(torch.float32), dim=-1).to(dt)
+    return torch.einsum("bkgqs,bskd->bqkgd", att, v)
+
+
+def _prefill_write(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, alloc: int, c0: int = 0) -> None:
+    """Write the last min(S, alloc) keys and values of ``k``, ``v`` (B, S,
+    KVc, hd) into the ring buffer of ``alloc`` slots, of which ``ck``,
+    ``cv`` hold slots [c0, c0 + ck.shape[1]) (all of them on one device; a
+    span of them under a context-parallel cache). The slots are host
+    numbers (JAX's numpy slots), so a meta run reads no value."""
+    s = k.shape[1]
+    ln = min(s, alloc)
+    posn = np.arange(s - ln, s)
+    slot = posn % alloc
+    keep = (slot >= c0) & (slot < c0 + ck.shape[1])
+    if not keep.any():
+        return
+    dst = torch.as_tensor(slot[keep] - c0, device=ck.device)
+    src = torch.as_tensor(posn[keep], device=k.device)
+    ck[:, dst] = k[:, src].to(ck.dtype)
+    cv[:, dst] = v[:, src].to(cv.dtype)
 
 
 def _attend(cfg: ModelConfig, qg: torch.Tensor, k: torch.Tensor,
             v: torch.Tensor, pos: torch.Tensor, *, window: Optional[int],
-            mode: str, cache: Optional[Cache] = None, kv_sel=None
+            mode: str, cache: Optional[Cache] = None, kv_sel=None,
+            cache_slots: Optional[Tuple[int, int]] = None
             ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Attention of roped ``qg`` (B, S, KV, G, hd) on roped ``k``, ``v``
     (B, S, KVc, hd), filling or reading ``cache`` (the KVc heads);
     ``kv_sel`` (a slice or index tensor over KVc, default all) picks
-    the heads ``qg``'s KV groups attend to. Returns yg (B, S, KV, G,
-    hd) and the cache."""
+    the heads ``qg``'s KV groups attend to; ``cache_slots`` (c0, alloc):
+    the prefill fills slots [c0, c0 + the cache's length) of a ring of
+    ``alloc`` (default all of them). Returns yg (B, S, KV, G, hd) and the
+    cache."""
     s, hd, dt = qg.shape[1], qg.shape[-1], qg.dtype
     sel = slice(None) if kv_sel is None else kv_sel
     new_cache = None
@@ -257,36 +313,14 @@ def _attend(cfg: ModelConfig, qg: torch.Tensor, k: torch.Tensor,
     if mode == "prefill":
         if cache is not None:
             # the last min(S, alloc) keys go into the ring buffer
-            alloc = cache["k"].shape[1]
-            ln = min(s, alloc)
-            slots = torch.arange(s - ln, s, device=qg.device) % alloc
-            cache["k"][:, slots] = k[:, -ln:].to(cache["k"].dtype)
-            cache["v"][:, slots] = v[:, -ln:].to(cache["v"].dtype)
+            c0, alloc = cache_slots or (0, cache["k"].shape[1])
+            _prefill_write(cache["k"], cache["v"], k, v, alloc, c0)
             cache["end"] = s
             new_cache = cache
         else:
             new_cache = {"k": k, "v": v, "end": s}
-    k, v = k[:, :, sel], v[:, :, sel]
-    if s >= FLASH_THRESHOLD and mode == "train":
-        # differentiable chunked attention: the kernel has no backward
-        yg = _flash_attention(qg, k, v, pos, pos, window=window,
-                              soft_cap=cfg.logits_soft_cap,
-                              chunk=cfg.flash_chunk)
-    elif s >= FLASH_THRESHOLD:
-        # the flash kernel: no (S x S) scores in memory
-        yg = _flash_kernel(qg, k, v, window=window, cfg=cfg)
-    else:
-        logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
-                              k) / math.sqrt(hd)
-        logits = _soft_cap(logits, cfg.logits_soft_cap)
-        qp, kp = pos[:, :, None], pos[:, None, :]
-        mask = kp <= qp                          # causal
-        if window is not None:
-            mask &= kp > qp - window
-        logits = torch.where(mask[:, None, None], logits, NEG_INF)
-        att = torch.softmax(logits.to(torch.float32),
-                            dim=-1).to(dt)
-        yg = torch.einsum("bkgqs,bskd->bqkgd", att, v)
+    yg = _attention(cfg, qg, k[:, :, sel], v[:, :, sel], pos, pos,
+                    window=window, mode=mode, long=s >= FLASH_THRESHOLD)
     return yg, new_cache
 
 
@@ -391,6 +425,20 @@ def _head_groups(q: torch.Tensor, h0: int, h1: int, g: int, kv0: int):
     return q.view(bsz, s, n, 1, hd), idx
 
 
+def _seq_axes(sm, s: int, act) -> Tuple[str, ...]:
+    """The mesh axes the query sequence of ``s`` positions splits over:
+    JAX's constraint of ``qg`` to ``("batch", "attn_q_seq", ...)`` resolved
+    (none where the rule maps nowhere, the batch took its axes or they do
+    not divide ``s``: the rule replicates, as JAX's does)."""
+    axes = sh.axes_of(sh.resolve_with(sm.rules, sm.mesh.shape,
+                                      ("attn_q_seq",), (s,))[0])
+    return () if set(axes) & set(act) else axes
+
+
+def _entry(axes: Tuple[str, ...]):
+    return axes[0] if len(axes) == 1 else axes
+
+
 def attention_sharded(sm, li: int, xs, pos, *, window, mode: str,
                       caches, act) -> Tuple[list, Optional[Cache]]:
     """``Attention`` over the mesh: column-parallel ``wq``/``wk``/``wv``,
@@ -399,8 +447,15 @@ def attention_sharded(sm, li: int, xs, pos, *, window, mode: str,
     ``_attend`` on the coordinate's heads (a long prefill launches the
     flash kernel once a coordinate), row-parallel ``wo`` and its
     all-reduce. ``caches``: the layer's sharded cache (``ShardedModel.
-    init_cache``) or None."""
+    init_cache``) or None. Under JAX's serve overrides the query sequence
+    (``attn_q_seq``) or the cache's slots (``cache_seq``) shard instead:
+    ``_attention_spans``."""
     cfg, n = sm.cfg, len(xs)
+    seq = () if mode == "decode" else _seq_axes(sm, xs[0].shape[1], act)
+    slot_axes = () if caches is None else sh.axes_of(caches["k"].spec[1])
+    if seq or (slot_axes and mode == "decode"):
+        return _attention_spans(sm, li, xs, pos, window=window, mode=mode,
+                                caches=caches, act=act, seq=seq)
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g, dt = h // kvh, xs[0].dtype
     pre = f"blocks.{li}.mixer."
@@ -439,12 +494,14 @@ def attention_sharded(sm, li: int, xs, pos, *, window, mode: str,
         h0, h1 = qspan[i][0] // hd, qspan[i][1] // hd
         qi = _rope(q[i].view(bsz, s, h1 - h0, hd), pos[i], cfg.rope_theta)
         qg, sel = _head_groups(qi, h0, h1, g, lo)
-        cache = None
+        cache, slots = None, None
         if caches is not None:
             cache = {"k": caches["k"].shards[i], "v": caches["v"].shards[i],
                      "end": caches["end"]}
+            slots = (caches["k"].span(i, 1)[0], caches["k"].shape[1])
         yg, cache = _attend(cfg, qg, ki, vi, pos[i], window=window,
-                            mode=mode, cache=cache, kv_sel=sel)
+                            mode=mode, cache=cache, kv_sel=sel,
+                            cache_slots=slots)
         if caches is not None:
             new["end"] = cache["end"]
         ys.append((yg.reshape(bsz, s, (h1 - h0) * hd), h0 * hd))
@@ -456,6 +513,150 @@ def attention_sharded(sm, li: int, xs, pos, *, window, mode: str,
                              f"among the coordinate's heads' columns")
         outs.append(y[..., a - y0:b - y0] @ w)
     return _row_reduce(outs, sm, oax, "wo"), new
+
+
+def _attention_spans(sm, li: int, xs, pos, *, window, mode: str, caches,
+                     act, seq: Tuple[str, ...]
+                     ) -> Tuple[list, Optional[Cache]]:
+    """``Attention`` over the mesh under JAX's serve overrides: every head
+    of q on a coordinate, over a span of the sequence, the kv heads
+    all-gathered.
+
+    * ``attn_q_seq`` (``seq``: prefill, train): q goes from heads over the
+      model axes to its query sequence over them (an all-to-all; an
+      all-gather and a slice where the heads split otherwise), so
+      coordinate c attends its span [q0, q1) of queries to keys [0, q1)
+      (a long sequence, by the global S as JAX's program chooses: the
+      flash kernel once a coordinate at ``q_offset`` q0, or
+      ``_flash_attention`` on the span's positions in train mode); the
+      output goes back to heads over the model axes by the reverse
+      all-to-all, for the row-parallel ``wo``.
+    * ``cache_seq`` (a context-parallel cache: coordinate c holds the slots
+      [c0, c1) of the ring buffer for every kv head): a prefill writes the
+      slots of the last min(S, alloc) keys in its span; a decode step
+      all-gathers q's heads (one position), the one coordinate that owns
+      slot ``end % alloc`` writes the new key, and each attends every query
+      head to its own slots (``_cp_decode``)."""
+    cfg, mesh, n = sm.cfg, sm.mesh, len(xs)
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g, dt, s = h // kvh, xs[0].dtype, xs[0].shape[1]
+    pre = f"blocks.{li}.mixer."
+    coords, sizes = mesh.coords()[:n], mesh.shape
+    wq, qspan, qax = sm.weight(pre + "wq", 1, act, dt)
+    q = [x @ w for x, w in zip(xs, wq)]
+    wk, kspan, kax = sm.weight(pre + "wk", 1, act, dt)
+    wv = sm.weight(pre + "wv", 1, act, dt)[0]
+    k = [x @ w for x, w in zip(xs, wk)]
+    v = [x @ w for x, w in zip(xs, wv)]
+    if any(sp != (0, kvh * hd) for sp in kspan):
+        k = spmd.all_gather(k, mesh, kax, -1)
+        v = spmd.all_gather(v, mesh, kax, -1)
+    spans = [(0, s)] * n
+    if seq:
+        spans = [(sl.start, sl.stop) for sl in
+                 (sh.shard_slice(s, _entry(seq), sizes, c) for c in coords)]
+    if any(sp != (0, h * hd) for sp in qspan):
+        if seq and tuple(qax) == seq:
+            q = spmd.all_to_all(q, mesh, seq, 1, -1)
+        else:
+            q = spmd.all_gather(q, mesh, qax, -1)
+    if q[0].shape[1] == s:
+        q = [qi[:, a:b] for qi, (a, b) in zip(q, spans)]
+    ks, vs, qgs = [], [], []
+    for i in range(n):
+        bsz = xs[i].shape[0]
+        a, b = spans[i]
+        ks.append(_rope(k[i].view(bsz, s, kvh, hd), pos[i], cfg.rope_theta))
+        vs.append(v[i].view(bsz, s, kvh, hd))
+        qgs.append(_rope(q[i].view(bsz, b - a, h, hd), pos[i][:, a:b],
+                         cfg.rope_theta).view(bsz, b - a, kvh, g, hd))
+    new = None if caches is None else dict(caches)
+    if mode == "decode":
+        ygs = _cp_decode(cfg, mesh, qgs, ks, vs, caches, window)
+        new["end"] = caches["end"] + 1
+    else:
+        long = s >= FLASH_THRESHOLD
+        ygs = []
+        for i, (a, b) in enumerate(spans):
+            if caches is not None:
+                ck = caches["k"]
+                h0, h1 = ck.span(i, 2)
+                _prefill_write(ck.shards[i], caches["v"].shards[i],
+                               ks[i][:, :, h0:h1], vs[i][:, :, h0:h1],
+                               ck.shape[1], ck.span(i, 1)[0])
+                new["end"] = s
+            # keys [0, b): cut at a chunk's edge, where the keys past b
+            # change nothing in the online softmax (bit for bit)
+            kend = min(s, -(-b // cfg.flash_chunk) * cfg.flash_chunk) \
+                if long else s
+            ygs.append(_attention(cfg, qgs[i], ks[i][:, :kend],
+                                  vs[i][:, :kend], pos[i][:, a:b],
+                                  pos[i][:, :kend], window=window,
+                                  mode=mode, long=long, q_offset=a))
+    ys = [yg.reshape(yg.shape[0], yg.shape[1], h * hd) for yg in ygs]
+    wo, ospan, oax = sm.weight(pre + "wo", 0, act, dt)
+    y0 = [0] * n
+    if seq and tuple(oax) == seq:
+        ys = spmd.all_to_all(ys, mesh, seq, -1, 1)
+        y0 = [sh.shard_slice(h * hd, _entry(seq), sizes, c).start
+              for c in coords]
+    elif seq:
+        ys = spmd.all_gather(ys, mesh, seq, 1)
+    outs = []
+    for y, y_0, (a, b), w in zip(ys, y0, ospan, wo):
+        if a < y_0 or b > y_0 + y.shape[-1]:
+            raise ValueError(f"layer {li}: wo rows [{a}, {b}) are not "
+                             f"among the coordinate's heads' columns")
+        outs.append(y[..., a - y_0:b - y_0] @ w)
+    return _row_reduce(outs, sm, oax, "wo"), new
+
+
+def _cp_decode(cfg: ModelConfig, mesh, qgs, ks, vs, caches, window
+               ) -> List[torch.Tensor]:
+    """One decode step against a context-parallel cache: ``qgs`` (B, 1,
+    KV, G, hd) every query head on every coordinate, ``ks``/``vs`` (B, 1,
+    KV, hd) the new token's kv heads. The coordinate whose slots hold
+    ``end % alloc`` writes the new key and value there; each forms the
+    scores of every query head against its own slots, at their absolute
+    positions (ring semantics and the window, from the global slot ids);
+    the softmax is merged over the slots' axes: the row maxima
+    all-reduced (max), then the sums of exp(score - max) and the weighted
+    values all-reduced. Returns each coordinate's yg (B, 1, KV, G, hd),
+    every head."""
+    ck, cv = caches["k"], caches["v"]
+    axes = sh.axes_of(ck.spec[1])
+    end, alloc = int(caches["end"]), ck.shape[1]
+    wpos = end % alloc
+    hd, dt = qgs[0].shape[-1], qgs[0].dtype
+    logits, oks = [], []
+    for i, qg in enumerate(qgs):
+        if ck.span(i, 2) != (0, ck.shape[2]):
+            raise ValueError(f"a context-parallel cache holds every kv "
+                             f"head, its spec is {ck.spec}")
+        c0, c1 = ck.span(i, 1)
+        kc, vc = ck.shards[i], cv.shards[i]
+        if c0 <= wpos < c1:
+            kc[:, wpos - c0] = ks[i][:, 0].to(kc.dtype)
+            vc[:, wpos - c0] = vs[i][:, 0].to(vc.dtype)
+        slot = torch.arange(c0, c1, device=qg.device)
+        abs_pos = torch.where(slot <= wpos, slot + (end - wpos),
+                              slot + (end - wpos) - alloc)
+        ok = (abs_pos >= 0) & (abs_pos <= end)
+        if window is not None:
+            ok &= abs_pos > end - window
+        lg = torch.einsum("bqkgd,bskd->bkgqs", qg, kc.to(dt)) / math.sqrt(hd)
+        lg = _soft_cap(lg, cfg.logits_soft_cap)
+        logits.append(torch.where(ok, lg, NEG_INF).to(torch.float32))
+        oks.append(ok)
+    mx = spmd.all_reduce_max([lg.amax(-1) for lg in logits], mesh, axes)
+    ps = [torch.where(ok, torch.exp(lg - m[..., None]), 0.0)
+          for lg, ok, m in zip(logits, oks, mx)]
+    sums = spmd.all_reduce([p.sum(-1) for p in ps], mesh, axes)
+    outs = spmd.all_reduce([torch.einsum("bkgqs,bskd->bqkgd", p.to(dt),
+                                         c.to(dt)).to(torch.float32)
+                            for p, c in zip(ps, cv.shards)], mesh, axes)
+    return [(o / l.permute(0, 3, 1, 2)[..., None]).to(dt)
+            for o, l in zip(outs, sums)]
 
 
 def _mask_cols(mask, block: int, span, what: str):

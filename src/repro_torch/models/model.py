@@ -319,9 +319,10 @@ class ShardedModel:
     ``route_log``, when a list, gets each MoE call's (layer, the
     coordinates' routes) once, not again in a remat recompute;
     ``joined_routes`` turns them into routes of the whole batch (what a
-    one-device ``MoE.held_route`` takes). The serve rules ``cache_seq``
-    and ``attn_q_seq`` are not executed (``init_cache`` and ``forward``
-    raise)."""
+    one-device ``MoE.held_route`` takes). JAX's serve overrides run too:
+    ``attn_q_seq`` shards the query sequence inside attention, and
+    ``cache_seq`` the attention cache's slots (a context-parallel cache;
+    ``layers._attention_spans``)."""
 
     def __init__(self, cfg: ModelConfig, mesh, rules, params, masks=None):
         self.cfg, self.mesh, self.rules = cfg, mesh, dict(rules)
@@ -442,10 +443,6 @@ class ShardedModel:
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"mode must be train, prefill or decode, got "
                              f"{mode!r}")
-        if mode != "decode" and self.rules.get("attn_q_seq") is not None:
-            raise ValueError("attn_q_seq is sharded: sequence-parallel "
-                             "attention is not executed yet (ROADMAP queue "
-                             "1); the dry run prices it")
         cdt = layers.torch_dtype(cfg.dtype)
         tokens = torch.as_tensor(tokens)
         bsz = tokens.shape[0]
@@ -494,10 +491,11 @@ class ShardedModel:
     def init_cache(self, batch: int, alloc_seq: int, dtype=torch.bfloat16):
         """``init_cache`` over the mesh, each tensor an ``spmd.Sharded`` by
         ``init_cache_axes`` (batch over the batch axes; an attention
-        layer's kv heads over "model" where it divides; the SSD's conv
-        channels over "model", its state whole; the RG-LRU's channels over
-        "model"), and ``"end"`` an int. A rule that shards an attention
-        cache's ``cache_seq`` raises: not executed yet."""
+        layer's kv heads over "model" where it divides, or, under JAX's
+        serve rule ``cache_seq``, its slots over "model" and every kv head
+        on each coordinate; the SSD's conv channels over "model", its state
+        whole; the RG-LRU's channels over "model"), and ``"end"`` an
+        int."""
         cfg, caches = self.cfg, []
         pattern = cfg.block_pattern
         for li, axes in enumerate(init_cache_axes(cfg)):
@@ -519,10 +517,9 @@ class ShardedModel:
             shape = (batch, alloc, cfg.n_kv_heads, cfg.head_dim)
             spec = sh.resolve_with(self.rules, self.mesh.shape, axes["k"],
                                    shape)
-            if spec[1] is not None or spec[3] is not None:
-                raise ValueError(f"the cache spec {spec} shards its "
-                                 f"positions or head dim: not executed yet "
-                                 f"(ROADMAP queue 1); the dry run prices it")
+            if spec[3] is not None:
+                raise ValueError(f"the cache spec {spec} shards the head "
+                                 f"dim, which no rule of JAX's does")
             caches.append({"k": spmd.zeros(shape, dtype, self.mesh, spec),
                            "v": spmd.zeros(shape, dtype, self.mesh, spec),
                            "end": 0})

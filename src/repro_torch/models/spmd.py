@@ -215,7 +215,9 @@ def all_to_all(xs, mesh, axes: Sequence[str], split_dim: int,
 @dataclasses.dataclass
 class Sharded:
     """A tensor of global ``shape`` placed on ``mesh`` by ``spec``:
-    ``shards[i]`` is coordinate i's part (``mesh.coords()[i]``)."""
+    ``shards[i]`` is coordinate i's part (``mesh.coords()[i]``), or None
+    where the coordinate holds none (a layer's optimizer moments, owned by
+    other data coordinates: ``train.optimizer.moment_layout``)."""
     mesh: object
     spec: sh.Spec
     shape: Tuple[int, ...]
@@ -231,17 +233,22 @@ class Sharded:
         s = self.slices(i)[dim]
         return s.start, s.stop
 
+    def held(self) -> List[torch.Tensor]:
+        """The shards some coordinate holds."""
+        return [t for t in self.shards if t is not None]
+
     @property
     def dtype(self) -> torch.dtype:
-        return self.shards[0].dtype
+        return self.held()[0].dtype
 
     @torch.no_grad()
     def full(self, device=None) -> torch.Tensor:
         """The global tensor on ``device`` (default: the first shard's)."""
-        dev = self.shards[0].device if device is None else device
+        dev = self.held()[0].device if device is None else device
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
         for i, t in enumerate(self.shards):
-            out[self.slices(i)] = t.detach().to(dev)
+            if t is not None:
+                out[self.slices(i)] = t.detach().to(dev)
         return out
 
 

@@ -21,7 +21,14 @@ moments its spec gives it and updates its slice of the parameter; the
 clipping norm counts each shard once; int8 moments keep JAX's blocks
 along the last dim even where a shard boundary cuts one (the block
 maxima are all-reduced over the axes that cut it), so every bit of the
-state is the one-device state's for the same gradients.
+state is the one-device state's for the same gradients. A block
+parameter's moment spec may keep JAX's leading stacked-layers entry
+(``trainer.moment_specs``): where ZeRO-1 puts "data" there, layer ``li``
+is owned by the data coordinates that hold its group in JAX's stack of
+``n_groups`` (contiguous groups of ``n_groups / |data|``), only they hold
+its moments (the others hold none: ``None`` shards) and update it, and
+the updated layers are all-gathered over the stack (``moment_layout``,
+``layer_stacks``).
 """
 from __future__ import annotations
 
@@ -205,15 +212,78 @@ def scale_shape(shape) -> Tuple[int, ...]:
     return shape[:-1] + ((last // QBLOCK,) if last % QBLOCK == 0 else (1,))
 
 
+def _grad_spec(spec):
+    return spec["q"] if isinstance(spec, dict) else spec
+
+
+def moment_layout(model, name: str, spec) -> Tuple[Any, Any]:
+    """(the spec of one coordinate's moment of parameter ``name``, over the
+    parameter's own dims; the coordinates that hold it: a list of bools,
+    or None for every one). ``spec`` is ``trainer.moment_specs``'s: a
+    block parameter's may carry JAX's leading stacked-layers entry, and
+    where that entry names mesh axes only the coordinates whose part of
+    the stack of ``n_groups`` holds the layer's group own it."""
+    p = model.params[name]
+
+    def local(sp):
+        return tuple(sp[1:]) if len(sp) == len(p.shape) + 1 else tuple(sp)
+    loc = ({k: local(v) for k, v in spec.items()} if isinstance(spec, dict)
+           else local(spec))
+    full = _grad_spec(spec)
+    if len(full) == len(p.shape) or full[0] is None:
+        return loc, None
+    grp = int(name.split(".")[1]) // len(model.cfg.block_pattern)
+    spans = (owned_span(model, full[0], i)
+             for i in range(spmd.n_coords(model.mesh)))
+    return loc, [sl.start <= grp < sl.stop for sl in spans]
+
+
+def layer_stacks(model, mspecs) -> List[Tuple[Any, List[str]]]:
+    """The block parameters whose moments are owned by layer, as JAX stacks
+    them: (the stack's spec entry, the names of its ``n_groups`` layers in
+    group order), one a block of ``block_pattern`` and parameter."""
+    period = len(model.cfg.block_pattern)
+    stacks: Dict[Tuple[int, str], Tuple[Any, List[str]]] = {}
+    for name, p in model.params.items():
+        full = _grad_spec(mspecs[name])
+        if len(full) != len(p.shape) + 1 or full[0] is None:
+            continue
+        _, li, rest = name.split(".", 2)
+        stacks.setdefault((int(li) % period, rest), (full[0], []))[1].append(
+            name)
+    return list(stacks.values())
+
+
+def owned_span(model, entry, i: int) -> slice:
+    """The groups of a layer stack that coordinate ``i`` owns."""
+    return sh.shard_slice(model.cfg.n_groups, entry, model.mesh.shape,
+                          model.mesh.coords()[i])
+
+
+def moment_sharded(model, name: str, spec, parts) -> spmd.Sharded:
+    """A gradient or moment in the moments' layout (one tensor a
+    coordinate, ``None`` where a coordinate holds none) as an
+    ``spmd.Sharded`` of the parameter's shape (``full`` assembles it)."""
+    loc, _ = moment_layout(model, name, spec)
+    return spmd.Sharded(model.mesh, _grad_spec(loc),
+                        tuple(model.params[name].shape), list(parts))
+
+
 def sharded_adamw_init(cfg: AdamWConfig, model, mspecs
                        ) -> Dict[str, Any]:
     """Zero moments of a ``ShardedModel`` placed by ``mspecs`` ({name:
     spec}, or {name: {"q": spec, "s": spec}} for int8 moments); the count
-    on the first coordinate's device."""
+    on the first coordinate's device. A moment owned by layer is held by
+    its owners only (``moment_layout``)."""
     mesh = model.mesh
 
     def moment(name, p):
-        spec = mspecs[name]
+        spec, owners = moment_layout(model, name, mspecs[name])
+        if owners is not None:
+            out = spmd.zeros(p.shape, torch.float32, mesh, spec)
+            out.shards = [t if own else None
+                          for t, own in zip(out.shards, owners)]
+            return out
         if cfg.quantize:
             q = spmd.zeros(p.shape, torch.int8, mesh, spec["q"])
             s = spmd.zeros(scale_shape(p.shape), torch.float32, mesh,
@@ -235,14 +305,10 @@ def _counts_in_norm(mesh, coord: Dict[str, int], spec) -> bool:
     return all(coord[a] == 0 for a in mesh.axis_names if a not in used)
 
 
-def _grad_spec(spec):
-    return spec["q"] if isinstance(spec, dict) else spec
-
-
 def sharded_global_norm(model, grads, mspecs) -> List[torch.Tensor]:
     """The global norm of reduced gradients, each shard counted once
-    (replicas not again), all-reduced over the mesh: one copy a
-    coordinate."""
+    (replicas not again; a layer by one of its owners), all-reduced over
+    the mesh: one copy a coordinate."""
     mesh = model.mesh
     parts = []
     n = spmd.n_coords(mesh)
@@ -250,7 +316,8 @@ def sharded_global_norm(model, grads, mspecs) -> List[torch.Tensor]:
                                          mesh.device_list[:n])):
         total = torch.zeros((), dtype=torch.float32, device=dev)
         for name, gs in grads.items():
-            if _counts_in_norm(mesh, coord, _grad_spec(mspecs[name])):
+            if gs[i] is not None and _counts_in_norm(
+                    mesh, coord, _grad_spec(mspecs[name])):
                 total = total + torch.sum(torch.square(
                     gs[i].to(torch.float32)))
         parts.append(total)
@@ -332,17 +399,26 @@ def sharded_adamw_update(cfg: AdamWConfig, grads, state: Dict[str, Any],
     moments are sharded finer than the parameter (ZeRO-1) the updated
     slices are all-gathered back into every replica. The clipping norm
     counts each shard once. int8 moments keep JAX's blocks
-    (``_requant_sharded``). Returns ``(model, state, metrics)``."""
+    (``_requant_sharded``). A layer owned by data coordinates is updated
+    by them alone, and the updated layers are all-gathered over each
+    stack into every replica (``layer_stacks``). Returns ``(model, state,
+    metrics)``."""
     mesh = model.mesh
     count = state["count"] + 1
     gnorm = sharded_global_norm(model, grads, mspecs)
     lr = lr_at(cfg, state["count"])
     bc1, bc2 = _bias_corrections(cfg, count)
     for name, p in model.params.items():
-        spec_m = _grad_spec(mspecs[name])
+        spec_m, owners = moment_layout(model, name, mspecs[name])
+        spec_m = _grad_spec(spec_m)
+        if owners is not None and spec_m != p.spec:
+            raise ValueError(f"{name}: a layer's moments {spec_m} must be "
+                             f"laid out as its parameter {p.spec}")
         m, v = state["m"][name], state["v"][name]
         subs, mfs, vfs = [], [], []
         for i, pl in enumerate(p.shards):
+            if owners is not None and not owners[i]:
+                continue
             dev = pl.device
             clip = torch.clamp(cfg.grad_clip / (gnorm[i] + 1e-9), max=1.0)
             g = grads[name][i].to(torch.float32) * clip
@@ -367,5 +443,18 @@ def sharded_adamw_update(cfg: AdamWConfig, grads, state: Dict[str, Any],
             for pl, full in zip(p.shards, subs):
                 pl.copy_(full)
         del subs, mfs, vfs
+    for entry, names in layer_stacks(model, mspecs):
+        # the owners' updated layers into every replica: JAX's all-gather
+        # of the stack over its data shards
+        parts = []
+        for i in range(spmd.n_coords(mesh)):
+            sl = owned_span(model, entry, i)
+            parts.append(torch.stack([model.params[nm].shards[i]
+                                      for nm in names[sl]]))
+        parts = spmd.all_gather(parts, mesh, sh.axes_of(entry), 0)
+        for g, nm in enumerate(names):
+            for pl, full in zip(model.params[nm].shards, parts):
+                pl.copy_(full[g])
+        del parts
     state["count"] = count
     return model, state, {"grad_norm": gnorm[0], "lr": lr}

@@ -13,9 +13,9 @@ the step takes a ``models.model.ShardedModel``:
 ``sharded_loss_and_grads`` (each coordinate's part of every gradient;
 autograd reduce-scatters an FSDP weight's), ``reduce_grads`` (the parts
 summed over each parameter's replicas, reduce-scattered onto the moments'
-slices under ZeRO-1, ``train.zero``) and
-``optimizer.sharded_adamw_update``; ``moment_specs`` places the moments
-as JAX's tree does.
+slices under ZeRO-1, ``train.zero``, a layer's onto the data coordinates
+that own it in JAX's stack) and ``optimizer.sharded_adamw_update``;
+``moment_specs`` places the moments as JAX's tree does.
 
 ``make_prune_callback`` re-prunes every sparse ``Linear`` on a
 ``PruneSchedule``; a re-prune changes the shape of a layer's values, so
@@ -159,11 +159,16 @@ def moment_specs(opt_cfg: AdamWConfig, model: M.ShardedModel, *,
                  zero1: bool = True, axes=None) -> Dict[str, Any]:
     """{name: spec} of each parameter's moments (int8: {"q": spec, "s":
     spec}, each resolved with its own shape) under the model's rules:
-    ``moment_specs_of`` for one layer's tensors (``per_layer``)."""
-    return per_layer(moment_specs_of(
+    ``moment_specs_of``, a block parameter's with JAX's leading
+    stacked-layers entry. Where ZeRO-1 puts "data" there (``n_groups``
+    divides it), each data coordinate holds whole layers' moments: the
+    layers of its part of the stack (``optimizer.moment_layout``).
+    ``per_layer`` of these specs is the layout that keeps every layer's
+    moments on every data coordinate."""
+    return moment_specs_of(
         opt_cfg, M.init_axes(model.cfg) if axes is None else axes,
         {k: p.shape for k, p in model.params.items()}, model.rules,
-        model.mesh.shape, zero1=zero1, n_groups=model.cfg.n_groups))
+        model.mesh.shape, zero1=zero1, n_groups=model.cfg.n_groups)
 
 
 def _block(name: str) -> bool:
@@ -180,8 +185,9 @@ def moment_specs_of(opt_cfg: AdamWConfig, axes, shapes, rules, sizes, *,
     them, and its spec keeps that leading entry. ``opt_state_axes``, then
     ``zero1_axes`` for f32 moments when ``zero1`` (JAX turns ZeRO-1 off
     for int8 moments): for a block parameter the "fsdp" axis lands on
-    "layers" or nowhere, so ZeRO-1 reshards only the embedding, the head
-    and the final norm within a layer's tensors (``per_layer``)."""
+    "layers" (whole layers a data coordinate) or nowhere, so within a
+    tensor ZeRO-1 reshards only the embedding, the head and the final
+    norm."""
     saxes = {k: ("layers",) + tuple(ax) if _block(k) else tuple(ax)
              for k, ax in axes.items()}
     oaxes = optimizer.opt_state_axes(opt_cfg, saxes)["m"]
@@ -202,9 +208,9 @@ def moment_specs_of(opt_cfg: AdamWConfig, axes, shapes, rules, sizes, *,
 
 def per_layer(specs: Dict[str, Any]) -> Dict[str, Any]:
     """``moment_specs_of``'s specs of one layer's tensors: a block
-    parameter's leading "layers" entry dropped (where JAX shards the stack
-    over "data", each layer's moments stay whole: the port does not place
-    layers on coordinates; ROADMAP queue 1)."""
+    parameter's leading "layers" entry dropped, so that every data
+    coordinate holds every layer's moments (the sharded step takes these
+    too: the layout before layers were owned)."""
     def drop(name, sp):
         if isinstance(sp, dict):
             return {k: drop(name, v) for k, v in sp.items()}
@@ -268,13 +274,19 @@ def reduce_grads(model: M.ShardedModel, grads, mspecs) -> Dict[str, list]:
     moments' layout: reduce-scattered over the axes the moments shard and
     the parameter does not (ZeRO-1), all-reduced over the rest of its
     replica axes (for a parameter replicated over "data", the data-parallel
-    reduction)."""
+    reduction). A layer owned by data coordinates (``optimizer.
+    layer_stacks``): its stack of ``n_groups`` layers reduce-scattered over
+    the stack's axes, as JAX's layout has it, so each owner gets its
+    layers' sums and the others ``None``."""
     mesh, out = model.mesh, {}
+    stacks = optimizer.layer_stacks(model, mspecs)
+    owned = {nm: sh.axes_of(e) for e, names in stacks for nm in names}
     for name, gs in grads.items():
         p = model.params[name]
-        spec_m = optimizer._grad_spec(mspecs[name])
+        spec_m = optimizer._grad_spec(
+            optimizer.moment_layout(model, name, mspecs[name])[0])
         used = {a for e in p.spec for a in sh.axes_of(e)}
-        scattered = set()
+        scattered = set(owned.get(name, ()))
         for d, (pe, me) in enumerate(zip(p.spec, spec_m)):
             if pe != me:
                 gs = spmd.reduce_scatter(gs, mesh, sh.axes_of(me), d)
@@ -282,6 +294,18 @@ def reduce_grads(model: M.ShardedModel, grads, mspecs) -> Dict[str, list]:
         rest = [a for a in mesh.axis_names
                 if a not in used and a not in scattered]
         out[name] = spmd.all_reduce(gs, mesh, rest)
+    for entry, names in stacks:
+        parts = spmd.reduce_scatter(
+            [torch.stack([out[nm][i] for nm in names])
+             for i in range(spmd.n_coords(mesh))],
+            mesh, sh.axes_of(entry), 0)
+        for nm in names:
+            out[nm] = list(out[nm])
+        for i, part in enumerate(parts):
+            sl = optimizer.owned_span(model, entry, i)
+            for g, nm in enumerate(names):
+                out[nm][i] = (part[g - sl.start] if sl.start <= g < sl.stop
+                              else None)
     return out
 
 

@@ -13,7 +13,10 @@ mesh axis.
   * ``zero1_axes``      -- parameters stay TP-only; only the optimizer
     moments reshard over "data" (classic ZeRO-1): each data shard updates
     its slice and the parameters are all-gathered afterwards
-    (``train.trainer``).
+    (``train.trainer``). A block parameter's "fsdp" lands on JAX's
+    stacked-layers axis, so each data shard owns whole layers: it alone
+    holds their moments and updates them, and the updated layers are
+    all-gathered over the stack (``train.optimizer.layer_stacks``).
 
 ``sharding.resolve``'s dedup keeps activations safe: their "embed" dim
 stays replicated because "data" is already used by "batch".

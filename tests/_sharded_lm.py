@@ -80,8 +80,8 @@ def step_errors(model, data, shape, rules=None, *, zero1=True, n_micro=1,
                                                 remat=remat)
         red = T.reduce_grads(sm, parts, ms)
         O.sharded_adamw_update(opt, red, st2, sm, ms)
-    gerr = max(rel(spmd.Sharded(mh, O._grad_spec(ms[k]), tuple(g.shape),
-                                red[k]).full(), g) for k, g in g1.items())
+    gerr = max(rel(O.moment_sharded(sm, k, ms[k], red[k]).full(), g)
+               for k, g in g1.items())
     if opt.quantize:
         merr = 0.0
         for k, m in st1["m"].items():

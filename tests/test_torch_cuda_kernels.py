@@ -374,3 +374,37 @@ def test_gathering_orders_take_any_n_and_alignment(cuda):
     ref = K.plain("incrs_spmm", idx_t, val_t, bt, **kw)
     assert float((expand - ref).abs().max()) <= \
         KERNEL_TOL * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,off,window,cap", [(128, 256, None, None),
+                                               (77, 301, None, None),
+                                               (200, 512, 128, None),
+                                               (130, 2048, 2048, 30.0)])
+def test_flash_query_offset(cuda, dtype, sq, off, window, cap):
+    """The flash kernels at a query offset (rows at ``q_offset``.., keys
+    0..Sq + q_offset: a sequence-parallel span) against the plain version
+    on the same inputs, the f32 kernel within 1e-5 of max|out|, the bf16
+    kernel row by row within 1e-2 (``worst_row_error``); and the span equal
+    to the same rows of the whole sequence's launch, bitwise."""
+    from repro_torch.kernels import flash_attention as F
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(sq + off)
+    sk, kv, g, hd = sq + off, 2, 4, 64
+    q = torch.randn((1, sk, kv, g, hd), generator=gen).to(cuda, dt)
+    k = torch.randn((1, sk, kv, hd), generator=gen).to(cuda, dt)
+    v = torch.randn((1, sk, kv, hd), generator=gen).to(cuda, dt)
+    span = q[:, off:].contiguous()
+    with torch.no_grad():
+        got = F.flash_attention(span, k, v, window=window, soft_cap=cap,
+                                q_offset=off)
+        whole = F.flash_attention(q, k, v, window=window, soft_cap=cap)
+    want = F.plain(span.float().cpu(), k.float().cpu(), v.float().cpu(),
+                   window=window, soft_cap=cap, q_offset=off)
+    if dtype == "float32":
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        assert err <= 1e-5, err
+    else:
+        assert F.worst_row_error(got.cpu(), want) <= 1e-2
+    assert torch.equal(got, whole[:, off:])

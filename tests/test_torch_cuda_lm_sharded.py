@@ -74,8 +74,8 @@ def _step(cuda):
         loss2, parts = T.sharded_loss_and_grads(sm, batch)
         red = T.reduce_grads(sm, parts, ms)
         O.sharded_adamw_update(opt, red, st2, sm, ms)
-    gerr = max(_rel(spmd.Sharded(mesh, ms[k], tuple(g.shape), red[k]).full(),
-                    g) for k, g in g1.items())
+    gerr = max(_rel(O.moment_sharded(sm, k, ms[k], red[k]).full(), g)
+               for k, g in g1.items())
     merr = max(_rel(st2["m"][k].full(), m) for k, m in st1["m"].items())
     assert all(t.is_cuda for t in sm.params["embed"].shards)
     return abs(float(loss2) / float(loss1) - 1), gerr, merr

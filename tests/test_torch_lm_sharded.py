@@ -97,8 +97,8 @@ def _step_errors(cfg, shape, fsdp, zero1, n_micro, opt):
         loss2, parts = T.sharded_loss_and_grads(sm, batch, n_micro=n_micro)
         red = T.reduce_grads(sm, parts, ms)
         O.sharded_adamw_update(opt, red, st2, sm, ms)
-    gerr = max(_rel(spmd.Sharded(mesh, O._grad_spec(ms[k]), tuple(g.shape),
-                                 red[k]).full(), g) for k, g in g1.items())
+    gerr = max(_rel(O.moment_sharded(sm, k, ms[k], red[k]).full(), g)
+               for k, g in g1.items())
     if opt.quantize:
         merr = 0.0
         for k, m in st1["m"].items():
@@ -220,8 +220,11 @@ def test_gather_model_and_from_jax_weights_roundtrip(arch):
 def test_refusals():
     """The MoE and recurrent families and a block-sparse FFN shard and run
     (their steps and serving are held to one device in
-    ``test_torch_lm_sharded_{moe,recurrent,sparse}.py``); the serve rules
-    not executed here raise, naming the queue."""
+    ``test_torch_lm_sharded_{moe,recurrent,sparse}.py``); so do JAX's two
+    serve overrides, once refused here: a context-parallel cache
+    (``cache_seq``) and sequence-parallel attention (``attn_q_seq``) give
+    finite logits of the expected shape (held to one device in
+    ``test_torch_lm_serve_overrides.py``)."""
     mesh = _mesh((2, 4))
     for arch in ("mixtral-8x7b", "qwen2-moe-a2.7b", "mamba2-370m",
                  "recurrentgemma-2b"):
@@ -242,8 +245,13 @@ def test_refusals():
     cfg = configs.get_smoke("granite-34b")
     model = M.init(cfg, seed=0, device="cpu")
     sm = spmd.shard_model(model, mesh, {"cache_seq": "model"})
-    with pytest.raises(ValueError, match="not executed yet"):
-        sm.init_cache(2, 16)
+    cache = sm.init_cache(2, 16)
+    assert cache[0]["k"].spec == (("data",), "model", None, None)
+    logits, _ = M.prefill_step(sm, torch.zeros((2, 8), dtype=torch.long),
+                               alloc_seq=16)
+    assert logits.full().shape == (2, cfg.padded_vocab())
+    assert torch.isfinite(logits.full()).all()
     sm = spmd.shard_model(model, mesh, {"attn_q_seq": "model"})
-    with pytest.raises(ValueError, match="attn_q_seq"):
-        sm(torch.zeros((2, 4), dtype=torch.long))
+    logits = sm(torch.zeros((2, 4), dtype=torch.long)).full()
+    assert logits.shape == (2, 4, cfg.padded_vocab())
+    assert torch.isfinite(logits).all()

@@ -301,7 +301,8 @@ Phases, each printing one JSON line:
              long prefill and training step in a process of its own.
    lm_sharded — the dense LM over a (data 2, model 4) mesh of one card
              named 8 times (``models.spmd``): granite-34b at full width
-             cut to 2 layers, f32. One AdamW step on 4 x 1,024 tokens with
+             cut to 1 layer (2 until the mesh across processes came),
+             f32. One AdamW step on 4 x 1,024 tokens with
              FSDP and ZeRO-1 against the one-device step on the same
              seeded weights (the one-device reference first, its grads
              and first moments to the host, its model freed; the loss
@@ -310,26 +311,43 @@ Phases, each printing one JSON line:
              collectives by kind; then a prefill of 2 x 8,192 tokens (one
              sequence a data shard) and 4 decode steps under the default
              rules against one device (logits within 1e-4 of max|logit|
-             at every step), 16 flash launches in the sharded prefill (8
-             coordinates x 2 layers), counters zeroed just before; every
+             at every step), 8 flash launches in the sharded prefill (8
+             coordinates x 1 layer), counters zeroed just before; every
              run's collectives equal a meta-device run's to the byte.
              ``python3 chip_smoke.py --lm-sharded`` runs the build, this
              phase, lm_sharded_families and the mesh dry run alone.
    lm_sharded_families — the MoE, SSD and RG-LRU families through the
              same checks (``_sharded_arch``), each at full width cut to
              its depth (LM_FAMILIES_SHARDED: mixtral-8x7b 1 layer,
-             qwen2-moe-a2.7b 2, mamba2-370m 12, recurrentgemma-2b 13; the
+             qwen2-moe-a2.7b 1, mamba2-370m 6, recurrentgemma-2b 4; the
              train batch 4 x 1,024 tokens, recurrentgemma's 2 x 1,024).
              The MoE families print the tokens whose experts differ
              between the sharded run and one device, and where any do,
              the reference runs again on the sharded routes
              (``MoE.held_route``) before the comparison. Flash launches
              of the sharded prefill: 8 coordinates x the attention layers
-             (8, 16, 0, 32); peaks under 70 GB.
+             (8, 8, 0, 8); peaks under 70 GB.
              Then one sharded step of examples/train_sparse_lm.py's
              block-sparse configuration (d 768, 12 layers, blocks of 32)
              with half of each mask's blocks zeroed, held to one device,
              a zeroed block's gathered gradient 0.
+   lm_dist — the mesh across processes: granite-34b at full width cut to
+             1 layer, f32, on a (data 2, model 2) mesh of cuda:0 named
+             four times, one process a coordinate (``launch.ranks.spawn``,
+             torch.multiprocessing's spawn) joined by a gloo process
+             group, CUDA tensors staged through host memory: one AdamW
+             step of 2 x 1,024 tokens (FSDP and ZeRO-1), then a prefill of
+             1 x 8,192 (each rank launches the flash kernel on its 24
+             heads) and 4 decode steps; then the one-process path on the
+             same mesh shape from the same seeds. Every rank's loss within
+             1e-5, gradients, first moments and logits within 1e-4 of
+             their max, its collectives' counts and bytes the one-process
+             run's, its flash launches the one-process run's a
+             coordinate; per-rank step, prefill and decode ms beside the
+             one-process run's, and the host seconds of the transport. A
+             rank that fails or outlives the phase's timeout fails the
+             smoke. ``python3 chip_smoke.py --lm-dist`` runs the build and
+             this phase alone.
 21. proofs, dryrun, examples — with every exit-code subprocess of the
              smoke in one pool at the end (``late_checks``: these four,
              tenancy's serve bench and example, the training and
@@ -4124,9 +4142,11 @@ LM_FAULT_ROW = 4096           # the planted fault: key tile 0 dropped from
 LM_DEPTH = 4                  # granite-34b cut from 88 layers, widths kept
 LM_LOGIT_TOL = 1e-3           # f32 decode logits vs teacher-forced prefill
 # (label, B, S, KV, G, hd, window, soft cap): granite-34b's prefill wave,
+# its 24 heads a coordinate of model 2 (phase lm_dist's prefill),
 # mixtral-8x7b's and recurrentgemma-2b's attention shapes, edge shapes.
 LM_KERNEL_CASES = [
     ("granite", 2, 8192, 1, 48, 128, None, None),
+    ("granite_rank", 1, 8192, 1, 24, 128, None, None),
     ("mixtral", 1, 8192, 8, 4, 128, 4096, None),
     ("recurrentgemma", 1, 4096, 1, 10, 256, 2048, 30.0),
     # phase lm_families' prefill shapes (mixtral's is the one above)
@@ -5728,8 +5748,9 @@ def lm_recurrent_path(torch, launchers=True):
 # ----------------------------------------------------------------------
 # The dense LM over a (data, model) mesh (slice 14): granite-34b at full
 # width (d 6,144, 48 heads on one kv head, d_ff 24,576, vocab 49,152) cut
-# to 2 layers, f32, on one card named 8 times as a (data 2, model 4) mesh.
-LM_SHARDED = {"arch": "granite-34b", "layers": 2, "mesh": (2, 4),
+# to 1 layer (2 until phase lm_dist came), f32, on one card named 8 times
+# as a (data 2, model 4) mesh.
+LM_SHARDED = {"arch": "granite-34b", "layers": 1, "mesh": (2, 4),
               "batch": 4, "seq": 1024, "prefill": (2, 8192), "decode": 4,
               "seed": 41}
 LM_SHARDED_LOSS_RTOL = 1e-5  # the sharded step's loss against one device's
@@ -5765,8 +5786,12 @@ def _timed(torch, fn):
 
 
 def _coll(mesh):
+    return _coll_of(mesh.collectives)
+
+
+def _coll_of(rec):
     return {k: {"count": v["count"], "wire_gb": v["wire_bytes"] / 1e9}
-            for k, v in mesh.collectives.items() if v["count"]}
+            for k, v in rec.items() if v["count"]}
 
 
 # Phase lm_sharded_families: the MoE, SSD and RG-LRU families over the same
@@ -5775,12 +5800,13 @@ def _coll(mesh):
 # Each serves under JAX's serve overrides (``dryrun.cell_overrides`` of the
 # prefill cell: a context-parallel KV cache, and recurrentgemma's 10 heads
 # sequence-parallel). Cut for the serve overrides' phases: qwen2-moe from
-# 2 layers, mamba2 from 12, recurrentgemma from 13 (7 keeps two of its
-# local attention layers), the sparse FFN from 12.
+# 2 layers, mamba2 from 12, recurrentgemma from 13 to 7, the sparse FFN
+# from 12; and for phase lm_dist recurrentgemma from 7 to 4 (one local
+# attention layer, its third).
 LM_FAMILIES_SHARDED = {"mixtral-8x7b": (1, (4, 1024)),
                        "qwen2-moe-a2.7b": (1, (4, 1024)),
                        "mamba2-370m": (6, (4, 1024)),
-                       "recurrentgemma-2b": (7, (2, 1024))}
+                       "recurrentgemma-2b": (4, (2, 1024))}
 # examples/train_sparse_lm.py's ~100M block-sparse configuration (d 768,
 # blocks of 32) at 6 of its 12 layers, half of each mask's blocks zeroed;
 # one step.
@@ -5862,6 +5888,26 @@ def _worst_errs(torch, got, ref):
     return out
 
 
+def _sharded_step(torch, T, sh, mesh, sm, batch, opt, rules):
+    """One AdamW step of ``sm`` on ``batch`` under ``rules``, the mesh's
+    collectives zeroed just before: the loss, the reduced gradients, the
+    optimizer state, the moments' specs and the step's ms
+    (CUDA-synchronized host clock)."""
+    with sh.axis_rules(mesh, rules):
+        ms = T.trainer.moment_specs(opt, sm)
+        st = T.trainer.init_sharded_opt_state(opt, sm)
+        mesh.reset_collectives()
+
+        def step():
+            loss, parts = T.trainer.sharded_loss_and_grads(sm, batch)
+            red = T.trainer.reduce_grads(sm, parts, ms)
+            del parts
+            T.O.sharded_adamw_update(opt, red, st, sm, ms)
+            return loss, red
+        (loss, red), step_ms = _timed(torch, step)
+    return loss, red, st, ms, step_ms
+
+
 def phase_lm_sharded_train(torch, T, S, cfg, batch, opt, seed, rules=None):
     """One AdamW step with FSDP and ZeRO-1 (``rules``, default
     ``S.FSDP``) on ``batch``, the one-device
@@ -5882,18 +5928,8 @@ def phase_lm_sharded_train(torch, T, S, cfg, batch, opt, seed, rules=None):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     n = len(batch["tokens"])
-    with S.sh.axis_rules(S.mesh, rules):
-        ms = T.trainer.moment_specs(opt, sm)
-        st = T.trainer.init_sharded_opt_state(opt, sm)
-        S.mesh.reset_collectives()
-
-        def sharded():
-            loss, parts = T.trainer.sharded_loss_and_grads(sm, batch)
-            red = T.trainer.reduce_grads(sm, parts, ms)
-            del parts
-            T.O.sharded_adamw_update(opt, red, st, sm, ms)
-            return loss, red
-        (loss2, red), sh_ms = _timed(torch, sharded)
+    loss2, red, st, ms, sh_ms = _sharded_step(torch, T, S.sh, S.mesh, sm,
+                                              batch, opt, rules)
     peak = torch.cuda.max_memory_allocated() / 1e9
     coll = _exact_coll(S.mesh)
     routes2 = [r.to("cpu") for _, r in sm.joined_routes(n)]
@@ -6433,6 +6469,210 @@ def lm_sharded_families_path(torch):
     return launches, offset
 
 
+# ----------------------------------------------------------------------
+# The mesh across processes (slice 17): granite-34b at full width (d
+# 6,144, 48 heads on one kv head, d_ff 24,576, vocab 49,152) cut to 1 of
+# 88 layers, f32, TF32 off, on a (data 2, model 2) mesh of cuda:0 named
+# four times, one process a coordinate joined by a gloo process group
+# (CUDA tensors staged through host memory): a step of 2 x 1,024 tokens
+# (FSDP and ZeRO-1), then from fresh weights a prefill of 1 x 8,192 (the
+# flash kernel's threshold, so that each rank launches it on its 24
+# heads) and 4 decode steps under the default rules; held to the
+# one-process path on the same mesh shape.
+LM_DIST = {"arch": "granite-34b", "layers": 1, "mesh": (2, 2),
+           "batch": (2, 1024), "prefill": (1, 8192), "decode": 4,
+           "seed": 47, "timeout": 480}
+
+
+def _dist_run(torch, mesh, keep):
+    """LM_DIST's step (``_sharded_step``) and serve (``_serve_run``) on
+    ``mesh``: in one process every coordinate, under a process group the
+    rank's. The loss, each coordinate's reduced gradients and first
+    moments through ``keep`` (to the host, or kept on the card), each
+    call's logits on the host; the step, prefill and decode ms, the
+    collectives and their transport, flash launches and peak GB of each
+    run. A rank's step is the first f32 step of a fresh process, its
+    one-time set-up included."""
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import spmd
+    from repro_torch.train.zero import FSDP_OVERRIDES
+    T = _lm_train_modules()
+    g, seed = LM_DIST, LM_DIST["seed"]
+    cfg = _fam_cfg(T, g["arch"], g["layers"], dtype="float32")
+    batch = T.Tokens(cfg.vocab_size, *g["batch"], seed=seed).batch_at(0)
+    opt = T.O.AdamWConfig(lr=1e-4, warmup_steps=0)
+
+    def stats():
+        return {"collectives": _exact_coll(mesh),
+                "transport": dict(mesh.transport),
+                "flash_launches": T.F.LAUNCHES["flash_attention"],
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    sm = spmd.shard_model(T.M.init(cfg, seed=seed, device="cuda"), mesh,
+                          FSDP_OVERRIDES)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    T.F.reset_launches()
+    loss, red, st, _, step_ms = _sharded_step(torch, T, sh, mesh, sm, batch,
+                                              opt, FSDP_OVERRIDES)
+    out = {"train": {"step_ms": step_ms, **stats()}}
+    own = range(len(spmd.local_coords(mesh)))
+    kept = {"loss": float(loss),
+            "grads": [{k: None if v[i] is None else keep(v[i])
+                       for k, v in red.items()} for i in own],
+            "m": [{k: None if x.shards[i] is None else keep(x.shards[i])
+                   for k, x in st["m"].items()} for i in own]}
+    del sm, st, red, loss
+    torch.cuda.empty_cache()
+    b, s = g["prefill"]
+    gen = torch.Generator().manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    nxt = torch.randint(0, cfg.vocab_size, (b, g["decode"]), generator=gen)
+    sm = spmd.shard_model(T.M.init(cfg, seed=seed + 1, device="cuda"), mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.reset_collectives()
+    T.F.reset_launches()
+    kept["logits"], ms, _ = _serve_run(torch, T, sm, tok, nxt,
+                                       s + g["decode"])
+    out["serve"] = {"prefill_ms": ms[0], "decode_ms": ms[1:], **stats()}
+    del sm
+    torch.cuda.empty_cache()
+    return out, kept
+
+
+def lm_dist_rank(rank):
+    """Rank ``rank`` of phase lm_dist (``launch.ranks.spawn``): its
+    coordinate of LM_DIST on a mesh bound to the process group."""
+    import torch
+    from repro_torch.launch.mesh import make_process_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    mesh = make_process_mesh(LM_DIST["mesh"], ("data", "model"),
+                             device="cuda:0")
+    out, kept = _dist_run(torch, mesh, lambda t: t.cpu())
+    out.update(rank=mesh.rank, backend=mesh.backend,
+               stage_on_host=mesh.stage_on_host)
+    return out, kept
+
+
+def phase_lm_dist(torch):
+    """Phase lm_dist: LM_DIST's four ranks (``launch.ranks.spawn``, a
+    ``file://`` rendezvous under build/, every rank joined by the phase's
+    timeout: a rank that raises, exits non-zero or runs past it fails the
+    smoke), then the one-process path on a mesh of cuda:0 named four times
+    from the same seeds, in this process. Each rank's loss within
+    LM_SHARDED_LOSS_RTOL of the one-process run's, its reduced gradients,
+    first moments and every call's logits within LM_SHARDED_TOL of their
+    max, its collectives' counts and bytes the one-process run's, its
+    flash launches the one-process run's a coordinate (at least one).
+    Returns the flash launches of the ranks' and of the one-process
+    prefill."""
+    import shutil
+    from repro_torch.kernels import _build
+    from repro_torch.launch import ranks
+    from repro_torch.launch.mesh import Mesh
+    t0 = time.perf_counter()
+    g = LM_DIST
+    _build.build_all()          # the ranks load the libraries, build none
+    torch.cuda.empty_cache()
+    work = os.path.join(ROOT, "build", f"lm_dist-{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    n = int(np.prod(g["mesh"]))
+    try:
+        res = ranks.spawn(lm_dist_rank, n, backend="gloo", workdir=work,
+                          timeout=g["timeout"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ranks_s = time.perf_counter() - t0
+    mesh = Mesh(np.full(g["mesh"], "cuda:0", dtype=object),
+                ("data", "model"))
+    one, ref = _dist_run(torch, mesh, lambda t: t)
+    got = {r["rank"]: h for r, h in res}
+    kinds = ("grads", "m")
+    mine = {kind: [got[c][kind][0] for c in range(n)] for kind in kinds}
+    for kind in kinds:
+        for c, (x, want) in enumerate(zip(mine[kind], ref[kind])):
+            check({k for k, t in x.items() if t is None} ==
+                  {k for k, t in want.items() if t is None},
+                  f"lm_dist: coordinate {c}'s {kind} held where the "
+                  f"one-process run's are not")
+
+    def joined(parts, name):    # every coordinate's shard, flat, in order
+        return torch.cat([p[name].reshape(-1).cuda() for p in parts
+                          if p[name] is not None])
+    worst = _worst_errs(
+        torch, {kind: {k: (lambda kind=kind, k=k: joined(mine[kind], k))
+                       for k in ref[kind][0]} for kind in kinds},
+        {kind: {k: joined(ref[kind], k) for k in ref[kind][0]}
+         for kind in kinds})
+    errs = {"loss_rel_err": max(abs(h["loss"] / ref["loss"] - 1)
+                                for h in got.values()),
+            "grad_worst": worst["grads"], "moment_worst": worst["m"],
+            "logit_worst": [max(_rel_errs({"l": h["logits"][t]},
+                                          {"l": ref["logits"][t]})["l"]
+                                for h in got.values())
+                            for t in range(g["decode"] + 1)]}
+    del got, mine, ref, worst
+    per_rank = [r for r, _ in res]
+    del res
+    launches = [r["serve"]["flash_launches"] for r in per_rank]
+    emit({"phase": "lm_dist", "nvidia_smi": smi_line(),
+          "model": f"{g['arch']}, {g['layers']} of "
+          f"{_lm_train_modules().configs.get(g['arch']).n_layers} layers, "
+          f"full width, f32", "mesh": {"data": g["mesh"][0],
+                                       "model": g["mesh"][1]},
+          "backend": per_rank[0]["backend"], "ranks": n,
+          "devices": sorted({str(d) for d in mesh.device_list}),
+          "transport": "staged through host memory" if all(
+              r["stage_on_host"] for r in per_rank) else "device",
+          "train_tokens": g["batch"][0] * g["batch"][1],
+          "prefill": list(g["prefill"]), "decode_steps": g["decode"],
+          "step_ms": {"one_process": one["train"]["step_ms"],
+                      "ranks": [r["train"]["step_ms"] for r in per_rank]},
+          "prefill_ms": {"one_process": one["serve"]["prefill_ms"],
+                         "ranks": [r["serve"]["prefill_ms"]
+                                   for r in per_rank]},
+          "decode_ms": {"one_process": one["serve"]["decode_ms"],
+                        "ranks": [r["serve"]["decode_ms"]
+                                  for r in per_rank]},
+          "transport_s": {k: [r[k]["transport"] for r in per_rank]
+                          for k in ("train", "serve")},
+          "collectives": {"train": _coll_of(one["train"]["collectives"]),
+                          "serve": _coll_of(one["serve"]["collectives"])},
+          "peak_gb": {"one_process": [one["train"]["peak_gb"],
+                                      one["serve"]["peak_gb"]],
+                      "ranks": [[r["train"]["peak_gb"],
+                                 r["serve"]["peak_gb"]] for r in per_rank]},
+          "flash_launches": {"ranks": launches,
+                             "one_process": one["serve"]["flash_launches"]},
+          **errs, "ranks_s": ranks_s,
+          "seconds": time.perf_counter() - t0})
+    check(all(r["backend"] == "gloo" and r["stage_on_host"]
+              for r in per_rank), "lm_dist: a rank did not stage gloo's "
+          "CUDA tensors through the host")
+    check(sorted(r["rank"] for r in per_rank) == list(range(n)),
+          "lm_dist: a rank is missing")
+    check(errs["loss_rel_err"] <= LM_SHARDED_LOSS_RTOL,
+          f"lm_dist: a rank's loss off by {errs['loss_rel_err']}")
+    for what in ("grad_worst", "moment_worst"):
+        name, err = errs[what]
+        check(err <= LM_SHARDED_TOL, f"lm_dist: {what} {name} off by {err} "
+              f"of its max")
+    check(max(errs["logit_worst"]) <= LM_SHARDED_TOL,
+          f"lm_dist: logits off by {errs['logit_worst']}")
+    for kind in ("train", "serve"):
+        for r in per_rank:
+            check(r[kind]["collectives"] == one[kind]["collectives"],
+                  f"lm_dist: rank {r['rank']}'s {kind} collectives are not "
+                  f"the one-process run's")
+    want = one["serve"]["flash_launches"] // n
+    check(want >= 1 and one["serve"]["flash_launches"] == want * n and
+          launches == [want] * n, f"lm_dist: flash launches {launches} a "
+          f"rank, the one-process run {one['serve']['flash_launches']}")
+    return sum(launches), one["serve"]["flash_launches"]
+
+
 DRYRUN_MESH_JSON = os.path.join("build", "dryrun_mesh.json")
 DRYRUN_MESH_JOB = ("repro_torch.launch.dryrun", "--all", "--single-pod",
                    "--json", DRYRUN_MESH_JSON)
@@ -6705,6 +6945,26 @@ def lm_sharded_only() -> int:
     return 0
 
 
+def lm_dist_only() -> int:
+    """``python3 chip_smoke.py --lm-dist``: the build and phase lm_dist
+    alone (a quick loop on the process-group path; not the smoke run)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    phase_env(torch, _build)
+    launches = phase_lm_dist(torch)
+    emit({"phase": "done", "seconds": time.perf_counter() - t0,
+          "flash_launches": launches})
+    print(smi_line(), flush=True)
+    return 0
+
+
 def lm_families_only() -> int:
     """``python3 chip_smoke.py --lm-families``: the build and phase
     lm_families alone (a quick loop on that path; not the smoke run)."""
@@ -6869,6 +7129,11 @@ def main() -> int:
         "shape", "q_offset", "sk", "ms", "ms_f32_inputs", "plain_ms",
         "bound_ms", "bound_by", "library_ms")}
     torch.cuda.empty_cache()
+    dist_ranks, dist_one = phase_lm_dist(torch)
+    r["launches_by_path"]["lm_dist"] = dist_ranks
+    r["launches_by_path"]["lm_dist_one_process"] = dist_one
+    r["launches"] += dist_ranks + dist_one
+    torch.cuda.empty_cache()
     fam_launcher, rec_launcher = late_checks(torch, granite)
     r["launches_by_path"]["lm_families_launchers"] = fam_launcher
     r["launches_by_path"]["lm_recurrent_launchers"] = rec_launcher
@@ -6898,6 +7163,8 @@ if __name__ == "__main__":
         sys.exit(lm_recurrent_only())
     if len(sys.argv) == 2 and sys.argv[1] == "--lm-sharded":
         sys.exit(lm_sharded_only())
+    if len(sys.argv) == 2 and sys.argv[1] == "--lm-dist":
+        sys.exit(lm_dist_only())
     if len(sys.argv) == 2 and sys.argv[1] == "--lm-recurrent-profile":
         sys.exit(lm_recurrent_profile())
     if len(sys.argv) == 2 and sys.argv[1] == "--serial":

@@ -23,7 +23,13 @@ written.
                  same weights; a ``ShardedModel`` template on any mesh and
                  rule table, or a one-device ``Model``, takes it back,
                  each leaf cut by the template's spec (JAX's
-                 ``restore(step, template, shardings)``).
+                 ``restore(step, template, shardings)``). On a mesh
+                 bound to a process group every rank calls ``save``:
+                 the sharded leaves are gathered to rank 0, which alone
+                 builds the host copy and writes the same file (at
+                 once, not on the writer thread), and a barrier
+                 follows, so a ``restore`` that comes after it finds
+                 the file on every rank, each cutting its own shard.
   * AUTO-RESUME — ``latest_step`` + ``restore`` pick up after preemption;
                  partial writes are ignored (no manifest entry), a corrupt
                  manifest reads as empty.
@@ -127,9 +133,7 @@ def _walk(tree: Any, stop: Callable[[Any], bool] = lambda x: False,
 def _host(leaf: Any) -> np.ndarray:
     """A host copy of ``leaf`` that shares no memory with it: the writer
     thread reads it while the next step writes the live tensors in
-    place. A ``spmd.Sharded`` is assembled whole."""
-    if isinstance(leaf, spmd.Sharded):
-        leaf = leaf.full("cpu")
+    place."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
@@ -140,13 +144,31 @@ def _host(leaf: Any) -> np.ndarray:
     raise TypeError(f"cannot checkpoint a {type(leaf).__name__}")
 
 
-def _flatten(tree: Any) -> Dict[str, np.ndarray]:
-    """path -> host array for every leaf."""
+def _process_mesh(tree: Any):
+    """The process-group mesh of the tree's sharded leaves, or None."""
+    for _, leaf in _walk(tree, lambda x: isinstance(x, ShardedModel)):
+        if isinstance(leaf, (ShardedModel, spmd.Sharded)) and \
+                leaf.mesh.rank is not None:
+            return leaf.mesh
+    return None
+
+
+def _flatten(tree: Any, mesh=None) -> Dict[str, np.ndarray]:
+    """path -> host array for every leaf, a ``spmd.Sharded`` assembled
+    whole. Under a process group (``mesh``, bound to it) the sharded
+    leaves are gathered to rank 0; the other ranks send their shards and
+    keep nothing (an empty dict)."""
+    keep = mesh is None or mesh.rank == 0
     out: Dict[str, np.ndarray] = {}
+    seen = set()
     for key, leaf in _walk(tree):
-        if key in out:
+        if key in seen:
             raise ValueError(f"duplicate checkpoint key {key!r}")
-        out[key] = _host(leaf)
+        seen.add(key)
+        if isinstance(leaf, spmd.Sharded):
+            leaf = leaf.full("cpu", root=0)
+        if keep:
+            out[key] = _host(leaf)
     return out
 
 
@@ -413,7 +435,16 @@ class CheckpointManager:
         of lifecycle nodes ride along."""
         if self._err:
             raise RuntimeError("async checkpoint writer failed") from self._err
-        flat = _flatten(tree)
+        mesh = _process_mesh(tree)
+        flat = _flatten(tree, mesh)
+        if mesh is not None:
+            import torch.distributed as dist
+            if mesh.rank == 0:
+                flat.update(_pattern_arrays(tree))
+                self.wait()
+                self._write(step, flat)
+            dist.barrier()
+            return
         flat.update(_pattern_arrays(tree))
         if self._thread is None:
             self._write(step, flat)

@@ -12,10 +12,19 @@ tensors and its own launches, as JAX's fake host devices do on the CPU;
 names the device; nothing picks devices behind its back. Each mesh keeps
 the count and bytes of the collectives run over it (``collectives``,
 ``models.spmd``).
+
+One process runs every coordinate of a mesh by default. A mesh bound to
+an initialised ``torch.distributed`` process group (``process_group=True``,
+or ``make_process_mesh``) has one process a coordinate instead: rank r
+runs coordinate r, and every collective is the backend's across the
+processes (``models.spmd``). The caller initialises the group and so
+names the backend: gloo (a card may repeat; CUDA tensors are staged
+through host memory, decided here once) or NCCL (one card a rank).
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import itertools
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,9 +36,19 @@ class Mesh:
     ``devices`` is a numpy object array (its ``shape`` the mesh's),
     ``axis_names`` the axes in order, ``shape`` a dict axis -> size, as
     JAX's ``Mesh.shape``. Identity equality: two meshes of the same
-    devices are two placements."""
+    devices are two placements.
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    With ``process_group``, the mesh is bound to the initialised default
+    process group, whose world size must be the mesh's size: ``rank`` is
+    this process's coordinate (None in one process), ``backend`` the
+    group's, ``stage_on_host`` whether collectives copy CUDA tensors to
+    host memory and back (gloo with CUDA devices), and ``groups`` one
+    process group a set of coordinates that some combination of axes
+    groups (by their sorted ranks), made here in one order on every
+    rank, as ``torch.distributed.new_group`` needs."""
+
+    def __init__(self, devices, axis_names: Sequence[str], *,
+                 process_group: bool = False):
         flat = [torch.device(d) for d in np.asarray(devices,
                                                     dtype=object).ravel()]
         arr = np.empty(len(flat), dtype=object)
@@ -50,15 +69,61 @@ class Mesh:
         self._coords = tuple(
             dict(zip(self.axis_names, map(int, np.unravel_index(
                 i, self.devices.shape)))) for i in range(self.size))
+        self.rank: Optional[int] = None
+        self.backend: Optional[str] = None
+        self.stage_on_host = False
+        self.groups: Dict[Tuple[int, ...], object] = {}
+        if process_group:
+            self._bind(flat)
         self.reset_collectives()
+
+    def _bind(self, flat) -> None:
+        import torch.distributed as dist
+
+        from ..models import spmd
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError("a process mesh needs torch.distributed."
+                               "init_process_group first")
+        world, backend = dist.get_world_size(), dist.get_backend()
+        if world != self.size:
+            raise ValueError(f"the process group has {world} ranks, the "
+                             f"mesh {self.size} coordinates")
+        kind = flat[0].type
+        if backend not in ("gloo", "nccl") or kind == "meta":
+            raise ValueError(f"a process mesh runs gloo or nccl on cpu or "
+                             f"cuda devices, got {backend} on {kind}")
+        if backend == "nccl":
+            if kind != "cuda" or any(d.index is None for d in flat):
+                raise ValueError("NCCL needs a card with an index at every "
+                                 "coordinate")
+            if len(set(flat)) != len(flat):
+                raise ValueError(f"NCCL takes one rank a card; the mesh "
+                                 f"names a card twice: "
+                                 f"{[str(d) for d in flat]}")
+        self.rank, self.backend = dist.get_rank(), backend
+        self.stage_on_host = backend == "gloo" and kind == "cuda"
+        for k in range(1, len(self.axis_names) + 1):
+            for axes in itertools.combinations(self.axis_names, k):
+                for grp in spmd.groups(self, axes):
+                    key = tuple(sorted(grp))
+                    if len(key) > 1 and key not in self.groups:
+                        self.groups[key] = dist.new_group(list(key))
 
     def reset_collectives(self) -> None:
         """Zero ``collectives``: {kind: {"count", "result_bytes",
-        "wire_bytes"}} per device, the kinds of ``models.spmd.KINDS``."""
+        "wire_bytes"}} per device, the kinds of ``models.spmd.KINDS``;
+        and ``transport``, what this process's collectives cost under a
+        process group: host seconds in the backend's calls
+        (``collective_s``), and where the mesh stages, the seconds and
+        bytes of the copies to host memory and back (``stage_s``,
+        ``staged_bytes``; each copy after the card's queue is drained, so
+        compute is not counted)."""
         self.collectives: Dict[str, Dict[str, float]] = {
             k: {"count": 0, "result_bytes": 0.0, "wire_bytes": 0.0}
             for k in ("all-reduce", "all-gather", "reduce-scatter",
                       "all-to-all")}
+        self.transport: Dict[str, float] = {
+            "collective_s": 0.0, "stage_s": 0.0, "staged_bytes": 0}
 
     @property
     def size(self) -> int:
@@ -79,8 +144,10 @@ class Mesh:
         return tuple(self.devices.ravel())
 
     def __repr__(self) -> str:
+        bound = "" if self.rank is None else \
+            f", rank={self.rank}, backend={self.backend}"
         return (f"Mesh({self.shape}, devices="
-                f"{[str(d) for d in self.device_list]})")
+                f"{[str(d) for d in self.device_list]}{bound})")
 
 
 def make_mesh(n: int, device=None, *, axis: str = "data") -> Mesh:
@@ -112,6 +179,21 @@ def _devices(n: int, device, what: str):
                     f"hold every shard on it)")
             return [torch.device("cuda", i) for i in range(n)]
     return [dev] * n
+
+
+def make_process_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
+                      device) -> Mesh:
+    """A mesh of ``shape`` over ``axis_names`` bound to the initialised
+    default process group (its world size the mesh's): rank r runs
+    coordinate r, row-major. ``device``: ``"cpu"``, a card with an index
+    (``"cuda:0"``: that card at every coordinate, which gloo takes and
+    NCCL refuses) or ``"cuda"`` (coordinate i on card i, raising where
+    fewer are visible). Under NCCL each rank should make its own card
+    current (``torch.cuda.set_device``) before the first collective."""
+    n = int(np.prod(tuple(shape)))
+    devs = np.empty(n, dtype=object)
+    devs[:] = _devices(n, device, f"a {'x'.join(map(str, shape))} mesh")
+    return Mesh(devs.reshape(tuple(shape)), axis_names, process_group=True)
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
@@ -154,5 +236,5 @@ def make_pipeline_mesh(n_stages: int = 8, device=None) -> Mesh:
                 ("pipe", "data"))
 
 
-__all__ = ["Mesh", "make_mesh", "make_pipeline_mesh",
+__all__ = ["Mesh", "make_mesh", "make_pipeline_mesh", "make_process_mesh",
            "make_production_mesh"]

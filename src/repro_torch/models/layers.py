@@ -541,7 +541,8 @@ def _attention_spans(sm, li: int, xs, pos, *, window, mode: str, caches,
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g, dt, s = h // kvh, xs[0].dtype, xs[0].shape[1]
     pre = f"blocks.{li}.mixer."
-    coords, sizes = mesh.coords()[:n], mesh.shape
+    coords = [mesh.coords()[c] for c in spmd.local_coords(mesh)]
+    sizes = mesh.shape
     wq, qspan, qax = sm.weight(pre + "wq", 1, act, dt)
     q = [x @ w for x, w in zip(xs, wq)]
     wk, kspan, kax = sm.weight(pre + "wk", 1, act, dt)

@@ -332,10 +332,35 @@ class ShardedModel:
 
     def joined_routes(self, batch: int) -> List[Tuple[int, layers.Route]]:
         """(layer, the ``Route`` of the whole batch) of each logged MoE
-        call (``route_log``) of a batch of ``batch`` sequences."""
-        return [(li, layers.join_routes(rs, self.rows(batch),
-                                        rs[0].topi.shape[1]))
-                for li, rs in self.route_log]
+        call (``route_log``) of a batch of ``batch`` sequences. Under a
+        process group a rank logs its own coordinate's routes alone:
+        every rank calls this, the ranks' logs are all-gathered through
+        host memory (not counted in ``mesh.collectives``) and each rank
+        joins every coordinate's."""
+        if self.mesh.rank is None:
+            log, rows = self.route_log, self.rows(batch)
+        else:
+            log, rows = self._every_coordinates_routes(batch)
+        return [(li, layers.join_routes(rs, rows, rs[0].topi.shape[1]))
+                for li, rs in log]
+
+    def _every_coordinates_routes(self, batch: int):
+        """(route_log with every coordinate's routes, each coordinate's
+        batch rows) under a process group, on the rank's device."""
+        import torch.distributed as dist
+        mesh = self.mesh
+        mine = [(li, rs[0].to("cpu")) for li, rs in self.route_log]
+        every = [mine]
+        if mesh.size > 1:
+            every = [None] * mesh.size
+            dist.all_gather_object(every, mine,
+                                   group=mesh.groups[tuple(range(mesh.size))])
+        dev = spmd.local_devices(mesh)[0]
+        log = [(li, [every[c][j][1].to(dev) for c in range(mesh.size)])
+               for j, (li, _) in enumerate(mine)]
+        ent, sizes = self.batch_entry(batch), mesh.shape
+        return log, [sh.shard_slice(batch, ent, sizes, c)
+                     for c in mesh.coords()]
 
     def leaves(self) -> List[torch.Tensor]:
         """Every shard of every parameter, by name then coordinate."""
@@ -348,17 +373,17 @@ class ShardedModel:
                                (batch,))[0]
 
     def rows(self, batch: int) -> List[slice]:
-        """The batch rows each coordinate holds."""
+        """The batch rows each coordinate the process runs holds."""
         ent, sizes = self.batch_entry(batch), self.mesh.shape
-        return [sh.shard_slice(batch, ent, sizes, c)
-                for c in self.mesh.coords()[:spmd.n_coords(self.mesh)]]
+        return [sh.shard_slice(batch, ent, sizes, self.mesh.coords()[c])
+                for c in spmd.local_coords(self.mesh)]
 
     def split(self, x, batch: int) -> List[torch.Tensor]:
         """A global batch-major tensor cut into each coordinate's rows, on
         its device."""
         x = torch.as_tensor(x)
         return [x[r].to(d) for r, d in zip(self.rows(batch),
-                                            self.mesh.device_list)]
+                                            spmd.local_devices(self.mesh))]
 
     def weight(self, name: str, keep: Optional[int], act, dtype=None):
         """Per coordinate, parameter ``name`` (cast to ``dtype`` first,

@@ -1,36 +1,43 @@
-"""Placement and collectives of a model over a device mesh, in one process.
+"""Placement and collectives of a model over a device mesh.
 
 JAX hands a sharded program to XLA's SPMD partitioner, which places each
 array by its ``PartitionSpec`` and inserts the collectives. The port does
 both in its own code, here:
 
 * **Placement.** A ``Sharded`` tensor is a grid of shards, one tensor for
-  each mesh coordinate (row-major over ``mesh.coords()``), on that
+  each coordinate the process runs (``local_coords``), on that
   coordinate's device, each of the shape ``sharding.shard_shape`` gives
   its spec (a dim splits into equal parts over its spec entry's axes, the
   first axis outermost). ``place`` cuts a tensor into one; ``full``
-  assembles it again. A per-coordinate list of tensors with no spec (an
-  activation, a gradient) is what the collectives take and return.
+  assembles it again. A list of tensors with no spec, one a coordinate
+  the process runs (an activation, a gradient), is what the collectives
+  take and return.
 * **Collectives.** ``all_gather``, ``reduce_scatter``, ``all_reduce`` and
   ``all_to_all`` over named mesh axes, each run as one
-  ``torch.autograd.Function`` over every coordinate, whose backward is the
-  exact adjoint: an all-gather's is a reduce-scatter, an all-reduce's an
-  all-reduce, a reduce-scatter's an all-gather, an all-to-all's the
-  reverse all-to-all. A group is the coordinates that differ only on the
-  named axes, ordered as a spec entry orders its shards. Each call, in the
-  forward and in the backward, adds to ``mesh.collectives`` by kind, per
-  device: ``count``, ``result_bytes`` (one device's result) and
-  ``wire_bytes``, JAX's ring formulas (``repro.launch.dryrun``): with g
-  devices in a group, an all-reduce moves 2 (g - 1) / g of its bytes, an
-  all-gather (g - 1) / g of the gathered result, a reduce-scatter (g - 1)
-  times the scattered result, an all-to-all (g - 1) / g. A group of one
-  moves nothing and is not counted (nor run).
+  ``torch.autograd.Function`` over the process's coordinates, whose
+  backward is the exact adjoint: an all-gather's is a reduce-scatter, an
+  all-reduce's an all-reduce, a reduce-scatter's an all-gather, an
+  all-to-all's the reverse all-to-all. A group is the coordinates that
+  differ only on the named axes, ordered as a spec entry orders its
+  shards. Each call, in the forward and in the backward, adds to
+  ``mesh.collectives`` by kind, per device: ``count``, ``result_bytes``
+  (one device's result) and ``wire_bytes``, JAX's ring formulas
+  (``repro.launch.dryrun``): with g devices in a group, an all-reduce
+  moves 2 (g - 1) / g of its bytes, an all-gather (g - 1) / g of the
+  gathered result, a reduce-scatter (g - 1) times the scattered result,
+  an all-to-all (g - 1) / g. A group of one moves nothing and is not
+  counted (nor run).
 
-Today a collective is a tensor move and a sum inside one process (a mesh
-of one card named N times, of distinct cards, of the CPU or of ``meta``).
-This module is the only place that knows how a collective is done, so a
-later change can back it with ``torch.distributed`` across processes
-without touching the model.
+Three ways to run a mesh (``launch.mesh``): one process runs every
+coordinate, and a collective is a tensor move and a sum inside it (a mesh
+of one card named N times, of distinct cards, of the CPU); a mesh of
+``meta`` devices runs coordinate 0 alone (the dry run); a mesh bound to a
+``torch.distributed`` process group runs one coordinate a process, and a
+collective is the backend's ``all_reduce``, ``all_gather_into_tensor``,
+``reduce_scatter_tensor`` or ``all_to_all_single`` over the group's
+process group, through host memory where the mesh stages (gloo with CUDA
+tensors). Each rank's counts are the one-process run's. This module is
+the only place that knows how a collective is done.
 
 ``shard_model`` places a ``models.model.Model``'s parameters by their
 logical axes under a rule table (a ``model.ShardedModel``);
@@ -39,6 +46,7 @@ logical axes under a rule table (a ``model.ShardedModel``);
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -78,14 +86,26 @@ def groups(mesh, axes: Sequence[str]) -> List[List[int]]:
         -1, group_size(mesh, axes)).tolist()
 
 
-def n_coords(mesh) -> int:
-    """The coordinates a program runs: every one, or on a mesh of ``meta``
-    devices (shapes, no values: the dry run) coordinate 0 alone. There
-    every coordinate's program is coordinate 0's (``resolve`` gives every
-    shard of a tensor one shape), so each ``Sharded`` holds coordinate 0's
-    shard, each collective shapes its result from coordinate 0's operand
-    and counts what every device moves."""
-    return 1 if mesh.device_list[0].type == "meta" else mesh.size
+def local_coords(mesh) -> List[int]:
+    """The coordinate indices this process runs, in the order of every
+    per-coordinate list (a ``Sharded``'s shards, a collective's operands):
+    every one in one process; on a mesh of ``meta`` devices (shapes, no
+    values: the dry run) coordinate 0 alone, whose program is every
+    coordinate's (``resolve`` gives every shard of a tensor one shape), so
+    each collective shapes its result from coordinate 0's operand and
+    counts what every device moves; on a mesh bound to a process group the
+    rank's own. Entry i of such a list is coordinate
+    ``local_coords(mesh)[i]``: a decision one coordinate takes from its
+    spans is every coordinate's, since the shards are equal."""
+    if mesh.rank is not None:
+        return [mesh.rank]
+    return [0] if mesh.device_list[0].type == "meta" else \
+        list(range(mesh.size))
+
+
+def local_devices(mesh) -> List[torch.device]:
+    """The device of each coordinate this process runs."""
+    return [mesh.device_list[c] for c in local_coords(mesh)]
 
 
 def _bytes(t: torch.Tensor) -> int:
@@ -105,9 +125,13 @@ def _count(mesh, kind: str, g: int, result: torch.Tensor) -> None:
 
 
 def _run(mesh, kind: str, axes, dims, xs, op: str = "sum"):
-    """One collective over every group; returns one tensor a coordinate,
-    each its own (never another coordinate's object)."""
+    """One collective over every group; returns one tensor a coordinate the
+    process runs, each its own (never another coordinate's object)."""
     g = group_size(mesh, axes)
+    if mesh.rank is not None:           # one coordinate a process
+        out = [_run_group(mesh, kind, axes, dims, xs[0], op)]
+        _count(mesh, kind, g, out[0])
+        return out
     if len(xs) < mesh.size:             # a meta mesh: coordinate 0 alone
         x = xs[0]
         res = {"all-reduce": lambda: x,
@@ -143,6 +167,66 @@ def _run(mesh, kind: str, axes, dims, xs, op: str = "sum"):
     return out
 
 
+def _dist_call(names):
+    """The first of ``names`` that this torch's ``torch.distributed`` has
+    (a later torch renames ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor``, and warns at the old names)."""
+    import torch.distributed as dist
+    return next(getattr(dist, n) for n in names if hasattr(dist, n))
+
+
+def _run_group(mesh, kind: str, axes, dims, x: torch.Tensor, op: str
+               ) -> torch.Tensor:
+    """The rank's part of one collective over its group's process group.
+    The process group orders its members by rank; the mesh's group order
+    (``groups``) may differ, so parts are sent and read by each member's
+    place in it. Under ``mesh.stage_on_host`` the operand goes to host
+    memory and the result back."""
+    import torch.distributed as dist
+    grp = next(gr for gr in groups(mesh, axes) if mesh.rank in gr)
+    ranks = sorted(grp)
+    pg = mesh.groups[tuple(ranks)]
+    g, dev, cost = len(grp), x.device, mesh.transport
+    x = x.detach()
+    if mesh.stage_on_host:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        x = x.to("cpu")
+        cost["stage_s"] += time.perf_counter() - t0
+        cost["staged_bytes"] += _bytes(x)
+    t0 = time.perf_counter()
+    if kind == "all-reduce":
+        res = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(res, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=pg)
+    elif kind == "all-gather":
+        # the flat form every backend takes: the members' operands in turn
+        got = x.new_empty((g,) + tuple(x.shape))
+        _dist_call(("all_gather_single", "all_gather_into_tensor"))(
+            got.view(-1), x.reshape(-1).contiguous(), group=pg)
+        res = torch.cat([got[ranks.index(m)] for m in grp], dims[0])
+    else:
+        parts = x.chunk(g, dims[0])
+        send = torch.stack([parts[grp.index(r)] for r in ranks])
+        if kind == "reduce-scatter":
+            res = x.new_empty(parts[0].shape)
+            _dist_call(("reduce_scatter_single", "reduce_scatter_tensor"))(
+                res.view(-1), send.view(-1), op=dist.ReduceOp.SUM, group=pg)
+        else:                       # all-to-all: split dims[0], cat dims[1]
+            got = torch.empty_like(send)
+            dist.all_to_all_single(got, send, group=pg)
+            res = torch.cat([got[ranks.index(m)] for m in grp], dims[1])
+    cost["collective_s"] += time.perf_counter() - t0
+    if not mesh.stage_on_host:
+        return res.contiguous()
+    t0 = time.perf_counter()
+    res = res.to(dev).contiguous()
+    torch.cuda.synchronize(dev)
+    cost["stage_s"] += time.perf_counter() - t0
+    cost["staged_bytes"] += _bytes(res)
+    return res
+
+
 _ADJOINT = {"all-reduce": "all-reduce", "all-gather": "reduce-scatter",
             "reduce-scatter": "all-gather", "all-to-all": "all-to-all"}
 
@@ -164,9 +248,9 @@ class _Collective(torch.autograd.Function):
 
 
 def _apply(xs, mesh, kind, axes, dims=()):
-    if len(xs) != n_coords(mesh):
+    if len(xs) != len(local_coords(mesh)):
         raise ValueError(f"a collective takes one tensor a coordinate "
-                         f"({n_coords(mesh)}), got {len(xs)}")
+                         f"({len(local_coords(mesh))}), got {len(xs)}")
     axes = _check_axes(mesh, axes)
     if group_size(mesh, axes) == 1:
         return list(xs)
@@ -215,19 +299,25 @@ def all_to_all(xs, mesh, axes: Sequence[str], split_dim: int,
 @dataclasses.dataclass
 class Sharded:
     """A tensor of global ``shape`` placed on ``mesh`` by ``spec``:
-    ``shards[i]`` is coordinate i's part (``mesh.coords()[i]``), or None
-    where the coordinate holds none (a layer's optimizer moments, owned by
-    other data coordinates: ``train.optimizer.moment_layout``)."""
+    ``shards[i]`` is the part of coordinate ``local_coords(mesh)[i]``, or
+    None where the coordinate holds none (a layer's optimizer moments,
+    owned by other data coordinates: ``train.optimizer.moment_layout``).
+    Under a process group a rank holds its own shard alone."""
     mesh: object
     spec: sh.Spec
     shape: Tuple[int, ...]
     shards: List[torch.Tensor]
 
-    def slices(self, i: int) -> Tuple[slice, ...]:
-        """The global region that coordinate ``i`` holds."""
-        coord, sizes = self.mesh.coords()[i], self.mesh.shape
+    def region(self, c: int) -> Tuple[slice, ...]:
+        """The global region that coordinate ``c`` (of ``mesh.coords()``)
+        holds."""
+        coord, sizes = self.mesh.coords()[c], self.mesh.shape
         return tuple(sh.shard_slice(n, e, sizes, coord)
                      for n, e in zip(self.shape, self.spec))
+
+    def slices(self, i: int) -> Tuple[slice, ...]:
+        """The global region of ``shards[i]``."""
+        return self.region(local_coords(self.mesh)[i])
 
     def span(self, i: int, dim: int) -> Tuple[int, int]:
         s = self.slices(i)[dim]
@@ -242,14 +332,61 @@ class Sharded:
         return self.held()[0].dtype
 
     @torch.no_grad()
-    def full(self, device=None) -> torch.Tensor:
-        """The global tensor on ``device`` (default: the first shard's)."""
-        dev = self.held()[0].device if device is None else device
+    def full(self, device=None, *, root: Optional[int] = None
+             ) -> Optional[torch.Tensor]:
+        """The global tensor on ``device`` (default: the first coordinate
+        the process runs). Under a process group every rank calls it: an
+        all-gather of every coordinate's shard, or with ``root`` a gather
+        to that rank alone, the others getting None (neither counted in
+        ``mesh.collectives``). ``root`` means nothing in one process."""
+        dev = local_devices(self.mesh)[0] if device is None else device
+        if self.mesh.rank is not None:
+            return self._gather_full(dev, root)
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
         for i, t in enumerate(self.shards):
             if t is not None:
                 out[self.slices(i)] = t.detach().to(dev)
         return out
+
+    def _gather_full(self, dev, root: Optional[int]
+                     ) -> Optional[torch.Tensor]:
+        import torch.distributed as dist
+        mesh, mine = self.mesh, self.shards[0]
+        if mesh.size == 1:
+            return mine.detach().to(dev, copy=True)
+        pg = mesh.groups[tuple(range(mesh.size))]
+        host = "cpu" if mesh.stage_on_host else local_devices(mesh)[0]
+        # which coordinates hold a shard, and its dtype: a non-owner of a
+        # layer's moments holds none and learns the dtype here
+        code = torch.tensor([-1 if mine is None else _DTYPES.index(
+            mine.dtype)], dtype=torch.int64, device=host)
+        codes = code.new_empty(mesh.size)
+        _dist_call(("all_gather_single", "all_gather_into_tensor"))(
+            codes, code, group=pg)
+        codes = codes.tolist()
+        dtype = _DTYPES[max(codes)]
+        shape = sh.shard_shape(self.shape, self.spec, mesh.shape)
+        part = (torch.zeros(shape, dtype=dtype, device=host) if mine is None
+                else mine.detach().to(host).contiguous())
+        if root is None:
+            got = part.new_empty((mesh.size,) + tuple(shape))
+            _dist_call(("all_gather_single", "all_gather_into_tensor"))(
+                got.view(-1), part.reshape(-1), group=pg)
+        elif mesh.rank == root:
+            got = list(part.new_empty((mesh.size,) + tuple(shape)))
+            dist.gather(part, got, dst=root, group=pg)
+        else:
+            dist.gather(part, None, dst=root, group=pg)
+            return None
+        out = torch.empty(self.shape, dtype=dtype, device=dev)
+        for c, held in enumerate(codes):
+            if held >= 0:
+                out[self.region(c)] = got[c].to(dev)
+        return out
+
+
+_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.float16,
+           torch.int8, torch.uint8, torch.int32, torch.int64)
 
 
 @torch.no_grad()
@@ -261,7 +398,7 @@ def place(t: torch.Tensor, mesh, spec: sh.Spec, *,
         raise ValueError(f"spec {spec} does not name the {t.ndim} dims of "
                          f"{tuple(t.shape)}")
     out = Sharded(mesh, tuple(spec), tuple(t.shape), [])
-    for i, dev in enumerate(mesh.device_list[:n_coords(mesh)]):
+    for i, dev in enumerate(local_devices(mesh)):
         part = t[out.slices(i)].to(dev, copy=True).contiguous()
         out.shards.append(nn.Parameter(part) if parameter else part)
     return out
@@ -272,7 +409,7 @@ def zeros(shape, dtype, mesh, spec: sh.Spec) -> Sharded:
     loc = sh.shard_shape(shape, spec, mesh.shape)
     return Sharded(mesh, tuple(spec), tuple(shape),
                    [torch.zeros(loc, dtype=dtype, device=d)
-                    for d in mesh.device_list[:n_coords(mesh)]])
+                    for d in local_devices(mesh)])
 
 
 # ----------------------------------------------------------------------
@@ -301,9 +438,10 @@ def shard_model(model, mesh, overrides: Optional[Dict[str, sh.MeshAxes]]
 @torch.no_grad()
 def gather_model(sharded, device=None):
     """The one-device ``Model`` of a ``ShardedModel``'s weights (and
-    masks), on ``device`` (default: the first coordinate's)."""
+    masks), on ``device`` (default: the first coordinate the process
+    runs); under a process group every rank gathers it."""
     from .model import Model
-    dev = sharded.mesh.device_list[0] if device is None else device
+    dev = local_devices(sharded.mesh)[0] if device is None else device
     model = Model(sharded.cfg, device=dev)
     for name, p in model.named_parameters():
         p.copy_(sharded.params[name].full(dev))
@@ -314,5 +452,5 @@ def gather_model(sharded, device=None):
 
 __all__ = ["KINDS", "Sharded", "all_gather", "all_reduce", "all_reduce_max",
            "all_to_all", "gather_model", "group_size", "groups",
-           "n_coords", "place", "reduce_scatter",
+           "local_coords", "local_devices", "place", "reduce_scatter",
            "shard_model", "zeros"]

@@ -218,9 +218,10 @@ def _grad_spec(spec):
 
 def moment_layout(model, name: str, spec) -> Tuple[Any, Any]:
     """(the spec of one coordinate's moment of parameter ``name``, over the
-    parameter's own dims; the coordinates that hold it: a list of bools,
-    or None for every one). ``spec`` is ``trainer.moment_specs``'s: a
-    block parameter's may carry JAX's leading stacked-layers entry, and
+    parameter's own dims; the coordinates that hold it: a list of bools
+    over the coordinates the process runs, or None for every one).
+    ``spec`` is ``trainer.moment_specs``'s: a block parameter's may
+    carry JAX's leading stacked-layers entry, and
     where that entry names mesh axes only the coordinates whose part of
     the stack of ``n_groups`` holds the layer's group own it."""
     p = model.params[name]
@@ -234,7 +235,7 @@ def moment_layout(model, name: str, spec) -> Tuple[Any, Any]:
         return loc, None
     grp = int(name.split(".")[1]) // len(model.cfg.block_pattern)
     spans = (owned_span(model, full[0], i)
-             for i in range(spmd.n_coords(model.mesh)))
+             for i in range(len(spmd.local_coords(model.mesh))))
     return loc, [sl.start <= grp < sl.stop for sl in spans]
 
 
@@ -255,9 +256,11 @@ def layer_stacks(model, mspecs) -> List[Tuple[Any, List[str]]]:
 
 
 def owned_span(model, entry, i: int) -> slice:
-    """The groups of a layer stack that coordinate ``i`` owns."""
-    return sh.shard_slice(model.cfg.n_groups, entry, model.mesh.shape,
-                          model.mesh.coords()[i])
+    """The groups of a layer stack that the process's ``i``-th coordinate
+    (``spmd.local_coords``) owns."""
+    mesh = model.mesh
+    return sh.shard_slice(model.cfg.n_groups, entry, mesh.shape,
+                          mesh.coords()[spmd.local_coords(mesh)[i]])
 
 
 def moment_sharded(model, name: str, spec, parts) -> spmd.Sharded:
@@ -273,8 +276,8 @@ def sharded_adamw_init(cfg: AdamWConfig, model, mspecs
                        ) -> Dict[str, Any]:
     """Zero moments of a ``ShardedModel`` placed by ``mspecs`` ({name:
     spec}, or {name: {"q": spec, "s": spec}} for int8 moments); the count
-    on the first coordinate's device. A moment owned by layer is held by
-    its owners only (``moment_layout``)."""
+    on the first local coordinate's device. A moment owned by layer is
+    held by its owners only (``moment_layout``)."""
     mesh = model.mesh
 
     def moment(name, p):
@@ -295,7 +298,7 @@ def sharded_adamw_init(cfg: AdamWConfig, model, mspecs
     return {"m": {k: moment(k, p) for k, p in model.params.items()},
             "v": {k: moment(k, p) for k, p in model.params.items()},
             "count": torch.zeros((), dtype=torch.int32,
-                                 device=mesh.device_list[0])}
+                                 device=spmd.local_devices(mesh)[0])}
 
 
 def _counts_in_norm(mesh, coord: Dict[str, int], spec) -> bool:
@@ -311,9 +314,8 @@ def sharded_global_norm(model, grads, mspecs) -> List[torch.Tensor]:
     the mesh: one copy a coordinate."""
     mesh = model.mesh
     parts = []
-    n = spmd.n_coords(mesh)
-    for i, (coord, dev) in enumerate(zip(mesh.coords()[:n],
-                                         mesh.device_list[:n])):
+    for i, c in enumerate(spmd.local_coords(mesh)):
+        coord, dev = mesh.coords()[c], mesh.device_list[c]
         total = torch.zeros((), dtype=torch.float32, device=dev)
         for name, gs in grads.items():
             if gs[i] is not None and _counts_in_norm(
@@ -326,10 +328,11 @@ def sharded_global_norm(model, grads, mspecs) -> List[torch.Tensor]:
 
 
 def _region(p, spec_m, i) -> Tuple[slice, ...]:
-    """Coordinate i's slice of its parameter shard that its moments (spec
-    ``spec_m``) hold."""
+    """The process's i-th coordinate's slice of its parameter shard that
+    its moments (spec ``spec_m``) hold."""
     out = []
-    coord, sizes = p.mesh.coords()[i], p.mesh.shape
+    coord = p.mesh.coords()[spmd.local_coords(p.mesh)[i]]
+    sizes = p.mesh.shape
     for d, (pe, me) in enumerate(zip(p.spec, spec_m)):
         if pe == me:
             out.append(slice(None))
@@ -447,7 +450,7 @@ def sharded_adamw_update(cfg: AdamWConfig, grads, state: Dict[str, Any],
         # the owners' updated layers into every replica: JAX's all-gather
         # of the stack over its data shards
         parts = []
-        for i in range(spmd.n_coords(mesh)):
+        for i in range(len(spmd.local_coords(mesh))):
             sl = owned_span(model, entry, i)
             parts.append(torch.stack([model.params[nm].shards[i]
                                       for nm in names[sl]]))

@@ -228,13 +228,13 @@ def init_sharded_opt_state(opt_cfg: AdamWConfig, model: M.ShardedModel, *,
 
 def sharded_loss_and_grads(model: M.ShardedModel, batch: Dict[str, Any], *,
                            n_micro: int = 1, remat: bool = True):
-    """``loss_and_grads`` over the mesh: the mean loss (coordinate 0's
-    copy) and, for every parameter, one gradient a coordinate (with
-    ``n_micro > 1`` summed in f32 over the microbatches and scaled by 1 /
-    ``n_micro``). Each is the
-    coordinate's part: a replicated parameter's true gradient is the sum
-    over its replicas (``reduce_grads``). A microbatch is a slice of the
-    global batch's rows, then split over the batch axes."""
+    """``loss_and_grads`` over the mesh: the mean loss (the first local
+    coordinate's copy) and, for every parameter, one gradient a
+    coordinate (with ``n_micro > 1`` summed in f32 over the microbatches
+    and scaled by 1 / ``n_micro``). Each is the coordinate's part: a
+    replicated parameter's true gradient is the sum over its replicas
+    (``reduce_grads``). A microbatch is a slice of the global batch's
+    rows, then split over the batch axes."""
     names = list(model.params)
     leaves = model.leaves()
     batch = {k: torch.as_tensor(v) for k, v in batch.items()}
@@ -242,15 +242,17 @@ def sharded_loss_and_grads(model: M.ShardedModel, batch: Dict[str, Any], *,
         if x.shape[0] % n_micro != 0:
             raise ValueError(f"batch {x.shape[0]} not divisible by "
                              f"n_micro={n_micro}")
-    dev0 = model.mesh.device_list[0]
+    dev0 = spmd.local_devices(model.mesh)[0]
     loss_sum = torch.zeros((), dtype=torch.float32, device=dev0)
     gsum = None
     for i in range(n_micro):
         mb = {k: x.reshape(n_micro, x.shape[0] // n_micro, *x.shape[1:])[i]
               for k, x in batch.items()}
         losses = M.sharded_loss(model, mb, remat=remat)
-        # the loss is replicated: the mean of its copies has its gradient
-        objective = sum(t.to(dev0) for t in losses) / len(losses)
+        # the loss is replicated: the mean of the mesh's copies has its
+        # gradient (under a process group each rank seeds its own copy's
+        # share, and the backward's collectives sum across the ranks)
+        objective = sum(t.to(dev0) for t in losses) / model.mesh.size
         grads = torch.autograd.grad(objective, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
@@ -297,7 +299,7 @@ def reduce_grads(model: M.ShardedModel, grads, mspecs) -> Dict[str, list]:
     for entry, names in stacks:
         parts = spmd.reduce_scatter(
             [torch.stack([out[nm][i] for nm in names])
-             for i in range(spmd.n_coords(mesh))],
+             for i in range(len(spmd.local_coords(mesh)))],
             mesh, sh.axes_of(entry), 0)
         for nm in names:
             out[nm] = list(out[nm])

@@ -28,10 +28,13 @@ def _port_files():
            os.path.join(ROOT, "tests", "test_torch_cuda_lm_train.py"),
            os.path.join(ROOT, "tests", "test_torch_cuda_proofs.py"),
            os.path.join(ROOT, "tests", "test_torch_cuda_lm_sharded.py"),
+           os.path.join(ROOT, "tests", "test_torch_cuda_dist.py"),
            os.path.join(ROOT, "tests", "test_torch_launch_check.py"),
            # helpers the card tests import
            os.path.join(ROOT, "tests", "_recurrent_draw.py"),
            os.path.join(ROOT, "tests", "_sharded_lm.py"),
+           # what the process-group tests' ranks run
+           os.path.join(ROOT, "tests", "_dist_workers.py"),
            os.path.join(ROOT, "tests", "_threads.py")]
     for base, _, files in os.walk(PORT):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
@@ -68,6 +71,21 @@ def test_importing_the_port_loads_no_jax():
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_ranks_of_the_process_group_tests_load_no_jax():
+    """A spawned rank imports ``_dist_workers`` and the port alone."""
+    code = ("import sys, _dist_workers\n"
+            "from repro_torch.launch import ranks, mesh\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
